@@ -9,18 +9,26 @@ Phases, each of which must pass (nothing is caught; any failure exits
 nonzero):
 
 1. the card's name and power limit; build the CUDA kernels from
-   ``learn_nerf_tpu_torch/csrc`` (timed, with ptxas's resource report);
+   ``learn_nerf_tpu_torch/csrc`` (one nvcc per source, in parallel; timed,
+   with ptxas's resource report);
 2. each kernel against its plain PyTorch version on the card at full width
-   (fused_mlp on 2^20 points, fused_render on 8192 rays x 32 samples):
+   (fused_mlp on 2^20 points, fused_render on 8192 rays x 32 samples,
+   table_gather at pallas_gather's own shape, [2^18, 2] f32 rows at
+   999,424 indices, exactly; the corner kernel and the whole NGP encoding
+   at the 16-level fine schedule on 2^20 points, with unit-scale tables),
    max abs error against the stated bound, and both times;
-3. a synthetic scene and a full-width vanilla checkpoint in the pickle
-   contract (random weights from a NumPy seed, a 128^3 occupancy grid with
-   empty and occupied cells); the kernel route of both render modes
-   against the plain route on the CPU on a small view, with the same
-   uniforms;
-4. the port's ``serve_nerf`` with ``--bf16`` in a thread, once in hierarchy
-   mode and once with ``--occupancy``: three ``POST /render`` requests each
-   at 256x256, each answered 200 with a PNG of that shape, with latencies;
+3. a synthetic scene with a full-width vanilla checkpoint and a full-width
+   Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
+   rows) in the pickle contract (random weights from a NumPy seed, a 128^3
+   occupancy grid with empty and occupied cells); the kernel route of each
+   render mode (vanilla: hierarchy, occupancy; NGP: hierarchy, fixed-K
+   occupancy, pooled) against the plain route on the CPU on a small view,
+   with the same uniforms;
+4. the port's ``serve_nerf`` in a thread, vanilla with ``--bf16`` in
+   hierarchy and occupancy mode, and NGP in f32 (the CLI default) in
+   hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
+   --occ_t_eps 1e-2``): three ``POST /render`` requests each at 256x256,
+   each answered 200 with a PNG of that shape, with latencies;
 5. every kernel of each mode launched during its serve phase, and no plain
    version called there.
 
@@ -31,10 +39,10 @@ exits nonzero before printing any result.
     python3 chip_smoke.py --profile
 
 adds, after phase 5, one JSON line per render mode and numerics mode
-(hierarchy and occupancy, ``--bf16`` and f32) from
-``learn_nerf_tpu_torch.scripts.profile_render`` on the same scene and view
-size: median latency, one profiled render's device time, idle share and
-top kernels.
+(vanilla hierarchy and occupancy, ``--bf16`` and f32; the three NGP modes
+in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
+scene and view size: median latency, one profiled render's device time,
+idle share, top kernels and the port's own kernels' share.
 """
 
 import argparse
@@ -72,10 +80,37 @@ MAX_DELTA = 0.25
 SCAN_MARGIN = 20
 # Kernel route on the card vs plain route on the CPU through a whole frame,
 # same uniforms: as above, plus the hierarchy's fine samples follow the
-# coarse weights.  Measured 8.7e-5 (hierarchy) and 3.0e-5 (occupancy).
+# coarse weights.  Measured on an H100: 8.7e-5 (hierarchy) and 3.0e-5
+# (occupancy) for the bf16 vanilla model; 3.5e-6 to 4.3e-6 for the three
+# f32 NGP modes, whose kernels move and index without rounding.
 FRAME_BOUND = 1e-3
 SIDE = 256
 REQUESTS = 3
+# pallas_gather's shape (tools/exp_gather.py): one NGP level, [2^18, 2] f32,
+# gathered at 122 tiles of 8192 int32 indices.  Rows are moved, not summed:
+# the kernel must equal index_select exactly.
+GATHER_ROWS, GATHER_INDICES = 1 << 18, 999_424
+# The NGP encoding at the fine schedule (16 levels of 2^18 rows, lattices
+# 2^(4 + i//2)) on 2^20 points with unit-scale tables U(-1, 1).  The kernel
+# route shares the plain route's weighted sum, and its indices and weights
+# are bit-equal by design: the error measured on an H100 is 0, and the
+# bound admits a weight that differs in its last bit.  A wrong index (the
+# hash primes swapped; measured 1.97) must move the output by at least
+# SCAN_MARGIN times it.
+ENCODE_POINTS = 1 << 20
+FINE_LEVELS, COARSE_LEVELS = 16, 6
+ENCODE_BOUND = 1e-6
+# Mean density of the NGP checkpoint's fine field inside the ball (set
+# through the density head's bias): rays crossing the occupied ball reach
+# optical depth ~1-3.
+NGP_DENSITY = 2.5
+VANILLA_MODES = {"hierarchy": [], "occupancy": ["--occupancy"]}
+NGP_MODES = {
+    "ngp hierarchy": ["--instant_ngp"],
+    "ngp occupancy": ["--instant_ngp", "--occupancy"],
+    "ngp pooled": ["--instant_ngp", "--occupancy", "--occ_budget_per_ray", "auto",
+                   "--occ_t_eps", "1e-2"],
+}
 
 
 def require(ok, message):
@@ -100,6 +135,31 @@ def cuda_ms(fn, reps):
         fn()
     end.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps):
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed, so no host work sits between the launches (for
+    kernels of a few microseconds, where back-to-back eager calls time the
+    host's enqueue instead)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -193,6 +253,129 @@ def shifted_scan(packed, points, dirs, deltas, ref):
     return acc[:, -1], (fg - ref[:, :3]).abs().max().item()
 
 
+def fine_schedule(levels):
+    """Grid and table sizes of an NGP model's levels (scripts/common.py)."""
+    return [2 ** (4 + i // 2) for i in range(levels)], [2**18] * levels
+
+
+def check_hashgrid_kernels(device, rng):
+    """table_gather at pallas_gather's shape, then the corner kernel and the
+    whole encoding at the fine schedule, each against its plain version."""
+    from learn_nerf_tpu_torch.kernels import hashgrid as kh
+    from learn_nerf_tpu_torch.kernels import table_gather as tg
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    def on_card(a):
+        return torch.from_numpy(a).to(device)
+
+    table = on_card(rng.uniform(-1, 1, (GATHER_ROWS, 2)).astype(np.float32))
+    idx = on_card(rng.randint(0, GATHER_ROWS, GATHER_INDICES).astype(np.int32))
+    out = tg.table_gather_cuda(table, idx)
+    torch.cuda.synchronize()
+    err = max((out - table.index_select(0, idx)).abs().max().item(),
+              (out - tg.table_gather_reference(table, idx)).abs().max().item())
+    kernel, reference = (lambda: tg.table_gather_cuda(table, idx),
+                         lambda: tg.table_gather_reference(table, idx))
+    select = lambda: table.index_select(0, idx)
+    gather = dict(
+        name="table_gather", route="cuda", source="learn_nerf_tpu_torch/csrc/table_gather.cu",
+        replaces="tools/exp_gather.py:64", max_abs_err=err,
+        ms=graph_ms(kernel, 50), plain_ms=graph_ms(reference, 50),
+    )
+    select_ms = graph_ms(select, 50)
+    eager = [cuda_ms(fn, 50) for fn in (kernel, reference, select)]
+    print(f"table_gather [{GATHER_ROWS}, 2] x {GATHER_INDICES}: max abs err {err:.3e} (bound 0); "
+          f"device time per call (graph replay): kernel {gather['ms']:.4f} ms, plain "
+          f"{gather['plain_ms']:.4f} ms, index_select {select_ms:.4f} ms; back-to-back eager "
+          f"calls: {eager[0]:.4f} / {eager[1]:.4f} / {eager[2]:.4f} ms", flush=True)
+    require(err == 0, "table_gather disagrees with index_select")
+
+    grids, tables = fine_schedule(FINE_LEVELS)
+    values = [on_card(rng.uniform(-1, 1, (hg.dense_level_rows(g, t), 2)).astype(np.float32))
+              for g, t in zip(grids, tables)]
+    bbox_min, bbox_max = (-0.7,) * 3, (0.7,) * 3
+    x = on_card(rng.uniform(-0.75, 0.75, (ENCODE_POINTS, 3)).astype(np.float32))
+    idx, w = kh.hashgrid_corners_cuda(x, grids, tables, bbox_min, bbox_max, False)
+    torch.cuda.synchronize()
+    ref_idx, ref_w = kh.hashgrid_corners_reference(x, grids, tables, bbox_min, bbox_max, False)
+    differ = (idx != ref_idx).double().mean().item()
+    corners = dict(
+        name="hashgrid_corners", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid.cu",
+        replaces="learn_nerf_tpu/ops/hashgrid.py:43-99 (XLA)",
+        max_abs_err=(w - ref_w).abs().max().item(),
+        ms=cuda_ms(lambda: kh.hashgrid_corners_cuda(x, grids, tables, bbox_min, bbox_max, False), 20),
+        plain_ms=cuda_ms(
+            lambda: kh.hashgrid_corners_reference(x, grids, tables, bbox_min, bbox_max, False), 5),
+    )
+    del idx, w, ref_idx, ref_w
+
+    encode = lambda: hg.hash_grid_encode(values, x, grids, tables, bbox_min, bbox_max)
+    plain = lambda: hg.hash_grid_encode_reference(values, x, grids, tables, bbox_min, bbox_max)
+    out, ref = encode(), plain()
+    enc_err = (out - ref).abs().max().item()
+    require(torch.isfinite(out).all().item() and out.shape == (ENCODE_POINTS, 2 * FINE_LEVELS),
+            "the NGP encoding is not finite or has the wrong shape")
+    # The same plain encoding with the hash primes swapped: a wrong index.
+    primes = hg.HASH_PRIME_Y, hg.HASH_PRIME_Z
+    hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes[1], primes[0]
+    try:
+        wrong_err = (plain() - ref).abs().max().item()
+    finally:
+        hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes
+    enc_ms, enc_plain_ms = cuda_ms(encode, 10), cuda_ms(plain, 3)
+    print(f"hashgrid_corners {FINE_LEVELS} levels x {ENCODE_POINTS} points: share of indices "
+          f"that differ {differ:.3e} (bound 0); max abs err of weights {corners['max_abs_err']:.3e} "
+          f"(bound 0); kernel {corners['ms']:.4f} ms, plain {corners['plain_ms']:.4f} ms", flush=True)
+    print(f"NGP encoding (corners + {FINE_LEVELS} gathers + sum) vs plain: max abs err "
+          f"{enc_err:.3e} (bound {ENCODE_BOUND:g}); swapped hash primes move it by "
+          f"{wrong_err:.3e}; kernel route {enc_ms:.3f} ms, plain {enc_plain_ms:.3f} ms", flush=True)
+    require(differ == 0 and corners["max_abs_err"] == 0, "hashgrid_corners disagrees with its plain version")
+    require(enc_err <= ENCODE_BOUND, "the NGP encoding's kernel route disagrees with the plain route")
+    require(wrong_err >= SCAN_MARGIN * ENCODE_BOUND,
+            f"the encoding's bound {ENCODE_BOUND:g} would not catch a wrong hash index")
+    return [gather, corners]
+
+
+def ngp_tree(rng, levels):
+    """Full-width NGP tree in flax's layout: unit-scale tables, lecun-normal
+    ``Dense_i`` kernels (64 wide, density_dim 16, 2 color layers, d_freqs
+    4), small biases."""
+    grids, tables = fine_schedule(levels)
+    shapes = [(2 * levels, 64), (64, 16), (24 + 16, 64), (64, 64), (64, 3)]
+    tree = {
+        f"Dense_{i}": dict(
+            kernel=(rng.randn(*s) / np.sqrt(s[0])).astype(np.float32),
+            bias=(0.1 * rng.randn(s[1])).astype(np.float32),
+        )
+        for i, s in enumerate(shapes)
+    }
+    tree["HashGridEncoding_0"] = {
+        f"table_{i}": rng.uniform(-1, 1, (min(g**3, t), 2)).astype(np.float32)
+        for i, (g, t) in enumerate(zip(grids, tables))
+    }
+    return tree
+
+
+def set_density_bias(tree, levels, rng):
+    """Shift the density head's bias so the field's mean density in the
+    ball (radius 0.45) is ``NGP_DENSITY``; returns the bias."""
+    from learn_nerf_tpu_torch.checkpoint import ngp_params_from_flax
+    from learn_nerf_tpu_torch.models import InstantNGPModel
+
+    grids, tables = fine_schedule(levels)
+    model = InstantNGPModel(table_sizes=tables, grid_sizes=grids, bbox_min=(-0.7,) * 3,
+                            bbox_max=(0.7,) * 3)
+    tree["Dense_1"]["bias"][0] = 0.0
+    model.load_state_dict(ngp_params_from_flax(tree))
+    x = rng.uniform(-0.45, 0.45, (16384, 3)).astype(np.float32)
+    x = x[(x**2).sum(-1) < 0.45**2]
+    with torch.inference_mode():
+        raw = model(torch.from_numpy(x), torch.zeros(x.shape), spatial_only=True)[:, 0]
+    bias = float(np.log(NGP_DENSITY) - np.log(torch.exp(raw).mean().item()))
+    tree["Dense_1"]["bias"][0] = bias
+    return bias
+
+
 def write_scene(root, rng):
     """metadata.json, three orbit views, and a full-width checkpoint."""
     from learn_nerf_tpu_torch.checkpoint import save_params_pickle
@@ -224,45 +407,74 @@ def write_scene(root, rng):
     )
     save_params_pickle(str(root / "nerf.pkl"), params)
     print(f"occupancy grid: {ball.mean():.3f} of {res}^3 cells occupied", flush=True)
+
+    # The NGP checkpoint draws from its own seed: the vanilla phases see
+    # the same weights and uniforms whether or not the NGP phases run.
+    ngp_rng = np.random.RandomState(SEED + 1)
+    coarse, fine = ngp_tree(ngp_rng, COARSE_LEVELS), ngp_tree(ngp_rng, FINE_LEVELS)
+    biases = [set_density_bias(tree, levels, ngp_rng)
+              for tree, levels in ((coarse, COARSE_LEVELS), (fine, FINE_LEVELS))]
+    save_params_pickle(str(root / "ngp.pkl"), dict(
+        params, coarse=coarse, fine=fine,
+    ))
+    print(f"NGP checkpoint: {COARSE_LEVELS} + {FINE_LEVELS} levels, density bias "
+          f"{biases[0]:.4f} (coarse) / {biases[1]:.4f} (fine) for mean density "
+          f"{NGP_DENSITY:g} in the ball", flush=True)
     return views
 
 
-def check_frames(root, views, device, rng):
+def check_frames(root, views, device, rng, modes, bf16):
     """The kernel route (card) against the plain route (CPU) on a 16x16
-    view through both frame renderers, with the same uniforms."""
-    from learn_nerf_tpu_torch.occ_render import render_frame_occupancy
+    view through each mode's frame renderer, with the same uniforms (and,
+    for a pooled mode, the same budget, resolved on the CPU)."""
+    from learn_nerf_tpu_torch.occ_render import render_frame_occupancy, resolve_auto_budget
     from learn_nerf_tpu_torch.render import render_frame
     from learn_nerf_tpu_torch.scripts import render_nerf
 
     rays = torch.from_numpy(views[0].bare_rays(16, 16))
-    for mode in ([], ["--occupancy"]):
-        argv = ["--bf16", "--model_path", str(root / "nerf.pkl"), *mode, str(root / "metadata.json")]
+    for name, mode in modes.items():
+        argv = [*(["--bf16"] if bf16 else []), "--model_path", str(root / checkpoint_name(mode)),
+                *mode, str(root / "metadata.json")]
         args = render_nerf.argparser().parse_args(argv)
         sessions = [render_nerf.RenderSession(args, device=dev) for dev in (device, torch.device("cpu"))]
         r = sessions[0].renderer
-        if mode:
+        occupancy = "--occupancy" in mode
+        if occupancy:
             u = torch.from_numpy(rng.rand(1, 256, r.candidates).astype(np.float32))
         else:
             u = [(torch.from_numpy(rng.rand(256, r.coarse_ts).astype(np.float32)),
                   torch.from_numpy(rng.rand(256, r.fine_ts).astype(np.float32)))]
-        outs = {}
+        cpu = sessions[1]
+        budget = None
+        if args.occ_budget_per_ray == "auto":
+            budget = resolve_auto_budget(cpu.renderer, cpu.grid_state, rays, args.occ_t_eps, quiet=True)
+        outs = []
         for s in sessions:
             dev = s.device
             with torch.inference_mode():
-                if mode:
-                    out = render_frame_occupancy(s.renderer, rays.to(dev), s.background, s.grid_state,
-                                                 tile_size=256, uniforms=u.to(dev))
+                if occupancy:
+                    out = render_frame_occupancy(
+                        s.renderer, rays.to(dev), s.background, s.grid_state, tile_size=256,
+                        transmittance_eps=args.occ_t_eps, uniforms=u.to(dev), budget_per_ray=budget)
                 else:
                     out = render_frame(s.renderer, rays.to(dev), s.background, tile_size=256,
                                        uniforms=[(a.to(dev), b.to(dev)) for a, b in u])
-            outs[dev.type] = out["outputs"].cpu()
-        err = (outs["cuda"] - outs["cpu"]).abs().max().item()
-        name = "occupancy" if mode else "hierarchy"
+            outs.append(out["outputs"].cpu())
+        err = (outs[0] - outs[1]).abs().max().item()
+        extra = f"; pool budget {budget} samples/ray, dropped {int(out['dropped'])}" if budget else ""
         print(f"{name} frame, kernel route vs plain route: max abs err {err:.3e} "
-              f"(bound {FRAME_BOUND:g})", flush=True)
-        require(torch.isfinite(outs["cuda"]).all().item(), f"{name} frame is not finite")
+              f"(bound {FRAME_BOUND:g}){extra}", flush=True)
+        if occupancy and budget is None and "--instant_ngp" in mode:
+            with torch.inference_mode():
+                ref, _ = cpu.renderer.render_rays(rays, cpu.background, cpu.grid_state, u=u[0])
+            depth = -torch.log(ref["weights"][:, -1])
+            depth = depth[depth > 1e-3]
+            print(f"{name} inputs: optical depth of the {depth.numel()} rays that cross the ball: "
+                  f"median {depth.median().item():.3f}, min {depth.min().item():.3f}, "
+                  f"max {depth.max().item():.3f}", flush=True)
+        require(torch.isfinite(outs[0]).all().item(), f"{name} frame is not finite")
         require(err <= FRAME_BOUND, f"{name} kernel route disagrees with the plain route")
-        require(outs["cuda"].std().item() > 1e-3, f"{name} frame is flat")
+        require(outs[0].std().item() > 1e-3, f"{name} frame is flat")
 
 
 def png_size(body):
@@ -271,13 +483,17 @@ def png_size(body):
     return height, width
 
 
+def checkpoint_name(mode):
+    return "ngp.pkl" if "--instant_ngp" in mode else "nerf.pkl"
+
+
 def mode_flags(root, mode, bf16):
     """Render flags of one mode: tiles of 4096 rays (hierarchy) or 8192
     (occupancy), ``SIDE`` x ``SIDE`` views."""
-    batch = "8192" if mode else "4096"
+    batch = "8192" if "--occupancy" in mode else "4096"
     return ["--seed", str(SEED), *(["--bf16"] if bf16 else []), "--batch_size", batch,
-            "--width", str(SIDE), "--height", str(SIDE), "--model_path", str(root / "nerf.pkl"),
-            *mode]
+            "--width", str(SIDE), "--height", str(SIDE),
+            "--model_path", str(root / checkpoint_name(mode)), *mode]
 
 
 def profile_modes(root):
@@ -286,31 +502,37 @@ def profile_modes(root):
     from learn_nerf_tpu_torch.scripts import profile_render, render_nerf
 
     view = CameraView.from_json(str(root / "0000.json"))
-    for mode in ([], ["--occupancy"]):
-        for bf16 in (True, False):
-            argv = mode_flags(root, mode, bf16) + [str(root / "metadata.json")]
-            session = render_nerf.RenderSession(render_nerf.argparser().parse_args(argv))
-            result = profile_render.profile_view(session, view)
-            label = dict(mode="occupancy" if mode else "hierarchy", bf16=bf16, side=SIDE)
-            print("profile:", json.dumps({**label, **result}), flush=True)
-            del session
-            torch.cuda.empty_cache()
+    runs = [(name, mode, bf16) for name, mode in VANILLA_MODES.items() for bf16 in (True, False)]
+    runs += [(name, mode, False) for name, mode in NGP_MODES.items()]
+    for name, mode, bf16 in runs:
+        argv = mode_flags(root, mode, bf16) + [str(root / "metadata.json")]
+        session = render_nerf.RenderSession(render_nerf.argparser().parse_args(argv))
+        result = profile_render.profile_view(session, view)
+        label = dict(mode=name, bf16=bf16, side=SIDE)
+        print("profile:", json.dumps({**label, **result}), flush=True)
+        del session
+        torch.cuda.empty_cache()
 
 
-def serve_mode(root, mode):
-    """Serve, send the requests, return (latencies ms, counters)."""
+def serve_mode(root, name, mode, bf16):
+    """Serve, send the requests, return ``{kernel: (launches, plain
+    calls)}`` of the serve phase."""
     from learn_nerf_tpu_torch.kernels import fused_mlp as fm
     from learn_nerf_tpu_torch.kernels import fused_render as fr
+    from learn_nerf_tpu_torch.kernels import hashgrid as kh
+    from learn_nerf_tpu_torch.kernels import table_gather as tg
     from learn_nerf_tpu_torch.scripts import serve_nerf
 
-    argv = mode_flags(root, mode, bf16=True) + ["--port", "0", str(root / "metadata.json")]
+    counters = dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
+                    hashgrid_corners=kh.counter)
+    argv = mode_flags(root, mode, bf16) + ["--port", "0", str(root / "metadata.json")]
     server = serve_nerf.make_server(serve_nerf.argparser().parse_args(argv))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address[:2]
     latencies = []
     try:
-        for c in (fm.counter, fr.counter):
+        for c in counters.values():
             c.reset()
         for i in range(REQUESTS):
             body = (root / f"{i:04}.json").read_bytes()
@@ -321,16 +543,20 @@ def serve_mode(root, mode):
             latencies.append((time.perf_counter() - t0) * 1e3)
             require(status == 200 and ctype == "image/png", f"request {i}: {status} {ctype}")
             require(png_size(png) == (SIDE, SIDE), f"request {i}: PNG is {png_size(png)}")
-        counts = {c_name: (c.launches, c.plain_calls) for c_name, c in
-                  (("fused_mlp", fm.counter), ("fused_render", fr.counter))}
+        counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+        frames = getattr(server.session, "frames", None)
+        pool = frames.last_pool if frames is not None else None
     finally:
         server.shutdown()
         server.server_close()
         thread.join(timeout=30)
     require(not thread.is_alive(), "server thread did not stop")
-    name = "occupancy" if mode else "hierarchy"
-    print(f"serve {name} --bf16 {SIDE}x{SIDE}: latencies ms "
-          f"{[round(v, 3) for v in latencies]}; (launches, plain calls) {counts}", flush=True)
+    pool_note = f"; last frame's pool {pool}" if pool else ""
+    print(f"serve {name}{' --bf16' if bf16 else ''} {SIDE}x{SIDE}: latencies ms "
+          f"{[round(v, 3) for v in latencies]}; (launches, plain calls) {counts}{pool_note}",
+          flush=True)
+    require(all(plain == 0 for _, plain in counts.values()),
+            f"{name} serving called a plain version: {counts}")
     return counts
 
 
@@ -359,26 +585,28 @@ def main():
 
     rng = np.random.RandomState(SEED)
     kernels = check_kernels(device, rng)
+    kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3))
+    torch.cuda.empty_cache()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
         root = Path(tmp)
         views = write_scene(root, rng)
-        check_frames(root, views, device, rng)
-        hierarchy = serve_mode(root, [])
-        occupancy = serve_mode(root, ["--occupancy"])
+        check_frames(root, views, device, rng, VANILLA_MODES, bf16=True)
+        check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
+        served = {name: serve_mode(root, name, mode, bf16=True) for name, mode in VANILLA_MODES.items()}
+        served.update({name: serve_mode(root, name, mode, bf16=False) for name, mode in NGP_MODES.items()})
         if args.profile:
             profile_modes(root)
 
-    # Each mode's kernel ran in its serve phase; no plain version ran there.
-    require(hierarchy["fused_mlp"][0] > 0, "hierarchy serving never launched fused_mlp")
-    require(occupancy["fused_render"][0] > 0, "occupancy serving never launched fused_render")
-    for name, counts in (("hierarchy", hierarchy), ("occupancy", occupancy)):
-        require(all(plain == 0 for _, plain in counts.values()),
-                f"{name} serving called a plain version: {counts}")
-    launches = {"fused_mlp": hierarchy["fused_mlp"][0] + occupancy["fused_mlp"][0],
-                "fused_render": hierarchy["fused_render"][0] + occupancy["fused_render"][0]}
+    # Each mode's kernels ran in its serve phase (serve_mode holds that no
+    # plain version ran there).
+    require(served["hierarchy"]["fused_mlp"][0] > 0, "hierarchy serving never launched fused_mlp")
+    require(served["occupancy"]["fused_render"][0] > 0, "occupancy serving never launched fused_render")
+    for name in NGP_MODES:
+        for kernel in ("table_gather", "hashgrid_corners"):
+            require(served[name][kernel][0] > 0, f"{name} serving never launched {kernel}")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"]
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in ordered} for k in kernels]}))

@@ -5,7 +5,8 @@ A binary occupancy grid over the scene bbox (an EMA of model densities per
 cell, trained with the model and checkpointed beside it) culls cheap
 stratified candidates; :func:`compact_occupied_strided` then keeps K
 occupied candidates per ray, evenly strided over the occupied span, so the
-field model runs on ``[N, K]`` points.  Static shapes throughout.
+field model runs on ``[N, K]`` points.  Static shapes throughout.  The
+pooled inference path sizes its sample pool with the budget buckets below.
 """
 
 from dataclasses import dataclass
@@ -102,6 +103,47 @@ class OccupancyGrid:
             np.asarray(params["occupancy_densities"], dtype=np.float32).reshape(-1)
         )
         return OccupancyGridState(densities=densities.to(device), step=self.warmup_updates)
+
+
+#: Quantized per-ray pool budgets for "auto" modes: resolved budgets snap
+#: up to one of these, so the distinct pool sizes a run sees stay few.
+AUTO_BUDGET_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 16, 24, 32, 48, 64)
+
+#: Safety margin over the measured mean per-ray demand for "auto" pool
+#: sizing.
+AUTO_BUDGET_MARGIN = 1.3
+
+
+def auto_budget_from_demand(demand: float, cap: int) -> int:
+    """Measured mean per-ray demand -> quantized budget (margin applied)."""
+    return quantize_budget(demand * AUTO_BUDGET_MARGIN, cap)
+
+
+def quantize_budget(per_ray: float, cap: int) -> int:
+    """Snap a measured per-ray demand up to the next budget bucket, capped
+    at ``cap`` (the per-ray sample limit K).
+
+    Above the largest tabulated bucket the ladder extends geometrically
+    (96, 128, 192, ...: alternately x1.5 and x1.33), so sizing never drops
+    below demand while the cap allows it.
+    """
+    for b in AUTO_BUDGET_BUCKETS:
+        if b >= per_ray:
+            return min(b, cap)
+    b = AUTO_BUDGET_BUCKETS[-1]
+    while b < per_ray and b < cap:
+        b = b * 3 // 2 if (b & (b - 1)) == 0 else b * 4 // 3
+    return min(b, cap)
+
+
+def next_budget_bucket(budget: int, cap: int) -> int:
+    """The next bucket above ``budget`` (for overflow escalation), capped."""
+    for b in AUTO_BUDGET_BUCKETS:
+        if b > budget:
+            return min(b, cap)
+    b = max(budget, AUTO_BUDGET_BUCKETS[-1])
+    b = b * 3 // 2 if (b & (b - 1)) == 0 else b * 4 // 3
+    return min(b, cap)
 
 
 def compact_occupied_strided(

@@ -27,7 +27,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 LIB_NAME = "libnerf_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills go to build.log
 )
 
@@ -78,19 +78,43 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile the sources unless this digest is built; return the library."""
+    """Compile the sources unless this digest is built; return the library.
+
+    One ``nvcc -c`` per ``.cu`` source, all started together, then one
+    link: the build takes as long as the slowest source, not their sum.
+    """
     out_dir = library_dir()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(p) for p in _sources() if p.suffix == ".cu"]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with {proc.returncode}:\n{proc.stderr[-4000:]}")
+    tag = os.getpid()
+    nvcc = _nvcc()
+    sources = [p for p in _sources() if p.suffix == ".cu"]
+    objects = [out_dir / f"{p.stem}.{tag}.o" for p in sources]
+    compiles = [
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(sources, objects)
+    ]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in compiles]
+    logs, failed = [], []
+    for cmd, proc in zip(compiles, procs):
+        output = proc.communicate()[0]
+        logs.append(" ".join(cmd) + "\n" + output)
+        if proc.returncode != 0:
+            failed.append(f"{Path(cmd[-1]).name} (nvcc exit {proc.returncode}):\n{output[-4000:]}")
+    if not failed:
+        tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]
+        proc = subprocess.run(link, capture_output=True, text=True, check=False)
+        logs.append(" ".join(link) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (nvcc exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+    (out_dir / "build.log").write_text("\n".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
 
@@ -101,6 +125,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_fused_mlp.restype = i32
     lib.nerf_fused_render.argtypes = [ptr] * 6 + [i64, i32] + [i32] * 6 + [ptr]
     lib.nerf_fused_render.restype = i32
+    lib.nerf_table_gather.argtypes = [ptr, i64, i32, ptr, i64, ptr, ptr]
+    lib.nerf_table_gather.restype = i32
+    lib.nerf_hashgrid_corners.argtypes = (
+        [ptr, i64, ptr, ptr, ptr, i32] + [ctypes.c_float] * 6 + [i32, ptr, ptr, ptr]
+    )
+    lib.nerf_hashgrid_corners.restype = i32
     lib.nerf_error_string.argtypes = [i32]
     lib.nerf_error_string.restype = ctypes.c_char_p
     return lib

@@ -5,6 +5,7 @@ aux)`` over any number of leading dims.
 """
 
 from .base import FieldModel
+from .instant_ngp import InstantNGPModel
 from .vanilla import NeRFModel
 
-__all__ = ["FieldModel", "NeRFModel"]
+__all__ = ["FieldModel", "InstantNGPModel", "NeRFModel"]

@@ -13,7 +13,7 @@ version for CPU tensors.  Its rounding points are the Pallas kernel's
 Parameters stay f32 either way.
 """
 
-from typing import List
+from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +79,10 @@ class NeRFModel(FieldModel):
             self.color,
             self.rgb,
         ]
+
+    def flax_layout(self) -> Dict[str, int]:
+        """Layer counts the checkpoint bridge needs for this model."""
+        return dict(input_layers=self.num_input_layers, mid_layers=self.num_mid_layers)
 
     def packed(self) -> PackedMLP:
         """Kernel operands for the current weights, repacked only after the

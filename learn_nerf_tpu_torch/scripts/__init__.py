@@ -1,1 +1,1 @@
-"""Command-line entry points (vanilla NeRF render and serve)."""
+"""Command-line entry points (render and serve, vanilla NeRF and Instant-NGP)."""

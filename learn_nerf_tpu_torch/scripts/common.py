@@ -16,7 +16,7 @@ import torch
 
 from ..acceleration import OccupancyGrid, OccupancyGridState
 from ..data.dataset import ModelMetadata
-from ..models import NeRFModel
+from ..models import FieldModel, InstantNGPModel, NeRFModel
 from ..occ_render import OccupancyRenderer
 
 
@@ -60,7 +60,10 @@ def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
         "--occ_budget_per_ray",
         type=lambda v: v if v == "auto" else float(v),
         default=None,
-        help="pooled inference (not ported yet)",
+        help="inference only: pool all surviving samples of a render tile "
+        "into one buffer of tile_size * this many slots (average-case "
+        "model cost instead of the per-ray worst case); 'auto' sizes it "
+        "losslessly from each frame's measured demand",
     )
     parser.add_argument(
         "--occ_train_budget",
@@ -144,10 +147,8 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
 def check_ported(args: argparse.Namespace) -> None:
     """Refuse, with ``SystemExit``, every flag whose path is not ported."""
     refused = [
-        (getattr(args, "instant_ngp", False), "--instant_ngp (Instant-NGP)"),
         (getattr(args, "ref_nerf", False), "--ref_nerf (Ref-NeRF)"),
         (getattr(args, "baked", None) is not None, "--baked (baked NGP field)"),
-        (getattr(args, "occ_budget_per_ray", None) is not None, "--occ_budget_per_ray (pooled inference)"),
         (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
         (getattr(args, "occ_block_gather", 0), "--occ_block_gather (block-word gathers)"),
         (getattr(args, "occ_span_block_gather", 0), "--occ_span_block_gather (block-word span)"),
@@ -156,7 +157,8 @@ def check_ported(args: argparse.Namespace) -> None:
         if is_set:
             raise SystemExit(
                 f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
-                "package serves the vanilla NeRF (see ROADMAP.md)"
+                "package serves the vanilla NeRF and Instant-NGP, with the "
+                "hierarchy, fixed-K occupancy and pooled inference (see ROADMAP.md)"
             )
     if torch.cuda.device_count() > 1:
         raise SystemExit(
@@ -176,17 +178,36 @@ def default_device() -> torch.device:
     return torch.device("cuda" if torch.cuda.is_available() else "cpu")
 
 
-def create_model(args: argparse.Namespace, metadata: ModelMetadata) -> Tuple[NeRFModel, NeRFModel]:
-    """The (coarse, fine) vanilla pair; ``--bf16`` selects the fused route.
-    Callers refuse unported model flags first (:func:`check_ported`)."""
+def create_model(
+    args: argparse.Namespace, metadata: ModelMetadata
+) -> Tuple[FieldModel, FieldModel]:
+    """The (coarse, fine) pair, with the JAX package's shapes.
+
+    ``--instant_ngp``: 6 coarse and 16 fine hash-grid levels of ``2^18``
+    rows, lattices ``2^(4 + i//2)``, over the metadata's bbox; ``--bf16``
+    runs their MLPs in bf16.  Otherwise the vanilla pair, where ``--bf16``
+    selects the fused route.  Callers refuse unported model flags first
+    (:func:`check_ported`).
+    """
     compute_dtype = "bfloat16" if getattr(args, "bf16", False) else "float32"
+    if getattr(args, "instant_ngp", False):
+        bbox = dict(bbox_min=tuple(metadata.bbox_min), bbox_max=tuple(metadata.bbox_max))
+        return tuple(
+            InstantNGPModel(
+                table_sizes=[2**18] * levels,
+                grid_sizes=[2 ** (4 + i // 2) for i in range(levels)],
+                compute_dtype=compute_dtype,
+                **bbox,
+            )
+            for levels in (6, 16)
+        )
     return NeRFModel(compute_dtype=compute_dtype), NeRFModel(compute_dtype=compute_dtype)
 
 
 def build_occupancy_renderer(
     args: argparse.Namespace,
     metadata: ModelMetadata,
-    fine: NeRFModel,
+    fine: FieldModel,
     params: Dict[str, Any],
     device: torch.device,
 ) -> Tuple[OccupancyRenderer, OccupancyGridState]:

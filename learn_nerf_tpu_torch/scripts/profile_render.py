@@ -1,4 +1,5 @@
-"""Time and profile whole-frame renders of a trained vanilla NeRF model.
+"""Time and profile whole-frame renders of a trained NeRF model (vanilla or
+Instant-NGP: the render CLI's model and mode flags all apply).
 
 Takes the render CLI's flags and positionals (``metadata_json view_json``)
 and prints one JSON line for the view:
@@ -11,13 +12,21 @@ and prints one JSON line for the view:
 * ``device_ms``: the time the card was busy in that profiled call (the
   union of its kernel, memcpy and memset intervals in the trace), and
   ``idle_share = 1 - device_ms / profiled_ms`` of that same call;
-* ``top``: the kernels with the most device time in that call.
+* ``top``: the kernels with the most device time in that call;
+* ``port_kernels``: device time and share of each of the port's own
+  kernels (``csrc/``) that ran in that call;
+* ``kernels_launched``: the number of kernels the card ran in that call;
+* ``host_top``: the host ops with the most self time in that call (on the
+  host's clock: where an idle card waits), with their call counts.
 
 On a host with no card, the device fields are ``null``.
 
-Example:
+Examples:
   python -m learn_nerf_tpu_torch.scripts.profile_render --bf16 \\
       --model_path nerf.pkl data/metadata.json data/0000.json
+  python -m learn_nerf_tpu_torch.scripts.profile_render --instant_ngp \\
+      --occupancy --occ_budget_per_ray auto --occ_t_eps 1e-2 \\
+      --model_path ngp.pkl data/metadata.json data/0000.json
 """
 
 import json
@@ -33,6 +42,8 @@ from ..data.camera import CameraView
 from .render_nerf import RenderSession, argparser as render_argparser
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# The port's hand-written kernels, by the name their CUDA function carries.
+PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners")
 
 
 def argparser():
@@ -58,7 +69,8 @@ def _busy_ms(intervals):
 
 
 def device_summary(trace_events, top=3):
-    """``(busy ms, [(kernel name, ms), ...])`` of a Chrome trace's device events."""
+    """``(busy ms, [(kernel name, ms), ...], {port kernel: ms})`` of a
+    Chrome trace's device events."""
     spans, per_kernel = [], defaultdict(float)
     for e in trace_events:
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES:
@@ -66,7 +78,18 @@ def device_summary(trace_events, top=3):
             if e["cat"] == "kernel":
                 per_kernel[e["name"]] += float(e["dur"]) / 1e3
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
-    return _busy_ms(spans), ranked
+    ours = defaultdict(float)
+    for name, ms in per_kernel.items():
+        for kernel in PORT_KERNELS:
+            if f"{kernel}_kernel" in name:
+                ours[kernel] += ms
+    return _busy_ms(spans), ranked, dict(ours)
+
+
+def host_summary(averages, top=5):
+    """``[{name, self_ms, calls}]`` of the host ops with the most self time."""
+    ranked = sorted(averages, key=lambda a: -a.self_cpu_time_total)[:top]
+    return [dict(name=a.key[:80], self_ms=a.self_cpu_time_total / 1e3, calls=a.count) for a in ranked]
 
 
 def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> dict:
@@ -95,6 +118,9 @@ def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> 
         device_ms=None,
         idle_share=None,
         top=None,
+        port_kernels=None,
+        kernels_launched=None,
+        host_top=host_summary(prof.key_averages()),
     )
     if device.type == "cuda":
         with tempfile.TemporaryDirectory() as tmp:
@@ -102,11 +128,15 @@ def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> 
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
-        busy, ranked = device_summary(events)
+        busy, ranked, ours = device_summary(events)
         result.update(
+            kernels_launched=sum(
+                1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+            ),
             device_ms=busy,
             idle_share=1.0 - busy / profiled,
             top=[dict(name=name[:80], ms=ms, share=ms / busy) for name, ms in ranked],
+            port_kernels={name: dict(ms=ms, share=ms / busy) for name, ms in ours.items()},
         )
     return result
 

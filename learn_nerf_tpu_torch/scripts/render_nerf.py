@@ -1,10 +1,12 @@
-"""Render one or more views with a trained vanilla NeRF model.
+"""Render one or more views with a trained NeRF model (vanilla, or
+Instant-NGP with ``--instant_ngp``).
 
 The CLI of ``learn_nerf_tpu.scripts.render_nerf``: positional
 ``metadata_json view_json... output_png``, the same flags, frames
 concatenated horizontally, u8 encoding ``(x + 1) * 127.5``.  Runs on the
-CUDA card when there is one; ``--bf16`` then routes the MLPs through the
-fused Hopper kernels.
+CUDA card when there is one.  There the vanilla model's ``--bf16`` routes
+its MLPs through the fused Hopper kernels, and every hash-grid lookup of
+an Instant-NGP model runs through the corner and table-gather kernels.
 """
 
 import argparse
@@ -70,7 +72,7 @@ class RenderSession:
         print("loading model...")
         coarse, fine = create_model(args, self.metadata)
         params = load_params_pickle(args.model_path)
-        ckpt = checkpoint_from_flax(params, coarse.num_input_layers, coarse.num_mid_layers)
+        ckpt = checkpoint_from_flax(params, **coarse.flax_layout())
         coarse.load_state_dict(ckpt["coarse"])
         fine.load_state_dict(ckpt["fine"])
         self.coarse = coarse.to(self.device).eval()
@@ -86,14 +88,15 @@ class RenderSession:
             self.renderer, self.grid_state = build_occupancy_renderer(
                 args, self.metadata, self.fine, params, self.device
             )
-            self._frames = OccupancyFrameSession(
+            self.frames = OccupancyFrameSession(
                 self.renderer,
                 self.background,
                 self.grid_state,
                 tile_size=args.batch_size,
                 transmittance_eps=getattr(args, "occ_t_eps", 0.0),
+                budget_cfg=getattr(args, "occ_budget_per_ray", None),
             )
-            self._render = lambda rays: self._frames.render(rays, self.generator)["outputs"]
+            self._render = lambda rays: self.frames.render(rays, self.generator)["outputs"]
         else:
             self.renderer = Renderer(
                 coarse=self.coarse,

@@ -1,4 +1,4 @@
-"""HTTP render service for a trained vanilla NeRF model.
+"""HTTP render service for a trained NeRF model (vanilla or Instant-NGP).
 
 The serving surface of ``learn_nerf_tpu.scripts.serve_nerf``, on PyTorch:
 loads a checkpoint once into a :class:`~.render_nerf.RenderSession` and
@@ -108,7 +108,9 @@ def make_server(args) -> ThreadingHTTPServer:
             self.wfile.write(body)
             print(f"rendered {width}x{height} in {time.time() - t0:.3f} s", flush=True)
 
-    return ThreadingHTTPServer((args.host, args.port), Handler)
+    server = ThreadingHTTPServer((args.host, args.port), Handler)
+    server.session = session  # for callers that read the renderer's state
+    return server
 
 
 def main(argv=None):

@@ -3,9 +3,12 @@
 Marked ``cuda``: they need an NVIDIA Hopper card, ``nvcc`` and a CUDA build
 of PyTorch, and skip elsewhere.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.  The same inputs go
-through the kernel and its plain version on the card; they differ only in
-the order of f32 sums, which can flip a bf16 rounding: atol 2e-3 at these
-small sizes (chip_smoke.py holds the full-size runs).
+through the kernel and its plain version on the card.  The two MLP kernels
+differ from theirs only in the order of f32 sums, which can flip a bf16
+rounding: atol 2e-3 at these small sizes (chip_smoke.py holds the
+full-size runs).  The hash-grid kernels move and index without summing:
+table_gather equals ``index_select`` exactly (NaN rows included), and the
+corner kernel's indices and weights equal its plain version's.
 """
 
 import numpy as np
@@ -14,6 +17,9 @@ import torch
 
 from learn_nerf_tpu_torch.kernels import fused_mlp as fm
 from learn_nerf_tpu_torch.kernels import fused_render as fr
+from learn_nerf_tpu_torch.kernels import hashgrid as khash
+from learn_nerf_tpu_torch.kernels import table_gather as tg
+from learn_nerf_tpu_torch.ops import hashgrid
 from learn_nerf_tpu_torch.scripts.common import default_device
 
 from .torch_helpers import points_and_dirs, port_model, random_flax_tree, t
@@ -68,3 +74,53 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         fm.fused_mlp_cuda(packed, torch.zeros((4, 3), device=cuda, dtype=torch.float64),
                           torch.zeros((4, 3), device=cuda))
+
+
+@pytest.mark.parametrize("columns", [1, 2, 3, 4])
+def test_table_gather_equals_index_select(cuda, columns):
+    rng = np.random.RandomState(columns)
+    rows = 2**18
+    table = t(rng.uniform(-1, 1, (rows, columns)).astype(np.float32)).to(cuda)
+    idx = rng.randint(0, rows, 100_003).astype(np.int32)
+    idx[:4] = [rows, -1, -rows - 1, rows - 1]  # NaN, wrap, NaN, last
+    idx = t(idx).to(cuda)
+    launches = tg.counter.launches
+    out = tg.table_gather(table, idx)
+    torch.cuda.synchronize()
+    assert tg.counter.launches == launches + 1
+    ref = tg.table_gather_reference(table, idx)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(out[4:], table.index_select(0, idx[4:].long()), rtol=0, atol=0)
+    assert torch.isnan(out[[0, 2]]).all() and torch.equal(out[1], table[-1])
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_hashgrid_corners_kernel_equals_plain_version(cuda, smooth):
+    levels = 16
+    grids = [2 ** (4 + i // 2) for i in range(levels)] + [2048]
+    tables = [2**18] * (levels + 1)
+    rng = np.random.RandomState(5)
+    bmin, bmax = (-0.7, -0.4, -1.1), (0.7, 1.0, 0.2)
+    x = rng.uniform(-1.3, 1.3, (50_000, 3)).astype(np.float32)
+    k = rng.randint(0, 128, (5_000, 3))  # points on the 128-lattice's faces
+    face = np.asarray(bmin, np.float32) + (np.float32(1.4), np.float32(1.4), np.float32(1.3)) * (k / 127)
+    x = t(np.concatenate([x, face.astype(np.float32)])).to(cuda)
+    launches = khash.counter.launches
+    idx, w = khash.hashgrid_corners(x, grids, tables, bmin, bmax, smooth)
+    torch.cuda.synchronize()
+    assert khash.counter.launches == launches + 1
+    ref_idx, ref_w = khash.hashgrid_corners_reference(x, grids, tables, bmin, bmax, smooth)
+    assert torch.equal(idx, ref_idx)
+    torch.testing.assert_close(w, ref_w, rtol=0, atol=0)
+
+
+def test_hash_grid_encode_kernel_route_matches_plain(cuda):
+    grids = [2 ** (4 + i // 2) for i in range(16)]
+    tables = [2**18] * 16
+    rng = np.random.RandomState(6)
+    values = [t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), 2)).astype(np.float32)).to(cuda)
+              for g, s in zip(grids, tables)]
+    x = t(rng.uniform(-1, 1, (4096, 3)).astype(np.float32)).to(cuda)
+    out = hashgrid.hash_grid_encode(values, x, grids, tables, (-1.0,) * 3, (1.0,) * 3)
+    ref = hashgrid.hash_grid_encode_reference(values, x, grids, tables, (-1.0,) * 3, (1.0,) * 3)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)

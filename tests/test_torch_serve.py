@@ -2,7 +2,7 @@
 scripts), following tests/test_serve.py: endpoints against a live server
 on a loopback port, determinism against a direct RenderSession with the
 same seed, request validation, the occupancy bf16 route, the flags that
-must refuse, flag parity with the JAX CLI, an import without jax, and the
+must still refuse (Ref-NeRF, baking, the span and block-word levers), flag parity with the JAX CLI, an import without jax, and the
 render profiler."""
 
 import io
@@ -187,11 +187,11 @@ def test_render_cli_writes_views_side_by_side(scene, tmp_path):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--instant_ngp"],
+        ["--instant_ngp", "--ref_nerf"],
         ["--ref_nerf"],
         ["--baked", "64"],
-        ["--occupancy", "--occ_budget_per_ray", "4"],
-        ["--occupancy", "--occ_budget_per_ray", "auto"],
+        ["--instant_ngp", "--occupancy", "--baked", "64"],
+        ["--occupancy", "--occ_budget_per_ray", "auto", "--occ_span_candidates", "64"],
         ["--occupancy", "--occ_span_candidates", "64"],
         ["--occupancy", "--occ_block_gather", "2"],
         ["--occupancy", "--occ_span_block_gather", "1"],
@@ -224,7 +224,12 @@ def test_port_imports_without_jax():
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
         "import learn_nerf_tpu_torch.scripts.serve_nerf\n"
+        "import learn_nerf_tpu_torch.scripts.profile_render\n"
         "import learn_nerf_tpu_torch.kernels.build\n"
+        "import learn_nerf_tpu_torch.kernels.hashgrid\n"
+        "import learn_nerf_tpu_torch.kernels.table_gather\n"
+        "import learn_nerf_tpu_torch.models.instant_ngp\n"
+        "import learn_nerf_tpu_torch.ops.hashgrid\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
@@ -242,8 +247,10 @@ def test_profile_view_times_renders_on_cpu(scene):
     result = profile_render.profile_view(session, view, repeats=3)
     assert len(result["latencies_ms"]) == 3 and result["median_ms"] > 0
     assert result["profiled_ms"] > 0 and not session.images
-    # No card: the device fields are not measured.
+    # No card: the device fields are not measured; the host ops are.
     assert result["device_ms"] is None and result["idle_share"] is None
+    assert result["kernels_launched"] is None and result["port_kernels"] is None
+    assert 0 < len(result["host_top"]) <= 5 and result["host_top"][0]["calls"] > 0
 
 
 def test_device_summary_merges_overlapping_device_spans():
@@ -254,6 +261,10 @@ def test_device_summary_merges_overlapping_device_spans():
         dict(ph="X", cat="kernel", name="a", ts=4000.0, dur=250.0),
         dict(ph="X", cat="cpu_op", name="aten::mm", ts=0.0, dur=9000.0),  # host, not counted
     ]
-    busy, top = profile_render.device_summary(events)
+    busy, top, ours = profile_render.device_summary(events)
     assert busy == pytest.approx(2.25)
     assert top == [("a", pytest.approx(1.25)), ("b", pytest.approx(1.0))]
+    assert ours == {}
+    events.append(dict(ph="X", cat="kernel", name="void nerf::table_gather_kernel<2>(float const*)",
+                       ts=5000.0, dur=750.0))
+    assert profile_render.device_summary(events)[2] == {"table_gather": pytest.approx(0.75)}
