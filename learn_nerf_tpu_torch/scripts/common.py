@@ -167,15 +167,34 @@ def check_ported(args: argparse.Namespace) -> None:
         )
 
 
+def add_device_arg(parser: argparse.ArgumentParser) -> None:
+    """``--device``: the port's entry points run on the card unless asked
+    for the CPU (a flag of this port only; the JAX CLI has none)."""
+    parser.add_argument(
+        "--device",
+        choices=("cuda", "cpu"),
+        default="cuda",
+        help="where to render: the CUDA card (default; raises without one) or the CPU",
+    )
+
+
 def default_device() -> torch.device:
-    """The CUDA card when there is one, else the CPU.
+    """The CUDA card; raises when there is none (no fallback to the CPU:
+    pass ``--device cpu`` to an entry point to render there).
 
     Turns TF32 off for matmuls and cuDNN: the f32 encodings and the f32
     model must not round their products to TF32's 10-bit mantissa.
     """
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass --device cpu to render on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    return torch.device("cuda")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device ``--device`` names: :func:`default_device` for ``cuda``."""
+    return default_device() if name == "cuda" else torch.device(name)
 
 
 def create_model(

@@ -19,7 +19,8 @@ and prints one JSON line for the view:
 * ``host_top``: the host ops with the most self time in that call (on the
   host's clock: where an idle card waits), with their call counts.
 
-On a host with no card, the device fields are ``null``.
+With ``--device cpu`` the device fields are ``null``; without it the
+profiler runs on the card and raises when there is none.
 
 Examples:
   python -m learn_nerf_tpu_torch.scripts.profile_render --bf16 \\

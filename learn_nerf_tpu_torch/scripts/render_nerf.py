@@ -4,7 +4,8 @@ Instant-NGP with ``--instant_ngp``).
 The CLI of ``learn_nerf_tpu.scripts.render_nerf``: positional
 ``metadata_json view_json... output_png``, the same flags, frames
 concatenated horizontally, u8 encoding ``(x + 1) * 127.5``.  Runs on the
-CUDA card when there is one.  There the vanilla model's ``--bf16`` routes
+CUDA card, and raises without one unless given ``--device cpu`` (a flag of
+this port only).  On the card the vanilla model's ``--bf16`` routes
 its MLPs through the fused Hopper kernels, and every hash-grid lookup of
 an Instant-NGP model runs through the corner and table-gather kernels.
 """
@@ -22,12 +23,13 @@ from ..occ_render import OccupancyFrameSession
 from ..render import Renderer, render_frame
 from .common import (
     add_baked_args,
+    add_device_arg,
     add_model_args,
     add_occupancy_args,
     build_occupancy_renderer,
     check_ported,
     create_model,
-    default_device,
+    resolve_device,
     seeded_generator,
     to_u8_image,
 )
@@ -56,16 +58,21 @@ def base_argparser() -> argparse.ArgumentParser:
 
 def argparser() -> argparse.ArgumentParser:
     parser = base_argparser()
+    add_device_arg(parser)
     parser.add_argument("metadata_json", type=str)
     return parser
 
 
 class RenderSession:
-    """A loaded model on its device + whole-frame rendering."""
+    """A loaded model on its device + whole-frame rendering.
+
+    The device is ``device`` when given, else the one ``args.device``
+    names (the card by default, which raises when there is none).
+    """
 
     def __init__(self, args: argparse.Namespace, device: Optional[torch.device] = None):
         check_ported(args)
-        self.device = device if device is not None else default_device()
+        self.device = device if device is not None else resolve_device(args.device)
         print("loading metadata...")
         self.metadata = ModelMetadata.from_json(args.metadata_json)
 

@@ -3,7 +3,8 @@
 The serving surface of ``learn_nerf_tpu.scripts.serve_nerf``, on PyTorch:
 loads a checkpoint once into a :class:`~.render_nerf.RenderSession` and
 serves whole frames over HTTP, one render at a time (a lock serializes
-renders; a frame already fills the card).
+renders; a frame already fills the card).  It serves from the CUDA card and
+raises without one, unless given ``--device cpu``.
 
 Endpoints:
   * ``GET /health`` -> ``{"ok": true}``
@@ -26,6 +27,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from ..data.camera import CameraView
+from .common import add_device_arg
 from .render_nerf import RenderSession, base_argparser
 
 MAX_SIDE = 8192  # request sanity cap
@@ -33,6 +35,7 @@ MAX_SIDE = 8192  # request sanity cap
 
 def argparser():
     parser = base_argparser()
+    add_device_arg(parser)
     parser.add_argument("--host", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=8008, help="0 = pick a free port")
     parser.add_argument("metadata_json", type=str)

@@ -409,7 +409,7 @@ def test_serve_ngp_pooled_answers_a_png(tmp_path):
         background=np.array([0.3, -0.2, 0.9], np.float32),
         occupancy_densities=(rng.rand(8**3) < 0.5).astype(np.float32), occupancy_resolution=8,
     ))
-    flags = ["--seed", "0", "--batch_size", "64", "--width", "16", "--height", "16",
+    flags = ["--device", "cpu", "--seed", "0", "--batch_size", "64", "--width", "16", "--height", "16",
              "--occ_candidates", "16", "--occ_samples", "8", "--model_path", pkl,
              "--instant_ngp", "--occupancy", "--occ_budget_per_ray", "auto", "--occ_t_eps", "1e-2"]
     argv = flags + ["--port", "0", f"{scene}/metadata.json"]

@@ -53,7 +53,7 @@ def scene(tmp_path_factory):
 
 def _argv(scene, pkl, *extra):
     return [
-        "--seed", "0", "--batch_size", "64",
+        "--device", "cpu", "--seed", "0", "--batch_size", "64",
         "--coarse_samples", "4", "--fine_samples", "4",
         "--width", "16", "--height", "16",
         "--occ_candidates", "16", "--occ_samples", "8",
