@@ -12,11 +12,17 @@ nonzero):
    ``learn_nerf_tpu_torch/csrc`` (one nvcc per source, in parallel; timed,
    with ptxas's resource report);
 2. each kernel against its plain PyTorch version on the card at full width
-   (fused_mlp on 2^20 points, fused_render on 8192 rays x 32 samples,
+   (fused_mlp on 2^20 points, fused_render on 8192 rays x 32 samples, and
+   the edges of their persistent tile loops: fused_mlp at 1, 127, 128, 129
+   and 2^20 - 37 points and on a hidden-40 model, fused_render at 1, 24,
+   32 and 64 samples per ray with a last tile that is not full;
    table_gather at pallas_gather's own shape, [2^18, 2] f32 rows at
    999,424 indices, exactly; the corner kernel and the whole NGP encoding
    at the 16-level fine schedule on 2^20 points, with unit-scale tables),
-   max abs error against the stated bound, and both times;
+   max abs error against the stated bound, both times, and each kernel's
+   bound (the least time of its bytes at the HBM rate or of its operations
+   at the peak rate of their type); ptxas must report no spills for the two
+   MLP kernels;
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -47,6 +53,7 @@ idle share, top kernels and the port's own kernels' share.
 
 import argparse
 import json
+import re
 import struct
 import subprocess
 import sys
@@ -78,6 +85,18 @@ RENDER_BOUND = 5e-4
 # does not.
 MAX_DELTA = 0.25
 SCAN_MARGIN = 20
+# The edges of the MLP kernels' persistent loops over 128-row tiles.
+MLP_EDGE_ROWS = (1, 127, 128, 129, MLP_POINTS - 37)
+RENDER_EDGE_SAMPLES = (1, 24, 32, 64)
+# Peaks of one H100 SXM (NVIDIA's data sheet; dense, at the 700 W limit):
+# bf16 tensor cores, f32 outside them, HBM3.  f32 operations per sample of
+# fused_render's scan and composite: the product with delta, the running
+# sum, the exclusive difference, two exponentials, 1 - exp, the weight, and
+# three weighted sums.
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+SCAN_OPS = 10
 # Kernel route on the card vs plain route on the CPU through a whole frame,
 # same uniforms: as above, plus the hierarchy's fine samples follow the
 # coarse weights.  Measured on an H100: 8.7e-5 (hierarchy) and 3.0e-5
@@ -163,6 +182,33 @@ def graph_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, flops=0.0, f32_ops=0.0):
+    """(bound_ms, bound_by): the larger of the bytes' time at the HBM rate
+    (each input read once, each output written once) and the operations'
+    time at the peak rate of their type."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (flops / BF16_FLOPS + f32_ops / F32_FLOPS) * 1e3
+    return (ops_ms, "operations") if ops_ms > bytes_ms else (bytes_ms, "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ptxas_report(log):
+    """``{kernel: (registers, spill bytes)}`` from ptxas's ``-v`` lines."""
+    report, name, spills = {}, None, 0
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)) and name:
+            spills = int(m.group(1)) + int(m.group(2))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            report[name] = (int(m.group(1)), spills)
+            name = None
+    return report
+
+
 def flax_tree(rng, hidden=256, color=128, x_dim=60, d_dim=24):
     """Full-width vanilla ``Dense_i`` tree: lecun-normal kernels, small biases."""
     shapes = [(x_dim, hidden)] + [(hidden, hidden)] * 4
@@ -185,36 +231,37 @@ def check_kernels(device, rng):
 
     model = NeRFModel(compute_dtype="bfloat16")
     model.load_state_dict(params_from_flax(flax_tree(rng)))
-    packed = model.to(device).packed()
+    model = model.to(device)
+    packed = model.packed()
+    # Multiply-adds per sample: every Dense layer's [in, out] (591,488).
+    macs = sum(layer.weight.numel() for layer in model.dense_layers())
 
-    def uniform(*shape, lo=-1.0, hi=1.0):
-        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(device)
-
-    def unit(n):
-        d = torch.from_numpy(rng.randn(n, 3).astype(np.float32)).to(device)
-        return d / d.norm(dim=-1, keepdim=True)
-
+    uniform, unit, deltas_for = samplers(rng, device)
+    weights = nbytes(packed.kernel_weights, packed.kernel_biases)
     results = []
     x, d = uniform(MLP_POINTS, 3, lo=-0.7, hi=0.7), unit(MLP_POINTS)
     out = fm.fused_mlp_cuda(packed, x, d)
     torch.cuda.synchronize()
     ref = fm.fused_mlp_reference(packed, x, d)
-    require(torch.isfinite(out).all().item(), "fused_mlp produced non-finite values")
+    require(torch.isfinite(out).all().item() and out.shape == (MLP_POINTS, 4),
+            "fused_mlp produced non-finite values or the wrong shape")
     results.append(dict(
         name="fused_mlp", route="cuda", source="learn_nerf_tpu_torch/csrc/fused_nerf.cu",
         replaces="tools/pallas_recipe/fused_mlp.py:205",
         max_abs_err=(out - ref).abs().max().item(),
         ms=cuda_ms(lambda: fm.fused_mlp_cuda(packed, x, d), 20),
         plain_ms=cuda_ms(lambda: fm.fused_mlp_reference(packed, x, d), 5),
+        flops=2.0 * macs * MLP_POINTS, nbytes=nbytes(x, d, out) + weights,
     ))
+    del out, ref
 
     n, k = RENDER_RAYS, RENDER_SAMPLES
-    points, dirs = uniform(n, k, 3, lo=-0.7, hi=0.7), unit(n)
-    deltas = uniform(n, k, lo=0.0, hi=MAX_DELTA) * (uniform(n, k, lo=0.0, hi=1.0) < 0.8)
+    points, dirs, deltas = uniform(n, k, 3, lo=-0.7, hi=0.7), unit(n), deltas_for(n, k)
     out = fr.fused_render_cuda(packed, points, dirs, deltas)
     torch.cuda.synchronize()
     ref = fr.fused_render_reference(packed, points, dirs, deltas)
-    require(torch.isfinite(out).all().item(), "fused_render produced non-finite values")
+    require(torch.isfinite(out).all().item() and out.shape == (n, 4),
+            "fused_render produced non-finite values or the wrong shape")
     depth, shifted_err = shifted_scan(packed, points, dirs, deltas, ref)
     print(f"fused_render inputs: optical depth per ray median {depth.median().item():.3f}, "
           f"min {depth.min().item():.3f}, max {depth.max().item():.3f}; an off-by-one scan "
@@ -227,15 +274,84 @@ def check_kernels(device, rng):
         max_abs_err=(out - ref).abs().max().item(),
         ms=cuda_ms(lambda: fr.fused_render_cuda(packed, points, dirs, deltas), 20),
         plain_ms=cuda_ms(lambda: fr.fused_render_reference(packed, points, dirs, deltas), 5),
+        flops=2.0 * macs * n * k, f32_ops=SCAN_OPS * n * k,
+        nbytes=nbytes(points, dirs, deltas, out) + weights,
     ))
-    for r, bound in zip(results, (MLP_BOUND, RENDER_BOUND)):
+    for r in results:
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), r["flops"], r.pop("f32_ops", 0.0))
+        r["library_ms"] = None  # no one PyTorch call computes the fused chain
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        r["tflops"] = r.pop("flops") / r["ms"] / 1e9
+    for r, limit in zip(results, (MLP_BOUND, RENDER_BOUND)):
         print(
-            f"{r['name']}: max abs err {r['max_abs_err']:.3e} (bound {bound:g}); "
-            f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms",
+            f"{r['name']}: max abs err {r['max_abs_err']:.3e} (bound {limit:g}); "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), {100 * r['share_of_bound']:.1f} % of it, {r['tflops']:.1f} TFLOP/s",
             flush=True,
         )
-        require(r["max_abs_err"] <= bound, f"{r['name']} disagrees with its plain version")
+        require(r["max_abs_err"] <= limit, f"{r['name']} disagrees with its plain version")
+    # The edge cases draw from their own seed: the later phases see the same
+    # weights and uniforms whether or not they run.
+    check_edges(device, np.random.RandomState(SEED + 4), packed)
     return results
+
+
+def samplers(rng, device):
+    """Inputs on the card from ``rng``: uniform values, unit directions, and
+    bin widths up to MAX_DELTA with a fifth of them padding (0)."""
+
+    def uniform(*shape, lo=-1.0, hi=1.0):
+        return torch.from_numpy(rng.uniform(lo, hi, shape).astype(np.float32)).to(device)
+
+    def unit(n):
+        d = torch.from_numpy(rng.randn(n, 3).astype(np.float32)).to(device)
+        return d / d.norm(dim=-1, keepdim=True)
+
+    def deltas_for(n, k):
+        return uniform(n, k, lo=0.0, hi=MAX_DELTA) * (uniform(n, k, lo=0.0, hi=1.0) < 0.8)
+
+    return uniform, unit, deltas_for
+
+
+def check_edges(device, rng, packed):
+    """The MLP kernels where their persistent loops over 128-row tiles
+    break: fused_mlp around one tile, just short of 2^20 points and on a
+    hidden-40 model (padded to the kernel's widths); fused_render at each K
+    with one ray in its last tile."""
+    from learn_nerf_tpu_torch.checkpoint import params_from_flax
+    from learn_nerf_tpu_torch.kernels import fused_mlp as fm
+    from learn_nerf_tpu_torch.kernels import fused_render as fr
+    from learn_nerf_tpu_torch.models import NeRFModel
+
+    uniform, unit, deltas_for = samplers(rng, device)
+    narrow = NeRFModel(hidden_dim=40, color_layer_dim=20, compute_dtype="bfloat16")
+    narrow.load_state_dict(params_from_flax(flax_tree(rng, hidden=40, color=20)))
+    cases = [(packed, m) for m in MLP_EDGE_ROWS] + [(narrow.to(device).packed(), 4099)]
+    mlp_errs = []
+    for p, m in cases:
+        x, d = uniform(m, 3, lo=-0.7, hi=0.7), unit(m)
+        out = fm.fused_mlp_cuda(p, x, d)
+        torch.cuda.synchronize()
+        require(out.shape == (m, 4) and torch.isfinite(out).all().item(),
+                f"fused_mlp at {m} points: wrong shape or non-finite values")
+        mlp_errs.append((out - fm.fused_mlp_reference(p, x, d)).abs().max().item())
+    render_errs = []
+    for k in RENDER_EDGE_SAMPLES:
+        n = 128 // k * 50 + 1
+        points, dirs, deltas = uniform(n, k, 3, lo=-0.7, hi=0.7), unit(n), deltas_for(n, k)
+        out = fr.fused_render_cuda(packed, points, dirs, deltas)
+        torch.cuda.synchronize()
+        require(out.shape == (n, 4) and torch.isfinite(out).all().item(),
+                f"fused_render at K = {k}: wrong shape or non-finite values")
+        render_errs.append((out - fr.fused_render_reference(packed, points, dirs, deltas)).abs().max().item())
+    rows = [f"{m}{' (hidden 40)' if p is not packed else ''}: {e:.2e}"
+            for (p, m), e in zip(cases, mlp_errs)]
+    print(f"fused_mlp edges, max abs err: {', '.join(rows)} (bound {MLP_BOUND:g})", flush=True)
+    print("fused_render edges, max abs err: " + ", ".join(
+        f"K {k} ({128 // k * 50 + 1} rays): {e:.2e}" for k, e in zip(RENDER_EDGE_SAMPLES, render_errs))
+        + f" (bound {RENDER_BOUND:g})", flush=True)
+    require(max(mlp_errs) <= MLP_BOUND, "fused_mlp disagrees with its plain version at an edge")
+    require(max(render_errs) <= RENDER_BOUND, "fused_render disagrees with its plain version at an edge")
 
 
 def shifted_scan(packed, points, dirs, deltas, ref):
@@ -283,6 +399,8 @@ def check_hashgrid_kernels(device, rng):
         ms=graph_ms(kernel, 50), plain_ms=graph_ms(reference, 50),
     )
     select_ms = graph_ms(select, 50)
+    gather["bound_ms"], gather["bound_by"] = bound(nbytes(table, idx, out))
+    gather["library_ms"] = select_ms  # index_select, the one PyTorch call for it
     eager = [cuda_ms(fn, 50) for fn in (kernel, reference, select)]
     print(f"table_gather [{GATHER_ROWS}, 2] x {GATHER_INDICES}: max abs err {err:.3e} (bound 0); "
           f"device time per call (graph replay): kernel {gather['ms']:.4f} ms, plain "
@@ -306,7 +424,9 @@ def check_hashgrid_kernels(device, rng):
         ms=cuda_ms(lambda: kh.hashgrid_corners_cuda(x, grids, tables, bbox_min, bbox_max, False), 20),
         plain_ms=cuda_ms(
             lambda: kh.hashgrid_corners_reference(x, grids, tables, bbox_min, bbox_max, False), 5),
+        library_ms=None,
     )
+    corners["bound_ms"], corners["bound_by"] = bound(nbytes(x, idx, w))
     del idx, w, ref_idx, ref_w
 
     encode = lambda: hg.hash_grid_encode(values, x, grids, tables, bbox_min, bbox_max)
@@ -579,9 +699,14 @@ def main():
     build.library()
     print(f"kernel build + load: {time.perf_counter() - t0:.2f} s", flush=True)
     log = (build.library_dir() / "build.log").read_text()
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
+    report = ptxas_report(log)
+    for name, (registers, spills) in report.items():
+        print(f"  ptxas: {name}: {registers} registers, {spills} bytes spilled", flush=True)
+    print(f"  ptxas: {log.count('warpgroup.arrive is injected')} wgmma fences added by the "
+          f"compiler", flush=True)
+    for kernel in ("fused_mlp_kernel", "fused_render_kernel"):
+        spills = [v[1] for k, v in report.items() if kernel in k]
+        require(spills == [0], f"ptxas reports spills for {kernel}: {spills}")
 
     rng = np.random.RandomState(SEED)
     kernels = check_kernels(device, rng)
@@ -607,9 +732,12 @@ def main():
             require(served[name][kernel][0] > 0, f"{name} serving never launched {kernel}")
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
-    ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"]
+    ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+               "bound_ms", "bound_by", "library_ms", "share_of_bound", "tflops"]
+    for k in kernels:
+        k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])
     print(card)
-    print(json.dumps({"kernels": [{key: k[key] for key in ordered} for k in kernels]}))
+    print(json.dumps({"kernels": [{key: k[key] for key in ordered if key in k} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

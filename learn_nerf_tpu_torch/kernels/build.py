@@ -121,9 +121,9 @@ def build() -> Path:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.nerf_fused_mlp.argtypes = [ptr] * 5 + [i64] + [i32] * 6 + [ptr]
+    lib.nerf_fused_mlp.argtypes = [ptr] * 5 + [i64] + [i32] * 4 + [ptr]
     lib.nerf_fused_mlp.restype = i32
-    lib.nerf_fused_render.argtypes = [ptr] * 6 + [i64, i32] + [i32] * 6 + [ptr]
+    lib.nerf_fused_render.argtypes = [ptr] * 6 + [i64, i32] + [i32] * 4 + [ptr]
     lib.nerf_fused_render.restype = i32
     lib.nerf_table_gather.argtypes = [ptr, i64, i32, ptr, i64, ptr, ptr]
     lib.nerf_table_gather.restype = i32

@@ -3,8 +3,9 @@
 Port of ``tools/pallas_recipe/fused_mlp.py`` (``fused_nerf_forward``,
 ``pack_vanilla_params``, ``sincos_projection``): sinusoidal encodings, the
 input layers, the skip layer and mid layers, a softplus density head, and
-the color branch with a tanh rgb head, in one kernel per 64-point tile
-(``csrc/fused_nerf.cu``, ``fused_mlp_kernel``).  Inference only.
+the color branch with a tanh rgb head, in one kernel
+(``csrc/fused_nerf.cu``, ``fused_mlp_kernel``; its Hopper MLP core is
+``csrc/nerf_mlp.cuh``).  Inference only.
 
 Numerics: every product takes bf16 operands and sums in f32; biases are f32;
 the encodings are f32.  :func:`fused_mlp_reference` rounds at exactly those
@@ -30,11 +31,19 @@ Tensor = torch.Tensor
 
 counter = build.LaunchCounter()
 
-# Limits of the kernel's shared-memory tiles (csrc/nerf_mlp.cuh).
+# The widths the kernel is compiled for (csrc/nerf_mlp.cuh); narrower
+# models are padded to them with zeros.
 MAX_HIDDEN = 256
 MAX_COLOR = 128
 MAX_X_FEATURES = 64
 MAX_D_FEATURES = 32
+MAX_HIDDEN_LAYERS = 16  # input + mid layers: the kernel's bias table
+HEAD = 16
+# The kernel's weight stream: every matrix as 64-deep K-slices, each an
+# output column's 128-byte row in the 128-byte swizzle, cut into ring
+# stages of at most STAGE_BYTES.
+SLICE_K = 64
+STAGE_BYTES = 32768
 
 
 def _pad16(v: int) -> int:
@@ -51,10 +60,19 @@ class PackedMLP:
     to its layer's N, in the order of :meth:`bias_sizes`.  The concat
     layers are split as in ``pack_vanilla_params``: ``[z, e] @ W == z @ W_z
     + e @ W_e``.  Zero padding leaves every result unchanged.
+
+    ``kernel_weights`` and ``kernel_biases`` are the same operands as the
+    CUDA kernel reads them: padded with zeros to the full widths
+    (:func:`kernel_matrix_shapes`), each matrix in the swizzled K-major
+    layout of :func:`swizzle_k_major`, back to back; the biases padded to
+    full N.  The kernel's producer copies each matrix in pieces of at most
+    :data:`STAGE_BYTES`.
     """
 
     weights: Tensor
     biases: Tensor
+    kernel_weights: Tensor
+    kernel_biases: Tensor
     input_layers: int
     mid_layers: int
     hidden: int  # padded to 16
@@ -93,6 +111,51 @@ class PackedMLP:
         for n in self.bias_sizes():
             yield self.biases[offset : offset + n]
             offset += n
+
+
+def kernel_matrix_shapes(input_layers: int, mid_layers: int) -> List[Tuple[int, int]]:
+    """``[K, N]`` of every matrix of the kernel's weight stream, in order:
+    the full widths, K padded to a multiple of :data:`SLICE_K`."""
+    h, c, xe = MAX_HIDDEN, MAX_COLOR, MAX_X_FEATURES
+    de = -(-MAX_D_FEATURES // SLICE_K) * SLICE_K
+    shapes = [(xe, h)] + [(h, h)] * (input_layers - 1)
+    shapes += [(h, h), (xe, h)]
+    shapes += [(h, h)] * (mid_layers - 1)
+    shapes += [(h, HEAD), (h, c), (de, c), (c, HEAD)]
+    return shapes
+
+
+def kernel_bias_sizes(input_layers: int, mid_layers: int) -> List[int]:
+    return [MAX_HIDDEN] * (input_layers + mid_layers) + [HEAD, MAX_COLOR, HEAD]
+
+
+def swizzle_k_major(w: Tensor) -> Tensor:
+    """A ``[K, N]`` bf16 matrix (K a multiple of :data:`SLICE_K`) as the
+    kernel reads it, flat: K / 64 slices, each N rows of 64 K-values (128
+    bytes; row n holds column n of ``w``), with the 16-byte chunk ``c`` of
+    row ``n`` stored at chunk ``c ^ (n % 8)`` (the 128-byte swizzle)."""
+    k, n = w.shape
+    slices = w.t().reshape(n, k // SLICE_K, 8, 8).permute(1, 0, 2, 3)
+    # Position p of row r takes chunk p ^ (r % 8): XOR is its own inverse.
+    idx = torch.arange(8)[None, :] ^ (torch.arange(n) % 8)[:, None]
+    idx = idx.to(w.device)[None, :, :, None].expand_as(slices)
+    return torch.gather(slices, 2, idx).reshape(-1)
+
+
+def _kernel_operands(
+    mats: Sequence[Tensor], biases: Sequence[Tensor], input_layers: int, mid_layers: int
+) -> Tuple[Tensor, Tensor]:
+    """Pad the packed matrices and biases to the kernel's full widths and
+    swizzle the matrices: ``(kernel_weights, kernel_biases)``."""
+    shapes = kernel_matrix_shapes(input_layers, mid_layers)
+    weights = []
+    for m, (k, n) in zip(mats, shapes):
+        full = m.new_zeros((k, n))
+        full[: m.shape[0], : m.shape[1]] = m
+        weights.append(swizzle_k_major(full))
+    padded = [F.pad(b, (0, n - b.shape[0])) for b, n in
+              zip(biases, kernel_bias_sizes(input_layers, mid_layers))]
+    return torch.cat(weights), torch.cat(padded)
 
 
 def pack_vanilla_params(
@@ -144,9 +207,13 @@ def pack_vanilla_params(
     biases.append(vec(density_i + 1, c))
     mats.append(mat(kernel(density_i + 2), c, 16))
     biases.append(vec(density_i + 2, 16))
+    mats = [m.to(torch.bfloat16) for m in mats]
+    kernel_weights, kernel_biases = _kernel_operands(mats, biases, input_layers, mid_layers)
     return PackedMLP(
-        weights=torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16),
+        weights=torch.cat([m.reshape(-1) for m in mats]),
         biases=torch.cat(biases),
+        kernel_weights=kernel_weights,
+        kernel_biases=kernel_biases,
         input_layers=input_layers,
         mid_layers=mid_layers,
         hidden=h,
@@ -192,8 +259,8 @@ def fused_mlp_reference(packed: PackedMLP, x: Tensor, d: Tensor) -> Tensor:
 
 def check_kernel_operands(packed: PackedMLP, *tensors: Tensor) -> None:
     """Raise unless the kernel takes these operands: f32 contiguous CUDA
-    tensors on the packed weights' device, and widths within its tiles."""
-    device = packed.weights.device
+    tensors on the packed weights' device, and widths within its own."""
+    device = packed.kernel_weights.device
     if device.type != "cuda":
         raise ValueError(f"packed weights are on {device}, not on a CUDA device")
     for t in tensors:
@@ -201,10 +268,10 @@ def check_kernel_operands(packed: PackedMLP, *tensors: Tensor) -> None:
             raise ValueError(f"operand on {t.device}, packed weights on {device}")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"operand must be contiguous float32, got {t.dtype}")
-    if packed.weights.dtype != torch.bfloat16 or packed.biases.dtype != torch.float32:
+    if packed.kernel_weights.dtype != torch.bfloat16 or packed.kernel_biases.dtype != torch.float32:
         raise ValueError("packed weights must be bfloat16 and biases float32")
-    if packed.weights.data_ptr() % 256:
-        raise ValueError("packed weights must start 256-byte aligned")
+    if packed.kernel_weights.data_ptr() % 256 or packed.kernel_biases.data_ptr() % 16:
+        raise ValueError("kernel weights must start 256-byte aligned and biases 16-byte aligned")
     if not (
         packed.hidden <= MAX_HIDDEN
         and packed.color <= MAX_COLOR
@@ -212,25 +279,26 @@ def check_kernel_operands(packed: PackedMLP, *tensors: Tensor) -> None:
         and packed.d_features <= MAX_D_FEATURES
         and packed.input_layers >= 1
         and packed.mid_layers >= 1
+        and packed.input_layers + packed.mid_layers <= MAX_HIDDEN_LAYERS
     ):
         raise ValueError(
             f"the kernel takes hidden <= {MAX_HIDDEN}, color <= {MAX_COLOR}, "
             f"6 * x_freqs <= {MAX_X_FEATURES}, 6 * d_freqs <= {MAX_D_FEATURES} "
-            f"and at least one input and one mid layer; got {packed}"
+            f"and 2 to {MAX_HIDDEN_LAYERS} input and mid layers, at least one of "
+            f"each; got {packed}"
         )
     build.require_hopper(device)
 
 
+def kernel_args(packed: PackedMLP) -> Tuple[int, ...]:
+    """The weight-stream and bias pointers every entry point takes after
+    its inputs."""
+    return (packed.kernel_weights.data_ptr(), packed.kernel_biases.data_ptr())
+
+
 def dims_args(packed: PackedMLP) -> Tuple[int, ...]:
-    """The layer-shape arguments every entry point of the library takes."""
-    return (
-        packed.input_layers,
-        packed.mid_layers,
-        packed.hidden,
-        packed.color,
-        packed.x_freqs,
-        packed.d_freqs,
-    )
+    """The layer counts and frequencies every entry point takes."""
+    return (packed.input_layers, packed.mid_layers, packed.x_freqs, packed.d_freqs)
 
 
 def fused_mlp_cuda(packed: PackedMLP, x: Tensor, d: Tensor) -> Tensor:
@@ -242,8 +310,7 @@ def fused_mlp_cuda(packed: PackedMLP, x: Tensor, d: Tensor) -> Tensor:
     lib = build.library()
     with torch.cuda.device(x.device):
         err = lib.nerf_fused_mlp(
-            x.data_ptr(), d.data_ptr(), packed.weights.data_ptr(),
-            packed.biases.data_ptr(), out.data_ptr(), x.shape[0],
+            x.data_ptr(), d.data_ptr(), *kernel_args(packed), out.data_ptr(), x.shape[0],
             *dims_args(packed), torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, err, "fused_mlp")

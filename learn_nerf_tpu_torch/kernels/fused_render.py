@@ -17,13 +17,19 @@ for CUDA tensors, with no fallback between the two.
 import torch
 
 from . import build
-from .fused_mlp import PackedMLP, check_kernel_operands, dims_args, fused_mlp_reference
+from .fused_mlp import (
+    PackedMLP,
+    check_kernel_operands,
+    dims_args,
+    fused_mlp_reference,
+    kernel_args,
+)
 
 Tensor = torch.Tensor
 
 counter = build.LaunchCounter()
 
-# Whole rays share a 64-row tile (csrc/nerf_mlp.cuh kRows).
+# Whole rays share a 128-row tile (csrc/nerf_mlp.cuh kTileRows), two at least.
 MAX_SAMPLES = 64
 
 
@@ -64,9 +70,8 @@ def fused_render_cuda(
     lib = build.library()
     with torch.cuda.device(points.device):
         err = lib.nerf_fused_render(
-            points.data_ptr(), dirs.data_ptr(), deltas.data_ptr(),
-            packed.weights.data_ptr(), packed.biases.data_ptr(), out.data_ptr(),
-            n, k, *dims_args(packed), torch.cuda.current_stream().cuda_stream,
+            points.data_ptr(), dirs.data_ptr(), deltas.data_ptr(), *kernel_args(packed),
+            out.data_ptr(), n, k, *dims_args(packed), torch.cuda.current_stream().cuda_stream,
         )
     build.check_launch(lib, err, "fused_render")
     counter.launches += 1

@@ -5,8 +5,10 @@ of PyTorch, and skip elsewhere.  Run on the card with
 ``python -m pytest tests/test_torch_cuda.py -m cuda``.  The same inputs go
 through the kernel and its plain version on the card.  The two MLP kernels
 differ from theirs only in the order of f32 sums, which can flip a bf16
-rounding: atol 2e-3 at these small sizes (chip_smoke.py holds the
-full-size runs).  The hash-grid kernels move and index without summing:
+rounding: atol 2e-3 at these small sizes, and chip_smoke.py's full-size
+bounds (5e-3, 5e-4) where a run covers many tiles of the persistent grid.
+Their edge cases are the ragged last tile (M around the 128-row tile) and
+rays that do not fill the last tile.  The hash-grid kernels move and index without summing:
 table_gather equals ``index_select`` exactly (NaN rows included), and the
 corner kernel's indices and weights equal its plain version's.
 """
@@ -50,6 +52,32 @@ def test_fused_mlp_kernel_matches_plain_version(cuda, layers, n):
     torch.testing.assert_close(out, fm.fused_mlp_reference(packed, x, d), rtol=0, atol=2e-3)
 
 
+@pytest.mark.parametrize("m", [1, 127, 128, 129, (1 << 20) - 37])
+def test_fused_mlp_kernel_at_tile_edges(cuda, m):
+    packed = port_model(random_flax_tree(3), "bfloat16").to(cuda).packed()
+    rng = np.random.RandomState(m % 1000)
+    x = t(rng.uniform(-0.7, 0.7, (m, 3)).astype(np.float32)).to(cuda)
+    d = t(points_and_dirs(4, m)[1]).to(cuda)
+    out = fm.fused_mlp_cuda(packed, x, d)
+    torch.cuda.synchronize()
+    ref = fm.fused_mlp_reference(packed, x, d)
+    torch.testing.assert_close(out, ref, rtol=0, atol=2e-3 if m < 4096 else 5e-3)
+
+
+@pytest.mark.parametrize("k", [1, 24, 32, 64])
+def test_fused_render_kernel_over_many_tiles(cuda, k):
+    packed = port_model(random_flax_tree(5), "bfloat16").to(cuda).packed()
+    rng = np.random.RandomState(k + 1)
+    n = 128 // k * 300 + 1  # 300 full tiles of whole rays, then one ray
+    points = t(rng.uniform(-0.7, 0.7, (n, k, 3)).astype(np.float32)).to(cuda)
+    dirs = t(points_and_dirs(6, n)[1]).to(cuda)
+    deltas = t((rng.rand(n, k) * 0.25 * (rng.rand(n, k) < 0.8)).astype(np.float32)).to(cuda)
+    out = fr.fused_render_cuda(packed, points, dirs, deltas)
+    torch.cuda.synchronize()
+    ref = fr.fused_render_reference(packed, points, dirs, deltas)
+    torch.testing.assert_close(out, ref, rtol=0, atol=5e-4)
+
+
 @pytest.mark.parametrize("k", [1, 24, 32, 64])
 def test_fused_render_kernel_matches_plain_version(cuda, k):
     packed = port_model(random_flax_tree(2), "bfloat16").to(cuda).packed()
@@ -74,6 +102,10 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         fm.fused_mlp_cuda(packed, torch.zeros((4, 3), device=cuda, dtype=torch.float64),
                           torch.zeros((4, 3), device=cuda))
+    deep = dict(input_layers=10, mid_layers=7)  # 17 > the kernel's bias table of 16
+    deep_packed = port_model(random_flax_tree(4, **deep), "bfloat16", **deep).to(cuda).packed()
+    with pytest.raises(ValueError, match="input and mid layers"):
+        fm.fused_mlp_cuda(deep_packed, torch.zeros((4, 3), device=cuda), torch.zeros((4, 3), device=cuda))
 
 
 @pytest.mark.parametrize("columns", [1, 2, 3, 4])
