@@ -24,10 +24,12 @@
 // compute the next tile's encodings while this tile's products run; two
 // consumer warpgroups of 64 rows issue wgmma and pass activations between
 // layers in registers (no staging tile, no block-wide barrier).  On an H100
-// (700 W) the ablations of PERF.md put the kernel at 70 % of the tensor
-// bound, with the weight stream alone (no products) at 1.02 ms of 1.8; a
-// 2-block cluster with a multicast copy, so that one L2 read of a stage
-// feeds two SMs, is therefore left alone.
+// (700 W) that runs at about 70 % of the tensor bound.  The weight stream,
+// encodings and epilogues without the products take under 60 % of the
+// kernel's time (scripts/mlp_ablations.py), so L2 is not the limit and a
+// 2-block cluster with a multicast copy is left alone.  What is left is
+// mostly the epilogues between layers (bias, ReLU, bf16 packing), which
+// both consumer groups reach together while the tensor cores wait.
 #include <cuda_runtime.h>
 
 #include "nerf_mlp.cuh"

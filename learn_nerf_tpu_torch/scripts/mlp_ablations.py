@@ -9,7 +9,11 @@ the part it drops costs, or what the rest costs without it:
 * ``no products``: the wgmma products are not issued; the weight stream
   still lands stage by stage, the encodings and the epilogues still run;
 * ``no sincos``: the encoder warps skip the sines and cosines;
-* ``3 stages``: a weight ring of 3 stages of 32 KB instead of 4.
+* ``3 stages``: a weight ring of 3 stages of 32 KB instead of 4;
+* ``no bias or relu``: the epilogues between layers only round and pack;
+* ``no head products``: the two 16-wide head products are replaced by an
+  add that reads their operands (ptxas deletes products whose results
+  nothing reads, and with them every product before).
 
 Prints one JSON line per variant and turn, then the card's name and power
 limit.  The variants build into ``learn_nerf_tpu_torch/_build/ablations/``.
@@ -30,15 +34,39 @@ from ..kernels import fused_mlp as fm
 from ..kernels import fused_render as fr
 from ..models import NeRFModel
 
+# Accumulators that a dropped product would have written start at zero, so
+# that no variant computes on undefined values (which the compiler may
+# treat as unreachable code).
+ZEROED = [
+    ("nerf_mlp.cuh", "  float acc[kHidden / 2];", "  float acc[kHidden / 2] = {};"),
+    ("nerf_mlp.cuh", "  float head[8];", "  float head[8] = {};"),
+    ("nerf_mlp.cuh", "  float cacc[kColor / 2];", "  float cacc[kColor / 2] = {};"),
+]
+KEEP = "0.f * __uint_as_float({0}[k][0] ^ {0}[k][1] ^ {0}[k][2] ^ {0}[k][3])"
 VARIANTS = {
     "as built": [],
-    "no products": [("nerf_mlp.cuh", "      issue(k, sw128_desc(", "      if (false) issue(k, sw128_desc(")],
+    "no products": [
+        ("nerf_mlp.cuh", "      issue(k, sw128_desc(", "      if (false) issue(k, sw128_desc("),
+        *ZEROED,
+    ],
     "no sincos": [(
         "nerf_mlp.cuh",
         "if (p != nullptr) sincosf(ldexpf(x, f), &sine, &cosine);",
         "if (p != nullptr) sine = cosine = x;",
     )],
     "3 stages": [("nerf_mlp.cuh", "constexpr int kStages = 4;", "constexpr int kStages = 3;")],
+    "no bias or relu": [
+        ("nerf_mlp.cuh", "    float lo = acc[2 * i] + b.x;", "    float lo = acc[2 * i];"),
+        ("nerf_mlp.cuh", "    float hi = acc[2 * i + 1] + b.y;", "    float hi = acc[2 * i + 1];"),
+        ("nerf_mlp.cuh", "    if (relu) {", "    if (false) {"),
+    ],
+    # Each head product becomes one f32 add that still reads its A operand:
+    # ptxas deletes products whose results nothing reads.
+    "no head products": [
+        ("nerf_mlp.cuh", "{ wgmma_n16_rs(head, a[k], b, sd); }", f"{{ head[0] += {KEEP.format('a')}; }}"),
+        ("nerf_mlp.cuh", "{ wgmma_n16_rs(head, c[k], b, sd); }", f"{{ head[0] += {KEEP.format('c')}; }}"),
+        ZEROED[1],
+    ],
 }
 
 
