@@ -17,12 +17,15 @@ nonzero):
    and 2^20 - 37 points and on a hidden-40 model, fused_render at 1, 24,
    32 and 64 samples per ray with a last tile that is not full;
    table_gather at pallas_gather's own shape, [2^18, 2] f32 rows at
-   999,424 indices, exactly; the corner kernel and the whole NGP encoding
-   at the 16-level fine schedule on 2^20 points, with unit-scale tables),
-   max abs error against the stated bound, both times, and each kernel's
-   bound (the least time of its bytes at the HBM rate or of its operations
-   at the peak rate of their type); ptxas must report no spills for the two
-   MLP kernels;
+   999,424 indices, exactly, and at 1, 3, 4 and 5 indices with wrapped and
+   NaN rows; the corner kernel at the 16-level fine schedule on 2^20
+   points; the all-level encode kernel at the fine schedule on 2^20 points
+   with unit-scale tables, at the 6-level coarse schedule, in smooth mode
+   and at 1, 31, 32, 33 and 2^20 - 37 points, with the per-level route it
+   replaced timed beside it), max abs error against the stated bound, both
+   times, and each kernel's bound (the least time of its bytes at the HBM
+   rate or of its operations at the peak rate of their type); ptxas must
+   report no spills for the two MLP kernels;
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -35,8 +38,9 @@ nonzero):
    hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
    --occ_t_eps 1e-2``): three ``POST /render`` requests each at 256x256,
    each answered 200 with a PNG of that shape, with latencies;
-5. every kernel of each mode launched during its serve phase, and no plain
-   version called there.
+5. every kernel of each mode launched during its serve phase (fused_mlp,
+   fused_render, and the encode kernel in the three NGP modes), and no
+   plain version called there.
 
 It prints the card line and one JSON line of kernel results, then, as its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -107,18 +111,23 @@ SIDE = 256
 REQUESTS = 3
 # pallas_gather's shape (tools/exp_gather.py): one NGP level, [2^18, 2] f32,
 # gathered at 122 tiles of 8192 int32 indices.  Rows are moved, not summed:
-# the kernel must equal index_select exactly.
+# the kernel must equal index_select exactly, and its plain version at the
+# edge lengths, NaN rows included.
 GATHER_ROWS, GATHER_INDICES = 1 << 18, 999_424
+GATHER_EDGE_INDICES = (1, 3, 4, 5)
 # The NGP encoding at the fine schedule (16 levels of 2^18 rows, lattices
-# 2^(4 + i//2)) on 2^20 points with unit-scale tables U(-1, 1).  The kernel
-# route shares the plain route's weighted sum, and its indices and weights
-# are bit-equal by design: the error measured on an H100 is 0, and the
-# bound admits a weight that differs in its last bit.  A wrong index (the
-# hash primes swapped; measured 1.97) must move the output by at least
-# SCAN_MARGIN times it.
+# 2^(4 + i//2)) on 2^20 points with unit-scale tables U(-1, 1), and at the
+# edges of the encode kernel's grid of (point, level pair) threads, 8 to a
+# warp's 32 lanes.  Indices and weights are bit-equal by design; the kernel
+# sums the 8 weighted corners in corner order and the plain version in
+# PyTorch's, so the two differ by rounding: 2.4e-7 measured on an H100, and
+# the bound is about four times that.  A wrong index (the hash primes
+# swapped; measured 1.97) must move the output by at least SCAN_MARGIN
+# times it.
 ENCODE_POINTS = 1 << 20
 FINE_LEVELS, COARSE_LEVELS = 16, 6
 ENCODE_BOUND = 1e-6
+ENCODE_EDGE_POINTS = (1, 31, 32, 33, ENCODE_POINTS - 37)
 # Mean density of the NGP checkpoint's fine field inside the ball (set
 # through the density head's bias): rays crossing the occupied ball reach
 # optical depth ~1-3.
@@ -375,9 +384,12 @@ def fine_schedule(levels):
 
 
 def check_hashgrid_kernels(device, rng):
-    """table_gather at pallas_gather's shape, then the corner kernel and the
-    whole encoding at the fine schedule, each against its plain version."""
+    """table_gather at pallas_gather's shape and at its edges, the corner
+    kernel at the fine schedule, then the all-level encode kernel at the
+    fine and coarse schedules, in smooth mode and at the edges of its
+    thread grid, each against its plain version."""
     from learn_nerf_tpu_torch.kernels import hashgrid as kh
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.kernels import table_gather as tg
     from learn_nerf_tpu_torch.ops import hashgrid as hg
 
@@ -390,6 +402,17 @@ def check_hashgrid_kernels(device, rng):
     torch.cuda.synchronize()
     err = max((out - table.index_select(0, idx)).abs().max().item(),
               (out - tg.table_gather_reference(table, idx)).abs().max().item())
+    # The edges: M not a multiple of anything, with a wrapped index (-1)
+    # and out-of-range ones (T, -T - 1), which give NaN rows.
+    for m in GATHER_EDGE_INDICES:
+        edge = rng.randint(0, GATHER_ROWS, m).astype(np.int32)
+        edge[: min(m, 3)] = [-1, GATHER_ROWS, -GATHER_ROWS - 1][: min(m, 3)]
+        edge = on_card(edge)
+        got, want = tg.table_gather_cuda(table, edge), tg.table_gather_reference(table, edge)
+        torch.cuda.synchronize()
+        require(torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)),
+                f"table_gather disagrees with its plain version at M = {m}")
     kernel, reference = (lambda: tg.table_gather_cuda(table, idx),
                          lambda: tg.table_gather_reference(table, idx))
     select = lambda: table.index_select(0, idx)
@@ -401,11 +424,12 @@ def check_hashgrid_kernels(device, rng):
     select_ms = graph_ms(select, 50)
     gather["bound_ms"], gather["bound_by"] = bound(nbytes(table, idx, out))
     gather["library_ms"] = select_ms  # index_select, the one PyTorch call for it
-    eager = [cuda_ms(fn, 50) for fn in (kernel, reference, select)]
-    print(f"table_gather [{GATHER_ROWS}, 2] x {GATHER_INDICES}: max abs err {err:.3e} (bound 0); "
-          f"device time per call (graph replay): kernel {gather['ms']:.4f} ms, plain "
-          f"{gather['plain_ms']:.4f} ms, index_select {select_ms:.4f} ms; back-to-back eager "
-          f"calls: {eager[0]:.4f} / {eager[1]:.4f} / {eager[2]:.4f} ms", flush=True)
+    eager = [cuda_ms(fn, 200) for fn in (kernel, reference, select)]
+    print(f"table_gather [{GATHER_ROWS}, 2] x {GATHER_INDICES}: max abs err {err:.3e} (bound 0), "
+          f"equal at M = {GATHER_EDGE_INDICES} with wrapped and NaN rows; device time per call "
+          f"(graph replay): kernel {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
+          f"index_select {select_ms:.4f} ms; back-to-back eager calls: {eager[0]:.4f} / "
+          f"{eager[1]:.4f} / {eager[2]:.4f} ms", flush=True)
     require(err == 0, "table_gather disagrees with index_select")
 
     grids, tables = fine_schedule(FINE_LEVELS)
@@ -428,13 +452,18 @@ def check_hashgrid_kernels(device, rng):
     )
     corners["bound_ms"], corners["bound_by"] = bound(nbytes(x, idx, w))
     del idx, w, ref_idx, ref_w
+    print(f"hashgrid_corners {FINE_LEVELS} levels x {ENCODE_POINTS} points: share of indices "
+          f"that differ {differ:.3e} (bound 0); max abs err of weights {corners['max_abs_err']:.3e} "
+          f"(bound 0); kernel {corners['ms']:.4f} ms, plain {corners['plain_ms']:.4f} ms", flush=True)
+    require(differ == 0 and corners["max_abs_err"] == 0, "hashgrid_corners disagrees with its plain version")
 
-    encode = lambda: hg.hash_grid_encode(values, x, grids, tables, bbox_min, bbox_max)
+    encode = lambda: ke.hashgrid_encode_cuda(values, x, grids, tables, bbox_min, bbox_max, False)
     plain = lambda: hg.hash_grid_encode_reference(values, x, grids, tables, bbox_min, bbox_max)
     out, ref = encode(), plain()
-    enc_err = (out - ref).abs().max().item()
+    torch.cuda.synchronize()
     require(torch.isfinite(out).all().item() and out.shape == (ENCODE_POINTS, 2 * FINE_LEVELS),
-            "the NGP encoding is not finite or has the wrong shape")
+            "the encode kernel's output is not finite or has the wrong shape")
+    errs = {f"fine, {ENCODE_POINTS} points": (out - ref).abs().max().item()}
     # The same plain encoding with the hash primes swapped: a wrong index.
     primes = hg.HASH_PRIME_Y, hg.HASH_PRIME_Z
     hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes[1], primes[0]
@@ -442,18 +471,60 @@ def check_hashgrid_kernels(device, rng):
         wrong_err = (plain() - ref).abs().max().item()
     finally:
         hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes
-    enc_ms, enc_plain_ms = cuda_ms(encode, 10), cuda_ms(plain, 3)
-    print(f"hashgrid_corners {FINE_LEVELS} levels x {ENCODE_POINTS} points: share of indices "
-          f"that differ {differ:.3e} (bound 0); max abs err of weights {corners['max_abs_err']:.3e} "
-          f"(bound 0); kernel {corners['ms']:.4f} ms, plain {corners['plain_ms']:.4f} ms", flush=True)
-    print(f"NGP encoding (corners + {FINE_LEVELS} gathers + sum) vs plain: max abs err "
-          f"{enc_err:.3e} (bound {ENCODE_BOUND:g}); swapped hash primes move it by "
-          f"{wrong_err:.3e}; kernel route {enc_ms:.3f} ms, plain {enc_plain_ms:.3f} ms", flush=True)
-    require(differ == 0 and corners["max_abs_err"] == 0, "hashgrid_corners disagrees with its plain version")
-    require(enc_err <= ENCODE_BOUND, "the NGP encoding's kernel route disagrees with the plain route")
+    del out, ref
+    errs.update(encode_cases(values, x, grids, tables, bbox_min, bbox_max, device, rng))
+    # Points along rays (128 samples 0.01 apart on each of 8192 rays), as a
+    # frame feeds them: neighbouring points share cells in the coarse levels.
+    origins = rng.uniform(-0.7, 0.7, (ENCODE_POINTS // 128, 1, 3))
+    dirs = rng.randn(ENCODE_POINTS // 128, 1, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    ray_x = on_card((origins + 0.01 * dirs * np.arange(128)[:, None]).reshape(-1, 3).astype(np.float32))
+    per_level = lambda: ke.hashgrid_encode_per_level(values, x, grids, tables, bbox_min, bbox_max, False)
+    enc = dict(
+        name="hashgrid_encode", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_encode.cu",
+        replaces="learn_nerf_tpu/ops/hashgrid.py:135 (XLA)", max_abs_err=max(errs.values()),
+        ms=cuda_ms(encode, 20), plain_ms=cuda_ms(plain, 3), library_ms=None,
+    )
+    route_ms = cuda_ms(per_level, 5)
+    ray_ms = cuda_ms(lambda: ke.hashgrid_encode_cuda(values, ray_x, grids, tables, bbox_min, bbox_max,
+                                                     False), 20)
+    out_bytes = ENCODE_POINTS * 2 * FINE_LEVELS * 4
+    enc["bound_ms"], enc["bound_by"] = bound(nbytes(x, *values) + out_bytes)
+    # What the kernel really pulls from L2: one 32-byte sector per corner row.
+    l2_gb = ENCODE_POINTS * FINE_LEVELS * 8 * 32 / 1e9
+    print(f"hashgrid_encode {FINE_LEVELS} levels x {ENCODE_POINTS} points: max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {ENCODE_BOUND:g}); swapped hash primes move the plain route by {wrong_err:.3e}; "
+          f"kernel {enc['ms']:.4f} ms ({ray_ms:.4f} ms on points along rays), plain "
+          f"{enc['plain_ms']:.4f} ms, the per-level route (corners + {FINE_LEVELS} table_gather + "
+          f"sums + cat) {route_ms:.4f} ms; L2 sectors of its corner rows {l2_gb:.2f} GB, "
+          f"{l2_gb / enc['ms']:.2f} TB/s", flush=True)
+    require(enc["max_abs_err"] <= ENCODE_BOUND, "the encode kernel disagrees with its plain version")
     require(wrong_err >= SCAN_MARGIN * ENCODE_BOUND,
             f"the encoding's bound {ENCODE_BOUND:g} would not catch a wrong hash index")
-    return [gather, corners]
+    require(enc["ms"] <= route_ms, "the encode kernel is slower than the per-level route")
+    return [gather, corners, enc]
+
+
+def encode_cases(values, x, grids, tables, bbox_min, bbox_max, device, rng):
+    """The encode kernel against its plain version at the coarse schedule,
+    in smooth mode and at the edges of its thread grid; ``{case: error}``."""
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    coarse = COARSE_LEVELS
+    cases = [(f"coarse, {len(x)} points", values[:coarse], x, grids[:coarse], tables[:coarse], False),
+             (f"smooth, {len(x)} points", values, x, grids, tables, True)]
+    cases += [(f"{n} points", values, x[-n:].contiguous(), grids, tables, False) for n in ENCODE_EDGE_POINTS]
+    errs = {}
+    for name, vals, pts, g, t, smooth in cases:
+        out = ke.hashgrid_encode_cuda(vals, pts, g, t, bbox_min, bbox_max, smooth)
+        torch.cuda.synchronize()
+        ref = hg.hash_grid_encode_reference(vals, pts, g, t, bbox_min, bbox_max, smooth)
+        require(out.shape == ref.shape and torch.isfinite(out).all().item(),
+                f"the encode kernel ({name}): wrong shape or non-finite values")
+        errs[name] = (out - ref).abs().max().item()
+    return errs
 
 
 def ngp_tree(rng, levels):
@@ -640,11 +711,12 @@ def serve_mode(root, name, mode, bf16):
     from learn_nerf_tpu_torch.kernels import fused_mlp as fm
     from learn_nerf_tpu_torch.kernels import fused_render as fr
     from learn_nerf_tpu_torch.kernels import hashgrid as kh
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.kernels import table_gather as tg
     from learn_nerf_tpu_torch.scripts import serve_nerf
 
     counters = dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
-                    hashgrid_corners=kh.counter)
+                    hashgrid_corners=kh.counter, hashgrid_encode=ke.counter)
     argv = mode_flags(root, mode, bf16) + ["--port", "0", str(root / "metadata.json")]
     server = serve_nerf.make_server(serve_nerf.argparser().parse_args(argv))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -728,8 +800,7 @@ def main():
     require(served["hierarchy"]["fused_mlp"][0] > 0, "hierarchy serving never launched fused_mlp")
     require(served["occupancy"]["fused_render"][0] > 0, "occupancy serving never launched fused_render")
     for name in NGP_MODES:
-        for kernel in ("table_gather", "hashgrid_corners"):
-            require(served[name][kernel][0] > 0, f"{name} serving never launched {kernel}")
+        require(served[name]["hashgrid_encode"][0] > 0, f"{name} serving never launched hashgrid_encode")
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

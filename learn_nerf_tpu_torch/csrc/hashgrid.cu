@@ -7,30 +7,23 @@
 //   learn_nerf_tpu/ops/hashgrid.py:43-99 (corner_weights_and_coords +
 //   level_indices).
 // For points x [N, 3] and L levels it writes idx [L, N, 8] int32 (the
-// table row of each cell corner: x-major dense index x + g*(y + g*z) when
-// g^3 <= T, else the hash x ^ (19349663*y) ^ (83492791*z) mod T in uint32
-// arithmetic) and w [L, N, 8] f32 (the corner's trilinear weight).  Corner
-// c has x = bit 2, y = bit 1, z = bit 0.
-//
-// Rounding: every f32 step is written with an _rn intrinsic so that nvcc
-// cannot contract a multiply and an add into an FMA.  An FMA would round
-// findex differently, which moves floor() at a cell face and changes the
-// corner by one; with these intrinsics the kernel's indices equal the
-// plain version's (one PyTorch op per step, each rounded).
+// table row of each cell corner) and w [L, N, 8] f32 (the corner's
+// trilinear weight), computed by the corner math of hashgrid.cuh, which the
+// all-level encode kernel (hashgrid_encode.cu) shares: indices bit-equal to
+// the plain version's.  The serving path runs the encode kernel, which
+// keeps indices and weights in registers; this kernel is for what needs
+// them in memory (the hash-grid backward).
 //
 // What bounds it on an H100: the stores.  Each (level, point) writes 64
 // bytes and reads 12; the arithmetic is a few dozen instructions.  Design:
 // one thread per (level, point), threads of a block on consecutive points
 // of one level, each writing its 8 indices and 8 weights as four 16-byte
 // stores, so a warp's stores cover contiguous memory.
-#include <cuda_runtime.h>
+#include "hashgrid.cuh"
 
 namespace nerf {
 
 constexpr int kCornerThreads = 256;
-constexpr int kMaxLevels = 32;
-constexpr unsigned int kPrimeY = 19349663u;
-constexpr unsigned int kPrimeZ = 83492791u;
 
 struct Levels {
   int grid[kMaxLevels];
@@ -38,53 +31,27 @@ struct Levels {
   int hashed[kMaxLevels];  // grid^3 > table
 };
 
-struct Bbox {
-  float lo[3];
-  float hi[3];
-};
-
 __global__ void __launch_bounds__(kCornerThreads)
     hashgrid_corners_kernel(const float* __restrict__ x, long long n, int levels,
-                            Levels lv, Bbox box, int smooth,
+                            const __grid_constant__ Levels lv,
+                            const __grid_constant__ Bbox box, int smooth,
                             int* __restrict__ idx, float* __restrict__ w) {
   const long long t = static_cast<long long>(blockIdx.x) * kCornerThreads + threadIdx.x;
   if (t >= n * levels) return;
   const int level = static_cast<int>(t / n);
   const long long p = t - static_cast<long long>(level) * n;
   const int g = lv.grid[level];
+  const float xp[3] = {__ldg(x + p * 3), __ldg(x + p * 3 + 1), __ldg(x + p * 3 + 2)};
+  const Cell cell = cell_of(xp, g, box, smooth != 0);
 
-  unsigned int base[3];
-  float cf[3];
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const float span = __fsub_rn(box.hi[a], box.lo[a]);
-    float frac = __fdiv_rn(__fsub_rn(__ldg(x + p * 3 + a), box.lo[a]), span);
-    frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-    const float findex = smooth ? __fadd_rn(0.5f, __fmul_rn(static_cast<float>(g - 2), frac))
-                                : __fmul_rn(static_cast<float>(g - 1), frac);
-    const float floored = fminf(floorf(findex), static_cast<float>(g - 2));
-    float c = __fsub_rn(findex, floored);
-    if (smooth) c = __fmul_rn(__fmul_rn(c, c), __fsub_rn(3.0f, __fmul_rn(2.0f, c)));
-    base[a] = static_cast<unsigned int>(floored);
-    cf[a] = c;
-  }
-
-  const unsigned int gu = static_cast<unsigned int>(g);
   const unsigned int table = lv.table[level];
   const bool hashed = lv.hashed[level] != 0;
   int rows[8];
   float weights[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const unsigned int bx = (c >> 2) & 1, by = (c >> 1) & 1, bz = c & 1;
-    const unsigned int cx = base[0] + bx, cy = base[1] + by, cz = base[2] + bz;
-    const unsigned int row = hashed ? (cx ^ (kPrimeY * cy) ^ (kPrimeZ * cz)) % table
-                                    : cx + gu * (cy + gu * cz);
-    rows[c] = static_cast<int>(row);
-    const float wx = bx ? cf[0] : __fsub_rn(1.0f, cf[0]);
-    const float wy = by ? cf[1] : __fsub_rn(1.0f, cf[1]);
-    const float wz = bz ? cf[2] : __fsub_rn(1.0f, cf[2]);
-    weights[c] = __fmul_rn(__fmul_rn(wx, wy), wz);
+    rows[c] = static_cast<int>(corner_row(cell, c, static_cast<unsigned int>(g), table, hashed));
+    weights[c] = corner_weight(cell, c);
   }
   int4* idx_out = reinterpret_cast<int4*>(idx + t * 8);
   idx_out[0] = make_int4(rows[0], rows[1], rows[2], rows[3]);

@@ -9,6 +9,7 @@ plain C interface and include no PyTorch header, so a build takes seconds.
 Kernels are compiled for ``sm_90a`` (Hopper) only, without fast math.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -131,27 +132,58 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         [ptr, i64, ptr, ptr, ptr, i32] + [ctypes.c_float] * 6 + [i32, ptr, ptr, ptr]
     )
     lib.nerf_hashgrid_corners.restype = i32
+    lib.nerf_hashgrid_encode.argtypes = [ptr, i64, ptr, ptr, ptr]
+    lib.nerf_hashgrid_encode.restype = i32
+    lib.nerf_hashgrid_encode_args_size.argtypes = []
+    lib.nerf_hashgrid_encode_args_size.restype = i32
     lib.nerf_error_string.argtypes = [i32]
     lib.nerf_error_string.restype = ctypes.c_char_p
     return lib
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed.  Once loaded, a
+    call takes no lock."""
     global _library
+    lib = _library
+    if lib is not None:
+        return lib
     with _lock:
         if _library is None:
             _library = _bind(ctypes.CDLL(str(build())))
         return _library
 
 
+_hopper_devices = set()
+
+
 def require_hopper(device: torch.device) -> None:
-    major, minor = torch.cuda.get_device_capability(device)
+    """Raise unless ``device`` is sm_90 (queried once per device)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index in _hopper_devices:
+        return
+    major, minor = torch.cuda.get_device_capability(index)
     if (major, minor) != (9, 0):
         raise RuntimeError(
             f"the kernels are built for sm_90a (Hopper); {device} is "
             f"sm_{major}{minor}"
         )
+    _hopper_devices.add(index)
+
+
+def launch_context(device: torch.device):
+    """A context that makes ``device`` current for a launch: none when it
+    already is, which is the usual case."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def current_stream(device: torch.device) -> int:
+    """PyTorch's current stream on ``device`` as a raw ``cudaStream_t``
+    (``torch.cuda.current_stream()`` builds a Stream object: several
+    microseconds a call, as long as a small kernel)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -308,10 +308,10 @@ def fused_mlp_cuda(packed: PackedMLP, x: Tensor, d: Tensor) -> Tensor:
         raise ValueError(f"x and d must both be [M, 3], got {x.shape}, {d.shape}")
     out = torch.empty((x.shape[0], 4), dtype=torch.float32, device=x.device)
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with build.launch_context(x.device):
         err = lib.nerf_fused_mlp(
             x.data_ptr(), d.data_ptr(), *kernel_args(packed), out.data_ptr(), x.shape[0],
-            *dims_args(packed), torch.cuda.current_stream().cuda_stream,
+            *dims_args(packed), build.current_stream(x.device),
         )
     build.check_launch(lib, err, "fused_mlp")
     counter.launches += 1

@@ -68,10 +68,10 @@ def fused_render_cuda(
         raise ValueError(f"the kernel takes 1 <= K <= {MAX_SAMPLES} samples per ray, got {k}")
     out = torch.empty((n, 4), dtype=torch.float32, device=points.device)
     lib = build.library()
-    with torch.cuda.device(points.device):
+    with build.launch_context(points.device):
         err = lib.nerf_fused_render(
             points.data_ptr(), dirs.data_ptr(), deltas.data_ptr(), *kernel_args(packed),
-            out.data_ptr(), n, k, *dims_args(packed), torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), n, k, *dims_args(packed), build.current_stream(points.device),
         )
     build.check_launch(lib, err, "fused_render")
     counter.launches += 1

@@ -11,7 +11,10 @@ operations round as the plain version's (no contracted multiply-adds), so
 its indices equal the plain version's.
 
 :func:`hashgrid_corners` runs the plain version for CPU tensors and the
-kernel for CUDA tensors, with no fallback between the two.
+kernel for CUDA tensors, with no fallback between the two.  Serving runs
+the all-level encode kernel (:mod:`.hashgrid_encode`), which shares this
+kernel's corner math (``csrc/hashgrid.cuh``) and keeps indices and weights
+in registers; this kernel is for what needs them in memory.
 """
 
 import ctypes
@@ -51,7 +54,16 @@ def hashgrid_corners_reference(
     return torch.stack(idx), torch.stack(w)
 
 
-def _bbox_floats(bbox) -> list:
+def check_level_sizes(grid_sizes: Sequence[int], table_sizes: Sequence[int]) -> None:
+    """Raise on level lists the kernels do not take."""
+    levels = len(grid_sizes)
+    if not 1 <= levels <= MAX_LEVELS or len(table_sizes) != levels:
+        raise ValueError(f"want 1 to {MAX_LEVELS} levels with one table size each")
+    if min(grid_sizes) < 2 or max(grid_sizes) >= 2**31 or not 1 <= min(table_sizes) <= max(table_sizes) < 2**31:
+        raise ValueError(f"grid sizes {list(grid_sizes)} / table sizes {list(table_sizes)} out of range")
+
+
+def bbox_floats(bbox) -> list:
     """Three floats of a bbox corner given as a tensor or a sequence (pass
     a sequence on the hot path: a CUDA tensor costs a device sync)."""
     values = [float(v) for v in (bbox.tolist() if isinstance(bbox, Tensor) else bbox)]
@@ -73,12 +85,9 @@ def hashgrid_corners_cuda(
         raise ValueError(f"want contiguous f32 points [N, 3]; got {x.dtype} {tuple(x.shape)}")
     if x.device.type != "cuda":
         raise ValueError(f"want points on a CUDA device; got {x.device}")
-    levels = len(grid_sizes)
-    if not 1 <= levels <= MAX_LEVELS or len(table_sizes) != levels:
-        raise ValueError(f"want 1 to {MAX_LEVELS} levels with one table size each")
-    if min(grid_sizes) < 2 or max(grid_sizes) >= 2**31 or not 1 <= min(table_sizes) <= max(table_sizes) < 2**31:
-        raise ValueError(f"grid sizes {list(grid_sizes)} / table sizes {list(table_sizes)} out of range")
+    check_level_sizes(grid_sizes, table_sizes)
     build.require_hopper(x.device)
+    levels = len(grid_sizes)
     n = x.shape[0]
     idx = torch.empty((levels, n, 8), dtype=torch.int32, device=x.device)
     w = torch.empty((levels, n, 8), dtype=torch.float32, device=x.device)
@@ -88,11 +97,11 @@ def hashgrid_corners_cuda(
     tables = (ctypes.c_int * levels)(*table_sizes)
     hashed = (ctypes.c_int * levels)(*(int(g**3 > t) for g, t in zip(grid_sizes, table_sizes)))
     lib = build.library()
-    with torch.cuda.device(x.device):
+    with build.launch_context(x.device):
         err = lib.nerf_hashgrid_corners(
             x.data_ptr(), n, grids, tables, hashed, levels,
-            *_bbox_floats(bbox_min), *_bbox_floats(bbox_max), int(bool(smooth)),
-            idx.data_ptr(), w.data_ptr(), torch.cuda.current_stream().cuda_stream,
+            *bbox_floats(bbox_min), *bbox_floats(bbox_max), int(bool(smooth)),
+            idx.data_ptr(), w.data_ptr(), build.current_stream(x.device),
         )
     build.check_launch(lib, err, "hashgrid_corners")
     counter.launches += 1

@@ -40,19 +40,22 @@ def table_gather_reference(table: Tensor, idx: Tensor) -> Tensor:
 
 
 def _check_operands(table: Tensor, idx: Tensor) -> None:
+    """Raise on what the kernel does not take (no check reads the device)."""
     if table.dtype != torch.float32 or idx.dtype != torch.int32:
         raise ValueError(f"want an f32 table and int32 indices; got {table.dtype}, {idx.dtype}")
-    if table.dim() != 2 or idx.dim() != 1:
-        raise ValueError(f"want table [T, C] and idx [M]; got {tuple(table.shape)}, {tuple(idx.shape)}")
-    if not 1 <= table.shape[1] <= MAX_COLUMNS:
-        raise ValueError(f"the kernel takes 1 <= C <= {MAX_COLUMNS} columns, got {table.shape[1]}")
+    if table.dim() != 2 or idx.dim() != 1 or not 1 <= table.shape[1] <= MAX_COLUMNS:
+        raise ValueError(
+            f"want table [T, C] with 1 <= C <= {MAX_COLUMNS} and idx [M]; "
+            f"got {tuple(table.shape)}, {tuple(idx.shape)}"
+        )
     if not (table.is_contiguous() and idx.is_contiguous()):
         raise ValueError("the kernel takes contiguous operands")
-    if table.device != idx.device or table.device.type != "cuda":
-        raise ValueError(f"want both operands on one CUDA device; got {table.device}, {idx.device}")
-    if table.data_ptr() % (4 * table.shape[1] if table.shape[1] in (2, 4) else 4):
+    device = table.device
+    if device.type != "cuda" or idx.device != device:
+        raise ValueError(f"want both operands on one CUDA device; got {device}, {idx.device}")
+    if table.shape[1] in (2, 4) and table.data_ptr() % (4 * table.shape[1]):
         raise ValueError("the table's rows must be aligned to their width (2 or 4 floats)")
-    build.require_hopper(table.device)
+    build.require_hopper(device)
 
 
 def table_gather_cuda(table: Tensor, idx: Tensor) -> Tensor:
@@ -63,10 +66,10 @@ def table_gather_cuda(table: Tensor, idx: Tensor) -> Tensor:
     if m == 0:
         return out
     lib = build.library()
-    with torch.cuda.device(table.device):
+    with build.launch_context(table.device):
         err = lib.nerf_table_gather(
             table.data_ptr(), table.shape[0], c, idx.data_ptr(), m, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
+            build.current_stream(table.device),
         )
     build.check_launch(lib, err, "table_gather")
     counter.launches += 1

@@ -15,14 +15,13 @@ and masks with ``& 0xFFFFFFFF``: the same wrap-around.  The
 clip, floor and ``min(floor, g-2)`` run in the JAX order, one f32 op at a
 time, so indices are bit-equal to the JAX package's.
 
-:func:`hash_grid_encode` runs, for all levels, the corner kernel
-(:mod:`..kernels.hashgrid`, ``idx``/``w`` ``[L, N, 8]`` in one launch),
-then one :mod:`..kernels.table_gather` per level, then the weighted sum as
-a plain tensor op.  For CPU tensors both wrappers run their plain
-versions; for CUDA tensors they launch their kernels.  The JAX package's
-``fuse_levels`` and level grouping are left out: per-level gathers give
-the same bits as its grouped default.  :func:`hash_grid_encode_reference`
-is the plain version of the whole chain, for tests.
+:func:`hash_grid_encode` runs :mod:`..kernels.hashgrid_encode`: for CUDA
+tensors one kernel launch for all levels (corners, gathers and weighted
+sums); for CPU tensors the plain route, level by level.  The JAX package's
+``fuse_levels`` is left out; the kernel computes corners once for each
+pair of levels of a level run (``_level_groups``), whose indices and
+weights are the same.  :func:`hash_grid_encode_reference` is the plain
+version of the whole encoding, for tests.
 """
 
 from typing import List, Sequence, Tuple
@@ -113,7 +112,7 @@ def check_levels(
             )
 
 
-def _interpolate(weights: Tensor, feats: Tensor) -> Tensor:
+def interpolate(weights: Tensor, feats: Tensor) -> Tensor:
     """``[N, 8]`` weights x ``[N, 8, F]`` corner features -> ``[N, F]``."""
     return (weights[..., None] * feats).sum(dim=-2)
 
@@ -139,18 +138,12 @@ def hash_grid_encode(
     :param smooth: C1 interpolation mode.
     :return: ``[..., L * F]`` features (f32).
     """
-    from ..kernels.hashgrid import hashgrid_corners
-    from ..kernels.table_gather import table_gather
+    from ..kernels.hashgrid_encode import hashgrid_encode
 
     check_levels(tables, grid_sizes, table_sizes)
     lead = x.shape[:-1]
-    flat = x.reshape(-1, 3)
-    idx, w = hashgrid_corners(flat, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
-    outs: List[Tensor] = []
-    for level, table in enumerate(tables):
-        feats = table_gather(table, idx[level].reshape(-1)).view(flat.shape[0], 8, -1)
-        outs.append(_interpolate(w[level], feats))
-    return torch.cat(outs, dim=-1).reshape(*lead, -1)
+    out = hashgrid_encode(tables, x.reshape(-1, 3), grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
+    return out.reshape(*lead, out.shape[-1])
 
 
 def hash_grid_encode_reference(
@@ -171,6 +164,7 @@ def hash_grid_encode_reference(
     for table, g, t in zip(tables, grid_sizes, table_sizes):
         coords, weights = corner_weights_and_coords(flat, g, bbox_min, bbox_max, smooth)
         idx = level_indices(coords, g, t)  # [N, 8]
-        feats = table.index_select(0, idx.reshape(-1)).view(flat.shape[0], 8, -1)
-        outs.append(_interpolate(weights, feats))
-    return torch.cat(outs, dim=-1).reshape(*lead, -1)
+        feats = table.index_select(0, idx.reshape(-1)).view(flat.shape[0], 8, table.shape[1])
+        outs.append(interpolate(weights, feats))
+    out = torch.cat(outs, dim=-1)
+    return out.reshape(*lead, out.shape[-1])

@@ -70,15 +70,16 @@ VARIANTS = {
 }
 
 
-def build_variants(names):
-    """Compile each variant's sources into its own library, in parallel."""
+def build_variants(names, variants=VARIANTS):
+    """Compile each variant's sources into its own library, in parallel
+    (``variants``: name -> [(file, old text, new text)])."""
     root = build.BUILD_DIR / "ablations"
     procs = {}
     for name in names:
         out = root / name.replace(" ", "_")
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(build.CSRC_DIR, out)
-        for file, old, new in VARIANTS[name]:
+        for file, old, new in variants[name]:
             text = (out / file).read_text()
             if old not in text:
                 raise RuntimeError(f"variant {name!r}: {old!r} is not in {file}")

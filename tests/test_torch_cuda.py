@@ -8,9 +8,13 @@ differ from theirs only in the order of f32 sums, which can flip a bf16
 rounding: atol 2e-3 at these small sizes, and chip_smoke.py's full-size
 bounds (5e-3, 5e-4) where a run covers many tiles of the persistent grid.
 Their edge cases are the ragged last tile (M around the 128-row tile) and
-rays that do not fill the last tile.  The hash-grid kernels move and index without summing:
-table_gather equals ``index_select`` exactly (NaN rows included), and the
-corner kernel's indices and weights equal its plain version's.
+rays that do not fill the last tile.  The hash-grid kernels: table_gather
+equals ``index_select`` exactly (NaN rows included); the corner kernel's
+indices and weights equal its plain version's; the all-level encode kernel
+sums the 8 weighted corners in another order than the plain version, so
+it is held to 1e-6 (chip_smoke.py's bound) with F = 1, 2, 4, dense and
+hashed levels, plain and smooth mode, tables without whole row pairs, and
+at the edges of its thread grid (N = 0 launches nothing).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ import torch
 from learn_nerf_tpu_torch.kernels import fused_mlp as fm
 from learn_nerf_tpu_torch.kernels import fused_render as fr
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
+from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
 from learn_nerf_tpu_torch.kernels import table_gather as tg
 from learn_nerf_tpu_torch.ops import hashgrid
 from learn_nerf_tpu_torch.scripts.common import default_device
@@ -156,3 +161,90 @@ def test_hash_grid_encode_kernel_route_matches_plain(cuda):
     out = hashgrid.hash_grid_encode(values, x, grids, tables, (-1.0,) * 3, (1.0,) * 3)
     ref = hashgrid.hash_grid_encode_reference(values, x, grids, tables, (-1.0,) * 3, (1.0,) * 3)
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+ENCODE_GRIDS = [16, 16, 32, 32, 64, 64, 128, 128, 512, 512, 2048, 2048]  # dense, then hashed
+BMIN, BMAX = (-0.7, -0.4, -1.1), (0.7, 1.0, 0.2)
+
+
+def _encode_inputs(cuda, grids, sizes, features, n, seed):
+    rng = np.random.RandomState(seed)
+    values = [t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), features)).astype(np.float32)).to(cuda)
+              for g, s in zip(grids, sizes)]
+    x = rng.uniform(-1.3, 1.3, (n, 3)).astype(np.float32)  # some outside the bbox
+    return values, t(x).to(cuda)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("features", [1, 2, 4])
+def test_hashgrid_encode_kernel_matches_plain_version(cuda, features, smooth):
+    sizes = [2**18] * len(ENCODE_GRIDS)
+    values, x = _encode_inputs(cuda, ENCODE_GRIDS, sizes, features, 20_000, features)
+    launches = ke.counter.launches
+    out = ke.hashgrid_encode(values, x, ENCODE_GRIDS, sizes, BMIN, BMAX, smooth)
+    torch.cuda.synchronize()
+    assert ke.counter.launches == launches + 1
+    ref = hashgrid.hash_grid_encode_reference(values, x, ENCODE_GRIDS, sizes, BMIN, BMAX, smooth)
+    assert out.shape == (20_000, len(ENCODE_GRIDS) * features)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 4099])
+def test_hashgrid_encode_kernel_at_the_edges_of_its_grid(cuda, n):
+    grids = [2 ** (4 + i // 2) for i in range(16)]
+    sizes = [2**18] * 16
+    values, x = _encode_inputs(cuda, grids, sizes, 2, n, n)
+    launches = ke.counter.launches
+    out = ke.hashgrid_encode_cuda(values, x, grids, sizes, BMIN, BMAX, False)
+    torch.cuda.synchronize()
+    assert out.shape == (n, 32) and ke.counter.launches == launches + (n > 0)
+    if n:
+        ref = hashgrid.hash_grid_encode_reference(values, x, grids, sizes, BMIN, BMAX)
+        torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("features", [1, 2])
+def test_hashgrid_encode_kernel_on_tables_without_row_pairs(cuda, features):
+    # 5^3 = 125 dense rows and a hashed table of 1001 rows (odd counts: no
+    # pair read as one vector), then a level of whole pairs; a mixed run.
+    grids, sizes = [5, 64, 64, 64], [4096, 1001, 2**18, 2**18]
+    values, x = _encode_inputs(cuda, grids, sizes, features, 5000, 7)
+    out = ke.hashgrid_encode_cuda(values, x, grids, sizes, BMIN, BMAX, False)
+    torch.cuda.synchronize()
+    ref = hashgrid.hash_grid_encode_reference(values, x, grids, sizes, BMIN, BMAX)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [1, 3, 5, 7, 1001])
+def test_table_gather_at_lengths_and_offsets_of_every_kind(cuda, m):
+    rng = np.random.RandomState(m)
+    rows = 2**12
+    table = t(rng.uniform(-1, 1, (rows, 2)).astype(np.float32)).to(cuda)
+    raw = rng.randint(0, rows, m + 1).astype(np.int32)
+    raw[1: min(m, 3) + 1] = [-1, rows, -rows - 1][: min(m, 3)]
+    idx = t(raw).to(cuda)[1:]  # a view 4 bytes into its storage
+    out = tg.table_gather(table, idx)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tg.table_gather_reference(table, idx), rtol=0, atol=0, equal_nan=True)
+
+
+def test_hash_grid_wrappers_refuse_what_their_kernels_do_not_take(cuda):
+    grids, sizes = [16, 16], [2**18] * 2
+    values, x = _encode_inputs(cuda, grids, sizes, 2, 10, 0)
+    with pytest.raises(ValueError, match="1 <= F <= 4"):
+        ke.hashgrid_encode_cuda([torch.zeros((4096, 5), device=cuda)] * 2, x, grids, sizes, BMIN, BMAX, False)
+    with pytest.raises(ValueError, match="f32 table"):
+        ke.hashgrid_encode_cuda([values[0], values[1].double()], x, grids, sizes, BMIN, BMAX, False)
+    misaligned = torch.zeros(4096 * 2 + 2, device=cuda)[2:].view(4096, 2)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        ke.hashgrid_encode_cuda([values[0], misaligned], x, grids, sizes, BMIN, BMAX, False)
+    with pytest.raises(ValueError, match="1 to 32 levels"):
+        ke.hashgrid_encode_cuda([values[0]] * 33, x, [16] * 33, [2**18] * 33, BMIN, BMAX, False)
+    with pytest.raises(ValueError, match="contiguous f32 points"):
+        ke.hashgrid_encode_cuda(values, x.double(), grids, sizes, BMIN, BMAX, False)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ke.hashgrid_encode_cuda(values, x.cpu(), grids, sizes, BMIN, BMAX, False)
+    with pytest.raises(ValueError, match="1 <= C <= 4"):
+        tg.table_gather_cuda(torch.zeros((8, 5), device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="int32 indices"):
+        tg.table_gather_cuda(values[0], torch.zeros(3, dtype=torch.int64, device=cuda))
