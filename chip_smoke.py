@@ -70,6 +70,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from learn_nerf_tpu_torch.scripts.timing import cuda_ms, graph_ms
+
 SEED = 0
 MLP_POINTS = 1 << 20
 RENDER_RAYS, RENDER_SAMPLES = 8192, 32
@@ -152,43 +154,6 @@ def card_line():
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps):
-    fn()  # warm up
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps):
-    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
-    graph and replayed, so no host work sits between the launches (for
-    kernels of a few microseconds, where back-to-back eager calls time the
-    host's enqueue instead)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm up outside the capture
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    del graph
-    return start.elapsed_time(end) / reps
 
 
 def bound(nbytes, flops=0.0, f32_ops=0.0):
@@ -479,7 +444,15 @@ def check_hashgrid_kernels(device, rng):
     dirs = rng.randn(ENCODE_POINTS // 128, 1, 3)
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
     ray_x = on_card((origins + 0.01 * dirs * np.arange(128)[:, None]).reshape(-1, 3).astype(np.float32))
-    per_level = lambda: ke.hashgrid_encode_per_level(values, x, grids, tables, bbox_min, bbox_max, False)
+
+    def per_level():
+        # The route the encode kernel replaced, from the kernels that remain:
+        # corners, one table_gather per level, the weighted sums and cat.
+        idx, w = kh.hashgrid_corners_cuda(x, grids, tables, bbox_min, bbox_max, False)
+        return torch.cat([hg.interpolate(w[level], tg.table_gather_cuda(v, idx[level].reshape(-1))
+                                         .view(len(x), 8, v.shape[1]))
+                          for level, v in enumerate(values)], dim=-1)
+
     enc = dict(
         name="hashgrid_encode", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_encode.cu",
         replaces="learn_nerf_tpu/ops/hashgrid.py:135 (XLA)", max_abs_err=max(errs.values()),

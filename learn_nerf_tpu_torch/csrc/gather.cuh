@@ -1,30 +1,19 @@
-// The gather core shared by table_gather.cu and hashgrid_encode.cu: table
-// rows read with an L2 policy that keeps them, and streaming loads and
-// stores for what passes through once.
+// The gather core shared by table_gather.cu and hashgrid_encode.cu: one
+// table row read as one vector, and W floats stored with the widest
+// aligned stores.
 //
 // Both kernels read f32 feature tables of C = 1..4 columns at random rows.
-// A table is read many times per launch (one NGP level is 2 MB, all 16
-// fine levels 25.8 MB, inside the H100's 50 MB L2), while the points,
-// indices and outputs stream through once.  So table rows are loaded
-// through the read-only path with an L2::evict_last cache policy
-// (createpolicy + ld.global.nc.L2::cache_hint), and the encode kernel's
-// points and outputs with the streaming (.cs) loads and stores, which L2
-// evicts first.  On an H100 the policy measured no gain at these sizes
-// (the tables stay in L2 without it), the streaming accesses about 1 % on
-// the encode kernel and a few percent lost on table_gather, which
-// therefore loads and stores plainly (scripts/hashgrid_ablations.py).
+// Rows are read through the read-only path (__ldg), so rows that share a
+// sector are one L2 read.  An L2 evict_last policy on the table reads and
+// streaming (.cs) accesses for what passes through once measured within
+// 1 % on an H100 at these sizes (the tables stay in the 50 MB L2 without
+// them) and were taken out.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cstdint>
 
 namespace nerf {
-
-__device__ __forceinline__ uint64_t l2_evict_last() {
-  uint64_t policy;
-  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
-  return policy;
-}
 
 template <int C>
 struct Row {
@@ -34,46 +23,32 @@ struct Row {
 // Row `row` of a [T, C] table (C = 2 and 4 read as one vector: the caller
 // checks the table is aligned to its row width).
 template <int C>
-__device__ __forceinline__ Row<C> load_row(const float* __restrict__ table, unsigned long long row,
-                                           uint64_t policy) {
+__device__ __forceinline__ Row<C> load_row(const float* __restrict__ table, unsigned long long row) {
   Row<C> r;
   const float* p = table + row * C;
   if constexpr (C == 4) {
-    asm("ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
-        : "=f"(r.v[0]), "=f"(r.v[1]), "=f"(r.v[2]), "=f"(r.v[3])
-        : "l"(p), "l"(policy));
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    r.v[0] = q.x, r.v[1] = q.y, r.v[2] = q.z, r.v[3] = q.w;
   } else if constexpr (C == 2) {
-    asm("ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
-        : "=f"(r.v[0]), "=f"(r.v[1])
-        : "l"(p), "l"(policy));
+    const float2 q = __ldg(reinterpret_cast<const float2*>(p));
+    r.v[0] = q.x, r.v[1] = q.y;
   } else {
 #pragma unroll
-    for (int c = 0; c < C; ++c) {
-      asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(r.v[c]) : "l"(p + c), "l"(policy));
-    }
+    for (int c = 0; c < C; ++c) r.v[c] = __ldg(p + c);
   }
   return r;
 }
 
-template <bool kStream, typename T>
-__device__ __forceinline__ void store(T* p, T v) {
-  if constexpr (kStream) {
-    __stcs(p, v);
-  } else {
-    *p = v;
-  }
-}
-
-// W consecutive floats to dst, as streaming (.cs) stores when kStream:
-// 16-byte stores where dst is 16-byte aligned, else 8-byte, else 4-byte.
-template <int W, bool kStream>
+// W consecutive floats to dst: 16-byte stores where dst is 16-byte
+// aligned, else 8-byte, else 4-byte.
+template <int W>
 __device__ __forceinline__ void store_floats(float* __restrict__ dst, const float (&v)[W]) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(dst);
   if constexpr (W % 4 == 0) {
     if ((a & 15) == 0) {
 #pragma unroll
       for (int k = 0; k < W; k += 4) {
-        store<kStream>(reinterpret_cast<float4*>(dst + k), make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]));
+        *reinterpret_cast<float4*>(dst + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
       }
       return;
     }
@@ -81,14 +56,12 @@ __device__ __forceinline__ void store_floats(float* __restrict__ dst, const floa
   if constexpr (W % 2 == 0) {
     if ((a & 7) == 0) {
 #pragma unroll
-      for (int k = 0; k < W; k += 2) {
-        store<kStream>(reinterpret_cast<float2*>(dst + k), make_float2(v[k], v[k + 1]));
-      }
+      for (int k = 0; k < W; k += 2) *reinterpret_cast<float2*>(dst + k) = make_float2(v[k], v[k + 1]);
       return;
     }
   }
 #pragma unroll
-  for (int k = 0; k < W; ++k) store<kStream>(dst + k, v[k]);
+  for (int k = 0; k < W; ++k) dst[k] = v[k];
 }
 
 }  // namespace nerf

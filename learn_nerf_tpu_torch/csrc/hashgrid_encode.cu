@@ -28,8 +28,8 @@
 //   a quarter of the row loads and a third of the kernel's time on an
 //   H100 (PERF.md, section 6);
 // - rows are read through the read-only path (rows that share a sector
-//   are one L2 read) with an L2 evict_last policy, so the tables stay in
-//   L2 while x and out stream through (.cs loads and stores);
+//   are one L2 read); the tables (25.8 MB at the fine schedule) stay in
+//   the 50 MB L2 with no cache hint;
 // - one thread per (point, item), items of a point on consecutive threads,
 //   so a warp writes a contiguous run of out (16 bytes a thread at F = 2);
 // - the per-level parameters and table pointers come by value in one
@@ -66,32 +66,32 @@ struct EncodeArgs {
 template <int F>
 __device__ __forceinline__ void load_corners(const float* __restrict__ table,
                                              const unsigned int (&rows)[8], bool paired,
-                                             uint64_t policy, Row<F> (&v)[8]) {
+                                             Row<F> (&v)[8]) {
   if constexpr (F <= 2) {
     if (paired) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const unsigned int r0 = rows[c], r1 = rows[c + 4];
-        const Row<2 * F> pair = load_row<2 * F>(table, r0 >> 1, policy);
+        const Row<2 * F> pair = load_row<2 * F>(table, r0 >> 1);
 #pragma unroll
         for (int f = 0; f < F; ++f) v[c].v[f] = (r0 & 1) ? pair.v[F + f] : pair.v[f];
         if ((r0 >> 1) == (r1 >> 1)) {
 #pragma unroll
           for (int f = 0; f < F; ++f) v[c + 4].v[f] = (r1 & 1) ? pair.v[F + f] : pair.v[f];
         } else {
-          v[c + 4] = load_row<F>(table, r1, policy);
+          v[c + 4] = load_row<F>(table, r1);
         }
       }
       return;
     }
   }
 #pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = load_row<F>(table, rows[c], policy);
+  for (int c = 0; c < 8; ++c) v[c] = load_row<F>(table, rows[c]);
 }
 
 template <int F, int K>
 __device__ __forceinline__ void encode_item(const float (&x)[3], const EncodeArgs& a, int l0,
-                                            float* __restrict__ dst, uint64_t policy) {
+                                            float* __restrict__ dst) {
   const int g = a.grid[l0];
   const Cell cell = cell_of(x, g, a.box, a.smooth != 0);
   const unsigned int size = a.size[l0];
@@ -105,7 +105,7 @@ __device__ __forceinline__ void encode_item(const float (&x)[3], const EncodeArg
   }
   Row<F> v[K][8];
 #pragma unroll
-  for (int k = 0; k < K; ++k) load_corners<F>(a.table[l0 + k], rows, a.paired[l0 + k] != 0, policy, v[k]);
+  for (int k = 0; k < K; ++k) load_corners<F>(a.table[l0 + k], rows, a.paired[l0 + k] != 0, v[k]);
   float out[K * F];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -117,7 +117,7 @@ __device__ __forceinline__ void encode_item(const float (&x)[3], const EncodeArg
       out[k * F + f] = acc;
     }
   }
-  store_floats<K * F, true>(dst, out);
+  store_floats<K * F>(dst, out);
 }
 
 template <int F>
@@ -129,15 +129,14 @@ __global__ void __launch_bounds__(kEncodeThreads)
   const unsigned int items = static_cast<unsigned int>(a.items);
   const unsigned int p = t / items;
   const int item = static_cast<int>(t - p * items);
-  const uint64_t policy = l2_evict_last();
   const float* xp = x + 3ull * p;
-  const float point[3] = {__ldcs(xp), __ldcs(xp + 1), __ldcs(xp + 2)};
+  const float point[3] = {xp[0], xp[1], xp[2]};
   const int l0 = a.item_level[item];
   float* dst = out + static_cast<unsigned long long>(p) * (a.levels * F) + l0 * F;
   if (a.item_levels[item] == kLevelsPerItem) {
-    encode_item<F, kLevelsPerItem>(point, a, l0, dst, policy);
+    encode_item<F, kLevelsPerItem>(point, a, l0, dst);
   } else {
-    encode_item<F, 1>(point, a, l0, dst, policy);
+    encode_item<F, 1>(point, a, l0, dst);
   }
 }
 

@@ -15,17 +15,33 @@
 // L1 requests.  The TPU kernel keeps the whole table in VMEM; here the
 // table stays in device memory and the kernel relies on the 50 MB L2 to
 // hold it (shared memory, 227 KB a block, holds no level above 2^14 rows).
-// Design: one thread per index, so blocks at different stages overlap;
-// rows read by the gather core of gather.cuh (the read-only path, an L2
-// evict_last policy), indices and outputs loaded and stored plainly.  Measured on an H100 and slower:
-// four indices per thread from one 16-byte index load (so four rows in
-// flight), two per thread, and a grid of a few blocks per SM striding over
-// quads with the next indices loaded ahead (PERF.md, section 6).
+// Design: one thread per index, so blocks at different stages overlap,
+// rows read by the gather core of gather.cuh.  On an H100 no other layout
+// measured faster (scripts/hashgrid_ablations.py; PERF.md, section 6):
+// four or two consecutive indices per thread from one int4 or int2 load,
+// four indices per thread strided across the block, and a grid of 8
+// blocks per SM striding over single indices (the next one loaded ahead)
+// or over those blocks of four.
 #include "gather.cuh"
 
 namespace nerf {
 
 constexpr int kGatherThreads = 256;
+
+// Table row `row` as jnp.take reads it: wrapped if in [-T, -1], NaN if
+// outside [-T, T).
+template <int C>
+__device__ __forceinline__ Row<C> take_row(const float* __restrict__ table, long long rows, long long row) {
+  if (row < 0) row += rows;
+  Row<C> r;
+  if (row >= 0 && row < rows) {
+    r = load_row<C>(table, static_cast<unsigned long long>(row));
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) r.v[c] = __int_as_float(0x7fc00000);  // quiet NaN
+  }
+  return r;
+}
 
 template <int C>
 __global__ void __launch_bounds__(kGatherThreads)
@@ -34,16 +50,7 @@ __global__ void __launch_bounds__(kGatherThreads)
                         float* __restrict__ out) {
   const long long i = static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
   if (i >= m) return;
-  long long row = __ldg(idx + i);
-  if (row < 0) row += rows;
-  Row<C> r;
-  if (row >= 0 && row < rows) {
-    r = load_row<C>(table, static_cast<unsigned long long>(row), l2_evict_last());
-  } else {
-#pragma unroll
-    for (int c = 0; c < C; ++c) r.v[c] = __int_as_float(0x7fc00000);  // quiet NaN
-  }
-  store_floats<C, false>(out + i * C, r.v);
+  store_floats<C>(out + i * C, take_row<C>(table, rows, __ldg(idx + i)).v);
 }
 
 template <int C>

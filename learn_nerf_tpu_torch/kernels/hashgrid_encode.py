@@ -14,12 +14,12 @@ consecutive levels of equal grid and table size share corners and weights),
 cut into pieces of at most two levels.  :func:`pack_args` packs the levels,
 the items and the table pointers into :class:`EncodeArgs`, the struct the
 kernel takes by value; :func:`hashgrid_encode_cuda` packs it once per
-model, keyed on the tables' data pointers (a table moved elsewhere packs
-anew, with its checks), so a call builds no ctypes arrays.
+model, keyed on the tables' data pointers, dtypes, shapes and strides (a
+table moved or changed packs anew, with its checks), so a call builds no
+ctypes arrays.
 
-:func:`hashgrid_encode` runs the plain route for CPU tensors
-(:func:`hashgrid_encode_per_level`: the corner kernel's plain version, one
-table gather per level, the weighted sum and the concatenation) and the
+:func:`hashgrid_encode` runs the plain version for CPU tensors
+(``ops.hashgrid.hash_grid_encode_reference``, level by level) and the
 kernel for CUDA tensors, with no fallback between the two.
 """
 
@@ -28,10 +28,10 @@ from typing import Dict, List, Sequence, Tuple
 
 import torch
 
-from ..ops.hashgrid import check_levels, interpolate
+from ..ops.hashgrid import check_levels, hash_grid_encode_reference
 from . import build
-from .hashgrid import MAX_LEVELS, bbox_floats, check_level_sizes, hashgrid_corners
-from .table_gather import MAX_COLUMNS, table_gather
+from .hashgrid import MAX_LEVELS, bbox_floats, check_level_sizes
+from .table_gather import MAX_COLUMNS
 
 Tensor = torch.Tensor
 
@@ -142,6 +142,17 @@ _args_cache: Dict[tuple, EncodeArgs] = {}
 _ARGS_CACHE_SIZE = 16
 
 
+def args_key(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth) -> tuple:
+    """What a packed argument is cached on: everything its checks read,
+    since the caching allocator hands a freed table's address to the next
+    tensor."""
+    return (
+        device, tuple((v.data_ptr(), v.dtype, v.shape, v.stride(), v.device) for v in tables),
+        tuple(grid_sizes), tuple(table_sizes), tuple(bbox_floats(bbox_min)),
+        tuple(bbox_floats(bbox_max)), bool(smooth),
+    )
+
+
 def hashgrid_encode_cuda(
     tables: Sequence[Tensor],
     x: Tensor,
@@ -161,10 +172,7 @@ def hashgrid_encode_cuda(
     device = x.device
     if device.type != "cuda":
         raise ValueError(f"want points on a CUDA device; got {device}")
-    key = (
-        device, tuple(map(Tensor.data_ptr, tables)), tables[0].shape[-1], tuple(grid_sizes),
-        tuple(table_sizes), tuple(bbox_floats(bbox_min)), tuple(bbox_floats(bbox_max)), bool(smooth),
-    )
+    key = args_key(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
     args = _args_cache.get(key)
     if args is None:
         args = _new_args(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
@@ -199,28 +207,6 @@ def _new_args(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smoot
     return args
 
 
-def hashgrid_encode_per_level(
-    tables: Sequence[Tensor],
-    x: Tensor,
-    grid_sizes: Sequence[int],
-    table_sizes: Sequence[int],
-    bbox_min,
-    bbox_max,
-    smooth: bool,
-) -> Tensor:
-    """The encoding level by level from the other two kernels' wrappers: the
-    corner rows and weights of all levels, one table gather per level, then
-    the weighted sum and the concatenation as plain ops.  Plain versions
-    throughout for CPU tensors; on CUDA tensors it launches 1 + L kernels
-    and 2L + 1 plain ops (the route before the encode kernel)."""
-    idx, w = hashgrid_corners(x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
-    outs = [
-        interpolate(w[level], table_gather(table, idx[level].reshape(-1)).view(x.shape[0], 8, table.shape[1]))
-        for level, table in enumerate(tables)
-    ]
-    return torch.cat(outs, dim=-1)
-
-
 def hashgrid_encode(
     tables: Sequence[Tensor],
     x: Tensor,
@@ -234,5 +220,5 @@ def hashgrid_encode(
     x = x.float().contiguous()
     if x.device.type == "cpu":
         counter.plain_calls += 1
-        return hashgrid_encode_per_level(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
+        return hash_grid_encode_reference(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
     return hashgrid_encode_cuda(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)

@@ -1,24 +1,32 @@
 """Where the hash-grid kernels spend their time, by ablation, on the card.
 
-Builds variants of ``csrc/`` with one part of the design taken out, and
-times each beside the kernels as built, in turns, twice: the encode kernel
-on 2^20 points at the 16-level fine schedule (F = 2), on uniform random
-points and on points along rays (8192 rays of 128 samples 0.01 apart, as a
-frame feeds it), and table_gather at ``pallas_gather``'s [2^18, 2] x
-999,424 by CUDA-graph replay.  Each variant computes the same result:
+Builds variants of ``csrc/`` with one part of the design taken out or
+changed, and times each beside the kernels as built, in turns: the encode
+kernel on 2^20 points at the 16-level fine schedule (F = 2), on uniform
+random points and on points along rays (8192 rays of 128 samples 0.01
+apart, as a frame feeds it), and table_gather at ``pallas_gather``'s
+[2^18, 2] x 999,424 by CUDA-graph replay.  Each variant computes the same
+result:
 
 * ``no pair loads``: the encode kernel reads each corner's row alone,
   never a pair of neighbouring rows as one vector;
 * ``single-level items``: one work item per level, so level pairs compute
   their corners twice (the argument is packed with items of one level);
-* ``no cache hints``: table rows read without the L2 evict_last policy;
-* ``no streaming``: x, indices and outputs read and written without the
-  streaming (.cs) hints.
+* ``gather four per thread``: table_gather takes four consecutive indices
+  per thread from one 16-byte index load (four rows in flight) and stores
+  their rows as one run;
+* ``gather two per thread``: likewise with two indices and an 8-byte load;
+* ``gather four strided``: four indices per thread, 256 apart, so every
+  index load and row store of a warp stays one coalesced run;
+* ``gather card-sized grid``: 8 blocks per SM, one index per thread and
+  step, striding over the indices with the next index loaded ahead;
+* ``gather card-sized grid, four strided``: the same grid striding over
+  blocks of four strided indices per thread.
 
 Prints one JSON line per variant and turn, then the card's name and power
 limit.  The variants build into ``learn_nerf_tpu_torch/_build/ablations/``.
 
-    python -m learn_nerf_tpu_torch.scripts.hashgrid_ablations [variant ...]
+    python -m learn_nerf_tpu_torch.scripts.hashgrid_ablations [--turns N] [variant ...]
 """
 
 import argparse
@@ -32,55 +40,105 @@ from ..kernels import build
 from ..kernels import hashgrid_encode as ke
 from ..kernels import table_gather as tg
 from ..ops.hashgrid import dense_level_rows
-from .mlp_ablations import build_variants, cuda_ms
+from .mlp_ablations import build_variants
+from .timing import cuda_ms, graph_ms
 
-HINTED_LOADS = [
-    '"ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"',
-    '"ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"',
-    '"ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"',
-]
+# table_gather_kernel's body and grid as built, and the layouts put in
+# their place.
+GATHER_BODY = """\
+  const long long i = static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
+  if (i >= m) return;
+  store_floats<C>(out + i * C, take_row<C>(table, rows, __ldg(idx + i)).v);
+"""
+GATHER_GRID = """\
+  const unsigned int blocks = static_cast<unsigned int>((m + kGatherThreads - 1) / kGatherThreads);
+"""
+# K consecutive indices from one K*4-byte load, their rows stored as one run.
+CONSECUTIVE = """\
+  const long long i = {k}ll * (static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x);
+  if (i + {k} <= m) {{
+    const {vec} q = __ldg(reinterpret_cast<const {vec}*>(idx + i));
+    const int j[4] = {{q.x, q.y, {zw}}};
+    Row<C> r[{k}];
+#pragma unroll
+    for (int k = 0; k < {k}; ++k) r[k] = take_row<C>(table, rows, j[k]);
+    float v[{k} * C];
+#pragma unroll
+    for (int k = 0; k < {k} * C; ++k) v[k] = r[k / C].v[k % C];
+    store_floats<{k} * C>(out + i * C, v);
+  }} else {{
+    for (long long j = i; j < m; ++j) store_floats<C>(out + j * C, take_row<C>(table, rows, __ldg(idx + j)).v);
+  }}
+"""
+# Four indices per thread, kGatherThreads apart, from `base` on.
+STRIDED = """\
+    int q[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long j = base + k * kGatherThreads;
+      q[k] = j < m ? __ldg(idx + j) : 0;
+    }
+    Row<C> r[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) r[k] = take_row<C>(table, rows, q[k]);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long j = base + k * kGatherThreads;
+      if (j < m) store_floats<C>(out + j * C, r[k].v);
+    }
+"""
+QUAD_GRID = GATHER_GRID.replace("(m + kGatherThreads - 1) / kGatherThreads",
+                                "(m + 4 * kGatherThreads - 1) / (4 * kGatherThreads)")
+# At most 8 blocks of 256 threads per SM: one wave of the card.
+CARD_GRID = """\
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long want = (m + {per_block} - 1) / ({per_block});
+  const unsigned int blocks = static_cast<unsigned int>(want < 8ll * sms ? want : 8ll * sms);
+"""
+GRID_STRIDE = """\
+  const long long stride = static_cast<long long>(gridDim.x) * kGatherThreads;
+  long long i = static_cast<long long>(blockIdx.x) * kGatherThreads + threadIdx.x;
+  int next = i < m ? __ldg(idx + i) : 0;
+  for (; i < m; i += stride) {
+    const int cur = next;
+    if (i + stride < m) next = __ldg(idx + i + stride);
+    store_floats<C>(out + i * C, take_row<C>(table, rows, cur).v);
+  }
+"""
+
+
+def gather_layout(body, grid):
+    return [("table_gather.cu", GATHER_BODY, body), ("table_gather.cu", GATHER_GRID, grid)]
+
+
 VARIANTS = {
     "as built": [],
     "no pair loads": [("hashgrid_encode.cu", "    if (paired) {", "    if (false) {")],
     "single-level items": [],
-    "no cache hints": [
-        ("gather.cuh", load, load.replace(".L2::cache_hint", "").replace(", %5;", ";")
-         .replace(", %3;", ";").replace(", %2;", ";"))
-        for load in HINTED_LOADS
-    ],
-    "no streaming": [(
-        "gather.cuh", "#include <cstdint>\n",
-        "#include <cstdint>\n#define __stcs(p, v) (*(p) = (v))\n#define __ldcs(p) __ldg(p)\n",
-    )],
+    "gather four per thread": gather_layout(CONSECUTIVE.format(k=4, vec="int4", zw="q.z, q.w"), QUAD_GRID),
+    "gather two per thread": gather_layout(
+        CONSECUTIVE.format(k=2, vec="int2", zw="0, 0"),
+        GATHER_GRID.replace("(m + kGatherThreads - 1) / kGatherThreads",
+                            "(m + 2 * kGatherThreads - 1) / (2 * kGatherThreads)")),
+    "gather four strided": gather_layout(
+        "  const long long base = static_cast<long long>(blockIdx.x) * 4 * kGatherThreads + threadIdx.x;\n"
+        "  {\n" + STRIDED + "  }\n", QUAD_GRID),
+    "gather card-sized grid": gather_layout(GRID_STRIDE, CARD_GRID.format(per_block="kGatherThreads")),
+    "gather card-sized grid, four strided": gather_layout(
+        "  const long long stride = static_cast<long long>(gridDim.x) * 4 * kGatherThreads;\n"
+        "  for (long long base = static_cast<long long>(blockIdx.x) * 4 * kGatherThreads + threadIdx.x;\n"
+        "       base < m; base += stride) {\n" + STRIDED + "  }\n",
+        CARD_GRID.format(per_block="4 * kGatherThreads")),
 }
 POINTS, RAYS = 1 << 20, 8192
-
-
-def graph_ms(fn, reps=50):
-    """Device time per call of ``fn``, ``reps`` calls replayed as one CUDA
-    graph (no host work between the launches)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("variants", nargs="*", help=f"any of {list(VARIANTS)} (default: all)")
+    parser.add_argument("--turns", type=int, default=3, help="turns over the variants")
     args = parser.parse_args(argv)
     unknown = set(args.variants) - set(VARIANTS)
     if unknown:
@@ -111,7 +169,7 @@ def main(argv=None):
 
     built, per_item = build._library, ke.LEVELS_PER_ITEM
     try:
-        for turn in range(2):
+        for turn in range(args.turns):
             for name in names:
                 build._library = libs[name]  # the wrappers launch from this library
                 ke.LEVELS_PER_ITEM = 1 if name == "single-level items" else per_item

@@ -33,6 +33,7 @@ from ..kernels import build
 from ..kernels import fused_mlp as fm
 from ..kernels import fused_render as fr
 from ..models import NeRFModel
+from .timing import cuda_ms
 
 # Accumulators that a dropped product would have written start at zero, so
 # that no variant computes on undefined values (which the compiler may
@@ -95,18 +96,6 @@ def build_variants(names, variants=VARIANTS):
             raise RuntimeError(f"variant {name!r} does not build:\n{log[-4000:]}")
         libs[name] = build._bind(ctypes.CDLL(str(out / build.LIB_NAME)))
     return libs
-
-
-def cuda_ms(fn, reps=20):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None):

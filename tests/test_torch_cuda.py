@@ -248,3 +248,17 @@ def test_hash_grid_wrappers_refuse_what_their_kernels_do_not_take(cuda):
         tg.table_gather_cuda(torch.zeros((8, 5), device=cuda), torch.zeros(3, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="int32 indices"):
         tg.table_gather_cuda(values[0], torch.zeros(3, dtype=torch.int64, device=cuda))
+
+
+def test_hashgrid_encode_checks_a_new_table_at_a_cached_address(cuda):
+    # An f32 table packs and caches its argument; an f64 table of the same
+    # shape at the same address must be checked again, not read as f32.
+    grids, sizes = [16, 16], [2**18] * 2
+    values, x = _encode_inputs(cuda, grids, sizes, 2, 10, 0)
+    storage = torch.zeros(4096 * 2, dtype=torch.float64, device=cuda)
+    as_f32 = storage.view(torch.float32)[: 4096 * 2].view(4096, 2)
+    as_f64 = storage.view(4096, 2)
+    assert as_f32.data_ptr() == as_f64.data_ptr()
+    ke.hashgrid_encode_cuda([values[0], as_f32], x, grids, sizes, BMIN, BMAX, False)
+    with pytest.raises(ValueError, match="f32 table"):
+        ke.hashgrid_encode_cuda([values[0], as_f64], x, grids, sizes, BMIN, BMAX, False)

@@ -22,6 +22,7 @@ import torch
 
 from learn_nerf_tpu.ops import hashgrid as jhash
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
+from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
 from learn_nerf_tpu_torch.kernels import table_gather as tg
 from learn_nerf_tpu_torch.ops import hashgrid
 
@@ -132,14 +133,15 @@ def test_hash_grid_encode_matches_jax_at_the_full_fine_schedule():
         [jnp.asarray(v) for v in values], jnp.asarray(x), grids, tables,
         jnp.asarray(BBOX_MIN), jnp.asarray(BBOX_MAX),
     )
-    khash.counter.reset()
-    tg.counter.reset()
+    for counter in (ke.counter, khash.counter, tg.counter):
+        counter.reset()
     out = hashgrid.hash_grid_encode(
         [t(v) for v in values], t(x), grids, tables, tuple(BBOX_MIN), tuple(BBOX_MAX)
     )
     assert out.shape == (2, x.shape[1], 32)
-    # One corner call for all levels, one gather per level.
-    assert (khash.counter.plain_calls, tg.counter.plain_calls) == (1, 16)
+    # One plain call of the encode wrapper for all levels, none of the
+    # corner and gather wrappers.
+    assert (ke.counter.plain_calls, khash.counter.plain_calls, tg.counter.plain_calls) == (1, 0, 0)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
     plain = hashgrid.hash_grid_encode_reference(
         [t(v) for v in values], t(x), grids, tables, t(BBOX_MIN), t(BBOX_MAX)

@@ -7,11 +7,14 @@ hashgrid_encode) on the CPU, against learn_nerf_tpu.ops.hashgrid.
 * the by-value argument: per-level grid, table size, hashed and paired
   flags and table pointers in level order, the items, and the struct's
   layout field for field as the C compiler lays out ``EncodeArgs``;
-* the CPU route: ``hash_grid_encode`` counts one plain call and no launch,
-  and equals the JAX function at F = 1, 3, 4 (F = 2 is held to JAX in
+* the CPU route: ``hash_grid_encode`` counts one plain call of the encode
+  wrapper and nothing of the corner and gather wrappers, and equals the JAX
+  function at F = 1, 3, 4 (F = 2 is held to JAX in
   tests/test_torch_hashgrid.py) within 1e-5, and the plain reference
   exactly;
-* the checks that refuse what the kernel does not take;
+* the checks that refuse what the kernel does not take, and the cache key
+  of the packed argument, which sees a table of another dtype or layout at
+  a cached address;
 * the ablation scripts' source edits still apply to ``csrc/``.
 """
 
@@ -129,7 +132,7 @@ def test_cpu_route_counts_a_plain_call_and_matches_jax(features, smooth):
         counter.reset()
     out = hashgrid.hash_grid_encode([t(v) for v in values], t(x), grids, sizes, BBOX_MIN, BBOX_MAX, smooth)
     assert (ke.counter.plain_calls, ke.counter.launches) == (1, 0)
-    assert (khash.counter.plain_calls, tg.counter.plain_calls) == (1, 5)
+    assert khash.counter.plain_calls == tg.counter.plain_calls == 0
     assert khash.counter.launches == tg.counter.launches == 0
     assert out.shape == (300, 5 * features)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
@@ -166,6 +169,26 @@ def test_packing_and_table_checks_refuse_what_the_kernel_does_not_take():
         ke._check_tables([torch.zeros((9, 2)).view(-1)[2:].view(8, 2)], cpu)
     with pytest.raises(ValueError, match="CUDA device"):
         ke.hashgrid_encode_cuda(tables, torch.zeros((4, 3)), grids, sizes, BBOX_MIN, BBOX_MAX, False)
+
+
+def test_argument_cache_key_sees_dtype_and_layout_at_one_address():
+    grids, sizes = [16, 16], [2**12] * 2
+    storage = torch.zeros(4096 * 4, dtype=torch.float64)
+    as_f32 = storage.view(torch.float32)[: 4096 * 2].view(4096, 2)
+    other = {
+        "f64": storage[: 4096 * 2].view(4096, 2),
+        "strided": storage.view(torch.float32).view(4096, 8)[:, :2],
+        "rows": storage.view(torch.float32)[: 2048 * 2].view(2048, 2),
+    }
+    first = t(np.zeros((4096, 2), np.float32))
+
+    def key(table):
+        return ke.args_key([first, table], torch.device("cpu"), grids, sizes, BBOX_MIN, BBOX_MAX, False)
+
+    assert key(as_f32) == key(storage.view(torch.float32)[: 4096 * 2].view(4096, 2))
+    for name, table in other.items():
+        assert table.data_ptr() == as_f32.data_ptr(), name
+        assert key(table) != key(as_f32), name
 
 
 @pytest.mark.parametrize("script", ["hashgrid_ablations", "mlp_ablations"])

@@ -34,6 +34,7 @@ from learn_nerf_tpu import render as jrender
 from learn_nerf_tpu.models import InstantNGPModel as FlaxNGP
 from learn_nerf_tpu_torch import acceleration, checkpoint, occ_render, render
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
+from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
 from learn_nerf_tpu_torch.kernels import table_gather as tg
 from learn_nerf_tpu_torch.models import InstantNGPModel
 from learn_nerf_tpu_torch.scripts import render_nerf, serve_nerf
@@ -244,15 +245,16 @@ def test_render_frame_occupancy_matches_jax(occ_setup, budget_per_ray):
         tile_size=32, budget_per_ray=budget_per_ray, transmittance_eps=1e-2,
     )
     uniforms = t(np.stack([np.asarray(jax.random.uniform(k, (32, 24))) for k in jax.random.split(key, 3)]))
-    khash.counter.reset()
-    tg.counter.reset()
+    for counter in (ke.counter, khash.counter, tg.counter):
+        counter.reset()
     with torch.no_grad():
         out = occ_render.render_frame_occupancy(
             renderer, t(rays), t(s["bg"]), s["state"], tile_size=32, transmittance_eps=1e-2,
             uniforms=uniforms, budget_per_ray=budget_per_ray,
         )
-    # One corner call per tile, one gather per level and tile.
-    assert (khash.counter.plain_calls, tg.counter.plain_calls) == (3, 12)
+    # One plain encode call per tile, for all levels; none of the corner
+    # and gather wrappers.
+    assert (ke.counter.plain_calls, khash.counter.plain_calls, tg.counter.plain_calls) == (3, 0, 0)
     assert set(out) == set(ref)
     np.testing.assert_allclose(out["outputs"].numpy(), np.asarray(ref["outputs"]), **F32)
     if budget_per_ray is not None:
