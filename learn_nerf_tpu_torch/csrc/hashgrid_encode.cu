@@ -34,30 +34,12 @@
 //   so a warp writes a contiguous run of out (16 bytes a thread at F = 2);
 // - the per-level parameters and table pointers come by value in one
 //   struct, packed once per model by the wrapper.
+#include "encode_args.cuh"
 #include "gather.cuh"
-#include "hashgrid.cuh"
 
 namespace nerf {
 
 constexpr int kEncodeThreads = 256;
-constexpr int kLevelsPerItem = 2;
-
-// The by-value argument: kernels/hashgrid_encode.py's EncodeArgs mirrors
-// this layout field for field.
-struct EncodeArgs {
-  const float* table[kMaxLevels];  // level l's rows [rows_l, features]
-  int grid[kMaxLevels];            // lattice resolution
-  unsigned int size[kMaxLevels];   // table size T (the hash modulus)
-  int hashed[kMaxLevels];          // grid^3 > T
-  int paired[kMaxLevels];          // even row count: every aligned row pair is in the table
-  int item_level[kMaxLevels];      // work item i covers levels
-  int item_levels[kMaxLevels];     //   [item_level[i], + item_levels[i]), 1 or 2
-  int items;
-  int levels;
-  int features;
-  int smooth;
-  Bbox box;
-};
 
 // The rows of a cell's 8 corners.  Where a level's tables hold whole
 // aligned pairs of rows (and F <= 2), corner c's pair is read as one row

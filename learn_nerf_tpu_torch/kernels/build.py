@@ -134,6 +134,12 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_hashgrid_corners.restype = i32
     lib.nerf_hashgrid_encode.argtypes = [ptr, i64, ptr, ptr, ptr]
     lib.nerf_hashgrid_encode.restype = i32
+    lib.nerf_hashgrid_backward.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
+    lib.nerf_hashgrid_backward.restype = i32
+    lib.nerf_composite_forward.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 4
+    lib.nerf_composite_forward.restype = i32
+    lib.nerf_composite_backward.argtypes = [ptr] * 8 + [i32, i32] + [ptr] * 5
+    lib.nerf_composite_backward.restype = i32
     lib.nerf_hashgrid_encode_args_size.argtypes = []
     lib.nerf_hashgrid_encode_args_size.restype = i32
     lib.nerf_error_string.argtypes = [i32]

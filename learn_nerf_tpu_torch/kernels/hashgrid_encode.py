@@ -19,8 +19,12 @@ table moved or changed packs anew, with its checks), so a call builds no
 ctypes arrays.
 
 :func:`hashgrid_encode` runs the plain version for CPU tensors
-(``ops.hashgrid.hash_grid_encode_reference``, level by level) and the
-kernel for CUDA tensors, with no fallback between the two.
+(``ops.hashgrid.hash_grid_encode_reference``, level by level, under plain
+autograd) and the kernel for CUDA tensors, with no fallback between the
+two.  For tables that require grad the launch goes through
+:class:`HashGridEncode`, whose backward is the table-gradient kernel of
+:mod:`.hashgrid_backward`: a result of the kernel never comes back detached
+from parameters that train.
 """
 
 import ctypes
@@ -153,25 +157,17 @@ def args_key(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth
     )
 
 
-def hashgrid_encode_cuda(
+def encode_args(
     tables: Sequence[Tensor],
-    x: Tensor,
+    device: torch.device,
     grid_sizes: Sequence[int],
     table_sizes: Sequence[int],
     bbox_min,
     bbox_max,
     smooth: bool,
-) -> Tensor:
-    """Launch the kernel on the current stream: ``x [N, 3]`` -> ``[N, L*F]``.
-
-    ``bbox_min``/``bbox_max`` are three floats each (a CUDA tensor costs a
-    device sync).
-    """
-    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or not x.is_contiguous():
-        raise ValueError(f"want contiguous f32 points [N, 3]; got {x.dtype} {tuple(x.shape)}")
-    device = x.device
-    if device.type != "cuda":
-        raise ValueError(f"want points on a CUDA device; got {device}")
+) -> EncodeArgs:
+    """The packed argument for these tables, from the cache or packed (and
+    checked) anew."""
     key = args_key(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
     args = _args_cache.get(key)
     if args is None:
@@ -179,7 +175,19 @@ def hashgrid_encode_cuda(
         if len(_args_cache) >= _ARGS_CACHE_SIZE:
             _args_cache.clear()
         _args_cache[key] = args
-    n = x.shape[0]
+    return args
+
+
+def check_points(x: Tensor) -> None:
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[1] != 3 or not x.is_contiguous():
+        raise ValueError(f"want contiguous f32 points [N, 3]; got {x.dtype} {tuple(x.shape)}")
+    if x.device.type != "cuda":
+        raise ValueError(f"want points on a CUDA device; got {x.device}")
+
+
+def launch_encode(args: EncodeArgs, x: Tensor) -> Tensor:
+    """Launch the kernel on the current stream with a packed argument."""
+    n, device = x.shape[0], x.device
     if n * args.items >= 2**31:
         raise ValueError(f"{n} points x {args.items} work items exceed the kernel's 2^31 threads")
     out = torch.empty((n, args.levels * args.features), dtype=torch.float32, device=device)
@@ -195,6 +203,28 @@ def hashgrid_encode_cuda(
     return out
 
 
+def hashgrid_encode_cuda(
+    tables: Sequence[Tensor],
+    x: Tensor,
+    grid_sizes: Sequence[int],
+    table_sizes: Sequence[int],
+    bbox_min,
+    bbox_max,
+    smooth: bool,
+) -> Tensor:
+    """Launch the kernel on the current stream: ``x [N, 3]`` -> ``[N, L*F]``.
+    The result carries no graph: :func:`hashgrid_encode` wraps the launch
+    for tables that require grad.
+
+    ``bbox_min``/``bbox_max`` are three floats each (a CUDA tensor costs a
+    device sync).
+    """
+    check_points(x)
+    return _cuda_launcher(
+        encode_args(tables, x.device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth), x
+    )
+
+
 def _new_args(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth) -> EncodeArgs:
     """Check the tables and the device, then pack the argument (once per
     model and device)."""
@@ -207,6 +237,39 @@ def _new_args(tables, device, grid_sizes, table_sizes, bbox_min, bbox_max, smoot
     return args
 
 
+class HashGridEncode(torch.autograd.Function):
+    """The encode kernel with its gradient in the tables: forward is one
+    launch of ``hashgrid_encode_kernel``, backward one launch of
+    ``hashgrid_backward_kernel`` (:mod:`.hashgrid_backward`), which
+    recomputes the corners from the saved points.  Not differentiable in
+    the points."""
+
+    @staticmethod
+    def forward(ctx, x, config, *tables):
+        grid_sizes, table_sizes, bbox_min, bbox_max, smooth = config
+        check_points(x)
+        args = encode_args(tables, x.device, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
+        out = _cuda_launcher(args, x)
+        if any(ctx.needs_input_grad[2:]):
+            ctx.save_for_backward(x)
+            ctx.args = args
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from .hashgrid_backward import hashgrid_backward_cuda
+
+        (x,) = ctx.saved_tensors
+        grads = hashgrid_backward_cuda(x, grad_out.float().contiguous(), ctx.args)
+        needed = ctx.needs_input_grad[2:]
+        return (None, None, *(g if need else None for g, need in zip(grads, needed)))
+
+
+# The launch behind every call on the card; a CPU test swaps in the plain
+# version to hold the autograd wiring where there is no card.
+_cuda_launcher = launch_encode
+
+
 def hashgrid_encode(
     tables: Sequence[Tensor],
     x: Tensor,
@@ -216,9 +279,32 @@ def hashgrid_encode(
     bbox_max,
     smooth: bool,
 ) -> Tensor:
-    """All levels' features: ``x [N, 3]`` -> ``[N, L * F]`` f32."""
+    """All levels' features: ``x [N, 3]`` -> ``[N, L * F]`` f32.
+
+    On a CUDA tensor the result is differentiable in the tables (through
+    :class:`HashGridEncode`) and not in the points: points that require
+    grad raise.  With no table requiring grad (serving, the occupancy
+    grid's refresh) the kernel is launched directly and nothing is saved.
+    """
     x = x.float().contiguous()
     if x.device.type == "cpu":
         counter.plain_calls += 1
         return hash_grid_encode_reference(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
+    return _encode_on_card(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)
+
+
+def _encode_on_card(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth) -> Tensor:
+    if torch.is_grad_enabled():
+        if x.requires_grad:
+            raise NotImplementedError(
+                "the encode kernel has no gradient in the points (Ref-NeRF's normals "
+                "need d/dx and, in smooth mode, its double backward: ROADMAP.md, "
+                "Queue 1 item 7); detach the points, or encode on the CPU"
+            )
+        if any(t.requires_grad for t in tables):
+            config = (
+                tuple(grid_sizes), tuple(table_sizes), tuple(bbox_floats(bbox_min)),
+                tuple(bbox_floats(bbox_max)), bool(smooth),
+            )
+            return HashGridEncode.apply(x, config, *tables)
     return hashgrid_encode_cuda(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smooth)

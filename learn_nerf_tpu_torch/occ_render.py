@@ -14,6 +14,10 @@ The pooled path (:meth:`OccupancyRenderer.render_rays_pooled`, the CLIs'
 not on the ``N * K`` worst case; :class:`OccupancyFrameSession` sizes the
 pool from measured demand.
 
+The fixed-K path (:meth:`OccupancyRenderer.render_rays`, which training
+differentiates) runs step 4's scan, weights and blend through
+:mod:`.kernels.composite`: on the card one kernel, with a backward kernel.
+
 On the fixed-K frame path a ``bfloat16`` :class:`~.models.vanilla.NeRFModel`
 runs step 4's per-sample chain (points -> MLP -> scan -> composite) as one
 fused kernel (:mod:`.kernels.fused_render`), as
@@ -35,12 +39,13 @@ from .acceleration import (
     compact_occupied_strided,
     next_budget_bucket,
 )
+from .kernels.composite import render_composite
 from .kernels.fused_render import fused_render
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .ops.geometry import ray_bbox_range
 from .ops.sampling import stratified_ts
-from .ops.volume import average_aux, composite, composite_alpha, termination_weights
+from .ops.volume import average_aux, composite
 from .render import pad_rays_to_tiles
 
 Tensor = torch.Tensor
@@ -163,9 +168,9 @@ class OccupancyRenderer:
         )
         density, rgbs, aux = self.model(points, rays[:, None, 1, :].expand(points.shape))
         densities = density[..., 0] * sel_mask  # padding slots contribute 0
-        weights = termination_weights(densities, dt.expand(densities.shape))
-        outputs = composite(weights, rgbs, background, mask)
-        alphas = composite_alpha(weights, mask)
+        # Scan, weights and blend: one kernel on the card (and one more in
+        # the backward), the plain ops of ops.volume on the CPU.
+        outputs, weights, alphas = render_composite(densities, dt, rgbs, background, mask)
         coords = composite(weights, points, torch.zeros_like(background), mask)
         aux_means = average_aux(weights, aux, mask)
         return (

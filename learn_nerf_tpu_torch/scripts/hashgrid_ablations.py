@@ -4,7 +4,8 @@ Builds variants of ``csrc/`` with one part of the design taken out or
 changed, and times each beside the kernels as built, in turns: the encode
 kernel on 2^20 points at the 16-level fine schedule (F = 2), on uniform
 random points and on points along rays (8192 rays of 128 samples 0.01
-apart, as a frame feeds it), and table_gather at ``pallas_gather``'s
+apart, as a frame feeds it), the table-gradient kernel on a train step's
+131,072 random points, and table_gather at ``pallas_gather``'s
 [2^18, 2] x 999,424 by CUDA-graph replay.  Each variant computes the same
 result:
 
@@ -12,6 +13,8 @@ result:
   never a pair of neighbouring rows as one vector;
 * ``single-level items``: one work item per level, so level pairs compute
   their corners twice (the argument is packed with items of one level);
+* ``backward scalar atomics``: the table-gradient kernel adds each row with
+  F scalar atomics in place of one vector atomic per pair of floats;
 * ``gather four per thread``: table_gather takes four consecutive indices
   per thread from one 16-byte index load (four rows in flight) and stores
   their rows as one run;
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from ..kernels import build
+from ..kernels import hashgrid_backward as kb
 from ..kernels import hashgrid_encode as ke
 from ..kernels import table_gather as tg
 from ..ops.hashgrid import dense_level_rows
@@ -117,6 +121,7 @@ VARIANTS = {
     "as built": [],
     "no pair loads": [("hashgrid_encode.cu", "    if (paired) {", "    if (false) {")],
     "single-level items": [],
+    "backward scalar atomics": [("hashgrid_backward.cu", "  if constexpr (F % 2 == 0) {", "  if constexpr (false) {")],
     "gather four per thread": gather_layout(CONSECUTIVE.format(k=4, vec="int4", zw="q.z, q.w"), QUAD_GRID),
     "gather two per thread": gather_layout(
         CONSECUTIVE.format(k=2, vec="int2", zw="0, 0"),
@@ -133,6 +138,7 @@ VARIANTS = {
         CARD_GRID.format(per_block="4 * kGatherThreads")),
 }
 POINTS, RAYS = 1 << 20, 8192
+STEP_POINTS = 4096 * 32  # a train step's samples at batch 4096, 32 per ray
 
 
 def main(argv=None):
@@ -164,8 +170,15 @@ def main(argv=None):
     table = tables[-1]
     idx = torch.from_numpy(rng.randint(0, 1 << 18, 999_424).astype(np.int32)).to(device)
 
+    step_x = x[:STEP_POINTS].contiguous()
+    step_g = on_card(rng.uniform(-1, 1, (STEP_POINTS, 2 * len(grids))))
+
     def encode(points):
         return lambda: ke.hashgrid_encode_cuda(tables, points, grids, sizes, *bbox, False)
+
+    def backward():
+        return kb.hashgrid_backward_cuda(
+            step_x, step_g, ke.encode_args(tables, step_x.device, grids, sizes, *bbox, False))
 
     built, per_item = build._library, ke.LEVELS_PER_ITEM
     try:
@@ -177,6 +190,7 @@ def main(argv=None):
                 result = dict(
                     variant=name, turn=turn,
                     encode_random_ms=cuda_ms(encode(x)), encode_rays_ms=cuda_ms(encode(rays)),
+                    backward_ms=cuda_ms(backward),
                     gather_us=graph_ms(lambda: tg.table_gather_cuda(table, idx)) * 1e3,
                 )
                 print(json.dumps(result), flush=True)

@@ -14,7 +14,17 @@ indices and weights equal its plain version's; the all-level encode kernel
 sums the 8 weighted corners in another order than the plain version, so
 it is held to 1e-6 (chip_smoke.py's bound) with F = 1, 2, 4, dense and
 hashed levels, plain and smooth mode, tables without whole row pairs, and
-at the edges of its thread grid (N = 0 launches nothing).
+at the edges of its thread grid (N = 0 launches nothing).  The table
+gradients (hashgrid_backward) sum with f32 atomics in an order that changes
+from run to run, and so does the plain version's ``index_add_``: held to
+5e-6 of each level's largest gradient (at 20,000 points some 2,500 terms
+meet on each of the 64 rows of the 4^3 level: measured 2.2e-6 there on an
+H100, 2e-7 to 7e-7 in the other levels), through ``HashGridEncode`` and on their own, and to finite differences
+of the encoding on a tiny case.  The composite kernels: forward within 1e-6,
+backward within 2e-6 of each gradient's max against autograd through
+``ops/volume`` (measured 2.4e-7 / 9.3e-7), at K = 1, 24, 32, 33, 64 with a
+last block that is part full, finite differences on a tiny case within
+2e-2 (f32 differences of step 1e-2), and the refusal of K > 64.
 """
 
 import numpy as np
@@ -23,7 +33,9 @@ import torch
 
 from learn_nerf_tpu_torch.kernels import fused_mlp as fm
 from learn_nerf_tpu_torch.kernels import fused_render as fr
+from learn_nerf_tpu_torch.kernels import composite as kc
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
+from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
 from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
 from learn_nerf_tpu_torch.kernels import table_gather as tg
 from learn_nerf_tpu_torch.ops import hashgrid
@@ -262,3 +274,139 @@ def test_hashgrid_encode_checks_a_new_table_at_a_cached_address(cuda):
     ke.hashgrid_encode_cuda([values[0], as_f32], x, grids, sizes, BMIN, BMAX, False)
     with pytest.raises(ValueError, match="f32 table"):
         ke.hashgrid_encode_cuda([values[0], as_f64], x, grids, sizes, BMIN, BMAX, False)
+
+
+BACKWARD_BOUND = 5e-6  # of each level's largest gradient
+
+
+def _levels(cuda, seed, features, n, sizes=None):
+    rng = np.random.RandomState(seed)
+    grids = [4, 8, 16, 16, 32, 64]
+    sizes = sizes or [2**12] * 6  # dense up to 16^3, hashed above
+    tables = [t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), features)).astype(np.float32)).to(cuda)
+              for g, s in zip(grids, sizes)]
+    x = t(rng.uniform(-1.1, 1.1, (n, 3)).astype(np.float32)).to(cuda)
+    g = t(rng.uniform(-1, 1, (n, 6 * features)).astype(np.float32)).to(cuda)
+    return tables, x, g, grids, sizes
+
+
+def _relative_errors(got, want):
+    return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(got, want)]
+
+
+@pytest.mark.parametrize("features", [1, 2, 3, 4])
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 20000])
+def test_hashgrid_backward_kernel_matches_plain_version(cuda, features, smooth, n):
+    tables, x, g, grids, sizes = _levels(cuda, n + features, features, n)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    launches = kb.counter.launches
+    got = kb.hashgrid_backward(tables, x, g, grids, sizes, lo, hi, smooth)
+    torch.cuda.synchronize()
+    assert kb.counter.launches == launches + 1 and kb.counter.plain_calls == 0
+    want = kb.hashgrid_backward_reference(tables, x, g, grids, sizes, lo, hi, smooth)
+    assert [tuple(a.shape) for a in got] == [tuple(tb.shape) for tb in tables]
+    assert max(_relative_errors(got, want)) <= BACKWARD_BOUND
+
+
+def test_hashgrid_backward_with_no_points_launches_nothing(cuda):
+    tables, x, g, grids, sizes = _levels(cuda, 0, 2, 4)
+    launches = kb.counter.launches
+    got = kb.hashgrid_backward(tables, x[:0], g[:0], grids, sizes, (-1.0,) * 3, (1.0,) * 3, False)
+    assert kb.counter.launches == launches and all(a.abs().max() == 0 for a in got)
+
+
+def test_encode_function_trains_tables_on_the_card(cuda):
+    """The trap this function closes: a kernel result detached from tables
+    that require grad.  Every table gets the plain route's gradient, and
+    points that require grad raise."""
+    tables, x, g, grids, sizes = _levels(cuda, 7, 2, 5000)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    params = [torch.nn.Parameter(tb) for tb in tables]
+    before = (ke.counter.launches, kb.counter.launches)
+    out = hashgrid.hash_grid_encode(params, x, grids, sizes, lo, hi)
+    assert out.grad_fn is not None
+    (out * g).sum().backward()
+    assert (ke.counter.launches, kb.counter.launches) == (before[0] + 1, before[1] + 1)
+    got = [p.grad.clone() for p in params]
+    assert all(a.abs().max() > 0 for a in got)
+    for p in params:
+        p.grad = None
+    (hashgrid.hash_grid_encode_reference(params, x, grids, sizes, lo, hi) * g).sum().backward()
+    assert max(_relative_errors(got, [p.grad for p in params])) <= BACKWARD_BOUND
+    with pytest.raises(NotImplementedError, match="Ref-NeRF"):
+        hashgrid.hash_grid_encode(params, x.clone().requires_grad_(), grids, sizes, lo, hi)
+    with torch.no_grad():  # serving: a direct launch, nothing saved
+        assert hashgrid.hash_grid_encode(params, x, grids, sizes, lo, hi).grad_fn is None
+
+
+def test_hashgrid_backward_against_finite_differences(cuda):
+    """The encoding is linear in the tables: a finite difference along a
+    random direction equals <grad, direction> to rounding."""
+    tables, x, g, grids, sizes = _levels(cuda, 9, 2, 300)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    rng = np.random.RandomState(10)
+    direction = [t(rng.randn(*tb.shape).astype(np.float32)).to(cuda) for tb in tables]
+    grads = kb.hashgrid_backward(tables, x, g, grids, sizes, lo, hi, False)
+    predicted = sum((a.double() * d.double()).sum() for a, d in zip(grads, direction)).item()
+    plus = ke.hashgrid_encode_cuda([tb + d for tb, d in zip(tables, direction)], x, grids, sizes, lo, hi, False)
+    minus = ke.hashgrid_encode_cuda([tb - d for tb, d in zip(tables, direction)], x, grids, sizes, lo, hi, False)
+    measured = (((plus - minus).double() / 2) * g.double()).sum().item()
+    assert abs(predicted - measured) <= 1e-4 * max(abs(measured), 1.0)
+
+
+def _composite_inputs(cuda, seed, n, k):
+    rng = np.random.RandomState(seed)
+    densities = (rng.uniform(0, 12, (n, k)) * (rng.rand(n, k) < 0.8)).astype(np.float32)
+    dt = rng.uniform(0.5 / k, 4.0 / k, (n, 1)).astype(np.float32)
+    rgbs = rng.uniform(-1, 1, (n, k, 3)).astype(np.float32)
+    leaves = [t(a).to(cuda).requires_grad_() for a in (densities, dt, rgbs, np.array([-1.0, 0.3, 1.0], np.float32))]
+    mask = t(rng.rand(n) < 0.9).to(cuda)
+    cotangents = [t(rng.randn(*s).astype(np.float32)).to(cuda) for s in ((n, 3), (n, k + 1), (n, 1))]
+    return leaves, mask, cotangents
+
+
+@pytest.mark.parametrize("n,k", [(4096, 32), (4099, 64), (4097, 1), (4101, 24), (3, 33), (1, 32)])
+def test_composite_kernels_match_plain_version(cuda, n, k):
+    leaves, mask, cotangents = _composite_inputs(cuda, n + k, n, k)
+    before = (kc.counter.launches, kc.backward_counter.launches)
+    outs = kc.render_composite(*leaves, mask)
+    grads = torch.autograd.grad(outs, leaves, cotangents)
+    torch.cuda.synchronize()
+    assert (kc.counter.launches, kc.backward_counter.launches) == (before[0] + 1, before[1] + 1)
+    assert kc.counter.plain_calls == 0
+    ref = kc.render_composite_reference(*leaves, mask)
+    ref_grads = torch.autograd.grad(ref, leaves, cotangents)
+    for out, want in zip(outs, ref):
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
+    assert max(_relative_errors(grads, ref_grads)) <= 2e-6
+    # One cotangent alone (the others None): the train step's case.
+    only = torch.autograd.grad(kc.render_composite(*leaves, mask)[0].sum(), leaves)
+    ref_only = torch.autograd.grad(kc.render_composite_reference(*leaves, mask)[0].sum(), leaves)
+    assert max(_relative_errors(only, ref_only)) <= 2e-6
+
+
+def test_composite_backward_against_finite_differences(cuda):
+    leaves, mask, cotangents = _composite_inputs(cuda, 11, 6, 5)
+
+    def scalar(*values):
+        outs = kc.render_composite(*values, mask)
+        return sum((o.double() * c.double()).sum() for o, c in zip(outs, cotangents))
+
+    grads = torch.autograd.grad(scalar(*leaves), leaves)
+    rng = np.random.RandomState(12)
+    with torch.no_grad():
+        for i, leaf in enumerate(leaves):
+            direction = t(rng.randn(*leaf.shape).astype(np.float32)).to(cuda)
+            step = 1e-2
+            moved = [[v + sign * step * direction if j == i else v for j, v in enumerate(leaves)]
+                     for sign in (1, -1)]
+            measured = ((scalar(*moved[0]) - scalar(*moved[1])) / (2 * step)).item()
+            predicted = (grads[i].double() * direction.double()).sum().item()
+            assert abs(predicted - measured) <= 2e-2 * max(abs(measured), 1.0), (i, predicted, measured)
+
+
+def test_composite_refuses_more_than_64_samples(cuda):
+    leaves, mask, _ = _composite_inputs(cuda, 13, 4, 65)
+    with pytest.raises(ValueError, match="1 to 64 samples"):
+        kc.render_composite(*leaves, mask)

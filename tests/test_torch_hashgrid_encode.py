@@ -200,3 +200,110 @@ def test_ablation_variants_apply_to_the_sources(script, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         module.main([])
+
+
+class _FakeArgs:
+    """What the faked card route carries in place of the packed argument."""
+
+    def __init__(self, tables, grids, sizes, smooth):
+        self.tables, self.grids, self.sizes, self.smooth = tables, grids, sizes, smooth
+
+
+@pytest.fixture
+def faked_card_route(monkeypatch):
+    """The CUDA route of hashgrid_encode with plain launchers swapped in, so
+    the autograd wiring runs where there is no card."""
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+
+    monkeypatch.setattr(ke, "check_points", lambda x: None)
+    monkeypatch.setattr(
+        ke, "encode_args",
+        lambda tables, device, grids, sizes, lo, hi, smooth: _FakeArgs(tables, grids, sizes, smooth),
+    )
+
+    def launch(args, x):
+        with torch.no_grad():  # as the kernel: a result with no graph
+            return hashgrid.hash_grid_encode_reference(
+                args.tables, x, args.grids, args.sizes, BBOX_MIN, BBOX_MAX, args.smooth)
+
+    def backward(x, grad_out, args):
+        return kb.hashgrid_backward_reference(
+            args.tables, x, grad_out, args.grids, args.sizes, BBOX_MIN, BBOX_MAX, args.smooth)
+
+    monkeypatch.setattr(ke, "_cuda_launcher", launch)
+    monkeypatch.setattr(kb, "hashgrid_backward_cuda", backward)
+
+
+def _trainable_levels(seed):
+    grids, sizes = [4, 8, 16, 32], [2**10] * 4
+    rng = np.random.RandomState(seed)
+    tables = [torch.nn.Parameter(t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), 2)).astype(np.float32)))
+              for g, s in zip(grids, sizes)]
+    x = t(rng.uniform(-1.1, 1.1, (200, 3)).astype(np.float32))
+    return tables, x, grids, sizes
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_card_route_leaves_table_gradients(faked_card_route, smooth):
+    """The rule of the CUDA route: a result of the kernel is never detached
+    from tables that require grad.  After backward() every table has the
+    gradient autograd gives the plain encoding."""
+    tables, x, grids, sizes = _trainable_levels(0)
+    out = ke._encode_on_card(tables, x, grids, sizes, BBOX_MIN, BBOX_MAX, smooth)
+    assert out.grad_fn is not None
+    weight = t(np.random.RandomState(1).randn(*out.shape).astype(np.float32))
+    (out * weight).sum().backward()
+    got = [table.grad.clone() for table in tables]
+    assert all(g is not None and g.abs().max() > 0 for g in got)
+    for table in tables:
+        table.grad = None
+    (hashgrid.hash_grid_encode_reference(tables, x, grids, sizes, BBOX_MIN, BBOX_MAX, smooth) * weight).sum().backward()
+    for g, table in zip(got, tables):
+        torch.testing.assert_close(g, table.grad, rtol=1e-6, atol=1e-6)
+
+
+def test_card_route_skips_autograd_when_nothing_trains(faked_card_route):
+    """Serving and the grid refresh: no table requires grad, or grad is off;
+    the launch is direct and nothing is saved."""
+    tables, x, grids, sizes = _trainable_levels(2)
+    with torch.no_grad():
+        assert ke._encode_on_card(tables, x, grids, sizes, BBOX_MIN, BBOX_MAX, False).grad_fn is None
+    frozen = [table.detach() for table in tables[:2]] + tables[2:]
+    out = ke._encode_on_card(frozen, x, grids, sizes, BBOX_MIN, BBOX_MAX, False)
+    out.sum().backward()  # only the tables that train get a gradient
+    assert tables[0].grad is None and tables[1].grad is None
+    assert tables[2].grad is not None and tables[3].grad is not None
+
+
+def test_card_route_refuses_points_that_require_grad(faked_card_route):
+    tables, x, grids, sizes = _trainable_levels(3)
+    with pytest.raises(NotImplementedError, match="Ref-NeRF"):
+        ke._encode_on_card(tables, x.clone().requires_grad_(), grids, sizes, BBOX_MIN, BBOX_MAX, False)
+    # The plain CPU route keeps autograd's own d/dx.
+    xg = x.clone().requires_grad_()
+    hashgrid.hash_grid_encode(tables, xg, grids, sizes, BBOX_MIN, BBOX_MAX, False).sum().backward()
+    assert xg.grad is not None and xg.grad.abs().max() > 0
+
+
+def test_backward_matches_jax_vjp_and_layout():
+    """hashgrid_backward's plain route against jax.vjp of the JAX encoding,
+    and the flat gradient buffer's level offsets."""
+    import jax
+
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+
+    tables, x, grids, sizes = _trainable_levels(4)
+    g = np.random.RandomState(5).randn(200, 8).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda tabs: jhash.hash_grid_encode(tabs, jnp.asarray(x.numpy()), grids, sizes,
+                                          jnp.asarray(BBOX_MIN), jnp.asarray(BBOX_MAX)),
+        [jnp.asarray(table.detach().numpy()) for table in tables],
+    )
+    (ref,) = vjp(jnp.asarray(g))
+    before = kb.counter.plain_calls
+    grads = kb.hashgrid_backward([tb.detach() for tb in tables], x, t(g), grids, sizes, BBOX_MIN, BBOX_MAX, False)
+    assert kb.counter.plain_calls == before + 1 and kb.counter.launches == 0
+    for grad, want in zip(grads, ref):
+        np.testing.assert_allclose(grad.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+    args = ke.pack_args([tb.detach() for tb in tables], grids, sizes, BBOX_MIN, BBOX_MAX, False)
+    assert kb.level_offsets(args) == [0, 64, 576, 1600, 2624]
