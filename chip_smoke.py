@@ -22,7 +22,14 @@ nonzero):
    points; the all-level encode kernel at the fine schedule on 2^20 points
    with unit-scale tables, at the 6-level coarse schedule, in smooth mode
    and at 1, 31, 32, 33 and 2^20 - 37 points, with the per-level route it
-   replaced timed beside it), max abs error against the stated bound, both
+   replaced timed beside it; the table-gradient kernel hashgrid_backward at
+   the train step's 131,072 points and at 2^20, at the coarse schedule, in
+   smooth mode, at F = 1 and 4 and at 1, 31, 32 and 33 points, relative to
+   each level's largest gradient, with each level timed on its own and 16
+   ``index_add_`` calls beside it; the
+   composite kernels, forward and backward, at 4096 and 8192 rays x 32
+   samples and at 1, 24, 32 and 64 samples with a part-full last block, on
+   rays of optical depth 1-3), max abs error against the stated bound, both
    times, and each kernel's bound (the least time of its bytes at the HBM
    rate or of its operations at the peak rate of their type); ptxas must
    report no spills for the two MLP kernels;
@@ -32,7 +39,9 @@ nonzero):
    occupancy grid with empty and occupied cells); the kernel route of each
    render mode (vanilla: hierarchy, occupancy; NGP: hierarchy, fixed-K
    occupancy, pooled) against the plain route on the CPU on a small view,
-   with the same uniforms;
+   with the same uniforms; one full-width Instant-NGP train step's loss
+   and gradients on the card (kernel route) against the plain route on the
+   CPU, with no table left without its gradient;
 4. the port's ``serve_nerf`` in a thread, vanilla with ``--bf16`` in
    hierarchy and occupancy mode, and NGP in f32 (the CLI default) in
    hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
@@ -40,7 +49,15 @@ nonzero):
    each answered 200 with a PNG of that shape, with latencies;
 5. every kernel of each mode launched during its serve phase (fused_mlp,
    fused_render, and the encode kernel in the three NGP modes), and no
-   plain version called there.
+   plain version called there;
+6. a posed dataset of its own (views of the ball the occupancy grid
+   models, coloured by position) and the port's ``train_nerf --instant_ngp
+   --occupancy`` on it at full width (16 levels of 2^18 rows, 192 -> 32
+   samples, a 128^3 grid, batch 4096) for 96 steps: every logged loss
+   finite and falling, the encode, table-gradient and composite kernels
+   launched on every step and no plain version called, six grid refreshes,
+   and the trained checkpoint served by ``serve_nerf --instant_ngp
+   --occupancy``; steps/s and rays/s over the last 64 steps.
 
 It prints the card line and one JSON line of kernel results, then, as its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -52,10 +69,13 @@ adds, after phase 5, one JSON line per render mode and numerics mode
 (vanilla hierarchy and occupancy, ``--bf16`` and f32; the three NGP modes
 in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
 scene and view size: median latency, one profiled render's device time,
-idle share, top kernels and the port's own kernels' share.
+idle share, top kernels and the port's own kernels' share; and one such
+line for the train step from ``scripts.profile_train``.
 """
 
 import argparse
+import contextlib
+import io
 import json
 import re
 import struct
@@ -130,6 +150,35 @@ ENCODE_POINTS = 1 << 20
 FINE_LEVELS, COARSE_LEVELS = 16, 6
 ENCODE_BOUND = 1e-6
 ENCODE_EDGE_POINTS = (1, 31, 32, 33, ENCODE_POINTS - 37)
+# The table gradients at the train step's shape: 4096 rays x 32 samples on
+# the fine schedule, a unit-scale cotangent.  The kernel sums with f32
+# atomics in an order that changes from run to run, the plain version in
+# index_add_'s: up to ~260 terms meet on a row of the coarsest level.
+# Relative to each level's largest gradient the two differ by 4e-7 to 6e-7
+# there and by 9e-7 to 1.1e-6 at 2^20 points, where ~2,000 terms meet
+# (measured on an H100); the bound is about four times that, holds between
+# two runs of the kernel too, and a wrong index (the hash primes swapped;
+# measured 1.93) must break it by at least SCAN_MARGIN times.
+TRAIN_RAYS, TRAIN_SAMPLES = 4096, 32
+TRAIN_POINTS = TRAIN_RAYS * TRAIN_SAMPLES
+BACKWARD_BOUND = 4e-6
+BACKWARD_EDGE_POINTS = (1, 31, 32, 33)
+# The composite kernels against autograd through ops/volume: the scan sums
+# in another order and expf differs from torch's exp in the last place.
+# Measured on an H100: 1.2e-7 to 2.4e-7 (forward, absolute) and 2e-7 to
+# 1.7e-6 (backward, relative to each gradient's max; the largest on the
+# background's gradient, a sum over 8192 rays by atomics).  An off-by-one
+# scan, forward or reverse, must move the result by at least SCAN_MARGIN
+# times the bound (measured 6.7e-2 and 1.3e-1).
+COMPOSITE_BOUND = 1e-6
+COMPOSITE_GRAD_BOUND = 5e-6
+COMPOSITE_EDGE_SAMPLES = (1, 24, 32, 64)
+# One train step by the kernel route on the card: (loss relative, table
+# gradients by L2 norm relative, other gradients relative to their max)
+# against the plain route on the card and on the CPU (check_train_step).
+STEP_BOUNDS_SAME_CARD = (1e-6, 1e-6, 1e-6)
+STEP_BOUNDS_CPU = (1e-5, 1e-2, 5e-4)
+TRAIN_STEPS, TRAIN_WARMUP, TRAIN_VIEWS, TRAIN_SIDE = 96, 2, 8, 96
 # Mean density of the NGP checkpoint's fine field inside the ball (set
 # through the density head's bias): rays crossing the occupied ball reach
 # optical depth ~1-3.
@@ -500,6 +549,428 @@ def encode_cases(values, x, grids, tables, bbox_min, bbox_max, device, rng):
     return errs
 
 
+def per_level_index_add(x, g, grids, tables, bbox_min, bbox_max, features):
+    """The yardstick route for the table gradients: the corner kernel's
+    indices and weights, then one ``index_add_`` per level (timed here, used
+    nowhere in the port)."""
+    from learn_nerf_tpu_torch.kernels import hashgrid as kh
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    idx, w = kh.hashgrid_corners_cuda(x, grids, tables, bbox_min, bbox_max, False)
+    grads = []
+    for level, (grid, size) in enumerate(zip(grids, tables)):
+        rows = hg.dense_level_rows(grid, size)
+        src = w[level][:, :, None] * g[:, None, level * features:(level + 1) * features]
+        grads.append(torch.zeros((rows, features), device=x.device).index_add_(
+            0, idx[level].reshape(-1), src.reshape(-1, features)))
+    return grads
+
+
+def relative_errors(got, want):
+    """Per tensor: max abs difference over the reference's max abs value."""
+    return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(got, want)]
+
+
+def check_backward_kernel(device, rng):
+    """hashgrid_backward against its plain version (autograd through the
+    plain encoding) at the train step's shape and at its edges."""
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    def on_card(a):
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    bbox_min, bbox_max = (-0.7,) * 3, (0.7,) * 3
+    grids, sizes = fine_schedule(FINE_LEVELS)
+
+    def case(n, levels=FINE_LEVELS, features=2, smooth=False, points=None):
+        g_l, s_l = grids[:levels], sizes[:levels]
+        tables = [torch.empty((hg.dense_level_rows(g, t), features), device=device)
+                  for g, t in zip(g_l, s_l)]
+        x = points if points is not None else on_card(rng.uniform(-0.75, 0.75, (n, 3)))
+        g = on_card(rng.uniform(-1, 1, (len(x), levels * features)))
+        args = ke.encode_args(tables, x.device, g_l, s_l, bbox_min, bbox_max, smooth)
+        return tables, x, g, args, (g_l, s_l, bbox_min, bbox_max, smooth)
+
+    tables, x, g, args, config = case(TRAIN_POINTS)
+    run = lambda: kb.hashgrid_backward_cuda(x, g, args)
+    plain = lambda: kb.hashgrid_backward_reference(tables, x, g, *config)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    require(all(torch.isfinite(a).all().item() for a in out)
+            and [a.shape for a in out] == [t.shape for t in tables],
+            "hashgrid_backward produced non-finite values or the wrong shapes")
+    errs = {f"fine, {TRAIN_POINTS} points": max(relative_errors(out, ref))}
+    errs["a second run"] = max(relative_errors(run(), out))
+    primes = hg.HASH_PRIME_Y, hg.HASH_PRIME_Z
+    hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes[1], primes[0]
+    try:
+        wrong_err = max(relative_errors(plain(), ref))
+    finally:
+        hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes
+    cases = {f"{ENCODE_POINTS} points": case(ENCODE_POINTS),
+             "coarse": case(TRAIN_POINTS, levels=COARSE_LEVELS),
+             "smooth": case(TRAIN_POINTS, smooth=True),
+             "F = 1": case(TRAIN_POINTS, features=1), "F = 4": case(TRAIN_POINTS, features=4)}
+    cases.update({f"{n} points": case(n) for n in BACKWARD_EDGE_POINTS})
+    for name, (tb, xs, gs, a, cfg) in cases.items():
+        got = kb.hashgrid_backward_cuda(xs, gs, a)
+        torch.cuda.synchronize()
+        errs[name] = max(relative_errors(got, kb.hashgrid_backward_reference(tb, xs, gs, *cfg)))
+        del got
+    big_ms = cuda_ms(lambda: kb.hashgrid_backward_cuda(*cases[f"{ENCODE_POINTS} points"][1:4]), 10)
+    del cases
+
+    # Points along rays, as a train step feeds them (32 samples 0.02 apart).
+    origins = rng.uniform(-0.7, 0.4, (TRAIN_RAYS, 1, 3))
+    dirs = rng.randn(TRAIN_RAYS, 1, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    ray_x = on_card((origins + 0.02 * dirs * np.arange(TRAIN_SAMPLES)[:, None]).reshape(-1, 3))
+    entry = dict(
+        name="hashgrid_backward", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_backward.cu",
+        replaces="learn_nerf_tpu/ops/hashgrid.py:198-203 under jax.grad (XLA scatter-add)",
+        max_abs_err=max(errs.values()), ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+        library_ms=cuda_ms(lambda: per_level_index_add(x, g, grids, sizes, bbox_min, bbox_max, 2), 5),
+    )
+    ray_ms = cuda_ms(lambda: kb.hashgrid_backward_cuda(ray_x, g, args), 20)
+    entry["bound_ms"], entry["bound_by"] = bound(nbytes(x, g, *out))
+    # Each level on its own (its own [N, F] cotangent and buffer), random
+    # points and points along rays: where the atomics meet.
+    level_us = []
+    for level in range(FINE_LEVELS):
+        one = [torch.empty((hg.dense_level_rows(grids[level], sizes[level]), 2), device=device)]
+        a = ke.encode_args(one, x.device, grids[level:level + 1], sizes[level:level + 1],
+                           bbox_min, bbox_max, False)
+        g_one = g[:, 2 * level:2 * level + 2].contiguous()
+        level_us.append((1e3 * graph_ms(lambda: kb.hashgrid_backward_cuda(x, g_one, a), 20),
+                         1e3 * graph_ms(lambda: kb.hashgrid_backward_cuda(ray_x, g_one, a), 20)))
+    print(f"hashgrid_backward {FINE_LEVELS} levels x {TRAIN_POINTS} points: max err relative to each "
+          "level's largest gradient " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {BACKWARD_BOUND:g}); swapped hash primes move the plain route by {wrong_err:.3e}; "
+          f"kernel {entry['ms']:.4f} ms, {ray_ms:.4f} ms on points along rays, {big_ms:.4f} ms at {ENCODE_POINTS} "
+          f"points; plain {entry['plain_ms']:.4f} ms; corners + {FINE_LEVELS} index_add_ "
+          f"{entry['library_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms", flush=True)
+    print("hashgrid_backward per level, us (lattice: random points / along rays): " + ", ".join(
+        f"{grids[i]}: {a:.1f} / {b:.1f}" for i, (a, b) in enumerate(level_us)), flush=True)
+    require(entry["max_abs_err"] <= BACKWARD_BOUND, "hashgrid_backward disagrees with its plain version")
+    require(wrong_err >= SCAN_MARGIN * BACKWARD_BOUND,
+            f"hashgrid_backward's bound {BACKWARD_BOUND:g} would not catch a wrong hash index")
+    return [entry]
+
+
+def composite_closed_form(densities, dt, rgbs, background, mask, cotangents,
+                          forward_shift=False, reverse_shift=False):
+    """Outputs and the densities' gradient by the kernels' formulas in plain
+    PyTorch; a shift makes the forward or the reverse scan off by one."""
+    g_out, g_w, g_alpha = cotangents
+    k = densities.shape[1]
+    s = densities * dt
+    acc = torch.cumsum(s, dim=1)
+    w = torch.exp(-(acc if forward_shift else acc - s)) * (1.0 - torch.exp(-s))
+    w_last = torch.exp(-acc[:, -1:])
+    out = torch.einsum("nk,nkc->nc", w, rgbs) + w_last * background
+    out = torch.where(mask[:, None], out, background[None, :])
+    big_g = g_w[:, :k] + torch.where(mask[:, None], torch.einsum("nc,nkc->nk", g_out, rgbs), 0.0)
+    g_last = g_w[:, k] + torch.where(mask, g_out @ background - g_alpha[:, 0], 0.0)
+    gw = big_g * w
+    from_t = gw.sum(dim=1, keepdim=True) - torch.cumsum(gw, dim=1) + gw + (g_last * w_last[:, 0])[:, None]
+    after_t = from_t if reverse_shift else from_t - gw
+    return out, (big_g * torch.exp(-acc) - after_t) * dt
+
+
+def check_composite_kernels(device, rng):
+    """The composite kernels against autograd through ops/volume."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+
+    def on_card(a):
+        return torch.from_numpy(a).to(device)
+
+    def case(n, k):
+        # Optical depth 1-3: densities up to 2 (a fifth of the slots
+        # padding), bin widths around 2 / k.
+        densities = (rng.uniform(0, 2, (n, k)) * (rng.rand(n, k) < 0.8)).astype(np.float32)
+        dt = (rng.uniform(0.03, 0.1, (n, 1)) * 32 / k).astype(np.float32)
+        rgbs = rng.uniform(-1, 1, (n, k, 3)).astype(np.float32)
+        leaves = [on_card(a).requires_grad_() for a in
+                  (densities, dt, rgbs, np.array([-1.0, 0.3, 1.0], np.float32))]
+        mask = on_card(rng.rand(n) < 0.9)
+        cotangents = [on_card(rng.randn(*shape).astype(np.float32))
+                      for shape in ((n, 3), (n, k + 1), (n, 1))]
+        return leaves, mask, cotangents
+
+    def errors(leaves, mask, cotangents):
+        outs = kc.render_composite(*leaves, mask)
+        grads = torch.autograd.grad(outs, leaves, cotangents)
+        torch.cuda.synchronize()
+        ref = kc.render_composite_reference(*leaves, mask)
+        ref_grads = torch.autograd.grad(ref, leaves, cotangents)
+        require(all(torch.isfinite(a).all().item() for a in (*outs, *grads)),
+                "the composite kernels produced non-finite values")
+        return (max((a - b).abs().max().item() for a, b in zip(outs, ref)),
+                max(relative_errors(grads, ref_grads)))
+
+    n, k = TRAIN_RAYS, TRAIN_SAMPLES
+    leaves, mask, cotangents = case(n, k)
+    fwd_errs, bwd_errs = {}, {}
+    fwd_errs[f"{n} x {k}"], bwd_errs[f"{n} x {k}"] = errors(leaves, mask, cotangents)
+    fwd_errs[f"{RENDER_RAYS} x {k}"], bwd_errs[f"{RENDER_RAYS} x {k}"] = errors(*case(RENDER_RAYS, k))
+    for samples in COMPOSITE_EDGE_SAMPLES:  # one ray more than whole blocks of 8
+        name = f"{n + 1} x {samples}"
+        fwd_errs[name], bwd_errs[name] = errors(*case(n + 1, samples))
+
+    plain = [v.detach() for v in leaves]
+    depth = (plain[0] * plain[1]).sum(dim=1)
+    ref_out = kc.render_composite_reference(*plain, mask)[0]
+    ref_grad = torch.autograd.grad(kc.render_composite_reference(*leaves, mask), leaves[0], cotangents)[0]
+    own_out, own_grad = composite_closed_form(*plain, mask, cotangents)
+    shifted_out, _ = composite_closed_form(*plain, mask, cotangents, forward_shift=True)
+    _, shifted_grad = composite_closed_form(*plain, mask, cotangents, reverse_shift=True)
+    scale = ref_grad.abs().max().item()
+    form_err = max((own_out - ref_out).abs().max().item(), (own_grad - ref_grad).abs().max().item() / scale)
+    forward_moved = (shifted_out - ref_out).abs().max().item()
+    reverse_moved = (shifted_grad - ref_grad).abs().max().item() / scale
+    print(f"composite inputs: optical depth per ray median {depth.median().item():.3f}, min "
+          f"{depth.min().item():.3f}, max {depth.max().item():.3f}; the closed form agrees within "
+          f"{form_err:.3e}; an off-by-one scan moves the forward by {forward_moved:.3e} and the reverse "
+          f"scan the densities' gradient by {reverse_moved:.3e} of its max", flush=True)
+    require(form_err <= 10 * COMPOSITE_GRAD_BOUND, "the closed form of the backward disagrees with autograd")
+    require(forward_moved >= SCAN_MARGIN * COMPOSITE_BOUND and reverse_moved >= SCAN_MARGIN * COMPOSITE_GRAD_BOUND,
+            "the composite bounds would not catch an off-by-one scan")
+
+    common = dict(route="cuda", source="learn_nerf_tpu_torch/csrc/composite.cu", library_ms=None)
+    outs = kc.composite_forward_cuda(*plain, mask)
+    forward = dict(
+        name="composite", **common,
+        replaces="learn_nerf_tpu/ops/volume.py:41-93 at learn_nerf_tpu/occ_render.py:217-221 (XLA)",
+        max_abs_err=max(fwd_errs.values()),
+        ms=graph_ms(lambda: kc.composite_forward_cuda(*plain, mask), 50),
+        plain_ms=graph_ms(lambda: kc.render_composite_reference(*plain, mask), 20),
+    )
+    forward["bound_ms"], forward["bound_by"] = bound(
+        nbytes(*plain, mask, *outs), f32_ops=SCAN_OPS * n * k)
+    grads = kc.composite_backward_cuda(*plain, mask, *cotangents)
+    graph = kc.render_composite_reference(*leaves, mask)
+    backward = dict(
+        name="composite_backward", **common,
+        replaces="the VJP of learn_nerf_tpu/ops/volume.py:41-93 under jax.grad (XLA)",
+        max_abs_err=max(bwd_errs.values()),
+        ms=graph_ms(lambda: kc.composite_backward_cuda(*plain, mask, *cotangents), 50),
+        # Autograd's backward through the plain ops, eager (its own graph kept).
+        plain_ms=cuda_ms(lambda: torch.autograd.grad(graph, leaves, cotangents, retain_graph=True), 20),
+    )
+    backward["bound_ms"], backward["bound_by"] = bound(
+        nbytes(*plain, mask, *cotangents, *grads), f32_ops=2 * SCAN_OPS * n * k)
+    for entry, errs, limit in ((forward, fwd_errs, COMPOSITE_BOUND), (backward, bwd_errs, COMPOSITE_GRAD_BOUND)):
+        print(f"{entry['name']} {n} x {k}: max err " + ", ".join(f"{a} {b:.2e}" for a, b in errs.items())
+              + f" (bound {limit:g}); device time per call (graph replay) {1e3 * entry['ms']:.2f} us, "
+              f"plain {1e3 * entry['plain_ms']:.2f} us; bound {1e3 * entry['bound_ms']:.2f} us "
+              f"({entry['bound_by']})", flush=True)
+        require(entry["max_abs_err"] <= limit, f"{entry['name']} disagrees with its plain version")
+    return [forward, backward]
+
+
+@contextlib.contextmanager
+def plain_routes():
+    """Inside, the port takes its plain versions for CUDA tensors too (the
+    encoding and the composite): the card's own plain route, for
+    ``check_train_step``."""
+    from learn_nerf_tpu_torch import occ_render
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    saved = ke._encode_on_card, occ_render.render_composite
+    ke._encode_on_card, occ_render.render_composite = (
+        hg.hash_grid_encode_reference, kc.render_composite_reference)
+    try:
+        yield
+    finally:
+        ke._encode_on_card, occ_render.render_composite = saved
+
+
+def check_train_step(root, device, rng):
+    """One full-width train step's loss and gradients by the kernel route on
+    the card, against the plain route on the card (the same points to the
+    bit) and against the plain route on the CPU, from the same weights,
+    batch, uniforms and grid.
+
+    The CPU's sample positions differ from the card's in the last place
+    (4.8e-7 at t ~ 2), which the finest lattice (cells of 7e-4) turns into
+    weights that differ by 1e-3, and a ReLU that flips for one point moves
+    the rows that point alone touches by percents of the largest gradient.
+    So table gradients are held by their L2 norm, relative, and every other
+    gradient by its max; the bounds against the CPU are two to four times
+    what an H100 measured (2.7e-3 and 1.8e-4); against the card's own plain
+    route both measured 3e-7."""
+    from learn_nerf_tpu_torch.checkpoint import load_params_pickle, ngp_params_from_flax
+    from learn_nerf_tpu_torch.data.dataset import load_dataset
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.models import InstantNGPModel
+    from learn_nerf_tpu_torch.train import OccupancyTrainLoop
+
+    params = load_params_pickle(str(root / "ngp.pkl"))
+    rays = np.concatenate([v.rays() for v in load_dataset(str(root / "train")).views])
+    batch = torch.from_numpy(rays[rng.permutation(len(rays))[:TRAIN_RAYS]])
+    u = torch.from_numpy(rng.rand(TRAIN_RAYS, 192).astype(np.float32))
+    draws = (torch.from_numpy(rng.rand(128, 3).astype(np.float32)),
+             torch.from_numpy(rng.randn(128, 3).astype(np.float32)))
+    grids, sizes = fine_schedule(FINE_LEVELS)
+
+    def step(dev):
+        model = InstantNGPModel(table_sizes=sizes, grid_sizes=grids, bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3)
+        model.load_state_dict(ngp_params_from_flax(params["fine"]))
+        loop = OccupancyTrainLoop(model, lr=1e-2, bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3,
+                                  density_penalty=1e-3, device=dev)
+        loop.grid_state = loop.grid.state_from_checkpoint(params, dev)
+        total, _ = loop._loss(loop.renderer, loop.background, batch.to(dev), u=u.to(dev),
+                              density_draws=tuple(d.to(dev) for d in draws))
+        total.backward()
+        grads = {name: p.grad.cpu() for name, p in loop.model.named_parameters()}
+        grads["background"] = loop.background.grad.cpu()
+        return total.item(), grads
+
+    counters = (ke.counter, kb.counter, kc.counter, kc.backward_counter)
+    for c in counters:
+        c.reset()
+    loss, got = step(device)
+    launched = [c.launches for c in counters]
+    require(launched == [2, 2, 1, 1] and not any(c.plain_calls for c in counters),
+            f"the card step launched (encode, backward, composite, its backward) {launched}")
+    with plain_routes():
+        card_plain = step(device)
+    require([c.launches for c in counters] == launched, "the card's plain route launched a kernel")
+    cpu_plain = step(torch.device("cpu"))
+
+    def compare(name, reference, loss_bound, table_bound, other_bound):
+        ref_loss, want = reference
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        tables = {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want if "table" in k}
+        others = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
+                  for k in want if "table" not in k}
+        worst_table, worst = max(tables, key=tables.get), max(others, key=others.get)
+        print(f"train step, kernel route on the card vs {name}: loss {loss:.7f} vs {ref_loss:.7f} "
+              f"(relative {loss_err:.2e}, bound {loss_bound:g}); table gradients, L2 relative: worst "
+              f"{worst_table} {tables[worst_table]:.2e} (bound {table_bound:g}); other gradients, "
+              f"relative to each tensor's max: worst {worst} {others[worst]:.2e} (bound "
+              f"{other_bound:g})", flush=True)
+        require(np.isfinite(loss) and loss_err <= loss_bound, f"the card step's loss disagrees with {name}")
+        require(max(tables.values()) <= table_bound and max(others.values()) <= other_bound,
+                f"the card step's gradients disagree with {name}")
+
+    compare("the plain route on the card", card_plain, *STEP_BOUNDS_SAME_CARD)
+    compare("the plain route on the CPU", cpu_plain, *STEP_BOUNDS_CPU)
+    want = cpu_plain[1]
+    missing = [name for name in want if got[name].abs().max() == 0 or (
+        "table" in name and ((want[name].abs() > 1e-3 * want[name].abs().max()) & (got[name] == 0)).any().item())]
+    touched = {name: (got[name] != 0).any(dim=1).float().mean().item() for name in want if "table" in name}
+    print(f"train step: rows with a gradient, share of each table: "
+          + ", ".join(f"{v:.3f}" for v in touched.values()) + f"; gradients missing: {missing}", flush=True)
+    require(not missing, f"the card step left gradients missing: {missing}")
+
+
+def write_train_scene(root, rng):
+    """A posed dataset of the ball the occupancy grid models: PNG + JSON
+    views from a sphere of radius 2, the ball (radius 0.45) coloured by
+    position on a grey background."""
+    from PIL import Image
+
+    from learn_nerf_tpu_torch.data.camera import CameraView
+
+    root.mkdir()
+    (root / "metadata.json").write_text(json.dumps({"min": [-0.7] * 3, "max": [0.7] * 3}))
+    for i in range(TRAIN_VIEWS):
+        z = -rng.randn(3)
+        z /= np.linalg.norm(z)
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        view = CameraView(tuple(z.tolist()), tuple((-2.0 * z).tolist()), tuple(x.tolist()),
+                          tuple(np.cross(z, x).tolist()), 0.7, 0.7)
+        rays = view.bare_rays(TRAIN_SIDE, TRAIN_SIDE).astype(np.float64)
+        o, d = rays[:, 0], rays[:, 1]
+        b = (o * d).sum(-1)
+        disc = b**2 - ((o**2).sum(-1) - 0.45**2)
+        hit = disc > 0
+        t_hit = -b - np.sqrt(np.where(hit, disc, 0.0))
+        surface = o + d * t_hit[:, None]
+        colors = np.where(hit[:, None], (surface / 0.45 * 0.5 + 0.5) * 255.0, 128.0)
+        image = np.clip(colors, 0, 255).astype(np.uint8).reshape(TRAIN_SIDE, TRAIN_SIDE, 3)
+        Image.fromarray(image).save(root / f"{i:04}.png")
+        (root / f"{i:04}.json").write_text(view.to_json())
+
+
+def kernel_counters():
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.kernels import fused_mlp as fm
+    from learn_nerf_tpu_torch.kernels import fused_render as fr
+    from learn_nerf_tpu_torch.kernels import hashgrid as kh
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.kernels import table_gather as tg
+
+    return dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
+                hashgrid_corners=kh.counter, hashgrid_encode=ke.counter,
+                hashgrid_backward=kb.counter, composite=kc.counter,
+                composite_backward=kc.backward_counter)
+
+
+def train_phase(root, profile):
+    """The port's train CLI at full width on the card, then the trained
+    checkpoint served; returns ``{kernel: (launches, plain calls)}``."""
+    from learn_nerf_tpu_torch.scripts import profile_train, train_nerf
+
+    flags = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--lr", "1e-2",
+             "--batch_size", str(TRAIN_RAYS), "--occ_warmup", str(TRAIN_WARMUP)]
+    argv = [*flags, "--steps", str(TRAIN_STEPS), "--save_path", str(root / "trained.pkl"),
+            str(root / "train")]
+    marks = {}
+
+    def on_step(done, loop):
+        if done in (1, TRAIN_STEPS - 64, TRAIN_STEPS):
+            torch.cuda.synchronize()
+            marks[done] = time.perf_counter()
+
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    log = io.StringIO()
+    marks[0] = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        loop = train_nerf.main(argv, on_step=on_step)
+    counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+    lines = [line for line in log.getvalue().splitlines() if line.startswith("step ")]
+    fine = [float(re.search(r" fine=(\S+)", line).group(1)) for line in lines]
+    require(len(fine) == TRAIN_STEPS and np.isfinite(fine).all()
+            and all(np.isfinite(float(v)) for line in lines for v in re.findall(r"=(\S+)", line)),
+            f"the train run logged {len(fine)} steps, or a value that is not finite")
+    first, last = float(np.mean(fine[:16])), float(np.mean(fine[-16:]))
+    seconds = marks[TRAIN_STEPS] - marks[TRAIN_STEPS - 64]
+    print(f"train {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at full width: first step "
+          f"{marks[1] - marks[0]:.3f} s (dataset, shuffle and model set-up included); last 64 steps "
+          f"{64 / seconds:.2f} steps/s, {64 * TRAIN_RAYS / seconds:.0f} rays/s; fine loss, mean of "
+          f"the first 16 steps {first:.5f}, of the last 16 {last:.5f}; grid updates "
+          f"{loop.grid_state.step}; {lines[-1]}; (launches, plain calls) {counts}", flush=True)
+    require(last < first, "the fine loss did not fall")
+    require(loop.grid_state.step == TRAIN_STEPS // 16, f"{loop.grid_state.step} grid updates")
+    refreshes = TRAIN_STEPS // 16
+    want = dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
+                composite=TRAIN_STEPS, composite_backward=TRAIN_STEPS)
+    require(all(counts[k][0] == v for k, v in want.items()),
+            f"the train run's launches {counts} are not {want}")
+    require(all(plain == 0 for _, plain in counts.values()), f"training called a plain version: {counts}")
+    del loop
+    torch.cuda.empty_cache()
+    served = serve_mode(root, "trained ngp occupancy", NGP_MODES["ngp occupancy"], bf16=False,
+                        checkpoint="trained.pkl", requests=1)
+    if profile:
+        args = profile_train.argparser().parse_args([*flags, str(root / "train")])
+        result = profile_train.profile_args(args)
+        print("profile:", json.dumps({"mode": "ngp occupancy train step", **result}), flush=True)
+    return counts, served
+
+
 def ngp_tree(rng, levels):
     """Full-width NGP tree in flax's layout: unit-scale tables, lecun-normal
     ``Dense_i`` kernels (64 wide, density_dim 16, 2 color layers, d_freqs
@@ -651,13 +1122,13 @@ def checkpoint_name(mode):
     return "ngp.pkl" if "--instant_ngp" in mode else "nerf.pkl"
 
 
-def mode_flags(root, mode, bf16):
+def mode_flags(root, mode, bf16, checkpoint=None):
     """Render flags of one mode: tiles of 4096 rays (hierarchy) or 8192
     (occupancy), ``SIDE`` x ``SIDE`` views."""
     batch = "8192" if "--occupancy" in mode else "4096"
     return ["--seed", str(SEED), *(["--bf16"] if bf16 else []), "--batch_size", batch,
             "--width", str(SIDE), "--height", str(SIDE),
-            "--model_path", str(root / checkpoint_name(mode)), *mode]
+            "--model_path", str(root / (checkpoint or checkpoint_name(mode))), *mode]
 
 
 def profile_modes(root):
@@ -678,19 +1149,13 @@ def profile_modes(root):
         torch.cuda.empty_cache()
 
 
-def serve_mode(root, name, mode, bf16):
+def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS):
     """Serve, send the requests, return ``{kernel: (launches, plain
     calls)}`` of the serve phase."""
-    from learn_nerf_tpu_torch.kernels import fused_mlp as fm
-    from learn_nerf_tpu_torch.kernels import fused_render as fr
-    from learn_nerf_tpu_torch.kernels import hashgrid as kh
-    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
-    from learn_nerf_tpu_torch.kernels import table_gather as tg
     from learn_nerf_tpu_torch.scripts import serve_nerf
 
-    counters = dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
-                    hashgrid_corners=kh.counter, hashgrid_encode=ke.counter)
-    argv = mode_flags(root, mode, bf16) + ["--port", "0", str(root / "metadata.json")]
+    counters = kernel_counters()
+    argv = mode_flags(root, mode, bf16, checkpoint) + ["--port", "0", str(root / "metadata.json")]
     server = serve_nerf.make_server(serve_nerf.argparser().parse_args(argv))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
@@ -699,7 +1164,7 @@ def serve_mode(root, name, mode, bf16):
     try:
         for c in counters.values():
             c.reset()
-        for i in range(REQUESTS):
+        for i in range(requests):
             body = (root / f"{i:04}.json").read_bytes()
             req = urllib.request.Request(f"http://{host}:{port}/render", data=body, method="POST")
             t0 = time.perf_counter()
@@ -757,23 +1222,32 @@ def main():
     kernels = check_kernels(device, rng)
     kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3))
     torch.cuda.empty_cache()
+    kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5))
+    torch.cuda.empty_cache()
+    kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6))
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
         root = Path(tmp)
         views = write_scene(root, rng)
         check_frames(root, views, device, rng, VANILLA_MODES, bf16=True)
         check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
+        write_train_scene(root / "train", np.random.RandomState(SEED + 7))
+        check_train_step(root, device, np.random.RandomState(SEED + 8))
+        torch.cuda.empty_cache()
         served = {name: serve_mode(root, name, mode, bf16=True) for name, mode in VANILLA_MODES.items()}
         served.update({name: serve_mode(root, name, mode, bf16=False) for name, mode in NGP_MODES.items()})
         if args.profile:
             profile_modes(root)
+        served["train"], served["trained ngp occupancy"] = train_phase(root, args.profile)
 
     # Each mode's kernels ran in its serve phase (serve_mode holds that no
     # plain version ran there).
     require(served["hierarchy"]["fused_mlp"][0] > 0, "hierarchy serving never launched fused_mlp")
     require(served["occupancy"]["fused_render"][0] > 0, "occupancy serving never launched fused_render")
-    for name in NGP_MODES:
+    for name in (*NGP_MODES, "trained ngp occupancy"):
         require(served[name]["hashgrid_encode"][0] > 0, f"{name} serving never launched hashgrid_encode")
+    for name in ("ngp occupancy", "trained ngp occupancy"):
+        require(served[name]["composite"][0] > 0, f"{name} serving never launched composite")
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",

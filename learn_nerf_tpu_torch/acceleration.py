@@ -1,5 +1,6 @@
-"""Occupancy-grid accelerated sampling (port of the rendering half of
-``learn_nerf_tpu.acceleration``).
+"""Occupancy-grid accelerated sampling (port of
+``learn_nerf_tpu.acceleration``: the grid, its training-time update and
+the rendering helpers).
 
 A binary occupancy grid over the scene bbox (an EMA of model densities per
 cell, trained with the model and checkpointed beside it) culls cheap
@@ -10,7 +11,7 @@ pooled inference path sizes its sample pool with the budget buckets below.
 """
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -103,6 +104,71 @@ class OccupancyGrid:
             np.asarray(params["occupancy_densities"], dtype=np.float32).reshape(-1)
         )
         return OccupancyGridState(densities=densities.to(device), step=self.warmup_updates)
+
+    def cell_positions(self, ids: Tensor, jitter: Tensor) -> Tensor:
+        """World-space positions of cells ``ids``, jittered within the cell.
+
+        :param ids: ``[M]`` flat cell indices (x fastest).
+        :param jitter: ``[M, 3]`` uniforms in ``[0, 1)``.
+        """
+        r = self.resolution
+        coords = torch.stack(
+            [ids % r, torch.div(ids, r, rounding_mode="floor") % r,
+             torch.div(ids, r * r, rounding_mode="floor")], dim=-1,
+        )
+        bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=ids.device)
+        bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=ids.device)
+        frac = (coords.to(torch.float32) + jitter) / r
+        return bbox_min + frac * (bbox_max - bbox_min)
+
+    def update(
+        self,
+        state: OccupancyGridState,
+        model,
+        num_cells: Optional[int] = None,
+        num_samples: int = 1,
+        generator: Optional[torch.Generator] = None,
+        ids: Optional[Tensor] = None,
+        jitter: Optional[Tensor] = None,
+    ) -> OccupancyGridState:
+        """One EMA update (Instant NGP rule, partial-sampling variant).
+
+        All cells decay by ``decay`` (not during warmup: a cell the partial
+        refresh never visited must leave warmup at its init value); a
+        random subset of ``num_cells`` (default: all) is re-evaluated
+        through the model at zero directions, ``num_samples`` jittered
+        points per cell with the max taken, and maxed in:
+        ``d[c] <- max(decay * d[c], density)``.  The subset is drawn with
+        replacement, so ``ids`` repeats cells; the max covers that.
+
+        :param model: the field model (evaluated under ``no_grad``).
+        :param generator: draws ``ids`` and ``jitter`` when they are absent;
+            must live on the grid's device.
+        :param ids: optional ``[M]`` int64 cells to refresh.
+        :param jitter: optional ``[num_samples, M, 3]`` uniforms.
+        :return: the new state, ``step + 1``; ``state`` is not modified.
+        """
+        device = state.densities.device
+        n = self.resolution**3
+        if ids is None:
+            if num_cells is None or num_cells >= n:
+                ids = torch.arange(n, dtype=torch.int64, device=device)
+            else:
+                ids = torch.randint(0, n, (num_cells,), generator=generator, device=device)
+        ids = ids.to(torch.int64)
+        samples = max(num_samples, 1)
+        if jitter is None:
+            jitter = torch.rand((samples, ids.shape[0], 3), generator=generator, device=device)
+        density = None
+        with torch.no_grad():
+            for s in range(samples):
+                pts = self.cell_positions(ids, jitter[s])
+                d = model(pts, torch.zeros_like(pts))[0][..., 0].float()
+                density = d if density is None else torch.maximum(density, d)
+            decay = 1.0 if state.step < self.warmup_updates else self.decay
+            densities = state.densities * decay
+            densities.scatter_reduce_(0, ids, density, reduce="amax", include_self=True)
+        return OccupancyGridState(densities=densities, step=state.step + 1)
 
 
 #: Quantized per-ray pool budgets for "auto" modes: resolved budgets snap

@@ -5,8 +5,8 @@ The pickle holds a plain dict ``{"coarse": tree, "fine": tree,
 "background": [3]}`` of NumPy arrays, where each tree is flax's
 ``{"Dense_i": {"kernel": [in, out], "bias": [out]}}``, plus, for an
 Instant-NGP model, ``{"HashGridEncoding_0": {"table_i": [rows, F]}}``;
-occupancy runs add ``occupancy_densities`` (flat ``[r^3]``) and
-``occupancy_resolution``.  A checkpoint written by either package loads in
+occupancy runs add ``occupancy_densities`` (flat ``[r^3]``),
+``occupancy_resolution`` and, from the train loop, ``occupancy_host_step``.  A checkpoint written by either package loads in
 the other: the model trees convert by kind (:func:`model_params_from_flax`
 / :func:`model_params_to_flax`) and every other key passes through
 unchanged.  NGP trees saved by the reference implementation
@@ -227,3 +227,35 @@ def save_params_pickle(path: str, params: Dict[str, Any]) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.rename(tmp, path)
+
+
+def train_state_from_flax(
+    params: Dict[str, Any], opt_state: Any = None, density_layers: int = 1
+) -> Dict[str, Any]:
+    """The JAX occupancy loop's train state as the port's, for tests that
+    start both loops from one state.
+
+    :param params: the JAX loop's ``state.params`` (``fine`` tree and
+        ``background``) as NumPy arrays.
+    :param opt_state: optionally optax's Adam state for those params: any
+        object or mapping with ``mu``, ``nu`` (trees shaped like ``params``)
+        and ``count`` (``optax.ScaleByAdamState``).
+    :return: ``dict(fine=<state dict>, background=tensor)``, plus, with an
+        ``opt_state``, ``exp_avg`` and ``exp_avg_sq`` (the same layout, for
+        ``torch.optim.Adam``'s per-parameter state) and ``step`` (an int).
+    """
+    def convert(tree):
+        return dict(
+            fine=model_params_from_flax(tree["fine"], density_layers=density_layers),
+            background=torch.from_numpy(np.array(tree["background"], dtype=np.float32)),
+        )
+
+    out = convert(params)
+    if opt_state is not None:
+        field = (lambda k: opt_state[k]) if isinstance(opt_state, dict) else (
+            lambda k: getattr(opt_state, k))
+        out.update(
+            exp_avg=convert(field("mu")), exp_avg_sq=convert(field("nu")),
+            step=int(np.asarray(field("count"))),
+        )
+    return out

@@ -28,8 +28,9 @@ class CameraView:
     y_fov: float
 
     @classmethod
-    def from_dict(cls, info: dict) -> "CameraView":
-        """From the per-view JSON keys ``z, origin, x, y, x_fov, y_fov``."""
+    def from_dict(cls, info: dict, **kwargs) -> "CameraView":
+        """From the per-view JSON keys ``z, origin, x, y, x_fov, y_fov``;
+        ``kwargs`` are a subclass's further fields."""
         return cls(
             camera_direction=tuple(info["z"]),
             camera_origin=tuple(info["origin"]),
@@ -37,12 +38,13 @@ class CameraView:
             y_axis=tuple(info["y"]),
             x_fov=float(info["x_fov"]),
             y_fov=float(info["y_fov"]),
+            **kwargs,
         )
 
     @classmethod
-    def from_json(cls, path: str) -> "CameraView":
+    def from_json(cls, path: str, **kwargs) -> "CameraView":
         with open(path, "rb") as f:
-            return cls.from_dict(json.load(f))
+            return cls.from_dict(json.load(f), **kwargs)
 
     def to_json(self) -> str:
         return json.dumps(

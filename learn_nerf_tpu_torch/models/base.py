@@ -19,3 +19,17 @@ class FieldModel(nn.Module):
 
     def forward(self, x: Tensor, d: Tensor) -> FieldOutput:
         raise NotImplementedError
+
+
+def reset_parameters_like_flax(model: nn.Module) -> None:
+    """Initialize every ``nn.Linear`` as flax's ``Dense`` does: a
+    lecun-normal kernel (a normal of variance ``1 / fan_in`` truncated at two
+    standard deviations) and a zero bias.  Draws from torch's global
+    generator."""
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            # The truncation shrinks the variance; flax divides it out.
+            std = (1.0 / module.in_features) ** 0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(module.weight, mean=0.0, std=std, a=-2.0 * std, b=2.0 * std)
+            if module.bias is not None:
+                nn.init.zeros_(module.bias)

@@ -17,6 +17,7 @@ import torch
 from ..acceleration import OccupancyGrid, OccupancyGridState
 from ..data.dataset import ModelMetadata
 from ..models import FieldModel, InstantNGPModel, NeRFModel
+from ..models.base import reset_parameters_like_flax
 from ..occ_render import OccupancyRenderer
 
 
@@ -69,7 +70,7 @@ def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
         "--occ_train_budget",
         type=lambda v: v if v == "auto" else float(v),
         default=None,
-        help="training only: pooled training budget",
+        help="training only: pooled training budget (not ported yet)",
     )
     parser.add_argument(
         "--occ_train_budget_start",
@@ -147,6 +148,8 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
 def check_ported(args: argparse.Namespace) -> None:
     """Refuse, with ``SystemExit``, every flag whose path is not ported."""
     refused = [
+        (getattr(args, "occ_train_budget", None) is not None,
+         "--occ_train_budget (pooled training)"),
         (getattr(args, "ref_nerf", False), "--ref_nerf (Ref-NeRF)"),
         (getattr(args, "baked", None) is not None, "--baked (baked NGP field)"),
         (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
@@ -158,7 +161,8 @@ def check_ported(args: argparse.Namespace) -> None:
             raise SystemExit(
                 f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
                 "package serves the vanilla NeRF and Instant-NGP, with the "
-                "hierarchy, fixed-K occupancy and pooled inference (see ROADMAP.md)"
+                "hierarchy, fixed-K occupancy and pooled inference, and trains on "
+                "the fixed-K occupancy path (see ROADMAP.md)"
             )
     if torch.cuda.device_count() > 1:
         raise SystemExit(
@@ -174,7 +178,7 @@ def add_device_arg(parser: argparse.ArgumentParser) -> None:
         "--device",
         choices=("cuda", "cpu"),
         default="cuda",
-        help="where to render: the CUDA card (default; raises without one) or the CPU",
+        help="where to run: the CUDA card (default; raises without one) or the CPU",
     )
 
 
@@ -186,7 +190,7 @@ def default_device() -> torch.device:
     model must not round their products to TF32's 10-bit mantissa.
     """
     if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass --device cpu to render on the CPU")
+        raise RuntimeError("no CUDA device; pass --device cpu to run on the CPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -199,8 +203,12 @@ def resolve_device(name: str) -> torch.device:
 
 def create_model(
     args: argparse.Namespace, metadata: ModelMetadata
-) -> Tuple[FieldModel, FieldModel]:
-    """The (coarse, fine) pair, with the JAX package's shapes.
+) -> Tuple[FieldModel, FieldModel, Dict[str, Any]]:
+    """The (coarse, fine) pair, with the JAX package's shapes, plus the
+    train loop's extra keyword arguments (Instant-NGP's Adam: ``eps=1e-15,
+    b1=0.9, b2=0.99``).  Fresh models are initialized as flax initializes
+    them (:func:`~..models.base.reset_parameters_like_flax`); a checkpoint
+    overwrites that.
 
     ``--instant_ngp``: 6 coarse and 16 fine hash-grid levels of ``2^18``
     rows, lattices ``2^(4 + i//2)``, over the metadata's bbox; ``--bf16``
@@ -211,7 +219,7 @@ def create_model(
     compute_dtype = "bfloat16" if getattr(args, "bf16", False) else "float32"
     if getattr(args, "instant_ngp", False):
         bbox = dict(bbox_min=tuple(metadata.bbox_min), bbox_max=tuple(metadata.bbox_max))
-        return tuple(
+        coarse, fine = (
             InstantNGPModel(
                 table_sizes=[2**18] * levels,
                 grid_sizes=[2 ** (4 + i // 2) for i in range(levels)],
@@ -220,7 +228,13 @@ def create_model(
             )
             for levels in (6, 16)
         )
-    return NeRFModel(compute_dtype=compute_dtype), NeRFModel(compute_dtype=compute_dtype)
+        train_kwargs = dict(adam_eps=1e-15, adam_b1=0.9, adam_b2=0.99)
+    else:
+        coarse, fine = NeRFModel(compute_dtype=compute_dtype), NeRFModel(compute_dtype=compute_dtype)
+        train_kwargs = dict()
+    for model in (coarse, fine):
+        reset_parameters_like_flax(model)
+    return coarse, fine, train_kwargs
 
 
 def build_occupancy_renderer(

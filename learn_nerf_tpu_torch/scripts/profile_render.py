@@ -44,7 +44,8 @@ from .render_nerf import RenderSession, argparser as render_argparser
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # The port's hand-written kernels, by the name their CUDA function carries.
-PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode")
+PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode",
+                "hashgrid_backward", "composite_forward", "composite_backward")
 
 
 def argparser():
@@ -107,14 +108,22 @@ def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> 
     render()  # warm-up: first-use costs stay out of the numbers
     latencies = [render() for _ in range(repeats)]
 
+    return dict(
+        latencies_ms=latencies, median_ms=statistics.median(latencies), **profile_call(render, device)
+    )
+
+
+def profile_call(call, device: torch.device) -> dict:
+    """One call of ``call`` (which returns its own host-clock latency in ms)
+    under ``torch.profiler``: ``profiled_ms``, ``device_ms``,
+    ``idle_share``, ``top``, ``port_kernels``, ``kernels_launched`` and
+    ``host_top`` as the module doc describes them."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
-        profiled = render()
+        profiled = call()
     result = dict(
-        latencies_ms=latencies,
-        median_ms=statistics.median(latencies),
         profiled_ms=profiled,
         device_ms=None,
         idle_share=None,

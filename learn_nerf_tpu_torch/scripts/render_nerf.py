@@ -77,10 +77,13 @@ class RenderSession:
         self.metadata = ModelMetadata.from_json(args.metadata_json)
 
         print("loading model...")
-        coarse, fine = create_model(args, self.metadata)
+        coarse, fine, _ = create_model(args, self.metadata)
         params = load_params_pickle(args.model_path)
         ckpt = checkpoint_from_flax(params, **coarse.flax_layout())
-        coarse.load_state_dict(ckpt["coarse"])
+        # The occupancy train loop saves no coarse model, and the occupancy
+        # path reads none.
+        if "coarse" in ckpt or not getattr(args, "occupancy", False):
+            coarse.load_state_dict(ckpt["coarse"])
         fine.load_state_dict(ckpt["fine"])
         self.coarse = coarse.to(self.device).eval()
         self.fine = fine.to(self.device).eval()

@@ -1,0 +1,473 @@
+"""Training on the occupancy-grid fast path: the loss, the gradient step
+and a stateful loop (port of ``learn_nerf_tpu.train``'s occupancy half).
+
+Loss contract of the JAX package: ``MSE(fine) + sum of weighted aux
+losses`` with default weights ``normal_mse=3e-4, neg_normal=0.1``, plus an
+optional mean-density penalty at uniform random bbox points; the logged dict
+carries the per-term losses under the ``fine`` prefix plus ``grad_norm`` and
+``param_norm``.  The optimizer is Adam in optax's form
+(``m_hat / (sqrt(v_hat) + eps)``, which ``torch.optim.Adam`` shares).
+
+Where the JAX package threads a parameter tree through pure functions, the
+port's field model owns its parameters; the loop's trained parameters are
+``dict(fine=<the model's parameters by name>, background=[3])``, and the
+background is trained.  Where it folds PRNG keys inside the jitted step, the
+port seeds one generator per step from ``(base seed, tag, step)``
+(:func:`fold_seed`), so a resumed run draws what an unbroken one would.
+Every draw can also be given explicitly (``u=``, ``density_draws=``,
+``grid_ids=``, ``grid_jitter=``), which is how the parity tests feed both
+packages the same numbers.
+
+On the card the step runs three hand-written kernels: the all-level
+hash-grid encode and its table-gradient kernel (through
+:class:`~.kernels.hashgrid_encode.HashGridEncode`) and the composite
+kernels, forward and backward (:mod:`.kernels.composite`).
+
+Not ported yet (ROADMAP.md, Queue 1): the pooled training step (item 4),
+the hierarchy's ``TrainLoop`` (item 6), full-state checkpoints (item 8) and
+meshes of several cards (item 9); asking for any of them raises.
+"""
+
+import copy
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Iterable, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from .acceleration import OccupancyGrid, OccupancyGridState
+from .models.base import FieldModel
+from .models.vanilla import NeRFModel
+from .occ_render import OccupancyRenderer
+
+Tensor = torch.Tensor
+Schedule = Callable[[int], float]
+
+NOT_PORTED = "is not ported to learn_nerf_tpu_torch yet (ROADMAP.md, Queue 1 item {item})"
+
+# Stream tags of step_auto's per-step seeds (the JAX loop folds the same
+# two tags into its base key).
+TRAIN_TAG, GRID_TAG = 0, 1
+
+
+def default_loss_weights() -> Dict[str, float]:
+    return dict(normal_mse=3e-4, neg_normal=0.1)
+
+
+def tree_norm(tensors: Iterable[Tensor]) -> Tensor:
+    """L2 norm over all elements of all tensors (0-dim)."""
+    tensors = [t.detach() for t in tensors]
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def constant_schedule(value: float) -> Schedule:
+    return lambda count: value
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Schedule:
+    """``optax.cosine_decay_schedule``: from ``init_value`` down to
+    ``alpha * init_value`` over ``decay_steps`` optimizer steps, flat after."""
+    if decay_steps <= 0:
+        raise ValueError(f"the cosine schedule needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count: int) -> float:
+        t = min(max(count, 0), decay_steps) / decay_steps
+        return init_value * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * t)) + alpha)
+
+    return schedule
+
+
+def fold_seed(base_seed: int, tag: int, step: int) -> int:
+    """A 63-bit generator seed from ``(base seed, stream tag, step)``: a
+    pure function of its arguments (splitmix64's finalizer over the three),
+    so a resumed run continues the stream of an unbroken one."""
+    mask = (1 << 64) - 1
+    z = (base_seed * 0x9E3779B97F4A7C15 + tag * 0xD1B54A32D192ED03 + step * 0x94D049BB133111EB) & mask
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & mask
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & mask
+    return (z ^ (z >> 31)) >> 1
+
+
+def average_density(
+    model: FieldModel,
+    bbox_min: Tensor,
+    bbox_max: Tensor,
+    batch_size: int,
+    coords_u: Optional[Tensor] = None,
+    dirs_normal: Optional[Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tensor:
+    """Mean model density at uniform random points in the bbox.
+
+    The JAX function reuses ONE key for the uniform coordinates and the
+    normal directions; here both draws are arguments.
+
+    :param coords_u: optional ``[batch_size, 3]`` uniforms in ``[0, 1)``.
+    :param dirs_normal: optional ``[batch_size, 3]`` standard normals.
+    """
+    device = bbox_min.device
+    if coords_u is None:
+        coords_u = torch.rand((batch_size, 3), generator=generator, device=device)
+    if dirs_normal is None:
+        dirs_normal = torch.randn((batch_size, 3), generator=generator, device=device)
+    coords = coords_u * (bbox_max - bbox_min) + bbox_min
+    dirs = dirs_normal / torch.linalg.vector_norm(dirs_normal, dim=-1, keepdim=True)
+    densities, _, _ = model(coords, dirs)
+    return densities.mean()
+
+
+def _single_model_loss_tail(
+    renderer: OccupancyRenderer,
+    outputs: Tensor,
+    aux: Dict[str, Tensor],
+    targets: Tensor,
+    loss_weights: Dict[str, float],
+    density_penalty: Optional[float],
+    density_penalty_batch_size: int,
+    density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """MSE + weighted aux + optional density penalty, logged under the
+    ``fine`` prefix."""
+    fine_loss = ((outputs - targets) ** 2).mean()
+    loss_dict = dict(fine=fine_loss)
+    total = fine_loss
+    for name, value in aux.items():
+        loss_dict[f"fine_{name}"] = value
+        total = total + loss_weights[name] * value
+    if density_penalty is not None:
+        coords_u, dirs_normal = density_draws if density_draws is not None else (None, None)
+        device = outputs.device
+        penalty = average_density(
+            renderer.model,
+            torch.tensor(renderer.bbox_min, dtype=torch.float32, device=device),
+            torch.tensor(renderer.bbox_max, dtype=torch.float32, device=device),
+            density_penalty_batch_size,
+            coords_u=coords_u, dirs_normal=dirs_normal, generator=generator,
+        )
+        loss_dict["fine_density"] = penalty
+        total = total + density_penalty * penalty
+    return total, loss_dict
+
+
+def compute_losses_occupancy(
+    renderer: OccupancyRenderer,
+    background: Tensor,
+    batch: Tensor,
+    grid_state: OccupancyGridState,
+    loss_weights: Dict[str, float],
+    density_penalty: Optional[float] = None,
+    density_penalty_batch_size: int = 128,
+    u: Optional[Tensor] = None,
+    density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Total loss and the logging dict of one ray batch on the occupancy
+    path.  The field's parameters are ``renderer.model``'s.
+
+    :param batch: ``[N, 3, 3]`` rows of (origin, direction, target colour).
+    :param u: optional ``[N, candidates]`` uniforms for the candidate draw.
+    :param density_draws: optional ``(uniforms [B, 3], normals [B, 3])`` of
+        the density penalty.
+    """
+    out, aux = renderer.render_rays(batch[:, :2], background, grid_state, u=u, generator=generator)
+    return _single_model_loss_tail(
+        renderer, out["outputs"], aux, batch[:, 2], loss_weights, density_penalty,
+        density_penalty_batch_size, density_draws=density_draws, generator=generator,
+    )
+
+
+class TrainLoop:
+    """The hierarchy's training loop, not ported yet."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "training the coarse/fine hierarchy (TrainLoop) " + NOT_PORTED.format(item=6)
+            + "; train with OccupancyTrainLoop (--occupancy)"
+        )
+
+
+class OccupancyTrainLoop:
+    """Training loop for the occupancy-grid fast path (single field model).
+
+    The occupancy grid state is carried beside the optimizer state and
+    refreshed every ``update_interval`` steps, before the step, with a
+    partial EMA update (:meth:`~.acceleration.OccupancyGrid.update`); the
+    grid is saved into the checkpoint so rendering can reuse it.
+
+    :param model: the field model; the loop moves it to ``device`` and
+        trains its parameters in place.
+    :param lr: a float, or a schedule of the optimizer step
+        (:func:`cosine_decay_schedule`).
+    :param device: where to train (default: where the model lies).
+    """
+
+    def __init__(
+        self,
+        model: FieldModel,
+        lr: Union[float, Schedule],
+        bbox_min,
+        bbox_max,
+        candidates: int = 192,
+        samples: int = 32,
+        grid_resolution: int = 128,
+        grid_threshold: float = 0.01,
+        update_interval: int = 16,
+        update_cells: int = 2**17,
+        grid_refresh_samples: int = 1,
+        grid_freeze_after: Optional[int] = None,
+        adam_b1: float = 0.9,
+        adam_b2: float = 0.999,
+        adam_eps: float = 1e-7,
+        loss_weights: Optional[Dict[str, float]] = None,
+        density_penalty: Optional[float] = None,
+        density_penalty_batch_size: int = 128,
+        pool_budget_per_ray: Optional[float] = None,
+        pool_start_step: int = 512,
+        pool_t_eps: float = 0.0,
+        grid_warmup_updates: int = 16,
+        ema_decay: Optional[float] = None,
+        mesh: Any = None,
+        device: Union[None, str, torch.device] = None,
+    ):
+        if pool_budget_per_ray is not None:
+            raise NotImplementedError("the pooled training step " + NOT_PORTED.format(item=4))
+        if mesh is not None:
+            raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item=9))
+        if isinstance(model, NeRFModel) and model.compute_dtype == "bfloat16":
+            # Its forward is the fused MLP kernel over packed (detached)
+            # weights: a backward through it would leave every gradient None.
+            raise NotImplementedError(
+                "training a bfloat16 vanilla model is not ported: its forward is the fused "
+                "MLP kernel, which has no backward (ROADMAP.md, Queue 3); train it in float32"
+            )
+        bbox_min_t = tuple(np.asarray(bbox_min, dtype=np.float32).tolist())
+        bbox_max_t = tuple(np.asarray(bbox_max, dtype=np.float32).tolist())
+        self.device = torch.device(device) if device is not None else next(model.parameters()).device
+        self.grid = OccupancyGrid(
+            bbox_min=bbox_min_t, bbox_max=bbox_max_t, resolution=grid_resolution,
+            threshold=grid_threshold, warmup_updates=grid_warmup_updates,
+        )
+        self.model = model.to(self.device)
+        self.renderer = OccupancyRenderer(
+            model=self.model, grid=self.grid, bbox_min=bbox_min_t, bbox_max=bbox_max_t,
+            candidates=candidates, samples=samples,
+        )
+        self.loss_weights = loss_weights if loss_weights is not None else default_loss_weights()
+        self.density_penalty = density_penalty
+        self.density_penalty_batch_size = density_penalty_batch_size
+        self.update_interval = update_interval
+        self.update_cells = update_cells
+        self.grid_refresh_samples = grid_refresh_samples
+        self.grid_freeze_after = grid_freeze_after
+
+        self.background = nn.Parameter(torch.tensor([-1.0, -1.0, -1.0], device=self.device))
+        self.params = dict(fine=dict(self.model.named_parameters()), background=self.background)
+        self._schedule = lr if callable(lr) else constant_schedule(float(lr))
+        self.optimizer = torch.optim.Adam(
+            self._leaves(), lr=self._schedule(0), betas=(adam_b1, adam_b2), eps=adam_eps,
+            foreach=True,
+        )
+        # Optimizer steps taken by this loop (drives the lr schedule), and
+        # the train-state step (drives step_auto's seeds; restored by load).
+        self._opt_count = 0
+        self.step_count = 0
+        self._host_step = 0
+
+        self.ema_decay = ema_decay
+        self._ema_model: Optional[FieldModel] = None
+        self._ema_background: Optional[Tensor] = None
+        if ema_decay is not None:
+            self._seed_ema()
+        self.grid_state = self.grid.init(self.device)
+        self._generator = torch.Generator(device=self.device)
+
+    # -- parameters -------------------------------------------------------
+
+    def _leaves(self) -> list:
+        return [*self.model.parameters(), self.background]
+
+    def _seed_ema(self) -> None:
+        """An independent copy of the parameters to seed the average."""
+        self._ema_model = copy.deepcopy(self.model).requires_grad_(False)
+        self._ema_background = self.background.detach().clone()
+
+    def _ema_step(self) -> None:
+        """``ema <- decay * ema + (1 - decay) * params``, in place."""
+        ema = [*self._ema_model.parameters(), self._ema_background]
+        with torch.no_grad():
+            torch._foreach_mul_(ema, self.ema_decay)
+            torch._foreach_add_(ema, [p.detach() for p in self._leaves()], alpha=1.0 - self.ema_decay)
+
+    @property
+    def eval_params(self) -> Dict[str, Any]:
+        """What rendering and checkpoints use: the Polyak average when
+        ``ema_decay`` is set, the raw train parameters otherwise
+        (``fine`` as a state dict)."""
+        if self.ema_decay is not None and self._ema_model is not None:
+            return dict(fine=self._ema_model.state_dict(), background=self._ema_background)
+        return dict(fine=self.model.state_dict(), background=self.background.detach())
+
+    # -- steps ------------------------------------------------------------
+
+    def _loss(self, renderer, background, batch, **draws):
+        return compute_losses_occupancy(
+            renderer, background, batch, self.grid_state, self.loss_weights,
+            density_penalty=self.density_penalty,
+            density_penalty_batch_size=self.density_penalty_batch_size, **draws,
+        )
+
+    def _grad_step(self, batch: Tensor, **draws) -> Dict[str, Tensor]:
+        """THE gradient step: loss and gradients, the norm metrics, the
+        Adam update, the optional EMA."""
+        self.optimizer.zero_grad(set_to_none=True)
+        total, values = self._loss(self.renderer, self.background, batch, **draws)
+        total.backward()
+        leaves = self._leaves()
+        values = {k: v.detach() for k, v in values.items()}
+        values["grad_norm"] = tree_norm(p.grad for p in leaves)
+        values["param_norm"] = tree_norm(leaves)
+        for group in self.optimizer.param_groups:
+            group["lr"] = self._schedule(self._opt_count)
+        self.optimizer.step()
+        self._opt_count += 1
+        self.step_count += 1
+        if self.ema_decay is not None:
+            self._ema_step()
+        return values
+
+    def _refresh_grid(self, generator=None, ids=None, jitter=None) -> None:
+        self.grid_state = self.grid.update(
+            self.grid_state, self.model, num_cells=self.update_cells,
+            num_samples=self.grid_refresh_samples, generator=generator, ids=ids, jitter=jitter,
+        )
+
+    def _refresh_due(self) -> bool:
+        """The host-side cadence: a refresh BEFORE the step whenever the
+        host step is a multiple of ``update_interval``, until the freeze."""
+        return self._host_step % self.update_interval == 0 and (
+            self.grid_freeze_after is None or self._host_step < self.grid_freeze_after
+        )
+
+    def _place(self, batch) -> Tensor:
+        if not isinstance(batch, Tensor):
+            batch = torch.from_numpy(np.asarray(batch, dtype=np.float32))
+        return batch.to(self.device, non_blocking=True)
+
+    def step(
+        self,
+        batch,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[Tensor] = None,
+        density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+        grid_ids: Optional[Tensor] = None,
+        grid_jitter: Optional[Tensor] = None,
+    ) -> Dict[str, Tensor]:
+        """One in-place training step with the caller's draws; returns the
+        logging dict of 0-dim tensors (on the device: read them late).
+
+        :param batch: ``[N, 3, 3]`` rows of (origin, direction, colour).
+        :param generator: draws whatever is not given explicitly.
+        """
+        if self._refresh_due():
+            self._refresh_grid(generator=generator, ids=grid_ids, jitter=grid_jitter)
+        self._host_step += 1
+        return self._grad_step(
+            self._place(batch), u=u, density_draws=density_draws, generator=generator
+        )
+
+    def step_auto(self, base_seed: int, batch) -> Dict[str, Tensor]:
+        """Hot-loop step: pass the SAME ``base_seed`` every call.  The
+        step's draws come from a generator seeded with ``(base_seed, 0,
+        train step)``, a grid refresh's with ``(base_seed, 1, host
+        step)``; both counters are checkpointed by :meth:`save`."""
+        if self._refresh_due():
+            self._generator.manual_seed(fold_seed(base_seed, GRID_TAG, self._host_step))
+            self._refresh_grid(generator=self._generator)
+        self._host_step += 1
+        self._generator.manual_seed(fold_seed(base_seed, TRAIN_TAG, self.step_count))
+        return self._grad_step(self._place(batch), generator=self._generator)
+
+    def step_auto_many(self, base_seed: int, batches: Sequence) -> Dict[str, Tensor]:
+        """K hot-loop steps, equal to K :meth:`step_auto` calls (a plain
+        loop); returns the LAST step's logging dict.
+
+        :param batches: ``[k, N, 3, 3]`` stacked ray batches.
+        """
+        values = None
+        for batch in batches:
+            values = self.step_auto(base_seed, batch)
+        if values is None:
+            raise ValueError("step_auto_many needs at least one batch")
+        return values
+
+    def eval_losses(
+        self,
+        batch,
+        generator: Optional[torch.Generator] = None,
+        u: Optional[Tensor] = None,
+        density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    ) -> Dict[str, Tensor]:
+        """The loss dict without a gradient step (test-set monitoring), on
+        :attr:`eval_params`: with EMA on, the weights that are
+        checkpointed and rendered."""
+        renderer, background = self.renderer, self.background
+        if self.ema_decay is not None and self._ema_model is not None:
+            renderer = dataclasses.replace(self.renderer, model=self._ema_model)
+            background = self._ema_background
+        with torch.no_grad():
+            _, values = self._loss(
+                renderer, background, self._place(batch), u=u, density_draws=density_draws,
+                generator=generator,
+            )
+        return values
+
+    # -- checkpointing ----------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Write the params pickle both packages render (atomic): the eval
+        parameters (the EMA average when enabled) as flax trees, the
+        occupancy grid's densities and resolution, and the loop's step
+        counter (so a resume keeps its refresh phase and its seeds)."""
+        from .checkpoint import checkpoint_to_flax, save_params_pickle
+
+        payload = dict(
+            self.eval_params,
+            occupancy_densities=self.grid_state.densities,
+            occupancy_resolution=np.int32(self.grid.resolution),
+            occupancy_host_step=np.int64(self._host_step),
+        )
+        save_params_pickle(path, checkpoint_to_flax(payload))
+
+    def load(self, path: str) -> None:
+        """Load parameters, grid and counters from a params pickle written
+        by either package.  Adam's moments are not in it: the optimizer
+        keeps whatever state it has (a fresh loop's is empty)."""
+        from .checkpoint import checkpoint_from_flax, load_params_pickle
+
+        payload = load_params_pickle(path)
+        ckpt = checkpoint_from_flax(payload, **self.model.flax_layout())
+        self.model.load_state_dict(ckpt["fine"])
+        with torch.no_grad():
+            self.background.copy_(
+                torch.as_tensor(np.asarray(payload["background"], dtype=np.float32))
+            )
+        if self._ema_model is not None:
+            self._seed_ema()  # a params pickle has one tree: seed the average from it
+        if "occupancy_densities" in payload:
+            # state_from_checkpoint marks the trained grid past warmup: a
+            # step-0 state would re-enter the all-occupied window.
+            self.grid_state = self.grid.state_from_checkpoint(payload, self.device)
+        if "occupancy_host_step" in payload:
+            # Both counters: step_auto's seeds fold the train step, the
+            # refresh cadence and its seeds the host step.
+            self._host_step = int(payload["occupancy_host_step"])
+            self.step_count = self._host_step
+
+    def save_full(self, path: str) -> None:
+        raise NotImplementedError("full-state checkpoints (save_full) " + NOT_PORTED.format(item=8))
+
+    def load_full(self, path: str) -> None:
+        raise NotImplementedError("full-state checkpoints (load_full) " + NOT_PORTED.format(item=8))

@@ -21,8 +21,9 @@ from run to run, and so does the plain version's ``index_add_``: held to
 meet on each of the 64 rows of the 4^3 level: measured 2.2e-6 there on an
 H100, 2e-7 to 7e-7 in the other levels), through ``HashGridEncode`` and on their own, and to finite differences
 of the encoding on a tiny case.  The composite kernels: forward within 1e-6,
-backward within 2e-6 of each gradient's max against autograd through
-``ops/volume`` (measured 2.4e-7 / 9.3e-7), at K = 1, 24, 32, 33, 64 with a
+backward within 5e-6 of each gradient's max against autograd through
+``ops/volume`` (measured 2.4e-7 / up to 1.7e-6, the largest on the
+background's gradient, which the kernel sums over the rays by atomics), at K = 1, 24, 32, 33, 64 with a
 last block that is part full, finite differences on a tiny case within
 2e-2 (f32 differences of step 1e-2), and the refusal of K > 64.
 """
@@ -379,11 +380,11 @@ def test_composite_kernels_match_plain_version(cuda, n, k):
     ref_grads = torch.autograd.grad(ref, leaves, cotangents)
     for out, want in zip(outs, ref):
         torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
-    assert max(_relative_errors(grads, ref_grads)) <= 2e-6
+    assert max(_relative_errors(grads, ref_grads)) <= 5e-6
     # One cotangent alone (the others None): the train step's case.
     only = torch.autograd.grad(kc.render_composite(*leaves, mask)[0].sum(), leaves)
     ref_only = torch.autograd.grad(kc.render_composite_reference(*leaves, mask)[0].sum(), leaves)
-    assert max(_relative_errors(only, ref_only)) <= 2e-6
+    assert max(_relative_errors(only, ref_only)) <= 5e-6
 
 
 def test_composite_backward_against_finite_differences(cuda):

@@ -9,7 +9,7 @@ import torch
 
 from learn_nerf_tpu_torch.checkpoint import save_params_pickle
 from learn_nerf_tpu_torch.data.camera import CameraView
-from learn_nerf_tpu_torch.scripts import common, profile_render, render_nerf, serve_nerf
+from learn_nerf_tpu_torch.scripts import common, profile_render, render_nerf, serve_nerf, train_nerf
 
 from .synthetic_scene import write_dataset
 from .torch_helpers import random_flax_tree
@@ -50,7 +50,7 @@ def test_default_device_raises_without_a_card(no_card):
 
 
 @pytest.mark.parametrize("parser", [render_nerf.argparser, serve_nerf.argparser,
-                                    profile_render.argparser])
+                                    profile_render.argparser, train_nerf.build_parser])
 def test_device_flag_defaults_to_the_card(parser):
     options = {a.dest: a for a in parser()._actions}
     assert options["device"].default == "cuda" and options["device"].choices == ("cuda", "cpu")
@@ -87,3 +87,20 @@ def test_cpu_device_flag_renders_without_a_card(scene, no_card):
         assert server.session.device == torch.device("cpu")
     finally:
         server.server_close()
+
+
+TRAIN_FLAGS = ["--instant_ngp", "--occupancy", "--occ_candidates", "16", "--occ_samples", "4",
+               "--occ_grid", "8", "--batch_size", "32", "--steps", "1", "--seed", "0"]
+
+
+def test_train_without_device_flag_raises_without_a_card(scene, no_card, tmp_path):
+    scene_dir, _ = scene
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_nerf.main([*TRAIN_FLAGS, "--save_path", str(tmp_path / "t.pkl"), scene_dir])
+    assert not (tmp_path / "t.pkl").exists()
+
+
+def test_train_with_cpu_device_flag_trains_without_a_card(scene, no_card, tmp_path):
+    scene_dir, _ = scene
+    train_nerf.main([*TRAIN_FLAGS, "--device", "cpu", "--save_path", str(tmp_path / "t.pkl"), scene_dir])
+    assert (tmp_path / "t.pkl").exists()

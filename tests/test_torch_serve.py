@@ -230,6 +230,14 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.kernels.table_gather\n"
         "import learn_nerf_tpu_torch.models.instant_ngp\n"
         "import learn_nerf_tpu_torch.ops.hashgrid\n"
+        "import learn_nerf_tpu_torch.scripts.train_nerf\n"
+        "import learn_nerf_tpu_torch.scripts.profile_train\n"
+        "import learn_nerf_tpu_torch.train\n"
+        "import learn_nerf_tpu_torch.data.shuffle\n"
+        "import learn_nerf_tpu_torch.data.prefetch\n"
+        "import learn_nerf_tpu_torch.utils.logging\n"
+        "import learn_nerf_tpu_torch.kernels.hashgrid_backward\n"
+        "import learn_nerf_tpu_torch.kernels.composite\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
