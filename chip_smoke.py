@@ -21,12 +21,18 @@ nonzero):
    NaN rows; the corner kernel at the 16-level fine schedule on 2^20
    points; the all-level encode kernel at the fine schedule on 2^20 points
    with unit-scale tables, at the 6-level coarse schedule, in smooth mode
-   and at 1, 31, 32, 33 and 2^20 - 37 points, with the per-level route it
-   replaced timed beside it; the table-gradient kernel hashgrid_backward at
-   the train step's 131,072 points and at 2^20, at the coarse schedule, in
-   smooth mode, at F = 1 and 4 and at 1, 31, 32 and 33 points, relative to
-   each level's largest gradient, with each level timed on its own and 16
-   ``index_add_`` calls beside it; the
+   and at 1, 31, 32, 33 and 2^20 - 37 points, on points along rays and on
+   the runs of equal cells that rays make (32 lanes in one cell, a run
+   across two warps, two rays in a warp, a part-full tile), bit for bit
+   equal to the kernel in the table-gradient kernel's thread layout (a
+   measured variant built from ``csrc/ablations``), with the per-level
+   route it replaced timed beside it; the table-gradient kernel hashgrid_backward at the train step's
+   131,072 points and at 2^20, at the coarse schedule, in smooth mode, at
+   F = 1 and 4, at 1, 31, 32 and 33 points, on the same ray runs and on one
+   point repeated 4096 times, relative to each level's largest gradient,
+   with each level timed on its own and 16 ``index_add_`` calls and its
+   earlier layout (``csrc/ablations``) beside it (both hash-grid kernels'
+   main-path time is the one on points along rays, ``ms_rays``); the
    composite kernels, forward and backward, at 4096 and 8192 rays x 32
    samples and at 1, 24, 32 and 64 samples with a part-full last block, on
    rays of optical depth 1-3), max abs error against the stated bound, both
@@ -90,6 +96,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from learn_nerf_tpu_torch.scripts.hashgrid_ablations import ray_points
 from learn_nerf_tpu_torch.scripts.timing import cuda_ms, graph_ms
 
 SEED = 0
@@ -163,6 +170,10 @@ TRAIN_RAYS, TRAIN_SAMPLES = 4096, 32
 TRAIN_POINTS = TRAIN_RAYS * TRAIN_SAMPLES
 BACKWARD_BOUND = 4e-6
 BACKWARD_EDGE_POINTS = (1, 31, 32, 33)
+# Variants of scripts/hashgrid_ablations.py: the table-gradient kernel in the
+# layout it had before the ray-ordered one, and the encode kernel in the
+# ray-ordered layout (measured, not kept).
+PARENT_LAYOUT, ENCODE_TILES = "parent layout", "encode tiles"
 # The composite kernels against autograd through ops/volume: the scan sums
 # in another order and expf differs from torch's exp in the last place.
 # Measured on an H100: 1.2e-7 to 2.4e-7 (forward, absolute) and 2e-7 to
@@ -397,11 +408,41 @@ def fine_schedule(levels):
     return [2 ** (4 + i // 2) for i in range(levels)], [2**18] * levels
 
 
-def check_hashgrid_kernels(device, rng):
+def ray_run_cases(rng):
+    """Points whose neighbours share cells, where the table-gradient
+    kernel's warps (32 consecutive points, one lane each) combine runs, at
+    the places its vote and shuffles can break."""
+    across = rng.uniform(-0.6, 0.6, (64, 3))
+    across[16:48] = across[16] + 1e-5 * np.arange(32)[:, None]  # lanes 16-31, then 0-15 of the next warp
+    return {
+        "32 lanes in one cell": ray_points(rng, 1, 32, 1e-4, -0.3, 0.3),
+        "a run across two warps": across.astype(np.float32),
+        "two rays in a warp": ray_points(rng, 64, 16, 5e-3, -0.5, 0.5),
+        "a part-full tile": ray_points(rng, 6, 32, 2e-2, -0.5, 0.3)[:-25],
+    }
+
+
+@contextlib.contextmanager
+def launching_from(lib):
+    """Inside, the hash-grid wrappers launch from ``lib`` (a variant of the
+    kernel library built by scripts/hashgrid_ablations.py)."""
+    from learn_nerf_tpu_torch.kernels import build
+
+    built = build._library
+    build._library = lib
+    try:
+        yield
+    finally:
+        build._library = built
+
+
+def check_hashgrid_kernels(device, rng, tiles):
     """table_gather at pallas_gather's shape and at its edges, the corner
     kernel at the fine schedule, then the all-level encode kernel at the
-    fine and coarse schedules, in smooth mode and at the edges of its
-    thread grid, each against its plain version."""
+    fine and coarse schedules, in smooth mode, at the edges of its thread
+    grid and on points along rays, each against its plain version, and bit
+    for bit against the kernel in the table-gradient kernel's thread layout
+    (``tiles``, a variant library)."""
     from learn_nerf_tpu_torch.kernels import hashgrid as kh
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.kernels import table_gather as tg
@@ -487,12 +528,25 @@ def check_hashgrid_kernels(device, rng):
         hg.HASH_PRIME_Y, hg.HASH_PRIME_Z = primes
     del out, ref
     errs.update(encode_cases(values, x, grids, tables, bbox_min, bbox_max, device, rng))
-    # Points along rays (128 samples 0.01 apart on each of 8192 rays), as a
-    # frame feeds them: neighbouring points share cells in the coarse levels.
-    origins = rng.uniform(-0.7, 0.7, (ENCODE_POINTS // 128, 1, 3))
-    dirs = rng.randn(ENCODE_POINTS // 128, 1, 3)
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    ray_x = on_card((origins + 0.01 * dirs * np.arange(128)[:, None]).reshape(-1, 3).astype(np.float32))
+    # Points along rays, as the main path feeds them: 128 samples 0.01 apart
+    # on each of 8192 rays (a frame), 32 samples 0.02 apart on each of 4096 (a
+    # train step); neighbouring points share cells in the coarse levels.
+    ray_x = on_card(ray_points(rng, ENCODE_POINTS // 128, 128, 0.01, -0.7, 0.7))
+    step_x = on_card(ray_points(rng, TRAIN_RAYS, TRAIN_SAMPLES, 0.02, -0.7, 0.4))
+    runs = {"2^20 points along rays": ray_x, "a step's points along rays": step_x,
+            **{k: on_card(v) for k, v in ray_run_cases(rng).items()}}
+    same_bits = True
+    for name, pts in {"random points": x, **runs}.items():
+        got = ke.hashgrid_encode_cuda(values, pts, grids, tables, bbox_min, bbox_max, False)
+        if pts is not x:
+            want = hg.hash_grid_encode_reference(values, pts, grids, tables, bbox_min, bbox_max)
+            require(torch.isfinite(got).all().item(), f"the encode kernel ({name}): non-finite values")
+            errs[name] = (got - want).abs().max().item()
+        with launching_from(tiles):
+            other = ke.hashgrid_encode_cuda(values, pts, grids, tables, bbox_min, bbox_max, False)
+        torch.cuda.synchronize()
+        same_bits = same_bits and torch.equal(got, other)
+        del got, other
 
     def per_level():
         # The route the encode kernel replaced, from the kernels that remain:
@@ -508,10 +562,17 @@ def check_hashgrid_kernels(device, rng):
         ms=cuda_ms(encode, 20), plain_ms=cuda_ms(plain, 3), library_ms=None,
     )
     route_ms = cuda_ms(per_level, 5)
-    ray_ms = cuda_ms(lambda: ke.hashgrid_encode_cuda(values, ray_x, grids, tables, bbox_min, bbox_max,
-                                                     False), 20)
+    on = lambda pts: (lambda: ke.hashgrid_encode_cuda(values, pts, grids, tables, bbox_min, bbox_max, False))
+    # The main path feeds points along rays: ms_rays at this shape (the bound
+    # is the same: as many bytes), ms_step_rays at a train step's.
+    enc["ms_rays"], enc["ms_step_rays"] = cuda_ms(on(ray_x), 20), cuda_ms(on(step_x), 20)
+    step_random_ms = cuda_ms(on(x[:TRAIN_POINTS].contiguous()), 20)
+    with launching_from(tiles):
+        tiles_ms = [cuda_ms(on(pts), 20) for pts in (x, ray_x, step_x)]
+    ray_ms = enc["ms_rays"]
     out_bytes = ENCODE_POINTS * 2 * FINE_LEVELS * 4
     enc["bound_ms"], enc["bound_by"] = bound(nbytes(x, *values) + out_bytes)
+    enc["bound_step_ms"] = bound(nbytes(step_x, *values) + TRAIN_POINTS * 2 * FINE_LEVELS * 4)[0]
     # What the kernel really pulls from L2: one 32-byte sector per corner row.
     l2_gb = ENCODE_POINTS * FINE_LEVELS * 8 * 32 / 1e9
     print(f"hashgrid_encode {FINE_LEVELS} levels x {ENCODE_POINTS} points: max abs err "
@@ -520,8 +581,13 @@ def check_hashgrid_kernels(device, rng):
           f"kernel {enc['ms']:.4f} ms ({ray_ms:.4f} ms on points along rays), plain "
           f"{enc['plain_ms']:.4f} ms, the per-level route (corners + {FINE_LEVELS} table_gather + "
           f"sums + cat) {route_ms:.4f} ms; L2 sectors of its corner rows {l2_gb:.2f} GB, "
-          f"{l2_gb / enc['ms']:.2f} TB/s", flush=True)
+          f"{l2_gb / enc['ms']:.2f} TB/s; at a train step's {TRAIN_POINTS} points {step_random_ms:.4f} ms "
+          f"random, {enc['ms_step_rays']:.4f} ms along rays (bound {enc['bound_step_ms']:.4f} ms); in the "
+          f"table-gradient kernel's layout {tiles_ms[0]:.4f} ms random, {tiles_ms[1]:.4f} ms along rays, "
+          f"{tiles_ms[2]:.4f} ms on a step's rays; bit for bit equal to it on every input: {same_bits}",
+          flush=True)
     require(enc["max_abs_err"] <= ENCODE_BOUND, "the encode kernel disagrees with its plain version")
+    require(same_bits, "the encode kernel's bits differ between its two thread layouts")
     require(wrong_err >= SCAN_MARGIN * ENCODE_BOUND,
             f"the encoding's bound {ENCODE_BOUND:g} would not catch a wrong hash index")
     require(enc["ms"] <= route_ms, "the encode kernel is slower than the per-level route")
@@ -571,9 +637,11 @@ def relative_errors(got, want):
     return [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(got, want)]
 
 
-def check_backward_kernel(device, rng):
+def check_backward_kernel(device, rng, parent):
     """hashgrid_backward against its plain version (autograd through the
-    plain encoding) at the train step's shape and at its edges."""
+    plain encoding) at the train step's shape, at its edges and on the runs
+    of equal cells that rays make; timed beside its earlier layout
+    (``parent``)."""
     from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.ops import hashgrid as hg
@@ -584,12 +652,12 @@ def check_backward_kernel(device, rng):
     bbox_min, bbox_max = (-0.7,) * 3, (0.7,) * 3
     grids, sizes = fine_schedule(FINE_LEVELS)
 
-    def case(n, levels=FINE_LEVELS, features=2, smooth=False, points=None):
+    def case(n, levels=FINE_LEVELS, features=2, smooth=False, points=None, one_sign=False):
         g_l, s_l = grids[:levels], sizes[:levels]
         tables = [torch.empty((hg.dense_level_rows(g, t), features), device=device)
                   for g, t in zip(g_l, s_l)]
         x = points if points is not None else on_card(rng.uniform(-0.75, 0.75, (n, 3)))
-        g = on_card(rng.uniform(-1, 1, (len(x), levels * features)))
+        g = on_card(rng.uniform(0 if one_sign else -1, 1, (len(x), levels * features)))
         args = ke.encode_args(tables, x.device, g_l, s_l, bbox_min, bbox_max, smooth)
         return tables, x, g, args, (g_l, s_l, bbox_min, bbox_max, smooth)
 
@@ -614,26 +682,39 @@ def check_backward_kernel(device, rng):
              "smooth": case(TRAIN_POINTS, smooth=True),
              "F = 1": case(TRAIN_POINTS, features=1), "F = 4": case(TRAIN_POINTS, features=4)}
     cases.update({f"{n} points": case(n) for n in BACKWARD_EDGE_POINTS})
+    # Points along rays, as a train step feeds them (32 samples 0.02 apart).
+    ray_x = on_card(ray_points(rng, TRAIN_RAYS, TRAIN_SAMPLES, 0.02, -0.7, 0.4))
+    cases["along rays"] = case(0, points=ray_x)
+    cases.update({k: case(0, points=on_card(v)) for k, v in ray_run_cases(rng).items()})
+    # 4096 terms on each of 8 rows: a cotangent of one sign keeps the sums
+    # from cancelling, where an error relative to the largest gradient
+    # would measure the sum's size and not the kernel.
+    cases["one point 4096 times"] = case(
+        0, points=on_card(np.tile(rng.uniform(-0.5, 0.5, (1, 3)), (4096, 1))), one_sign=True)
+    tb, xs, gs, a, cfg = cases["along rays"]
+    errs["a second run along rays"] = max(relative_errors(
+        kb.hashgrid_backward_cuda(xs, gs, a), kb.hashgrid_backward_cuda(xs, gs, a)))
     for name, (tb, xs, gs, a, cfg) in cases.items():
         got = kb.hashgrid_backward_cuda(xs, gs, a)
         torch.cuda.synchronize()
         errs[name] = max(relative_errors(got, kb.hashgrid_backward_reference(tb, xs, gs, *cfg)))
         del got
-    big_ms = cuda_ms(lambda: kb.hashgrid_backward_cuda(*cases[f"{ENCODE_POINTS} points"][1:4]), 10)
+    big_ms = graph_ms(lambda: kb.hashgrid_backward_cuda(*cases[f"{ENCODE_POINTS} points"][1:4]), 10)
     del cases
 
-    # Points along rays, as a train step feeds them (32 samples 0.02 apart).
-    origins = rng.uniform(-0.7, 0.4, (TRAIN_RAYS, 1, 3))
-    dirs = rng.randn(TRAIN_RAYS, 1, 3)
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    ray_x = on_card((origins + 0.02 * dirs * np.arange(TRAIN_SAMPLES)[:, None]).reshape(-1, 3))
     entry = dict(
         name="hashgrid_backward", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_backward.cu",
         replaces="learn_nerf_tpu/ops/hashgrid.py:198-203 under jax.grad (XLA scatter-add)",
-        max_abs_err=max(errs.values()), ms=cuda_ms(run, 20), plain_ms=cuda_ms(plain, 3),
+        # By graph replay, memset included: the wrapper's host work per call
+        # is as long as the kernel, and back-to-back eager calls would time it.
+        max_abs_err=max(errs.values()), ms=graph_ms(run, 20), plain_ms=cuda_ms(plain, 3),
         library_ms=cuda_ms(lambda: per_level_index_add(x, g, grids, sizes, bbox_min, bbox_max, 2), 5),
     )
-    ray_ms = cuda_ms(lambda: kb.hashgrid_backward_cuda(ray_x, g, args), 20)
+    # The main path feeds points along rays: ms_rays (as many bytes: the
+    # same bound).
+    ray_ms = entry["ms_rays"] = graph_ms(lambda: kb.hashgrid_backward_cuda(ray_x, g, args), 20)
+    with launching_from(parent):
+        earlier_ms = [graph_ms(lambda: kb.hashgrid_backward_cuda(pts, g, args), 20) for pts in (x, ray_x)]
     entry["bound_ms"], entry["bound_by"] = bound(nbytes(x, g, *out))
     # Each level on its own (its own [N, F] cotangent and buffer), random
     # points and points along rays: where the atomics meet.
@@ -649,7 +730,8 @@ def check_backward_kernel(device, rng):
           "level's largest gradient " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (bound {BACKWARD_BOUND:g}); swapped hash primes move the plain route by {wrong_err:.3e}; "
           f"kernel {entry['ms']:.4f} ms, {ray_ms:.4f} ms on points along rays, {big_ms:.4f} ms at {ENCODE_POINTS} "
-          f"points; plain {entry['plain_ms']:.4f} ms; corners + {FINE_LEVELS} index_add_ "
+          f"points; in its earlier layout {earlier_ms[0]:.4f} ms, {earlier_ms[1]:.4f} ms along rays; plain "
+          f"{entry['plain_ms']:.4f} ms; corners + {FINE_LEVELS} index_add_ "
           f"{entry['library_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms", flush=True)
     print("hashgrid_backward per level, us (lattice: random points / along rays): " + ", ".join(
         f"{grids[i]}: {a:.1f} / {b:.1f}" for i, (a, b) in enumerate(level_us)), flush=True)
@@ -1218,11 +1300,23 @@ def main():
         spills = [v[1] for k, v in report.items() if kernel in k]
         require(spills == [0], f"ptxas reports spills for {kernel}: {spills}")
 
+    # Two measured variants of the hash-grid kernels build (from
+    # csrc/ablations) while the MLP kernels are checked.
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import VARIANTS
+    from learn_nerf_tpu_torch.scripts.mlp_ablations import build_variants
+
+    variant = {}
+    variants_thread = threading.Thread(
+        target=lambda: variant.update(build_variants([PARENT_LAYOUT, ENCODE_TILES], VARIANTS)))
+    variants_thread.start()
     rng = np.random.RandomState(SEED)
     kernels = check_kernels(device, rng)
-    kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3))
+    variants_thread.join()
+    require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,
+            "the hash-grid kernels' measured variants did not build")
+    kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3), variant[ENCODE_TILES])
     torch.cuda.empty_cache()
-    kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5))
+    kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])
     torch.cuda.empty_cache()
     kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6))
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1250,8 +1344,9 @@ def main():
         require(served[name]["composite"][0] > 0, f"{name} serving never launched composite")
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
-    ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
-               "bound_ms", "bound_by", "library_ms", "share_of_bound", "tflops"]
+    ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",
+               "ms_step_rays", "plain_ms", "bound_ms", "bound_step_ms", "bound_by", "library_ms",
+               "share_of_bound", "tflops"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])
     print(card)

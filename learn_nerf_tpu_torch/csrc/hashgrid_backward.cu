@@ -16,96 +16,285 @@
 //
 // What bounds it on an H100: atomics in L2.  Its bytes are g, x and the
 // gradients once (44 MB, 13 us at 3.35 TB/s, at 131,072 points x the
-// 16-level fine schedule, F = 2), but it makes 8 row atomics per point and
-// level (16.8 M there), each a read-modify-write of one L2 sector; in the
-// coarse dense levels (grid 16: 4,096 rows) some 256 atomics meet on every
-// row and serialise, while the hashed levels scatter over the whole table.
-// Design (a first version: right and simple):
-// - one thread per (point, work item), the encode kernel's layout, so a
-//   warp reads a contiguous run of g and two levels of a run share one
-//   cell;
-// - at F = 2 (and 4) a row takes one vector atomic (red.global.add.v2.f32,
-//   new with sm_90) instead of F scalar ones: 1.85 times faster on an H100
-//   (scripts/hashgrid_ablations.py times the scalar form);
-// - all levels' gradients are views of one flat buffer that the wrapper
-//   zeroes with one memset.
+// 16-level fine schedule, F = 2), but one atomic per corner row would be 8
+// per point and level (16.8 M there), each a read-modify-write of one L2
+// sector.  Going faster means issuing fewer atomics.  Design:
+// - the thread layout is encode_args.cuh's: a block tile of kTilePoints
+//   consecutive points, one warp per work item (up to two levels that share
+//   a cell), one lane per point; x and the tile's slab of g are read as
+//   whole lines into shared memory;
+// - pair atomics: corners c and c + 4 differ in x alone, and where their
+//   rows are the two rows of one aligned pair (always for even x in a dense
+//   level of even row count, and for even x in a hashed level of a
+//   power-of-two table: the forward's pair loads) both rows take ONE vector
+//   atomic of 2F floats (red.global.add.v4.f32 at F = 2, new with sm_90):
+//   6 atomics a point and level on average in place of 8.  For that, every
+//   level's buffer starts at an even row of the flat buffer, which is
+//   aligned to 16 bytes (the wrapper pads; the entry point below lays the
+//   levels out the same way);
+// - run combining: the callers feed points along rays, so the lanes of a
+//   warp that fall in one cell form runs of consecutive lanes.  Each lane
+//   compares its cell with its neighbour's; where a warp has at least
+//   kCombineMinMerged lanes that continue a run, it sums w_c * g over each
+//   run (a segmented reduction by shuffles) and only the run's first lane
+//   adds to the tables.  Warps without runs (the fine hashed levels, unrelated
+//   points) pay three shuffles and a vote;
+// - a row alone takes one vector atomic per 2 floats (F = 2), or one per
+//   row at F = 4.
 // Sums are f32 atomics in an order that changes from run to run: two runs
 // agree to rounding, not bit for bit.
+// The card adds random vector atomics at 84.6 G/s, of 2 floats or of 4
+// (csrc/ablations/probes.cu); with a quarter of the atomics paired away
+// and the runs combined the kernel runs at about 90 % of that rate for the
+// atomics it still makes (PERF.md, section 6).
+// scripts/hashgrid_ablations.py times what was tried beside this and is
+// not on the path: the layout it replaced (csrc/ablations/
+// hashgrid_backward_parent.cu: one thread per (point, item), one atomic per
+// row), this layout without pair atomics and without combining, and the
+// coarsest levels' gradients summed in shared memory by a persistent grid
+// (kSharedCoarse), which lost.
 #include "encode_args.cuh"
 
 namespace nerf {
 
-constexpr int kBackwardThreads = 256;
+constexpr bool kPairAtomics = true;
+constexpr bool kCombineRuns = true;
+// Lanes of a warp that must continue a run before the warp combines: the
+// reduction costs 5 shuffles per value, an eighth of the atomics it then
+// has to save to be worth it.
+constexpr int kCombineMinMerged = 8;
+// Ablation switch (off as built): the leading dense levels of at most
+// kSharedFloats floats sum in shared memory, flushed once per block.
+constexpr bool kSharedCoarse = false;
+constexpr int kSharedLevels = 2;
+constexpr int kSharedFloats = 8192;
+constexpr int kSharedBlocksPerSm = 2;
 
-// grad[row, :] += w * g[:], as one vector atomic per pair of floats where F
-// is even (the buffer is aligned to 8 bytes), else one scalar atomic per
-// float.
+// grad[row, :] += v[:]: one vector atomic per row at F = 4, per pair of
+// floats at F = 2, else one scalar atomic per float.
 template <int F>
-__device__ __forceinline__ void add_row(float* __restrict__ grad, unsigned int row, float w,
-                                        const float* g) {
+__device__ __forceinline__ void add_row(float* __restrict__ grad, unsigned int row,
+                                        const float (&v)[F]) {
   float* dst = grad + static_cast<unsigned long long>(row) * F;
-  if constexpr (F % 2 == 0) {
+  if constexpr (F == 4 && kPairAtomics) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (F % 2 == 0) {
 #pragma unroll
     for (int f = 0; f < F; f += 2) {
-      atomicAdd(reinterpret_cast<float2*>(dst + f),
-                make_float2(__fmul_rn(w, g[f]), __fmul_rn(w, g[f + 1])));
+      atomicAdd(reinterpret_cast<float2*>(dst + f), make_float2(v[f], v[f + 1]));
     }
   } else {
 #pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(dst + f, __fmul_rn(w, g[f]));
+    for (int f = 0; f < F; ++f) atomicAdd(dst + f, v[f]);
   }
 }
 
+// grad[2 * pair, :] += lo[:] and grad[2 * pair + 1, :] += hi[:] as one
+// vector atomic of 2F floats (F = 1, 2; the buffer starts at an even row
+// of a 16-byte aligned buffer).
+template <int F>
+__device__ __forceinline__ void add_row_pair(float* __restrict__ grad, unsigned int pair,
+                                             const float (&lo)[F], const float (&hi)[F]) {
+  float* dst = grad + static_cast<unsigned long long>(pair) * (2 * F);
+  if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(lo[0], lo[1], hi[0], hi[1]));
+  } else {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(lo[0], hi[0]));
+  }
+}
+
+// Scalar atomics into a level's sums in shared memory (kSharedCoarse).
+template <int F>
+__device__ __forceinline__ void add_row_shared(float* sums, unsigned int row, const float (&v)[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) atomicAdd(sums + row * F + f, v[f]);
+}
+
+// One lane's point in the K levels from l0 on.  `active` is false for the
+// lanes past the tile's last point: they take part in the shuffles and add
+// nothing.  gp is the point's row of the staged cotangent at column l0 * F.
 template <int F, int K>
-__device__ __forceinline__ void backward_item(const float (&x)[3], const EncodeArgs& a, int l0,
-                                              const float* __restrict__ gp) {
+__device__ __forceinline__ void backward_item(bool active, const float (&x)[3],
+                                              const EncodeArgs& a, int l0, const float* gp,
+                                              float* const (&shared)[kSharedLevels]) {
+  const unsigned int lane = threadIdx.x & 31u;
   float g[K * F];
 #pragma unroll
-  for (int i = 0; i < K * F; ++i) g[i] = __ldg(gp + i);
+  for (int i = 0; i < K * F; ++i) g[i] = active ? gp[i] : 0.0f;
   const int grid = a.grid[l0];
   const Cell cell = cell_of(x, grid, a.box, a.smooth != 0);
   const unsigned int size = a.size[l0];
   const bool hashed = a.hashed[l0] != 0;
+  unsigned int rows[8];
+  float v[8][K * F];  // v[c][k * F + f] = w_c * g[k * F + f]
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
-    const unsigned int row = corner_row(cell, c, static_cast<unsigned int>(grid), size, hashed);
+    rows[c] = corner_row(cell, c, static_cast<unsigned int>(grid), size, hashed);
     const float w = corner_weight(cell, c);
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-      add_row<F>(const_cast<float*>(a.table[l0 + k]), row, w, g + k * F);
+    for (int i = 0; i < K * F; ++i) v[c][i] = __fmul_rn(w, g[i]);
+  }
+
+  bool adds = active;
+  if constexpr (kCombineRuns) {
+    // Does this lane continue its neighbour's run (the same cell)?  Active
+    // lanes are a prefix of the warp, so an active lane's neighbour is one.
+    constexpr unsigned int kAll = 0xffffffffu;
+    // (Every lane runs all three shuffles: no short circuit between them.)
+    const unsigned int left0 = __shfl_up_sync(kAll, cell.base[0], 1);
+    const unsigned int left1 = __shfl_up_sync(kAll, cell.base[1], 1);
+    const unsigned int left2 = __shfl_up_sync(kAll, cell.base[2], 1);
+    const bool same = active && lane > 0 && left0 == cell.base[0] && left1 == cell.base[1] &&
+                      left2 == cell.base[2];
+    const unsigned int heads = __ballot_sync(kAll, !same);
+    if (32 - __popc(heads) >= kCombineMinMerged) {
+      // The run of this lane ends before the next head above it.
+      const unsigned int above = lane == 31 ? 0u : heads & ~((2u << lane) - 1u);
+      const unsigned int end = above ? static_cast<unsigned int>(__ffs(above)) - 2u : 31u;
+      // After the step of distance d, a lane holds the sum over itself and
+      // the next 2d - 1 lanes of its run: its first lane ends with all.
+#pragma unroll
+      for (unsigned int d = 1; d < 32; d *= 2) {
+        const bool take = lane + d <= end;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+#pragma unroll
+          for (int i = 0; i < K * F; ++i) {
+            const float other = __shfl_down_sync(kAll, v[c][i], d);
+            if (take) v[c][i] = __fadd_rn(v[c][i], other);
+          }
+        }
+      }
+      adds = active && !same;
+    }
+  }
+  if (!adds) return;
+
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float* grad = const_cast<float*>(a.table[l0 + k]);
+    if constexpr (kSharedCoarse) {
+      if (l0 + k < kSharedLevels && shared[l0 + k] != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float row[F];
+#pragma unroll
+          for (int f = 0; f < F; ++f) row[f] = v[c][k * F + f];
+          add_row_shared<F>(shared[l0 + k], rows[c], row);
+        }
+        continue;
+      }
+    }
+    const bool paired = kPairAtomics && F <= 2 && a.paired[l0 + k] != 0;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const unsigned int r0 = rows[c], r1 = rows[c + 4];
+      float first[F], second[F];
+#pragma unroll
+      for (int f = 0; f < F; ++f) first[f] = v[c][k * F + f], second[f] = v[c + 4][k * F + f];
+      if constexpr (F <= 2) {
+        // r0 ^ r1 == 1: the two rows of one aligned pair (two corners that
+        // hash to ONE row, in a table that is no power of two, are not).
+        if (paired && (r0 ^ r1) == 1u) {
+          float lo[F], hi[F];
+#pragma unroll
+          for (int f = 0; f < F; ++f) {
+            lo[f] = (r0 & 1u) ? second[f] : first[f];
+            hi[f] = (r0 & 1u) ? first[f] : second[f];
+          }
+          add_row_pair<F>(grad, r0 >> 1, lo, hi);
+          continue;
+        }
+      }
+      add_row<F>(grad, r0, first);
+      add_row<F>(grad, r1, second);
     }
   }
 }
 
 template <int F>
-__global__ void __launch_bounds__(kBackwardThreads)
-    hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                             unsigned int total, const __grid_constant__ EncodeArgs a) {
-  const unsigned int t = blockIdx.x * kBackwardThreads + threadIdx.x;
-  if (t >= total) return;
-  const unsigned int items = static_cast<unsigned int>(a.items);
-  const unsigned int p = t / items;
-  const int item = static_cast<int>(t - p * items);
-  const float* xp = x + 3ull * p;
-  const float point[3] = {xp[0], xp[1], xp[2]};
-  const int l0 = a.item_level[item];
-  const float* gp = g + static_cast<unsigned long long>(p) * (a.levels * F) + l0 * F;
-  if (a.item_levels[item] == kLevelsPerItem) {
-    backward_item<F, kLevelsPerItem>(point, a, l0, gp);
-  } else {
-    backward_item<F, 1>(point, a, l0, gp);
+__global__ void __launch_bounds__(kTileThreads)
+    hashgrid_backward_kernel(const float* __restrict__ x, const float* __restrict__ g, long long n,
+                             long long tiles, const __grid_constant__ EncodeArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int width = a.levels * F, stride = tile_stride(width);
+  float* xs = smem;                     // [kTilePoints, 3]
+  float* tile = smem + 3 * kTilePoints; // [kTilePoints, stride]: the cotangent's slab
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = a.items * kTileChunks;
+
+  float* shared[kSharedLevels] = {};
+  if constexpr (kSharedCoarse) {
+    float* sums = smem + tile_floats(width);
+    for (int l = 0; l < kSharedLevels && l < a.levels; ++l) {
+      if (a.hashed[l] || level_rows(a, l) * F > kSharedFloats) break;
+      shared[l] = sums + l * kSharedFloats;
+    }
+    for (int i = threadIdx.x; i < kSharedLevels * kSharedFloats; i += blockDim.x) sums[i] = 0.0f;
+  }
+
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * kTilePoints;
+    const int count = static_cast<int>(n - base < kTilePoints ? n - base : kTilePoints);
+    for (int i = threadIdx.x; i < 3 * count; i += blockDim.x) xs[i] = __ldg(x + 3 * base + i);
+    // The tile's slab of g is contiguous: count * width floats.
+    const float* src = g + base * width;
+    for (int e = threadIdx.x; e < count * width; e += blockDim.x) {
+      const int row = e / width;
+      tile[row * stride + (e - row * width)] = __ldg(src + e);
+    }
+    __syncthreads();
+    for (int u = warp; u < units; u += warps) {  // the same for all lanes of a warp
+      const int chunk = kTileChunks == 1 ? 0 : u / a.items;
+      const int item = u - chunk * a.items;
+      const int p = 32 * chunk + lane;
+      const bool active = p < count;
+      const float point[3] = {active ? xs[3 * p] : 0.0f, active ? xs[3 * p + 1] : 0.0f,
+                              active ? xs[3 * p + 2] : 0.0f};
+      const int l0 = a.item_level[item];
+      const float* gp = tile + p * stride + l0 * F;
+      if (a.item_levels[item] == kLevelsPerItem) {
+        backward_item<F, kLevelsPerItem>(active, point, a, l0, gp, shared);
+      } else {
+        backward_item<F, 1>(active, point, a, l0, gp, shared);
+      }
+    }
+    __syncthreads();  // the next tile overwrites xs and the slab
+  }
+
+  if constexpr (kSharedCoarse) {
+    __syncthreads();
+    for (int l = 0; l < kSharedLevels; ++l) {
+      if (shared[l] == nullptr) continue;
+      float* grad = const_cast<float*>(a.table[l]);
+      const int floats = static_cast<int>(level_rows(a, l)) * F;
+      for (int i = threadIdx.x; i < floats; i += blockDim.x) {
+        const float s = shared[l][i];
+        if (s != 0.0f) atomicAdd(grad + i, s);
+      }
+    }
   }
 }
 
 template <int F>
 cudaError_t launch_backward(const float* x, const float* g, long long n, const EncodeArgs& a,
                             cudaStream_t stream) {
-  const long long total = n * a.items;
-  if (total >= (1ll << 31)) return cudaErrorInvalidValue;
-  const unsigned int blocks =
-      static_cast<unsigned int>((total + kBackwardThreads - 1) / kBackwardThreads);
-  hashgrid_backward_kernel<F><<<blocks, kBackwardThreads, 0, stream>>>(
-      x, g, static_cast<unsigned int>(total), a);
+  const long long tiles = (n + kTilePoints - 1) / kTilePoints;
+  if (tiles >= (1ll << 31)) return cudaErrorInvalidValue;
+  size_t smem = sizeof(float) * tile_floats(a.levels * F);
+  long long blocks = tiles;
+  if constexpr (kSharedCoarse) {
+    smem += sizeof(float) * kSharedLevels * kSharedFloats;
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (blocks > static_cast<long long>(kSharedBlocksPerSm) * sms) blocks = kSharedBlocksPerSm * sms;
+    const cudaError_t err = cudaFuncSetAttribute(
+        hashgrid_backward_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  hashgrid_backward_kernel<F><<<static_cast<unsigned int>(blocks), tile_block_threads(a.items), smem,
+                                stream>>>(x, g, n, tiles, a);
   return cudaGetLastError();
 }
 
@@ -113,25 +302,27 @@ cudaError_t launch_backward(const float* x, const float* g, long long n, const E
 
 // x [n, 3] f32 and g [n, levels * features] f32 on the device; args in host
 // memory, as for nerf_hashgrid_encode (its table pointers are not read);
-// grad is one zeroed f32 buffer on the device that holds level l's
-// gradient [rows_l, features] at the float offset features * (rows of the
-// levels before l), rows_l = grid^3 in a dense level and the table size in
-// a hashed one; it must be aligned to 8 bytes.  Launches on the given
-// stream, does not synchronise, and returns the cudaError_t of the launch (0
-// on success).  The caller checks shapes and n * items < 2^31.
+// grad is one zeroed f32 buffer on the device, aligned to 16 bytes, that
+// holds level l's gradient [rows_l, features] from an even row on: at the
+// float offset features * (the rows of the levels before l, each rounded up
+// to even), rows_l = grid^3 in a dense level and the table size in a hashed
+// one (kernels/hashgrid_backward.level_offsets lays it out the same way).
+// Launches on the given stream, does not synchronise, and returns the
+// cudaError_t of the launch (0 on success).  The caller checks shapes.
 extern "C" int nerf_hashgrid_backward(const float* x, const float* g, long long n,
                                       const nerf::EncodeArgs* args, float* grad, void* stream) {
   using namespace nerf;
   EncodeArgs a = *args;
-  if (a.levels < 1 || a.levels > kMaxLevels || a.items < 1 || a.items > a.levels) {
+  if (a.levels < 1 || a.levels > kMaxLevels || a.items < 1 || a.items > a.levels ||
+      reinterpret_cast<uintptr_t>(grad) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
-  unsigned long long offset = 0;
+  unsigned long long row = 0;
   for (int l = 0; l < a.levels; ++l) {
-    a.table[l] = grad + offset;
-    const unsigned long long g3 = static_cast<unsigned long long>(a.grid[l]) * a.grid[l] * a.grid[l];
-    offset += (a.hashed[l] ? a.size[l] : g3) * a.features;
+    a.table[l] = grad + row * a.features;
+    const unsigned long long rows = level_rows(a, l);
+    row += rows + (rows & 1ull);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.features) {

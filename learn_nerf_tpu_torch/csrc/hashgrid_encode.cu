@@ -12,7 +12,11 @@
 // What bounds it on an H100: row reads from L2.  Its bytes are x, out and
 // the tables once (172.5 MB, 51.5 us at 3.35 TB/s, at 2^20 points x the
 // 16-level fine schedule, F = 2), but it reads 8 random rows per point and
-// level, each pulling a 32-byte sector: 4.29 GB of L2 sectors there.
+// level, each pulling a 32-byte sector: 4.29 GB of L2 sectors there.  The
+// card serves random sectors at 133 G/s (csrc/ablations/probes.cu), and
+// the kernel runs at 78 to 90 % of that rate for the sectors its points
+// need, on random points and along rays (PERF.md, section 6): the byte
+// bound is out of reach while rows keep their hashed order.
 // Design:
 // - the corner math is hashgrid.cuh's, shared with the corner kernel, so
 //   indices and weights equal the plain version's; they live in registers
@@ -31,7 +35,13 @@
 //   are one L2 read); the tables (25.8 MB at the fine schedule) stay in
 //   the 50 MB L2 with no cache hint;
 // - one thread per (point, item), items of a point on consecutive threads,
-//   so a warp writes a contiguous run of out (16 bytes a thread at F = 2);
+//   so a warp writes a contiguous run of out (16 bytes a thread at F = 2).
+//   The table-gradient kernel's layout (encode_args.cuh: a warp per item,
+//   a lane per point, out staged in shared memory) was measured here too
+//   (csrc/ablations/hashgrid_encode_tiles.cu) and is no faster: 3 % slower
+//   on random points and 9 % along rays, within 3 % either way at its best
+//   block size.  L1 already collects the reuse between neighbouring
+//   samples, so this simpler layout stays;
 // - the per-level parameters and table pointers come by value in one
 //   struct, packed once per model by the wrapper.
 #include "encode_args.cuh"

@@ -8,10 +8,15 @@ encoding's cotangent ``g [N, L * F]`` give, per level, ``grad_l [rows_l, F]``
 with ``grad_l[row_c] += w_c * g[p, l*F:(l+1)*F]`` over the 8 corners of
 each point's cell (``csrc/hashgrid_backward.cu``,
 ``hashgrid_backward_kernel``).  The kernel recomputes rows and weights with
-the encode kernel's own code, so the forward saves only ``x``.
+the encode kernel's own code, so the forward saves only ``x``.  A warp
+takes one work item for 32 consecutive points and sums the points of one
+cell before it adds, so callers that feed points along rays (the renderers
+do) cost fewer atomics; any order gives the same result to rounding.
 
 All levels' gradients are views of ONE flat zeroed buffer (one memset), in
-level order; :func:`level_offsets` is the layout, which the C entry point
+level order, each from an even row on: the kernel adds two neighbouring
+rows with one vector atomic of 2F floats, which must be aligned to its own
+size.  :func:`level_offsets` is the layout, which the C entry point
 computes the same way.  Sums are f32 atomics, whose order changes from run
 to run: two runs agree to rounding, not bit for bit.
 
@@ -36,11 +41,14 @@ counter = build.LaunchCounter()
 
 
 def level_offsets(args: EncodeArgs) -> List[int]:
-    """Row offset of each level's gradient in the flat buffer, and the total
-    as the last entry (rows; multiply by F for floats)."""
+    """Row offset of each level's gradient in the flat buffer, and the
+    buffer's rows as the last entry (multiply by F for floats).  A level of
+    an odd row count is followed by one row of padding, so every level
+    starts at an even row."""
     offsets = [0]
     for level in range(args.levels):
-        offsets.append(offsets[-1] + dense_level_rows(args.grid[level], args.size[level]))
+        rows = dense_level_rows(args.grid[level], args.size[level])
+        offsets.append(offsets[-1] + rows + rows % 2)
     return offsets
 
 
@@ -83,14 +91,10 @@ def hashgrid_backward_cuda(x: Tensor, grad_out: Tensor, args: EncodeArgs) -> Lis
             f"want a contiguous f32 cotangent [{n}, {levels * features}] on {device}; got "
             f"{grad_out.dtype} {tuple(grad_out.shape)} on {grad_out.device}"
         )
-    if n * args.items >= 2**31:
-        raise ValueError(f"{n} points x {args.items} work items exceed the kernel's 2^31 threads")
-    offsets = level_offsets(args)
-    flat = torch.zeros(offsets[-1] * features, dtype=torch.float32, device=device)
-    grads = [
-        flat[offsets[level] * features: offsets[level + 1] * features].view(-1, features)
-        for level in range(levels)
-    ]
+    rows = [dense_level_rows(args.grid[level], args.size[level]) for level in range(levels)]
+    flat = torch.zeros((level_offsets(args)[-1], features), dtype=torch.float32, device=device)
+    # One call for all views: each level, then its row of padding (if any).
+    grads = list(flat.split([piece for r in rows for piece in (r, r % 2)])[::2])
     if n == 0:
         return grads
     lib = build.library()

@@ -119,7 +119,8 @@ def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
         "--occ_span_pool_factor",
         type=int,
         default=8,
-        help="supergrid pooling factor for --occ_span_candidates",
+        help="supergrid pooling factor for --occ_span_candidates (not ported yet: "
+        "only the default is accepted)",
     )
     parser.add_argument(
         "--occ_block_gather",
@@ -153,6 +154,8 @@ def check_ported(args: argparse.Namespace) -> None:
         (getattr(args, "ref_nerf", False), "--ref_nerf (Ref-NeRF)"),
         (getattr(args, "baked", None) is not None, "--baked (baked NGP field)"),
         (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
+        (getattr(args, "occ_span_pool_factor", 8) != 8,
+         "--occ_span_pool_factor (the span path's supergrid)"),
         (getattr(args, "occ_block_gather", 0), "--occ_block_gather (block-word gathers)"),
         (getattr(args, "occ_span_block_gather", 0), "--occ_span_block_gather (block-word span)"),
     ]

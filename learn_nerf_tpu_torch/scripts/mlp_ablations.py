@@ -73,7 +73,9 @@ VARIANTS = {
 
 def build_variants(names, variants=VARIANTS):
     """Compile each variant's sources into its own library, in parallel
-    (``variants``: name -> [(file, old text, new text)])."""
+    (``variants``: name -> [(file, old text, new text)]; with ``None`` for
+    the old text, the file is replaced by the file ``new text`` names,
+    relative to ``csrc/``)."""
     root = build.BUILD_DIR / "ablations"
     procs = {}
     for name in names:
@@ -81,6 +83,9 @@ def build_variants(names, variants=VARIANTS):
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(build.CSRC_DIR, out)
         for file, old, new in variants[name]:
+            if old is None:
+                shutil.copyfile(out / new, out / file)
+                continue
             text = (out / file).read_text()
             if old not in text:
                 raise RuntimeError(f"variant {name!r}: {old!r} is not in {file}")

@@ -14,7 +14,9 @@ without ``--occupancy`` (the coarse/fine hierarchy), ``--ref_nerf``,
 ``--full_state_path``, ``--occ_train_budget`` (pooled training),
 ``--coordinator_address``/``--num_processes`` (several processes) and
 ``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
-steps per log line.
+steps per log line; a last chunk of fewer than k batches is dropped unless
+``--steps`` cuts it (:func:`dispatch_chunks`), and checkpoints are written at
+the steps the JAX CLI writes them (:func:`save_due`).
 
 Example:
   python -m learn_nerf_tpu_torch.scripts.train_nerf --instant_ngp \\
@@ -163,6 +165,32 @@ def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device) -> O
     )
 
 
+def dispatch_chunks(batches, k: int, steps=None):
+    """The batches of each dispatch, as the JAX CLI forms them: lists of
+    ``k`` batches; the chunk that reaches ``steps`` is cut to the exact
+    remainder; without ``steps`` a trailing chunk shorter than ``k`` (a
+    finite iterator running out) is dropped."""
+    done = 0
+    while steps is None or done < steps:
+        chunk = list(itertools.islice(batches, k))
+        if len(chunk) < k:
+            return
+        if steps is not None:
+            chunk = chunk[: steps - done]
+        yield chunk
+        done += len(chunk)
+
+
+def save_due(step: int, save_interval: int, k: int) -> bool:
+    """Whether the JAX CLI checkpoints after the dispatch that ends with step
+    index ``step`` (``step + 1`` steps done): at ``k = 1`` after every step
+    index that is a positive multiple of ``save_interval``, at ``k > 1``
+    after the dispatch in which the step count passes such a multiple."""
+    if k == 1:
+        return bool(step) and step % save_interval == 0
+    return bool(step) and (step + 1) % save_interval < k
+
+
 def main(argv=None, on_step=None) -> OccupancyTrainLoop:
     """Train as the flags say and return the loop.
 
@@ -258,23 +286,18 @@ def main(argv=None, on_step=None) -> OccupancyTrainLoop:
     )
     done = 0
     try:
-        while args.steps is None or done < args.steps:
-            count = k if args.steps is None else min(k, args.steps - done)
-            chunk = list(itertools.islice(batches, count))
-            if not chunk:
-                break
+        for chunk in dispatch_chunks(batches, k, args.steps):
             if test_iterator is None:
                 losses = loop.step_auto_many(base_seed, chunk)
             else:
                 losses = loop.step(chunk[0], generator=step_generator)
                 test_losses = loop.eval_losses(next(test_iterator), generator=test_generator)
                 losses = dict(losses, **{f"test_{name}": v for name, v in test_losses.items()})
-            before, done = done, done + len(chunk)
+            done += len(chunk)
             logger.log_step(done - 1, losses)
             if on_step is not None:
                 on_step(done, loop)
-            # Save whenever a multiple of --save_interval was crossed.
-            if done // args.save_interval > before // args.save_interval:
+            if save_due(done - 1, args.save_interval, k):
                 loop.save(args.save_path)
     finally:
         logger.flush()

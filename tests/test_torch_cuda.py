@@ -20,7 +20,12 @@ from run to run, and so does the plain version's ``index_add_``: held to
 5e-6 of each level's largest gradient (at 20,000 points some 2,500 terms
 meet on each of the 64 rows of the 4^3 level: measured 2.2e-6 there on an
 H100, 2e-7 to 7e-7 in the other levels), through ``HashGridEncode`` and on their own, and to finite differences
-of the encoding on a tiny case.  The composite kernels: forward within 1e-6,
+of the encoding on a tiny case.  Both hash-grid kernels give a warp 32
+consecutive points, so they are also held on the runs of equal cells that
+rays make (32 lanes in one cell, a run that ends at lane 31 and resumes in
+the next warp, two rays of 16 in one warp, a part-full last tile, one point
+repeated 4096 times), and two runs of the table gradients on points along
+rays to 4e-6.  The composite kernels: forward within 1e-6,
 backward within 5e-6 of each gradient's max against autograd through
 ``ops/volume`` (measured 2.4e-7 / up to 1.7e-6, the largest on the
 background's gradient, which the kernel sums over the rays by atomics), at K = 1, 24, 32, 33, 64 with a
@@ -354,6 +359,90 @@ def test_hashgrid_backward_against_finite_differences(cuda):
     minus = ke.hashgrid_encode_cuda([tb - d for tb, d in zip(tables, direction)], x, grids, sizes, lo, hi, False)
     measured = (((plus - minus).double() / 2) * g.double()).sum().item()
     assert abs(predicted - measured) <= 1e-4 * max(abs(measured), 1.0)
+
+
+def _ray_points(rng, rays, samples, spacing):
+    origins = rng.uniform(-0.6, 0.3, (rays, 1, 3))
+    dirs = rng.randn(rays, 1, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return (origins + spacing * dirs * np.arange(samples)[:, None]).reshape(-1, 3).astype(np.float32)
+
+
+def _ray_runs(name):
+    rng = np.random.RandomState(len(name))
+    if name == "32 lanes in one cell":
+        return _ray_points(rng, 1, 32, 1e-4)
+    if name == "a run across two warps":
+        x = rng.uniform(-0.6, 0.6, (64, 3))
+        x[16:48] = x[16] + 1e-5 * np.arange(32)[:, None]
+        return x.astype(np.float32)
+    if name == "two rays in a warp":
+        return _ray_points(rng, 64, 16, 5e-3)
+    if name == "a part-full tile":
+        return _ray_points(rng, 6, 32, 2e-2)[:-25]
+    if name == "one point 4096 times":
+        return np.tile(rng.uniform(-0.5, 0.5, (1, 3)), (4096, 1)).astype(np.float32)
+    return _ray_points(rng, 512, 32, 2e-2)  # "along rays"
+
+
+RAY_RUNS = ["32 lanes in one cell", "a run across two warps", "two rays in a warp", "a part-full tile",
+            "one point 4096 times", "along rays"]
+FINE_GRIDS = [2 ** (4 + i // 2) for i in range(16)]
+
+
+@pytest.mark.parametrize("features", [1, 2, 4])
+@pytest.mark.parametrize("name", RAY_RUNS)
+def test_hashgrid_kernels_on_runs_of_equal_cells(cuda, name, features):
+    sizes = [2**18] * 16
+    rng = np.random.RandomState(features)
+    tables = [t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), features)).astype(np.float32)).to(cuda)
+              for g, s in zip(FINE_GRIDS, sizes)]
+    x = t(_ray_runs(name)).to(cuda)
+    g = t(rng.uniform(-1, 1, (len(x), 16 * features)).astype(np.float32)).to(cuda)
+    if name == "one point 4096 times":
+        # 4096 terms on each of 8 rows: a cotangent of one sign keeps the sums
+        # from cancelling, where an error relative to the largest gradient
+        # would measure the sum's size and not the kernel.
+        g = g.abs()
+    lo, hi = (-0.7,) * 3, (0.7,) * 3
+    out = ke.hashgrid_encode_cuda(tables, x, FINE_GRIDS, sizes, lo, hi, False)
+    torch.cuda.synchronize()
+    ref = hashgrid.hash_grid_encode_reference(tables, x, FINE_GRIDS, sizes, lo, hi)
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-6)
+    got = kb.hashgrid_backward(tables, x, g, FINE_GRIDS, sizes, lo, hi, False)
+    torch.cuda.synchronize()
+    want = kb.hashgrid_backward_reference(tables, x, g, FINE_GRIDS, sizes, lo, hi, False)
+    assert max(_relative_errors(got, want)) <= BACKWARD_BOUND
+
+
+def test_two_runs_of_hashgrid_backward_agree_to_rounding(cuda):
+    sizes = [2**18] * 16
+    tables = [torch.empty((hashgrid.dense_level_rows(g, s), 2), device=cuda) for g, s in zip(FINE_GRIDS, sizes)]
+    rng = np.random.RandomState(3)
+    x = t(_ray_points(rng, 4096, 32, 2e-2)).to(cuda)
+    g = t(rng.uniform(-1, 1, (len(x), 32)).astype(np.float32)).to(cuda)
+    lo, hi = (-0.7,) * 3, (0.7,) * 3
+    first = kb.hashgrid_backward(tables, x, g, FINE_GRIDS, sizes, lo, hi, False)
+    second = kb.hashgrid_backward(tables, x, g, FINE_GRIDS, sizes, lo, hi, False)
+    torch.cuda.synchronize()
+    assert max(_relative_errors(first, second)) <= 4e-6
+
+
+def test_hashgrid_backward_pads_levels_of_odd_row_counts(cuda):
+    # 27, 125 and 1001 rows: each level still starts where a vector atomic
+    # of two rows is aligned, and the views hold the levels' own rows.
+    grids, sizes = [3, 5, 64, 64, 16], [4096, 4096, 1001, 2**12, 2**12]
+    for features in (1, 2, 3, 4):
+        rng = np.random.RandomState(features)
+        tables = [t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), features)).astype(np.float32)).to(cuda)
+                  for g, s in zip(grids, sizes)]
+        x = t(_ray_points(rng, 64, 32, 1e-2)).to(cuda)
+        g = t(rng.uniform(-1, 1, (len(x), 5 * features)).astype(np.float32)).to(cuda)
+        got = kb.hashgrid_backward(tables, x, g, grids, sizes, (-1.0,) * 3, (1.0,) * 3, False)
+        torch.cuda.synchronize()
+        want = kb.hashgrid_backward_reference(tables, x, g, grids, sizes, (-1.0,) * 3, (1.0,) * 3, False)
+        assert [a.shape for a in got] == [b.shape for b in want]
+        assert max(_relative_errors(got, want)) <= BACKWARD_BOUND
 
 
 def _composite_inputs(cuda, seed, n, k):

@@ -15,7 +15,13 @@ hashgrid_encode) on the CPU, against learn_nerf_tpu.ops.hashgrid.
 * the checks that refuse what the kernel does not take, and the cache key
   of the packed argument, which sees a table of another dtype or layout at
   a cached address;
-* the ablation scripts' source edits still apply to ``csrc/``.
+* the ablation scripts' source edits still apply to ``csrc/``;
+* points along rays (what the renderers feed, and what the kernels' warps
+  are laid out for): the encoding, its table gradients and the corner
+  indices against the JAX functions, jitted;
+* the table-gradient wrapper's flat buffer, with every level from an even
+  row on, filled by a stand-in for the entry point that follows the C
+  layout, under the ``HashGridEncode`` autograd function.
 """
 
 import ctypes
@@ -195,8 +201,13 @@ def test_argument_cache_key_sees_dtype_and_layout_at_one_address():
 def test_ablation_variants_apply_to_the_sources(script, monkeypatch):
     module = importlib.import_module(f"learn_nerf_tpu_torch.scripts.{script}")
     for name, edits in module.VARIANTS.items():
-        for file, old, _ in edits:
-            assert old in (build.CSRC_DIR / file).read_text(), (name, file, old)
+        source = {}  # file -> the source a whole-file edit put in its place
+        for file, old, new in edits:
+            if old is None:
+                assert (build.CSRC_DIR / new).is_file() and (build.CSRC_DIR / file).is_file(), (name, new)
+                source[file] = new
+            else:
+                assert old in (build.CSRC_DIR / source.get(file, file)).read_text(), (name, file, old)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):
         module.main([])
@@ -307,3 +318,112 @@ def test_backward_matches_jax_vjp_and_layout():
         np.testing.assert_allclose(grad.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
     args = ke.pack_args([tb.detach() for tb in tables], grids, sizes, BBOX_MIN, BBOX_MAX, False)
     assert kb.level_offsets(args) == [0, 64, 576, 1600, 2624]
+
+
+def _ray_points(seed, rays, samples, spacing):
+    rng = np.random.RandomState(seed)
+    origins = rng.uniform(-0.8, 0.2, (rays, 1, 3))
+    dirs = rng.randn(rays, 1, 3)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return (origins + spacing * dirs * np.arange(samples)[:, None]).reshape(-1, 3).astype(np.float32)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_ray_ordered_points_match_jax_with_their_table_gradients(smooth):
+    """8 rays of 32 samples, 4 levels of 2^10-row tables (two dense, two
+    hashed): neighbouring samples share cells in the coarse levels."""
+    import jax
+
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+
+    grids, sizes = [4, 8, 16, 32], [2**10] * 4
+    values = _tables(grids, sizes, seed=11)
+    x = _ray_points(12, 8, 32, 0.03)
+    g = np.random.RandomState(13).randn(len(x), 8).astype(np.float32)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+
+    def encode(tabs, pts):
+        return jhash.hash_grid_encode(tabs, pts, grids, sizes, jnp.asarray(lo), jnp.asarray(hi), smooth=smooth)
+
+    ref, vjp = jax.vjp(jax.jit(encode), [jnp.asarray(v) for v in values], jnp.asarray(x))
+    ref_grads, _ = vjp(jnp.asarray(g))
+    out = hashgrid.hash_grid_encode([t(v) for v in values], t(x), grids, sizes, lo, hi, smooth)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    grads = kb.hashgrid_backward([t(v) for v in values], t(x), t(g), grids, sizes, lo, hi, smooth)
+    for grad, want in zip(grads, ref_grads):
+        np.testing.assert_allclose(grad.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    # Indices exactly equal, level by level, and the rays do make runs: in
+    # the coarsest level most neighbours share their cell.
+    idx, _ = khash.hashgrid_corners_reference(t(x), grids, sizes, lo, hi, smooth)
+    for level, (grid, size) in enumerate(zip(grids, sizes)):
+        coords, _ = jhash.corner_weights_and_coords(jnp.asarray(x), grid, jnp.asarray(lo), jnp.asarray(hi), smooth)
+        want = np.asarray(jax.jit(jhash.level_indices, static_argnums=(1, 2))(coords, grid, size))
+        np.testing.assert_array_equal(idx[level].numpy(), want)
+    first = idx[0].numpy().reshape(8, 32, 8)
+    assert (first[:, 1:] == first[:, :-1]).all(axis=-1).mean() > 0.5
+
+
+def test_backward_wrapper_lays_levels_out_as_the_entry_point(monkeypatch):
+    """Levels of odd row counts: the wrapper's views of the flat buffer must
+    be where the entry point (here a stand-in that follows its layout)
+    writes each level, under HashGridEncode's backward."""
+    import contextlib
+
+    from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+
+    grids, sizes = [3, 5, 8, 16], [4096, 4096, 4096, 1001]  # 27, 125, 512 dense rows; 1001 hashed
+    rng = np.random.RandomState(21)
+    tables = [torch.nn.Parameter(t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g, s), 2)).astype(np.float32)))
+              for g, s in zip(grids, sizes)]
+    x = t(_ray_points(22, 4, 32, 0.05))
+    weight = t(rng.randn(len(x), 8).astype(np.float32))
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    calls = []
+
+    class EntryPoint:
+        """nerf_hashgrid_backward's layout: each level from an even row on."""
+
+        @staticmethod
+        def nerf_hashgrid_backward(x_ptr, g_ptr, n, args, flat_ptr, stream):
+            a = args._obj
+            g = torch.from_numpy(np.ctypeslib.as_array((ctypes.c_float * (n * 8)).from_address(g_ptr)).reshape(n, 8))
+            want = kb.hashgrid_backward_reference(tables, x, g, grids, sizes, lo, hi, False)
+            assert flat_ptr % 16 == 0
+            row = 0
+            for level, grad in enumerate(want):
+                rows = a.size[level] if a.hashed[level] else a.grid[level] ** 3
+                assert grad.shape == (rows, 2) and row % 2 == 0
+                dst = np.ctypeslib.as_array((ctypes.c_float * (rows * 2)).from_address(flat_ptr + 8 * row))
+                dst += grad.numpy().reshape(-1)
+                row += rows + rows % 2
+            calls.append(row)
+            return 0
+
+    def launch(args, pts):
+        with torch.no_grad():
+            return hashgrid.hash_grid_encode_reference(tables, pts, grids, sizes, lo, hi, False)
+
+    monkeypatch.setattr(ke, "check_points", lambda pts: None)
+    monkeypatch.setattr(kb, "check_points", lambda pts: None)
+    monkeypatch.setattr(ke, "_new_args", lambda tabs, device, *rest: ke.pack_args(tabs, *rest))
+    monkeypatch.setattr(ke, "_cuda_launcher", launch)
+    monkeypatch.setattr(build, "library", lambda: EntryPoint)
+    monkeypatch.setattr(build, "current_stream", lambda device: 0)
+    monkeypatch.setattr(build, "launch_context", lambda device: contextlib.nullcontext())
+    ke._args_cache.clear()
+    launches = kb.counter.launches
+    try:
+        out = ke._encode_on_card(tables, x, grids, sizes, lo, hi, False)
+        (out * weight).sum().backward()
+    finally:
+        ke._args_cache.clear()
+    assert kb.counter.launches == launches + 1
+    args = ke.pack_args([tb.detach() for tb in tables], grids, sizes, lo, hi, False)
+    assert kb.level_offsets(args) == [0, 28, 154, 666, 1668] and calls == [1668]
+    got = [tb.grad.clone() for tb in tables]
+    for tb in tables:
+        tb.grad = None
+    (hashgrid.hash_grid_encode_reference(tables, x, grids, sizes, lo, hi, False) * weight).sum().backward()
+    for a, tb in zip(got, tables):
+        assert a.shape == tb.shape
+        torch.testing.assert_close(a, tb.grad, rtol=1e-6, atol=1e-6)

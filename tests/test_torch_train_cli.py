@@ -2,7 +2,9 @@
 size on tests/synthetic_scene: a handful of steps write a checkpoint that the
 port's ``render_nerf`` and the JAX package's ``load_params_pickle`` both
 read; auto-resume continues the step counter; the parser equals the JAX
-CLI's; every unported flag combination exits naming ROADMAP.md.  Beside it,
+CLI's; checkpoints are written at the JAX CLI's steps and a trailing partial
+dispatch is dropped as it drops it; every unported flag combination exits
+naming ROADMAP.md.  Beside it,
 the copies the CLI stands on: the dataset reader, the two-stage shuffle and
 the prefetch against the JAX package's on the same scene, batch for batch at
 the same seed, and the metric logger's line.
@@ -140,12 +142,76 @@ def test_create_model_returns_the_ngp_adam_settings(scene):
     (["--instant_ngp", "--occupancy", "--num_processes", "2"], "--num_processes"),
     (["--instant_ngp", "--occupancy", "--profile_dir", "p"], "--profile_dir"),
     (["--occupancy", "--bf16"], "--bf16"),
+    (["--instant_ngp", "--occupancy", "--occ_span_pool_factor", "4"], "--occ_span_pool_factor"),
 ])
 def test_unported_flags_exit_naming_the_roadmap(scene, flags, match):
     with pytest.raises(SystemExit) as info:
         train_nerf.main([*flags, "--device", "cpu", scene])
     assert match in str(info.value) and "ROADMAP.md" in str(info.value)
     assert "not ported" in str(info.value)
+
+
+def _jax_cli_saves(save_interval, k, steps, batches):
+    """Steps done at each in-loop save of the JAX CLI (its two rules, from
+    learn_nerf_tpu/scripts/train_nerf.py:362 and :333, as arithmetic)."""
+    if k == 1:
+        return [i + 1 for i in range(min(steps, batches)) if i and i % save_interval == 0]
+    saves = []
+    for i in range(batches // k):  # a trailing chunk shorter than k is dropped
+        if steps - i * k <= 0:
+            break
+        step = i * k + min(k, steps - i * k) - 1
+        if step and (step + 1) % save_interval < k:
+            saves.append(step + 1)
+    return saves
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("save_interval", [1, 2, 3, 4, 7, 10])
+def test_save_cadence_equals_the_jax_cli(save_interval, k):
+    for steps in range(1, 25):
+        done, saves = 0, []
+        for chunk in train_nerf.dispatch_chunks(iter(range(1000)), k, steps):
+            done += len(chunk)
+            if train_nerf.save_due(done - 1, save_interval, k):
+                saves.append(done)
+        assert done == steps
+        assert saves == _jax_cli_saves(save_interval, k, steps, 1000), (save_interval, k, steps)
+
+
+@pytest.mark.parametrize("k,batches,steps,want", [
+    (3, 7, None, [[0, 1, 2], [3, 4, 5]]),  # the trailing chunk of one batch is dropped
+    (3, 6, None, [[0, 1, 2], [3, 4, 5]]),
+    (3, 100, 7, [[0, 1, 2], [3, 4, 5], [6]]),  # --steps cuts the last chunk to the remainder
+    (3, 7, 8, [[0, 1, 2], [3, 4, 5]]),  # ... but an iterator that runs out still drops it
+    (1, 4, None, [[0], [1], [2], [3]]),
+    (1, 4, 2, [[0], [1]]),
+    (2, 1, None, []),
+])
+def test_dispatch_chunks_drop_a_trailing_partial_chunk(k, batches, steps, want):
+    assert list(train_nerf.dispatch_chunks(iter(range(batches)), k, steps)) == want
+
+
+def test_cli_saves_at_the_jax_steps_and_drops_a_partial_dispatch(scene, tmp_path, monkeypatch):
+    import itertools
+
+    from learn_nerf_tpu_torch.train import OccupancyTrainLoop
+
+    saved = []
+    save = OccupancyTrainLoop.save
+    monkeypatch.setattr(OccupancyTrainLoop, "save",
+                        lambda self, path: (saved.append(self._host_step), save(self, path))[1])
+    flags = [*SMALL_FLAGS, "--save_interval", "2"]
+    # One step per dispatch: after step indices 2 and 4 (3 and 5 steps done), then the final save.
+    train_nerf.main([*flags, "--steps", "5", "--save_path", str(tmp_path / "a.pkl"), scene])
+    assert saved == [3, 5, 5]
+    # Five batches, two per dispatch, no --steps: the fifth batch is dropped.
+    saved.clear()
+    finite = train_nerf.prefetch_to_device
+    monkeypatch.setattr(train_nerf, "prefetch_to_device",
+                        lambda batches, device: finite(itertools.islice(batches, 5), device))
+    loop = train_nerf.main([*flags, "--steps_per_dispatch", "2", "--save_path", str(tmp_path / "b.pkl"), scene])
+    assert loop._host_step == 4 and saved == [2, 4, 4]
 
 
 def test_steps_per_dispatch_refuses_test_data(scene):
