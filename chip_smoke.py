@@ -33,9 +33,14 @@ nonzero):
    with each level timed on its own and 16 ``index_add_`` calls and its
    earlier layout (``csrc/ablations``) beside it (both hash-grid kernels'
    main-path time is the one on points along rays, ``ms_rays``); the
-   composite kernels, forward and backward, at 4096 and 8192 rays x 32
-   samples and at 1, 24, 32 and 64 samples with a part-full last block, on
-   rays of optical depth 1-3), max abs error against the stated bound, both
+   composite kernels, forward and backward, at the main path's shapes (the
+   train step's 4096 x 32 and a fixed-K tile's 8192 x 32 with one bin width
+   a ray, the hierarchy's 4096 x 64 and 4096 x 192 with one a sample, the
+   points as extras), with five extras, and at 1, 24, 33, 63, 65 and 191
+   samples (both paths of the kernels) with a part-full last block, on rays
+   of optical depth 1-3, with the background's gradient bit-equal over two
+   runs, the train step's two calls profiled to one kernel each and no
+   memset, and each shape timed), max abs error against the stated bound, both
    times, and each kernel's bound (the least time of its bytes at the HBM
    rate or of its operations at the peak rate of their type); ptxas must
    report no spills for the two MLP kernels;
@@ -54,7 +59,8 @@ nonzero):
    --occ_t_eps 1e-2``): three ``POST /render`` requests each at 256x256,
    each answered 200 with a PNG of that shape, with latencies;
 5. every kernel of each mode launched during its serve phase (fused_mlp,
-   fused_render, and the encode kernel in the three NGP modes), and no
+   fused_render, the encode kernel in the three NGP modes, the composite
+   kernel in both hierarchy modes, twice a tile, and in fixed-K NGP), and no
    plain version called there;
 6. a posed dataset of its own (views of the ball the occupancy grid
    models, coloured by position) and the port's ``train_nerf --instant_ngp
@@ -176,14 +182,18 @@ BACKWARD_EDGE_POINTS = (1, 31, 32, 33)
 PARENT_LAYOUT, ENCODE_TILES = "parent layout", "encode tiles"
 # The composite kernels against autograd through ops/volume: the scan sums
 # in another order and expf differs from torch's exp in the last place.
-# Measured on an H100: 1.2e-7 to 2.4e-7 (forward, absolute) and 2e-7 to
-# 1.7e-6 (backward, relative to each gradient's max; the largest on the
-# background's gradient, a sum over 8192 rays by atomics).  An off-by-one
-# scan, forward or reverse, must move the result by at least SCAN_MARGIN
-# times the bound (measured 6.7e-2 and 1.3e-1).
-COMPOSITE_BOUND = 1e-6
-COMPOSITE_GRAD_BOUND = 5e-6
-COMPOSITE_EDGE_SAMPLES = (1, 24, 32, 64)
+# Measured on an H100 over the shapes below: 6e-8 to 1.5e-7 (forward,
+# absolute) and 1.3e-7 to 9.2e-7 (backward, relative to each gradient's
+# max; the largest on 65 samples with per-sample widths); the bounds are
+# about three times that.  An off-by-one scan, forward or reverse, must
+# move the result by at least SCAN_MARGIN times the bound (measured 6.7e-2
+# and 1.3e-1).
+COMPOSITE_BOUND = 5e-7
+COMPOSITE_GRAD_BOUND = 3e-6
+# (rays, samples, per-sample widths): the train step, a fixed-K frame's
+# tile, the hierarchy's coarse and fine passes (tiles of 4096).
+COMPOSITE_SHAPES = ((4096, 32, False), (8192, 32, False), (4096, 64, True), (4096, 192, True))
+COMPOSITE_EDGE_SAMPLES = (1, 24, 33, 63, 65, 191)
 # One train step by the kernel route on the card: (loss relative, table
 # gradients by L2 norm relative, other gradients relative to their max)
 # against the plain route on the card and on the CPU (check_train_step).
@@ -762,49 +772,72 @@ def composite_closed_form(densities, dt, rgbs, background, mask, cotangents,
 
 
 def check_composite_kernels(device, rng):
-    """The composite kernels against autograd through ops/volume."""
+    """The composite kernels against autograd through ops/volume at the main
+    path's shapes and at the edges of their register and chunk paths, with
+    the off-by-one checks, the background gradient's bits over two runs, and
+    each shape timed beside its bound."""
     from learn_nerf_tpu_torch.kernels import composite as kc
 
     def on_card(a):
         return torch.from_numpy(a).to(device)
 
-    def case(n, k):
+    def case(n, k, per_sample, extras):
         # Optical depth 1-3: densities up to 2 (a fifth of the slots
-        # padding), bin widths around 2 / k.
+        # padding), bin widths around 2 / k (per ray, or per sample).
         densities = (rng.uniform(0, 2, (n, k)) * (rng.rand(n, k) < 0.8)).astype(np.float32)
-        dt = (rng.uniform(0.03, 0.1, (n, 1)) * 32 / k).astype(np.float32)
-        rgbs = rng.uniform(-1, 1, (n, k, 3)).astype(np.float32)
-        leaves = [on_card(a).requires_grad_() for a in
-                  (densities, dt, rgbs, np.array([-1.0, 0.3, 1.0], np.float32))]
+        deltas = (rng.uniform(0.03, 0.1, (n, k if per_sample else 1)) * 32 / k).astype(np.float32)
+        values = [densities, deltas, rng.uniform(-1, 1, (n, k, 3)).astype(np.float32),
+                  np.array([-1.0, 0.3, 1.0], np.float32)]
+        if extras:
+            values.append(rng.uniform(-1, 1, (n, k, extras)).astype(np.float32))
+        leaves = [on_card(a).requires_grad_() for a in values]
         mask = on_card(rng.rand(n) < 0.9)
-        cotangents = [on_card(rng.randn(*shape).astype(np.float32))
-                      for shape in ((n, 3), (n, k + 1), (n, 1))]
+        shapes = [(n, 3), (n, k + 1), (n, 1)] + ([(n, extras)] if extras else [])
+        cotangents = [on_card(rng.randn(*shape).astype(np.float32)) for shape in shapes]
         return leaves, mask, cotangents
 
+    def split(leaves):
+        return (*leaves[:4], leaves[4] if len(leaves) > 4 else None)
+
+    def present(outs):
+        return [o for o in outs if o is not None]
+
     def errors(leaves, mask, cotangents):
-        outs = kc.render_composite(*leaves, mask)
+        *inputs, extras = split(leaves)
+        outs = present(kc.render_composite(*inputs, mask, extras))
         grads = torch.autograd.grad(outs, leaves, cotangents)
         torch.cuda.synchronize()
-        ref = kc.render_composite_reference(*leaves, mask)
+        ref = present(kc.render_composite_reference(*inputs, mask, extras))
         ref_grads = torch.autograd.grad(ref, leaves, cotangents)
         require(all(torch.isfinite(a).all().item() for a in (*outs, *grads)),
                 "the composite kernels produced non-finite values")
         return (max((a - b).abs().max().item() for a, b in zip(outs, ref)),
                 max(relative_errors(grads, ref_grads)))
 
-    n, k = TRAIN_RAYS, TRAIN_SAMPLES
-    leaves, mask, cotangents = case(n, k)
-    fwd_errs, bwd_errs = {}, {}
-    fwd_errs[f"{n} x {k}"], bwd_errs[f"{n} x {k}"] = errors(leaves, mask, cotangents)
-    fwd_errs[f"{RENDER_RAYS} x {k}"], bwd_errs[f"{RENDER_RAYS} x {k}"] = errors(*case(RENDER_RAYS, k))
-    for samples in COMPOSITE_EDGE_SAMPLES:  # one ray more than whole blocks of 8
-        name = f"{n + 1} x {samples}"
-        fwd_errs[name], bwd_errs[name] = errors(*case(n + 1, samples))
+    # The main path's calls: the train step (per-ray widths, the points as
+    # extras), a fixed-K frame's tile of 8192, the hierarchy's two passes
+    # (per-sample widths, the points as extras); then per-ray widths with
+    # five extras (points and two aux losses), and the edges of the register
+    # and chunk paths on one ray more than whole blocks of 8.
+    shapes = {f"{n} x {k}": (n, k, per_sample) for n, k, per_sample in COMPOSITE_SHAPES}
+    fwd_errs, bwd_errs, cases = {}, {}, {}
+    for name, (n, k, per_sample) in shapes.items():
+        cases[name] = case(n, k, per_sample, 3)
+        fwd_errs[name], bwd_errs[name] = errors(*cases[name])
+    five = f"{TRAIN_RAYS} x {TRAIN_SAMPLES}, 5 extras"
+    fwd_errs[five], bwd_errs[five] = errors(*case(TRAIN_RAYS, TRAIN_SAMPLES, False, 5))
+    for samples in COMPOSITE_EDGE_SAMPLES:
+        for per_sample in (False, True):
+            name = f"{TRAIN_RAYS + 1} x {samples}{' per sample' if per_sample else ''}"
+            fwd_errs[name], bwd_errs[name] = errors(*case(TRAIN_RAYS + 1, samples, per_sample, 3))
 
+    # Off by one, forward or reverse, at the step's shape (no extras).
+    leaves, mask, cotangents = cases[f"{TRAIN_RAYS} x {TRAIN_SAMPLES}"]
+    leaves, cotangents = leaves[:4], cotangents[:3]
     plain = [v.detach() for v in leaves]
     depth = (plain[0] * plain[1]).sum(dim=1)
     ref_out = kc.render_composite_reference(*plain, mask)[0]
-    ref_grad = torch.autograd.grad(kc.render_composite_reference(*leaves, mask), leaves[0], cotangents)[0]
+    ref_grad = torch.autograd.grad(kc.render_composite_reference(*leaves, mask)[:3], leaves[0], cotangents)[0]
     own_out, own_grad = composite_closed_form(*plain, mask, cotangents)
     shifted_out, _ = composite_closed_form(*plain, mask, cotangents, forward_shift=True)
     _, shifted_grad = composite_closed_form(*plain, mask, cotangents, reverse_shift=True)
@@ -820,34 +853,90 @@ def check_composite_kernels(device, rng):
     require(forward_moved >= SCAN_MARGIN * COMPOSITE_BOUND and reverse_moved >= SCAN_MARGIN * COMPOSITE_GRAD_BOUND,
             "the composite bounds would not catch an off-by-one scan")
 
+    # The background's gradient, summed by the last block in a fixed order.
+    leaves, mask, cotangents = cases[f"{RENDER_RAYS} x {TRAIN_SAMPLES}"]
+    plain = [v.detach() for v in leaves]
+    runs = [kc.composite_backward_cuda(*plain[:4], mask, plain[4], cotangents[0], None, None)[3]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same_bits = torch.equal(runs[0], runs[1])
+    print(f"composite_backward: the background's gradient over two runs at {RENDER_RAYS} x "
+          f"{TRAIN_SAMPLES}: {runs[0].tolist()} / {runs[1].tolist()}, bit-equal {same_bits}", flush=True)
+    require(same_bits, "two runs of composite_backward differ in the background's gradient")
+
+    # The train step's two calls, profiled: one kernel each, nothing zeroed.
+    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+
+    leaves, mask, cotangents = cases[f"{TRAIN_RAYS} x {TRAIN_SAMPLES}"]
+    plain = [v.detach() for v in leaves]
+    step_calls = {
+        "forward": lambda: kc.composite_forward_cuda(*plain[:4], mask, plain[4]),
+        "backward": lambda: kc.composite_backward_cuda(*plain[:4], mask, plain[4], cotangents[0], None, None,
+                                                       None, wanted=(False, True, True, False)),
+    }
+    def timed(call):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for name, call in step_calls.items():
+        timed(call)
+        seen = profile_call(lambda: timed(call), device)
+        print(f"composite {name} as the train step calls it, profiled: {seen['kernels_launched']} kernel(s), "
+              f"{seen['memsets']} memset(s): {[t['name'] for t in seen['top']]}", flush=True)
+        require(seen["kernels_launched"] == 1 and seen["memsets"] == 0,
+                f"the step's composite {name} ran {seen['kernels_launched']} kernels and {seen['memsets']} memsets")
+
+    # Times at each shape (graph replay), beside the bound of this run's
+    # tensors: each input read once and each output written once.  The
+    # backward takes all four cotangents and writes every gradient.
+    timed = {}
+    for name, (n, k, _) in shapes.items():
+        leaves, mask, cotangents = cases[name]
+        plain = [v.detach() for v in leaves]
+        *inputs, extras = split(plain)
+        outs = present(kc.composite_forward_cuda(*inputs, mask, extras))
+        grads = present(kc.composite_backward_cuda(*inputs, mask, extras, *cotangents))
+        graph = present(kc.render_composite_reference(*split(leaves)[:4], mask, split(leaves)[4]))
+        ops = (SCAN_OPS + 2 * extras.shape[-1]) * n * k
+        entry = dict(
+            ms=graph_ms(lambda: kc.composite_forward_cuda(*inputs, mask, extras), 50),
+            plain_ms=graph_ms(lambda: kc.render_composite_reference(*inputs, mask, extras), 20),
+            backward_ms=graph_ms(lambda: kc.composite_backward_cuda(*inputs, mask, extras, *cotangents), 50),
+            # Autograd's backward through the plain ops, eager (its own graph kept).
+            backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(graph, leaves, cotangents, retain_graph=True), 10),
+        )
+        entry["bound_ms"], entry["bound_by"] = bound(nbytes(*plain, mask, *outs), f32_ops=ops)
+        entry["backward_bound_ms"], entry["backward_bound_by"] = bound(
+            nbytes(*plain, mask, *cotangents, *grads), f32_ops=2 * ops)
+        timed[name] = entry
+        print(f"composite {name}{' (per-sample widths)' if shapes[name][2] else ''}: forward "
+              f"{1e3 * entry['ms']:.2f} us (graph replay), plain {1e3 * entry['plain_ms']:.2f} us, bound "
+              f"{1e3 * entry['bound_ms']:.2f} us ({entry['bound_by']}); backward {1e3 * entry['backward_ms']:.2f} us, "
+              f"eager autograd {1e3 * entry['backward_plain_ms']:.1f} us, bound "
+              f"{1e3 * entry['backward_bound_ms']:.2f} us ({entry['backward_bound_by']})", flush=True)
+
+    step = timed[f"{TRAIN_RAYS} x {TRAIN_SAMPLES}"]
     common = dict(route="cuda", source="learn_nerf_tpu_torch/csrc/composite.cu", library_ms=None)
-    outs = kc.composite_forward_cuda(*plain, mask)
     forward = dict(
         name="composite", **common,
-        replaces="learn_nerf_tpu/ops/volume.py:41-93 at learn_nerf_tpu/occ_render.py:217-221 (XLA)",
-        max_abs_err=max(fwd_errs.values()),
-        ms=graph_ms(lambda: kc.composite_forward_cuda(*plain, mask), 50),
-        plain_ms=graph_ms(lambda: kc.render_composite_reference(*plain, mask), 20),
+        replaces="learn_nerf_tpu/ops/volume.py:41-124 at learn_nerf_tpu/render.py:73-79 and "
+                 "learn_nerf_tpu/occ_render.py:217-222 (XLA)",
+        max_abs_err=max(fwd_errs.values()), ms=step["ms"], plain_ms=step["plain_ms"],
+        bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+        shapes={name: dict(ms=e["ms"], bound_ms=e["bound_ms"]) for name, e in timed.items()},
     )
-    forward["bound_ms"], forward["bound_by"] = bound(
-        nbytes(*plain, mask, *outs), f32_ops=SCAN_OPS * n * k)
-    grads = kc.composite_backward_cuda(*plain, mask, *cotangents)
-    graph = kc.render_composite_reference(*leaves, mask)
     backward = dict(
         name="composite_backward", **common,
-        replaces="the VJP of learn_nerf_tpu/ops/volume.py:41-93 under jax.grad (XLA)",
-        max_abs_err=max(bwd_errs.values()),
-        ms=graph_ms(lambda: kc.composite_backward_cuda(*plain, mask, *cotangents), 50),
-        # Autograd's backward through the plain ops, eager (its own graph kept).
-        plain_ms=cuda_ms(lambda: torch.autograd.grad(graph, leaves, cotangents, retain_graph=True), 20),
+        replaces="the VJP of learn_nerf_tpu/ops/volume.py:41-124 under jax.grad (XLA)",
+        max_abs_err=max(bwd_errs.values()), ms=step["backward_ms"], plain_ms=step["backward_plain_ms"],
+        bound_ms=step["backward_bound_ms"], bound_by=step["backward_bound_by"],
+        shapes={name: dict(ms=e["backward_ms"], bound_ms=e["backward_bound_ms"]) for name, e in timed.items()},
     )
-    backward["bound_ms"], backward["bound_by"] = bound(
-        nbytes(*plain, mask, *cotangents, *grads), f32_ops=2 * SCAN_OPS * n * k)
     for entry, errs, limit in ((forward, fwd_errs, COMPOSITE_BOUND), (backward, bwd_errs, COMPOSITE_GRAD_BOUND)):
-        print(f"{entry['name']} {n} x {k}: max err " + ", ".join(f"{a} {b:.2e}" for a, b in errs.items())
-              + f" (bound {limit:g}); device time per call (graph replay) {1e3 * entry['ms']:.2f} us, "
-              f"plain {1e3 * entry['plain_ms']:.2f} us; bound {1e3 * entry['bound_ms']:.2f} us "
-              f"({entry['bound_by']})", flush=True)
+        print(f"{entry['name']}: max err " + ", ".join(f"{a} {b:.2e}" for a, b in errs.items())
+              + f" (bound {limit:g})", flush=True)
         require(entry["max_abs_err"] <= limit, f"{entry['name']} disagrees with its plain version")
     return [forward, backward]
 
@@ -855,20 +944,21 @@ def check_composite_kernels(device, rng):
 @contextlib.contextmanager
 def plain_routes():
     """Inside, the port takes its plain versions for CUDA tensors too (the
-    encoding and the composite): the card's own plain route, for
+    encoding, and the composite of both renderers, which call it from
+    ``render.composite_samples``): the card's own plain route, for
     ``check_train_step``."""
-    from learn_nerf_tpu_torch import occ_render
+    from learn_nerf_tpu_torch import render
     from learn_nerf_tpu_torch.kernels import composite as kc
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.ops import hashgrid as hg
 
-    saved = ke._encode_on_card, occ_render.render_composite
-    ke._encode_on_card, occ_render.render_composite = (
+    saved = ke._encode_on_card, render.render_composite
+    ke._encode_on_card, render.render_composite = (
         hg.hash_grid_encode_reference, kc.render_composite_reference)
     try:
         yield
     finally:
-        ke._encode_on_card, occ_render.render_composite = saved
+        ke._encode_on_card, render.render_composite = saved
 
 
 def check_train_step(root, device, rng):
@@ -1342,11 +1432,18 @@ def main():
         require(served[name]["hashgrid_encode"][0] > 0, f"{name} serving never launched hashgrid_encode")
     for name in ("ngp occupancy", "trained ngp occupancy"):
         require(served[name]["composite"][0] > 0, f"{name} serving never launched composite")
+    # The hierarchy composites each pass of each tile of 4096 rays in one
+    # launch (and no plain version ran: serve_mode holds that).
+    tiles = -(-SIDE * SIDE // 4096)
+    for name in ("hierarchy", "ngp hierarchy"):
+        require(served[name]["composite"][0] == 2 * tiles * REQUESTS,
+                f"{name} serving launched composite {served[name]['composite'][0]} times, not "
+                f"{2 * tiles * REQUESTS} (2 a tile)")
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",
                "ms_step_rays", "plain_ms", "bound_ms", "bound_step_ms", "bound_by", "library_ms",
-               "share_of_bound", "tflops"]
+               "share_of_bound", "tflops", "shapes"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])
     print(card)

@@ -1,48 +1,76 @@
-// The transmittance scan, the termination weights and the blend of the
-// occupancy renderer, forward and backward, with a plain C interface for
-// ctypes (learn_nerf_tpu_torch/kernels/build.py).
+// The transmittance scan, the termination weights and the blends of both
+// renderers, forward and backward, with a plain C interface for ctypes
+// (learn_nerf_tpu_torch/kernels/build.py).
 //
 // composite_forward_kernel computes the JAX package's termination_weights +
-// composite + composite_alpha (learn_nerf_tpu/ops/volume.py:41-93, called at
-// learn_nerf_tpu/occ_render.py:217-221), which the JAX package leaves to
-// XLA: for densities [N, K], one bin width dt [N] per ray, rgbs [N, K, 3],
-// a background [3] and a mask [N],
-//   s_t = density_t * dt,  T_t = exp(-sum_{j<t} s_j),
+// composite + composite_alpha + the coords blend + average_aux
+// (learn_nerf_tpu/ops/volume.py:41-124, called at learn_nerf_tpu/render.py:
+// 73-79 and learn_nerf_tpu/occ_render.py:217-222), which the JAX package
+// leaves to XLA: for densities [N, K], bin widths delta (one per ray [N, 1],
+// read with stride 0, or one per sample [N, K]), rgbs [N, K, 3], a
+// background [3], a mask [N] and optional extras [N, K, C] (C <= 8: the
+// sample points, then per-sample aux losses),
+//   s_t = density_t * delta_t,  T_t = exp(-sum_{j<t} s_j),
 //   w_t = T_t * (1 - exp(-s_t)) for t < K,  w_K = T_K,
-//   out = sum_t w_t rgb_t + w_K background   (the background on a masked ray),
-//   alpha = 1 - w_K                          (0 on a masked ray),
-// with weights [N, K+1] (rows sum to 1), out [N, 3] and alpha [N].
+//   out = sum_t w_t rgb_t + w_K background  (the background on a masked ray),
+//   alpha = 1 - w_K                         (0 on a masked ray),
+//   extras_out = sum_t w_t extra_t          (0 on a masked ray: the extras'
+//                                            background is zero),
+// with weights [N, K+1] (rows sum to 1), out [N, 3], alpha [N] and
+// extras_out [N, C].
 // composite_backward_kernel is its vector-Jacobian product for cotangents
-// of all three outputs (a null pointer is a zero cotangent): with
-//   G_t = dL/dw_t + dL/dout . rgb_t                  (t < K),
+// of all four outputs (a null pointer is a zero cotangent): with
+//   G_t = dL/dw_t + dL/dout . rgb_t + dL/dextras_out . extra_t  (t < K; the
+//         last two on an unmasked ray only),
 //   G_K = dL/dw_K + dL/dout . background - dL/dalpha (the last two on an
 //         unmasked ray only),
 //   dL/ds_t = G_t T_{t+1} - sum_{j>t} G_j w_j        (T_{t+1} = T_t - w_t),
-// a reverse exclusive scan, then dL/ddensity_t = dL/ds_t dt, dL/ddt =
-// sum_t dL/ds_t density_t, dL/drgb_t = w_t dL/dout and dL/dbackground =
-// sum_n w_{n,K} dL/dout_n (dL/dout_n itself on a masked ray).
+// a reverse exclusive scan, then dL/ddensity_t = dL/ds_t delta_t,
+// dL/ddelta_t = dL/ds_t density_t (summed over the ray for [N, 1] widths),
+// dL/drgb_t = w_t dL/dout, dL/dextra_t = w_t dL/dextras_out (0 on a masked
+// ray) and dL/dbackground = sum_n w_{n,K} dL/dout_n (dL/dout_n itself on a
+// masked ray).
 //
-// What bounds it on an H100: bytes.  Each value is read once and each
-// result written once (2.8 MB forward at 4096 rays x 32 samples, under a
-// microsecond at 3.35 TB/s), against a dozen f32 operations and two
-// exponentials per sample.  Design:
-// - one warp per ray, lane t takes samples t and t + 32 (K <= 64): the
-//   prefix sum and the reverse suffix sum are five shuffles each, and the
-//   sums over a ray's samples five more; nothing goes through shared
-//   memory but the background's gradient;
+// What bounds it on an H100: bytes (each value read once, each result
+// written once: 2.8 MB forward at 4096 rays x 32 samples, under a
+// microsecond at 3.35 TB/s, against a dozen f32 operations and two
+// exponentials a sample), and at the train step's and a tile's shapes the
+// latency of one wave: 512 blocks of 8 rays on 132 SMs.  Design:
+// - one warp per ray, lane l takes samples l, l + 32, ...: the prefix sum
+//   and the reverse suffix sum are five shuffles a chunk of 32 samples, the
+//   sums over a ray's samples five more each;
+// - one memory round trip a ray: every value a ray needs (densities,
+//   widths, colours, extras, and in the backward the cotangents) is loaded
+//   into registers before the first scan step; up to 64 samples (two a
+//   lane) all at once, beyond that one chunk of 32 ahead of the scan;
+// - any K: past 64 samples the forward carries the prefix from chunk to
+//   chunk; the backward scans forward once (densities and widths only),
+//   parking each sample's exclusive prefix in its own slot of
+//   grad_densities, then walks the chunks backward with a carried suffix and
+//   overwrites the slot with the gradient.  The weights it recomputes are
+//   the forward's to the bit on both paths;
 // - the backward recomputes the scan from the densities, so the forward
-//   saves no transmittance, and reads weights from nowhere;
-// - the background's gradient is summed over a block's 8 rays in shared
-//   memory, then one atomic per channel and block into a zeroed [3].
-// f32 throughout, expf at full precision (the library is built without
-// fast math).
+//   saves no transmittance;
+// - the background's gradient: each block sums its 8 rays in a fixed order
+//   into its own slot of a [blocks, 3] scratch (no memset), and the last
+//   block to finish (a fence and a ticket counter that resets itself) sums
+//   the slots in a fixed order: no atomics on one address, and the same
+//   bits from run to run;
+// - the widths' stride and the extras' capacity are template parameters:
+//   a run-time flag cost registers, and past 32 registers the backward's
+//   8,192-ray tiles take two waves.
+// Each part was kept on a same-call measurement against its alternative
+// (scripts/composite_ablations.py, which also builds the earlier kernels
+// and the bulk-copy staging of csrc/ablations/, both slower).  f32
+// throughout, expf at full precision (the library is built without fast
+// math).
 #include <cuda_runtime.h>
 
 namespace nerf {
 
 constexpr int kCompositeThreads = 256;
 constexpr int kCompositeWarps = kCompositeThreads / 32;
-constexpr int kCompositeMaxSamples = 64;
+constexpr int kCompositeMaxExtras = 8;
 constexpr unsigned int kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float warp_prefix_sum(float v, int lane) {
@@ -69,200 +97,406 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One ray's scan in registers: lane `lane` holds samples lane + 32 s.
-template <int S>
-struct RayScan {
-  float s[S];       // density * dt (0 past K)
-  float w[S];       // termination weight
-  float t_next[S];  // transmittance after the sample: T_{t+1}
-  float w_last;     // background weight T_K
+// The inputs both kernels read, by value.
+struct CompositeInputs {
+  const float* densities;   // [n, k]
+  const float* deltas;      // [n, k] (per_sample) or [n, 1]
+  const float* rgbs;        // [n, k, 3]
+  const float* background;  // [3]
+  const unsigned char* mask;  // [n]
+  const float* extras;      // [n, k, c], or null when c == 0
+  int n, k, c;
+  bool per_sample;
 };
 
-template <int S>
-__device__ __forceinline__ RayScan<S> scan_ray(const float* __restrict__ density, float dt, int k,
-                                               int lane) {
-  RayScan<S> r;
-  float carry = 0.0f;
+// What one lane holds of one sample; E is the extras' capacity (C <= E).
+// P (a template parameter of the kernels): the widths are per sample.
+template <int E>
+struct Sample {
+  float density, delta, rgb[3], extra[E > 0 ? E : 1];
+};
+
+// Sample t of the ray whose first sample is `first` (= ray * k); past the
+// ray's end everything is 0 but the width, so s = 0 there.
+template <int E, bool P>
+__device__ __forceinline__ Sample<E> load_sample(const CompositeInputs& in, long long first, int t,
+                                                 float ray_delta) {
+  Sample<E> x;
+  const bool inside = t < in.k;
+  const long long i = first + t;
+  x.density = inside ? __ldg(in.densities + i) : 0.0f;
+  x.delta = P ? (inside ? __ldg(in.deltas + i) : 0.0f) : ray_delta;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const int t = lane + 32 * i;
-    r.s[i] = t < k ? __fmul_rn(density[t], dt) : 0.0f;
-    const float inclusive = warp_prefix_sum(r.s[i], lane) + carry;
-    float exclusive = __shfl_up_sync(kFullWarp, inclusive, 1);
-    if (lane == 0) exclusive = carry;
-    r.w[i] = expf(-exclusive) * (1.0f - expf(-r.s[i]));
-    r.t_next[i] = expf(-inclusive);
-    carry = __shfl_sync(kFullWarp, inclusive, 31);
-  }
-  r.w_last = expf(-carry);
+  for (int c = 0; c < 3; ++c) x.rgb[c] = inside ? __ldg(in.rgbs + i * 3 + c) : 0.0f;
+#pragma unroll
+  for (int j = 0; j < E; ++j) x.extra[j] = inside && j < in.c ? __ldg(in.extras + i * in.c + j) : 0.0f;
+  return x;
+}
+
+// One chunk's step of the forward scan: with `carry` the optical depth
+// before the chunk, the sample's weight, its exclusive and inclusive
+// prefixes; carry moves past the chunk.
+struct ScanStep {
+  float s, excl, incl, w;
+};
+
+__device__ __forceinline__ ScanStep scan_step(float density, float delta, float& carry, int lane) {
+  ScanStep r;
+  r.s = __fmul_rn(density, delta);
+  r.incl = warp_prefix_sum(r.s, lane) + carry;
+  r.excl = __shfl_up_sync(kFullWarp, r.incl, 1);
+  if (lane == 0) r.excl = carry;
+  r.w = expf(-r.excl) * (1.0f - expf(-r.s));
+  carry = __shfl_sync(kFullWarp, r.incl, 31);
   return r;
 }
 
-template <int S>
+// S > 0: K <= 32 S, every load of the ray issued before the first scan
+// step; S == 0: any K, one chunk of 32 loaded ahead of the scan.
+template <int S, int E, bool P>
 __global__ void __launch_bounds__(kCompositeThreads)
-    composite_forward_kernel(const float* __restrict__ densities, const float* __restrict__ dt,
-                             const float* __restrict__ rgbs, const float* __restrict__ background,
-                             const unsigned char* __restrict__ mask, int n, int k,
-                             float* __restrict__ outputs, float* __restrict__ weights,
-                             float* __restrict__ alphas) {
+    composite_forward_kernel(CompositeInputs in, float* __restrict__ outputs,
+                             float* __restrict__ weights, float* __restrict__ alphas,
+                             float* __restrict__ extras_out) {
   const int ray = blockIdx.x * kCompositeWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (ray >= n) return;  // a whole warp leaves together
-  const RayScan<S> r = scan_ray<S>(densities + static_cast<long long>(ray) * k, dt[ray], k, lane);
-  float fg[3] = {0.0f, 0.0f, 0.0f};
+  if (ray >= in.n) return;  // a whole warp leaves together
+  const int k = in.k;
+  const long long first = static_cast<long long>(ray) * k;
+  float* w_row = weights + static_cast<long long>(ray) * (k + 1);
+  const float ray_delta = P ? 0.0f : __ldg(in.deltas + ray);
+  const bool hit = __ldg(in.mask + ray) != 0;
+  float carry = 0.0f, fg[3] = {0.0f, 0.0f, 0.0f}, ex[E > 0 ? E : 1] = {};
+
+  auto step = [&](const Sample<E>& x, int t) {
+    const ScanStep r = scan_step(x.density, x.delta, carry, lane);
+    if (t < k) w_row[t] = r.w;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    const int t = lane + 32 * i;
-    if (t < k) {
-      weights[static_cast<long long>(ray) * (k + 1) + t] = r.w[i];
-      const float* rgb = rgbs + (static_cast<long long>(ray) * k + t) * 3;
+    for (int c = 0; c < 3; ++c) fg[c] += r.w * x.rgb[c];
 #pragma unroll
-      for (int c = 0; c < 3; ++c) fg[c] += r.w[i] * rgb[c];
+    for (int j = 0; j < E; ++j) ex[j] += r.w * x.extra[j];
+  };
+  if constexpr (S > 0) {
+    Sample<E> x[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) x[i] = load_sample<E, P>(in, first, lane + 32 * i, ray_delta);
+#pragma unroll
+    for (int i = 0; i < S; ++i) step(x[i], lane + 32 * i);
+  } else {
+    Sample<E> cur = load_sample<E, P>(in, first, lane, ray_delta), next;
+    for (int base = 0; base < k; base += 32) {
+      if (base + 32 < k) next = load_sample<E, P>(in, first, base + 32 + lane, ray_delta);
+      step(cur, base + lane);
+      cur = next;
     }
   }
+
+  const float w_last = expf(-carry);
+  float mine = 0.0f;  // lane c < 3 writes out[c]; lane 3 + j writes extras_out[j]
 #pragma unroll
-  for (int c = 0; c < 3; ++c) fg[c] = warp_sum(fg[c]);
-  if (lane == 0) {
-    const bool hit = mask[ray] != 0;
-    weights[static_cast<long long>(ray) * (k + 1) + k] = r.w_last;
+  for (int c = 0; c < 3; ++c) {
+    const float v = warp_sum(fg[c]);
+    if (lane == c) mine = hit ? v + w_last * __ldg(in.background + c) : __ldg(in.background + c);
+  }
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      outputs[ray * 3ll + c] = hit ? fg[c] + r.w_last * background[c] : background[c];
+  for (int j = 0; j < E; ++j) {
+    if (j < in.c) {
+      const float v = warp_sum(ex[j]);
+      if (lane == 3 + j) mine = hit ? v : 0.0f;
     }
-    alphas[ray] = hit ? 1.0f - r.w_last : 0.0f;
+  }
+  if (lane < 3) outputs[ray * 3ll + lane] = mine;
+  if (lane >= 3 && lane < 3 + in.c) extras_out[static_cast<long long>(ray) * in.c + lane - 3] = mine;
+  if (lane == 31) {
+    w_row[k] = w_last;
+    alphas[ray] = hit ? 1.0f - w_last : 0.0f;
   }
 }
 
-template <int S>
-__global__ void __launch_bounds__(kCompositeThreads)
-    composite_backward_kernel(const float* __restrict__ densities, const float* __restrict__ dt,
-                              const float* __restrict__ rgbs, const float* __restrict__ background,
-                              const unsigned char* __restrict__ mask,
-                              const float* __restrict__ grad_outputs,
-                              const float* __restrict__ grad_weights,
-                              const float* __restrict__ grad_alphas, int n, int k,
-                              float* __restrict__ grad_densities, float* __restrict__ grad_dt,
-                              float* __restrict__ grad_rgbs, float* __restrict__ grad_background) {
+// The cotangents (each may be null: zero) and the gradients the backward
+// writes (each but grad_densities may be null: not wanted).
+struct CompositeGrads {
+  const float* grad_outputs;       // [n, 3]
+  const float* grad_weights;       // [n, k + 1]
+  const float* grad_alphas;        // [n]
+  const float* grad_extras_out;    // [n, c]
+  float* grad_densities;           // [n, k]; also the backward's scratch
+  float* grad_deltas;              // like deltas
+  float* grad_rgbs;                // [n, k, 3]
+  float* grad_extras;              // [n, k, c]
+  float* background_partials;      // [blocks, 3]
+  unsigned int* ticket;            // [1], 0 between launches
+  float* grad_background;          // [3]
+};
+
+// The background's gradient: each block's 8 rays in warp order into its
+// slot of background_partials, then the last block to take a ticket sums
+// the slots (thread t takes slots t, t + 256, ..., then the warps' sums in
+// warp order: a fixed order) and resets the ticket.  Every thread of the
+// block calls it.
+__device__ __forceinline__ void sum_background(const float (&bg_part)[3], const CompositeGrads& g,
+                                               int warp, int lane) {
   __shared__ float block_bg[kCompositeWarps][3];
-  const int warp = threadIdx.x >> 5;
-  const int ray = blockIdx.x * kCompositeWarps + warp;
-  const int lane = threadIdx.x & 31;
-  float bg_part[3] = {0.0f, 0.0f, 0.0f};
-  if (ray < n) {  // a whole warp together
-    const float* density = densities + static_cast<long long>(ray) * k;
-    const float ray_dt = dt[ray];
-    const RayScan<S> r = scan_ray<S>(density, ray_dt, k, lane);
-    const bool hit = mask[ray] != 0;
-    float go[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) go[c] = grad_outputs != nullptr ? grad_outputs[ray * 3ll + c] : 0.0f;
-    const float* gw = grad_weights != nullptr ? grad_weights + static_cast<long long>(ray) * (k + 1)
-                                              : nullptr;
-    // G_t of this lane's samples, and each sample's colour.
-    float big_g[S];
-#pragma unroll
-    for (int i = 0; i < S; ++i) {
-      const int t = lane + 32 * i;
-      big_g[i] = 0.0f;
-      if (t < k) {
-        if (gw != nullptr) big_g[i] = gw[t];
-        if (hit) {
-          const float* rgb = rgbs + (static_cast<long long>(ray) * k + t) * 3;
-          big_g[i] += go[0] * rgb[0] + go[1] * rgb[1] + go[2] * rgb[2];
-        }
-      }
-    }
-    float g_last = gw != nullptr ? gw[k] : 0.0f;
-    if (hit) {
-      g_last += go[0] * background[0] + go[1] * background[1] + go[2] * background[2];
-      if (grad_alphas != nullptr) g_last -= grad_alphas[ray];
-    }
-    // The reverse exclusive scan of G_j w_j, from the background column down.
-    float carry = g_last * r.w_last;
-    float dt_part = 0.0f;
-#pragma unroll
-    for (int i = S - 1; i >= 0; --i) {
-      const int t = lane + 32 * i;
-      const float inclusive = warp_suffix_sum(big_g[i] * r.w[i], lane);
-      float after = __shfl_down_sync(kFullWarp, inclusive, 1);
-      if (lane == 31) after = 0.0f;
-      const float grad_s = big_g[i] * r.t_next[i] - (after + carry);
-      carry += __shfl_sync(kFullWarp, inclusive, 0);
-      if (t < k) {
-        grad_densities[static_cast<long long>(ray) * k + t] = grad_s * ray_dt;
-        dt_part += grad_s * density[t];
-        float* grgb = grad_rgbs + (static_cast<long long>(ray) * k + t) * 3;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) grgb[c] = hit ? r.w[i] * go[c] : 0.0f;
-      }
-    }
-    dt_part = warp_sum(dt_part);
-    if (lane == 0) grad_dt[ray] = dt_part;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) bg_part[c] = hit ? r.w_last * go[c] : go[c];
-  }
+  __shared__ bool last_block;
   if (lane == 0) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) block_bg[warp][c] = bg_part[c];
   }
   __syncthreads();
-  if (threadIdx.x < 3 && grad_outputs != nullptr) {
+  if (threadIdx.x < 3) {
     float sum = 0.0f;
 #pragma unroll
     for (int w = 0; w < kCompositeWarps; ++w) sum += block_bg[w][threadIdx.x];
-    atomicAdd(grad_background + threadIdx.x, sum);
+    g.background_partials[blockIdx.x * 3ll + threadIdx.x] = sum;
+    __threadfence();  // the slot is visible before this block takes its ticket
   }
+  __syncthreads();
+  if (threadIdx.x == 0) last_block = atomicAdd(g.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last_block) return;  // the same for the whole block
+  __threadfence();
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kCompositeThreads) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) acc[c] += __ldcg(g.background_partials + b * 3ll + c);
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) acc[c] = warp_sum(acc[c]);
+  if (lane == 0) {  // block_bg was read before the ticket's barriers
+#pragma unroll
+    for (int c = 0; c < 3; ++c) block_bg[warp][c] = acc[c];
+  }
+  __syncthreads();
+  if (threadIdx.x < 3) {
+    float sum = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kCompositeWarps; ++w) sum += block_bg[w][threadIdx.x];
+    g.grad_background[threadIdx.x] = sum;
+  }
+  if (threadIdx.x == 0) *g.ticket = 0u;  // ready for the next launch on this stream
+}
+
+template <int S, int E, bool P>
+__global__ void __launch_bounds__(kCompositeThreads)
+    composite_backward_kernel(CompositeInputs in, CompositeGrads g) {
+  const int warp = threadIdx.x >> 5;
+  const int ray = blockIdx.x * kCompositeWarps + warp;
+  const int lane = threadIdx.x & 31;
+  const int k = in.k;
+  float bg_part[3] = {0.0f, 0.0f, 0.0f};
+  if (ray < in.n) {  // a whole warp together
+    const long long first = static_cast<long long>(ray) * k;
+    const float ray_delta = P ? 0.0f : __ldg(in.deltas + ray);
+    const bool hit = __ldg(in.mask + ray) != 0;
+    const float* gw_row = g.grad_weights != nullptr ? g.grad_weights + static_cast<long long>(ray) * (k + 1)
+                                                    : nullptr;
+    float go[3], gex[E > 0 ? E : 1];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) go[c] = g.grad_outputs != nullptr ? __ldg(g.grad_outputs + ray * 3ll + c) : 0.0f;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      gex[j] = g.grad_extras_out != nullptr && j < in.c
+                   ? __ldg(g.grad_extras_out + static_cast<long long>(ray) * in.c + j)
+                   : 0.0f;
+    }
+    float g_last = gw_row != nullptr ? __ldg(gw_row + k) : 0.0f;
+    if (hit) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) g_last += go[c] * __ldg(in.background + c);
+      if (g.grad_alphas != nullptr) g_last -= __ldg(g.grad_alphas + ray);
+    }
+    float dt_part = 0.0f;
+
+    // G_t of a sample from its cotangent of w_t and its colour and extras.
+    auto big_g = [&](const Sample<E>& x, float gw) {
+      float v = gw;
+      if (hit) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) v += go[c] * x.rgb[c];
+#pragma unroll
+        for (int j = 0; j < E; ++j) v += gex[j] * x.extra[j];
+      }
+      return v;
+    };
+    // One chunk of the reverse scan; `suffix` is sum_{j >= next chunk} G_j w_j.
+    auto reverse_step = [&](const Sample<E>& x, float w, float t_next, float gw, int t, float& suffix) {
+      const float gt = t < k ? big_g(x, gw) : 0.0f;
+      const float inclusive = warp_suffix_sum(gt * w, lane);
+      float after = __shfl_down_sync(kFullWarp, inclusive, 1);
+      if (lane == 31) after = 0.0f;
+      const float grad_s = gt * t_next - (after + suffix);
+      suffix += __shfl_sync(kFullWarp, inclusive, 0);
+      if (t < k) {
+        const long long i = first + t;
+        g.grad_densities[i] = grad_s * x.delta;
+        if (P) {
+          if (g.grad_deltas != nullptr) g.grad_deltas[i] = grad_s * x.density;
+        } else {
+          dt_part += grad_s * x.density;
+        }
+        if (g.grad_rgbs != nullptr) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) g.grad_rgbs[i * 3 + c] = hit ? w * go[c] : 0.0f;
+        }
+        if (g.grad_extras != nullptr) {
+#pragma unroll
+          for (int j = 0; j < E; ++j) {
+            if (j < in.c) g.grad_extras[i * in.c + j] = hit ? w * gex[j] : 0.0f;
+          }
+        }
+      }
+    };
+
+    float carry = 0.0f, w_last;
+    if constexpr (S > 0) {
+      Sample<E> x[S];
+      float gw[S], w[S], t_next[S];
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const int t = lane + 32 * i;
+        x[i] = load_sample<E, P>(in, first, t, ray_delta);
+        gw[i] = gw_row != nullptr && t < k ? __ldg(gw_row + t) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < S; ++i) {
+        const ScanStep r = scan_step(x[i].density, x[i].delta, carry, lane);
+        w[i] = r.w;
+        t_next[i] = expf(-r.incl);
+      }
+      w_last = expf(-carry);
+      float suffix = g_last * w_last;
+#pragma unroll
+      for (int i = S - 1; i >= 0; --i) reverse_step(x[i], w[i], t_next[i], gw[i], lane + 32 * i, suffix);
+    } else {
+      // Forward over densities and widths only; each sample's exclusive
+      // prefix waits in its own slot of grad_densities (the last chunk's in
+      // registers), and the reverse walk reads it back from the same lane.
+      const int chunks = (k + 31) / 32;
+      float excl_last = 0.0f;
+      for (int base = 0; base < k; base += 32) {
+        const int t = base + lane;
+        const float density = t < k ? __ldg(in.densities + first + t) : 0.0f;
+        const float delta = P ? (t < k ? __ldg(in.deltas + first + t) : 0.0f) : ray_delta;
+        const ScanStep r = scan_step(density, delta, carry, lane);
+        if (base + 32 < k) {
+          g.grad_densities[first + t] = r.excl;
+        } else {
+          excl_last = r.excl;
+        }
+      }
+      w_last = expf(-carry);
+      float suffix = g_last * w_last, next_excl = carry;
+      for (int chunk = chunks - 1; chunk >= 0; --chunk) {
+        const int t = 32 * chunk + lane;
+        const Sample<E> x = load_sample<E, P>(in, first, t, ray_delta);
+        const float gw = gw_row != nullptr && t < k ? __ldg(gw_row + t) : 0.0f;
+        const float excl = chunk == chunks - 1 ? excl_last : g.grad_densities[first + t];
+        float incl = __shfl_down_sync(kFullWarp, excl, 1);
+        if (lane == 31) incl = next_excl;
+        next_excl = __shfl_sync(kFullWarp, excl, 0);
+        const float w = expf(-excl) * (1.0f - expf(-__fmul_rn(x.density, x.delta)));
+        reverse_step(x, w, expf(-incl), gw, t, suffix);
+      }
+    }
+    if (!P && g.grad_deltas != nullptr) {
+      dt_part = warp_sum(dt_part);
+      if (lane == 0) g.grad_deltas[ray] = dt_part;
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) bg_part[c] = hit ? w_last * go[c] : go[c];
+  }
+  if (g.grad_background != nullptr) sum_background(bg_part, g, warp, lane);  // the same for every block
 }
 
 inline int composite_blocks(int n) { return (n + kCompositeWarps - 1) / kCompositeWarps; }
 
+// Registers for up to 64 samples (S = 1, 2), else the chunk loop (S = 0);
+// extras' capacity 0, 4 or 8; widths per ray or per sample.
+template <template <int, int, bool> class Launch, typename... Args>
+int composite_dispatch(int k, int c, bool per_sample, Args... args) {
+  const int s = k <= 32 ? 1 : (k <= 64 ? 2 : 0);
+  const int e = c == 0 ? 0 : (c <= 4 ? 4 : 8);
+#define NERF_COMPOSITE_CASE(S_, E_)                                                     \
+  if (s == S_ && e == E_) {                                                             \
+    return per_sample ? Launch<S_, E_, true>::run(args...) : Launch<S_, E_, false>::run(args...); \
+  }
+  NERF_COMPOSITE_CASE(1, 0) NERF_COMPOSITE_CASE(1, 4) NERF_COMPOSITE_CASE(1, 8)
+  NERF_COMPOSITE_CASE(2, 0) NERF_COMPOSITE_CASE(2, 4) NERF_COMPOSITE_CASE(2, 8)
+  NERF_COMPOSITE_CASE(0, 0) NERF_COMPOSITE_CASE(0, 4) NERF_COMPOSITE_CASE(0, 8)
+#undef NERF_COMPOSITE_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int S, int E, bool P>
+struct LaunchForward {
+  static int run(CompositeInputs in, float* outputs, float* weights, float* alphas, float* extras_out,
+                 cudaStream_t stream) {
+    composite_forward_kernel<S, E, P><<<composite_blocks(in.n), kCompositeThreads, 0, stream>>>(
+        in, outputs, weights, alphas, extras_out);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <int S, int E, bool P>
+struct LaunchBackward {
+  static int run(CompositeInputs in, CompositeGrads g, cudaStream_t stream) {
+    composite_backward_kernel<S, E, P><<<composite_blocks(in.n), kCompositeThreads, 0, stream>>>(in, g);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+inline bool composite_valid(int n, int k, int c, const float* extras) {
+  return n >= 0 && k >= 1 && c >= 0 && c <= kCompositeMaxExtras && (c == 0) == (extras == nullptr);
+}
+
 }  // namespace nerf
 
-// densities [n, k], dt [n], rgbs [n, k, 3], background [3] f32 and mask [n]
-// bytes (0 or 1) on the device; outputs [n, 3], weights [n, k + 1] and
-// alphas [n] f32 are written.  1 <= k <= 64.  Launches on the given stream,
-// does not synchronise, and returns the cudaError_t of the launch (0 on
-// success).
-extern "C" int nerf_composite_forward(const float* densities, const float* dt, const float* rgbs,
-                                      const float* background, const unsigned char* mask, int n,
-                                      int k, float* outputs, float* weights, float* alphas,
-                                      void* stream) {
+// densities [n, k], deltas [n, k] (per_sample_deltas) or [n, 1], rgbs
+// [n, k, 3], background [3], extras [n, k, c] (null when c = 0) f32 and mask
+// [n] bytes (0 or 1) on the device; outputs [n, 3], weights [n, k + 1],
+// alphas [n] and extras_out [n, c] f32 are written.  Any k >= 1, c <= 8.
+// Launches on the given stream, does not synchronise, and returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int nerf_composite_forward(const float* densities, const float* deltas, const float* rgbs,
+                                      const float* background, const unsigned char* mask,
+                                      const float* extras, int n, int k, int c,
+                                      int per_sample_deltas, float* outputs, float* weights,
+                                      float* alphas, float* extras_out, void* stream) {
   using namespace nerf;
-  if (n < 0 || k < 1 || k > kCompositeMaxSamples) return static_cast<int>(cudaErrorInvalidValue);
+  if (!composite_valid(n, k, c, extras)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 32) {
-    composite_forward_kernel<1><<<composite_blocks(n), kCompositeThreads, 0, s>>>(
-        densities, dt, rgbs, background, mask, n, k, outputs, weights, alphas);
-  } else {
-    composite_forward_kernel<2><<<composite_blocks(n), kCompositeThreads, 0, s>>>(
-        densities, dt, rgbs, background, mask, n, k, outputs, weights, alphas);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const CompositeInputs in{densities, deltas, rgbs, background, mask, extras, n, k, c,
+                           per_sample_deltas != 0};
+  return composite_dispatch<LaunchForward>(k, c, in.per_sample, in, outputs, weights, alphas, extras_out,
+                                           static_cast<cudaStream_t>(stream));
 }
 
 // The forward's inputs, then the cotangents grad_outputs [n, 3],
-// grad_weights [n, k + 1] and grad_alphas [n] (each may be null: zero);
-// grad_densities [n, k], grad_dt [n] and grad_rgbs [n, k, 3] are written,
-// and grad_background [3] is added to: the caller zeroes it.
-extern "C" int nerf_composite_backward(const float* densities, const float* dt, const float* rgbs,
-                                       const float* background, const unsigned char* mask,
-                                       const float* grad_outputs, const float* grad_weights,
-                                       const float* grad_alphas, int n, int k,
-                                       float* grad_densities, float* grad_dt, float* grad_rgbs,
-                                       float* grad_background, void* stream) {
+// grad_weights [n, k + 1], grad_alphas [n] and grad_extras_out [n, c] (each
+// may be null: zero); grad_densities [n, k] is written, and so are
+// grad_deltas (deltas' shape), grad_rgbs [n, k, 3], grad_extras [n, k, c]
+// and grad_background [3] unless null.  With grad_background,
+// background_partials holds one float3 per block of 8 rays (uninitialised)
+// and ticket is a counter that is 0 before the launch and after it; launches
+// that share a ticket run one after another (one stream).
+extern "C" int nerf_composite_backward(
+    const float* densities, const float* deltas, const float* rgbs, const float* background,
+    const unsigned char* mask, const float* extras, const float* grad_outputs,
+    const float* grad_weights, const float* grad_alphas, const float* grad_extras_out, int n, int k,
+    int c, int per_sample_deltas, float* grad_densities, float* grad_deltas, float* grad_rgbs,
+    float* grad_extras, float* background_partials, unsigned int* ticket, float* grad_background,
+    void* stream) {
   using namespace nerf;
-  if (n < 0 || k < 1 || k > kCompositeMaxSamples) return static_cast<int>(cudaErrorInvalidValue);
-  if (n == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k <= 32) {
-    composite_backward_kernel<1><<<composite_blocks(n), kCompositeThreads, 0, s>>>(
-        densities, dt, rgbs, background, mask, grad_outputs, grad_weights, grad_alphas, n, k,
-        grad_densities, grad_dt, grad_rgbs, grad_background);
-  } else {
-    composite_backward_kernel<2><<<composite_blocks(n), kCompositeThreads, 0, s>>>(
-        densities, dt, rgbs, background, mask, grad_outputs, grad_weights, grad_alphas, n, k,
-        grad_densities, grad_dt, grad_rgbs, grad_background);
+  if (!composite_valid(n, k, c, extras) || grad_densities == nullptr ||
+      (grad_background != nullptr && (background_partials == nullptr || ticket == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (n == 0) return 0;
+  const CompositeInputs in{densities, deltas, rgbs, background, mask, extras, n, k, c,
+                           per_sample_deltas != 0};
+  const CompositeGrads g{grad_outputs, grad_weights, grad_alphas, grad_extras_out,
+                         grad_densities, grad_deltas, grad_rgbs, c > 0 ? grad_extras : nullptr,
+                         background_partials, ticket, grad_background};
+  return composite_dispatch<LaunchBackward>(k, c, in.per_sample, in, g, static_cast<cudaStream_t>(stream));
 }

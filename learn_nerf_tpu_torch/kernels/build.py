@@ -136,9 +136,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_hashgrid_encode.restype = i32
     lib.nerf_hashgrid_backward.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
     lib.nerf_hashgrid_backward.restype = i32
-    lib.nerf_composite_forward.argtypes = [ptr] * 5 + [i32, i32] + [ptr] * 4
+    lib.nerf_composite_forward.argtypes = [ptr] * 6 + [i32] * 4 + [ptr] * 5
     lib.nerf_composite_forward.restype = i32
-    lib.nerf_composite_backward.argtypes = [ptr] * 8 + [i32, i32] + [ptr] * 5
+    lib.nerf_composite_backward.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 8
     lib.nerf_composite_backward.restype = i32
     lib.nerf_hashgrid_encode_args_size.argtypes = []
     lib.nerf_hashgrid_encode_args_size.restype = i32

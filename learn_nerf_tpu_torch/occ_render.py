@@ -15,8 +15,9 @@ not on the ``N * K`` worst case; :class:`OccupancyFrameSession` sizes the
 pool from measured demand.
 
 The fixed-K path (:meth:`OccupancyRenderer.render_rays`, which training
-differentiates) runs step 4's scan, weights and blend through
-:mod:`.kernels.composite`: on the card one kernel, with a backward kernel.
+differentiates) runs step 4's scan, weights and blends (colour, coords, aux)
+through :mod:`.kernels.composite`: on the card one kernel, with a backward
+kernel.
 
 On the fixed-K frame path a ``bfloat16`` :class:`~.models.vanilla.NeRFModel`
 runs step 4's per-sample chain (points -> MLP -> scan -> composite) as one
@@ -39,14 +40,12 @@ from .acceleration import (
     compact_occupied_strided,
     next_budget_bucket,
 )
-from .kernels.composite import render_composite
 from .kernels.fused_render import fused_render
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .ops.geometry import ray_bbox_range
 from .ops.sampling import stratified_ts
-from .ops.volume import average_aux, composite
-from .render import pad_rays_to_tiles
+from .render import composite_samples, pad_rays_to_tiles
 
 Tensor = torch.Tensor
 
@@ -168,11 +167,11 @@ class OccupancyRenderer:
         )
         density, rgbs, aux = self.model(points, rays[:, None, 1, :].expand(points.shape))
         densities = density[..., 0] * sel_mask  # padding slots contribute 0
-        # Scan, weights and blend: one kernel on the card (and one more in
-        # the backward), the plain ops of ops.volume on the CPU.
-        outputs, weights, alphas = render_composite(densities, dt, rgbs, background, mask)
-        coords = composite(weights, points, torch.zeros_like(background), mask)
-        aux_means = average_aux(weights, aux, mask)
+        # Scan, weights and blends (colour, coords, aux): one kernel on the
+        # card (and one more in the backward), the plain ops of ops.volume
+        # on the CPU.
+        outputs, weights, alphas, coords, aux_means = composite_samples(
+            densities, dt, rgbs, background, mask, points, aux)
         return (
             dict(
                 outputs=outputs,

@@ -6,10 +6,13 @@
 * termination weights are ``P(survive to bin) * P(terminate in bin)`` with a
   final always-terminate background column, so ``weights`` has shape
   ``[N, T+1]`` and rows sum to 1;
-* rays that miss the bbox (``mask=False``) return the background.
+* rays that miss the bbox (``mask=False``) return the background;
+* the JAX module's ``average_aux`` has no counterpart here: the renderers
+  blend per-sample aux losses as extras of ``kernels.composite`` and take
+  each column's mean (``render.composite_samples``).
 """
 
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -70,19 +73,3 @@ def composite_alpha(weights: Tensor, mask: Tensor) -> Tensor:
     :return: ``[N, 1]`` alphas (0 for masked rays).
     """
     return torch.where(mask[:, None], 1.0 - weights[:, -1:], 0.0)
-
-
-def average_aux(weights: Tensor, aux: Dict[str, Tensor], mask: Tensor) -> Dict[str, Tensor]:
-    """Density-weighted scalar mean of per-sample auxiliary losses: each
-    loss summed over the sample axis against the (non-background) weights,
-    zeroed for masked rays, then averaged over rays.
-
-    :param weights: ``[N, T+1]`` termination weights.
-    :param aux: dict of ``[N, T]`` per-sample losses.
-    :param mask: ``[N]`` bool.
-    :return: dict of scalar means.
-    """
-    w = weights[:, :-1]
-    return {
-        k: torch.where(mask, (v * w).sum(dim=-1), 0.0).mean() for k, v in aux.items()
-    }

@@ -12,12 +12,40 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
+from .kernels.composite import render_composite
 from .models.base import FieldModel
 from .ops.geometry import ray_bbox_range
 from .ops.sampling import inverse_cdf_ts, merge_sorted, stratified_ts
-from .ops.volume import average_aux, bin_deltas, composite, composite_alpha, termination_weights
+from .ops.volume import bin_deltas
 
 Tensor = torch.Tensor
+
+
+def composite_samples(
+    densities: Tensor,
+    deltas: Tensor,
+    rgbs: Tensor,
+    background: Tensor,
+    mask: Tensor,
+    points: Tensor,
+    aux: Dict[str, Tensor],
+) -> Tuple[Tensor, Tensor, Tensor, Tensor, Dict[str, Tensor]]:
+    """Scan, weights and every blend of one pass, in one
+    :func:`~.kernels.composite.render_composite` call: the points and the
+    per-sample aux losses ride along as its extras.
+
+    :param deltas: ``[N, 1]`` or ``[N, T]`` bin widths.
+    :param points: ``[N, T, 3]`` sample points.
+    :param aux: dict of ``[N, T]`` per-sample losses.
+    :return: ``(outputs [N,3], weights [N,T+1], alphas [N,1], coords [N,3],
+             aux_means)``; each aux mean is ``average_aux``'s masked mean.
+    """
+    extras = points
+    if aux:
+        extras = torch.cat([points, torch.stack(list(aux.values()), dim=-1).to(points.dtype)], dim=-1)
+    outputs, weights, alphas, blended = render_composite(densities, deltas, rgbs, background, mask, extras)
+    aux_means = {name: blended[:, 3 + i].mean() for i, name in enumerate(aux)}
+    return outputs, weights, alphas, blended[:, :3], aux_means
 
 
 def render_ray_samples(
@@ -29,7 +57,8 @@ def render_ray_samples(
     t_max: Tensor,
     mask: Tensor,
 ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
-    """Evaluate one model over given per-ray samples and composite.
+    """Evaluate one model over given per-ray samples and composite (on the
+    card one composite kernel a pass, with per-sample bin widths).
 
     :param rays: ``[N, 2, 3]`` (origin, direction) rays.
     :param ts: ``[N, T]`` sorted sample positions.
@@ -44,11 +73,8 @@ def render_ray_samples(
     densities = density[..., 0]
 
     _, _, deltas = bin_deltas(ts, t_min, t_max)
-    weights = termination_weights(densities, deltas)
-    outputs = composite(weights, rgbs, background, mask)
-    alphas = composite_alpha(weights, mask)
-    coords = composite(weights, points, torch.zeros_like(background), mask)
-    aux_means = average_aux(weights, aux, mask)
+    outputs, weights, alphas, coords, aux_means = composite_samples(
+        densities, deltas, rgbs, background, mask, points, aux)
     return (
         dict(
             outputs=outputs,

@@ -15,7 +15,8 @@ and prints one JSON line for the view:
 * ``top``: the kernels with the most device time in that call;
 * ``port_kernels``: device time and share of each of the port's own
   kernels (``csrc/``) that ran in that call;
-* ``kernels_launched``: the number of kernels the card ran in that call;
+* ``kernels_launched``: the number of kernels the card ran in that call,
+  and ``memsets`` the number of memsets;
 * ``host_top``: the host ops with the most self time in that call (on the
   host's clock: where an idle card waits), with their call counts.
 
@@ -116,8 +117,8 @@ def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> 
 def profile_call(call, device: torch.device) -> dict:
     """One call of ``call`` (which returns its own host-clock latency in ms)
     under ``torch.profiler``: ``profiled_ms``, ``device_ms``,
-    ``idle_share``, ``top``, ``port_kernels``, ``kernels_launched`` and
-    ``host_top`` as the module doc describes them."""
+    ``idle_share``, ``top``, ``port_kernels``, ``kernels_launched``,
+    ``memsets`` and ``host_top`` as the module doc describes them."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -130,6 +131,7 @@ def profile_call(call, device: torch.device) -> dict:
         top=None,
         port_kernels=None,
         kernels_launched=None,
+        memsets=None,
         host_top=host_summary(prof.key_averages()),
     )
     if device.type == "cuda":
@@ -143,6 +145,7 @@ def profile_call(call, device: torch.device) -> dict:
             kernels_launched=sum(
                 1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
             ),
+            memsets=sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memset"),
             device_ms=busy,
             idle_share=1.0 - busy / profiled,
             top=[dict(name=name[:80], ms=ms, share=ms / busy) for name, ms in ranked],

@@ -9,9 +9,13 @@ Takes ``train_nerf``'s flags and its ``data_dir`` and prints one JSON line:
   ``refresh_step_ms`` those of them that began with a grid refresh;
 * ``rays_per_s``: the batch size over the median step;
 * ``profiled_ms``, ``device_ms``, ``idle_share``, ``top``,
-  ``port_kernels``, ``kernels_launched``, ``host_top``: one more step (one
-  without a grid refresh) under ``torch.profiler``, as
-  :mod:`.profile_render` reports a render.
+  ``port_kernels``, ``kernels_launched``, ``memsets``, ``host_top``: one
+  more step (one without a grid refresh) under ``torch.profiler``, as
+  :mod:`.profile_render` reports a render;
+* ``composite_host_us``: the composite kernels' wrappers' own host time a
+  call (forward, backward), on the host's clock around each call over the
+  timed steps: their checks, allocations and ctypes call, which in a
+  host-bound step delay every launch after them.
 
 With ``--device cpu`` the device fields are ``null``; without it the
 profiler runs on the card and raises when there is none.
@@ -21,6 +25,7 @@ Example:
       --occupancy --lr 1e-2 data/scene
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -29,6 +34,7 @@ import time
 import torch
 
 from ..data.dataset import load_dataset
+from ..kernels import composite as kc
 from ..data.prefetch import prefetch_to_device
 from ..train import OccupancyTrainLoop
 from .common import resolve_device
@@ -41,6 +47,31 @@ def argparser():
     parser.add_argument("--repeats", type=int, default=16, help="timed steps before the profiled one")
     parser.add_argument("--warmup_steps", type=int, default=3, help="untimed steps before the timed ones")
     return parser
+
+
+@contextlib.contextmanager
+def timed_launchers(module, names):
+    """Inside, each function ``module.<name>`` adds its host time to
+    ``totals[name] = [seconds, calls]``, which the context yields."""
+    saved = {name: getattr(module, name) for name in names}
+    totals = {name: [0.0, 0] for name in names}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            totals[name][0] += time.perf_counter() - t0
+            totals[name][1] += 1
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield totals
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
 
 
 def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats: int = 16,
@@ -62,7 +93,8 @@ def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats
     for _ in range(warmup_steps):  # first-use costs stay out of the numbers
         step()
     del refreshed[:]
-    times = [step() for _ in range(repeats)]
+    with timed_launchers(kc, ("_forward_launcher", "_backward_launcher")) as host:
+        times = [step() for _ in range(repeats)]
     with_refresh = [ms for ms, due in zip(times, refreshed) if due]
     while loop._refresh_due():  # profile a step without a grid refresh
         step()
@@ -70,7 +102,10 @@ def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats
     batch_size = next(batches).shape[0]
     return dict(
         step_ms=times, median_ms=median, refresh_step_ms=with_refresh,
-        rays_per_s=batch_size / median * 1e3, batch_size=batch_size, **profile_call(step, device),
+        rays_per_s=batch_size / median * 1e3, batch_size=batch_size,
+        composite_host_us={kind: seconds / max(calls, 1) * 1e6 for kind, (seconds, calls)
+                           in zip(("forward", "backward"), host.values())},
+        **profile_call(step, device),
     )
 
 

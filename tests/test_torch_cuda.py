@@ -27,10 +27,11 @@ the next warp, two rays of 16 in one warp, a part-full last tile, one point
 repeated 4096 times), and two runs of the table gradients on points along
 rays to 4e-6.  The composite kernels: forward within 1e-6,
 backward within 5e-6 of each gradient's max against autograd through
-``ops/volume`` (measured 2.4e-7 / up to 1.7e-6, the largest on the
-background's gradient, which the kernel sums over the rays by atomics), at K = 1, 24, 32, 33, 64 with a
-last block that is part full, finite differences on a tiny case within
-2e-2 (f32 differences of step 1e-2), and the refusal of K > 64.
+``ops/volume``, at K = 1, 24, 32, 33, 64 (registers) and 65, 191, 192
+(the chunk loop) with a last block that is part full, with one bin width
+per ray or one per sample, with 0, 3 and 5 extras; finite differences on a
+tiny case within 2e-2 (f32 differences of step 1e-2); the background's
+gradient bit-equal across runs; the refusal of more than 8 extras.
 """
 
 import numpy as np
@@ -445,42 +446,56 @@ def test_hashgrid_backward_pads_levels_of_odd_row_counts(cuda):
         assert max(_relative_errors(got, want)) <= BACKWARD_BOUND
 
 
-def _composite_inputs(cuda, seed, n, k):
+def _composite_inputs(cuda, seed, n, k, per_sample=False, extras=0):
     rng = np.random.RandomState(seed)
     densities = (rng.uniform(0, 12, (n, k)) * (rng.rand(n, k) < 0.8)).astype(np.float32)
-    dt = rng.uniform(0.5 / k, 4.0 / k, (n, 1)).astype(np.float32)
+    deltas = rng.uniform(0.5 / k, 4.0 / k, (n, k if per_sample else 1)).astype(np.float32)
     rgbs = rng.uniform(-1, 1, (n, k, 3)).astype(np.float32)
-    leaves = [t(a).to(cuda).requires_grad_() for a in (densities, dt, rgbs, np.array([-1.0, 0.3, 1.0], np.float32))]
+    values = [densities, deltas, rgbs, np.array([-1.0, 0.3, 1.0], np.float32)]
+    if extras:
+        values.append(rng.uniform(-1, 1, (n, k, extras)).astype(np.float32))
+    leaves = [t(a).to(cuda).requires_grad_() for a in values]
     mask = t(rng.rand(n) < 0.9).to(cuda)
-    cotangents = [t(rng.randn(*s).astype(np.float32)).to(cuda) for s in ((n, 3), (n, k + 1), (n, 1))]
+    shapes = [(n, 3), (n, k + 1), (n, 1)] + ([(n, extras)] if extras else [])
+    cotangents = [t(rng.randn(*s).astype(np.float32)).to(cuda) for s in shapes]
     return leaves, mask, cotangents
 
 
-@pytest.mark.parametrize("n,k", [(4096, 32), (4099, 64), (4097, 1), (4101, 24), (3, 33), (1, 32)])
-def test_composite_kernels_match_plain_version(cuda, n, k):
-    leaves, mask, cotangents = _composite_inputs(cuda, n + k, n, k)
+def _composite(route, leaves, mask):
+    """``route``'s outputs without the ``None`` of absent extras."""
+    extras = leaves[4] if len(leaves) > 4 else None
+    return [o for o in route(*leaves[:4], mask, extras) if o is not None]
+
+
+@pytest.mark.parametrize("extras", [0, 3, 5])
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("n,k", [(4096, 32), (4099, 64), (4097, 1), (4101, 24), (3, 33), (1, 32),
+                                 (4097, 65), (4097, 192), (35, 191)])
+def test_composite_kernels_match_plain_version(cuda, n, k, per_sample, extras):
+    leaves, mask, cotangents = _composite_inputs(cuda, n + k, n, k, per_sample, extras)
     before = (kc.counter.launches, kc.backward_counter.launches)
-    outs = kc.render_composite(*leaves, mask)
+    outs = _composite(kc.render_composite, leaves, mask)
     grads = torch.autograd.grad(outs, leaves, cotangents)
     torch.cuda.synchronize()
     assert (kc.counter.launches, kc.backward_counter.launches) == (before[0] + 1, before[1] + 1)
     assert kc.counter.plain_calls == 0
-    ref = kc.render_composite_reference(*leaves, mask)
+    ref = _composite(kc.render_composite_reference, leaves, mask)
     ref_grads = torch.autograd.grad(ref, leaves, cotangents)
     for out, want in zip(outs, ref):
         torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
     assert max(_relative_errors(grads, ref_grads)) <= 5e-6
-    # One cotangent alone (the others None): the train step's case.
-    only = torch.autograd.grad(kc.render_composite(*leaves, mask)[0].sum(), leaves)
-    ref_only = torch.autograd.grad(kc.render_composite_reference(*leaves, mask)[0].sum(), leaves)
+    # One cotangent alone (the others None): the train step's case, where
+    # the extras (the points) take no gradient.
+    only = torch.autograd.grad(_composite(kc.render_composite, leaves, mask)[0].sum(), leaves[:4])
+    ref_only = torch.autograd.grad(_composite(kc.render_composite_reference, leaves, mask)[0].sum(), leaves[:4])
     assert max(_relative_errors(only, ref_only)) <= 5e-6
 
 
 def test_composite_backward_against_finite_differences(cuda):
-    leaves, mask, cotangents = _composite_inputs(cuda, 11, 6, 5)
+    leaves, mask, cotangents = _composite_inputs(cuda, 11, 6, 5, extras=3)
 
     def scalar(*values):
-        outs = kc.render_composite(*values, mask)
+        outs = _composite(kc.render_composite, values, mask)
         return sum((o.double() * c.double()).sum() for o, c in zip(outs, cotangents))
 
     grads = torch.autograd.grad(scalar(*leaves), leaves)
@@ -496,7 +511,23 @@ def test_composite_backward_against_finite_differences(cuda):
             assert abs(predicted - measured) <= 2e-2 * max(abs(measured), 1.0), (i, predicted, measured)
 
 
-def test_composite_refuses_more_than_64_samples(cuda):
-    leaves, mask, _ = _composite_inputs(cuda, 13, 4, 65)
-    with pytest.raises(ValueError, match="1 to 64 samples"):
-        kc.render_composite(*leaves, mask)
+def test_composite_background_gradient_is_the_same_every_run(cuda):
+    """The last block sums the blocks' partial sums in a fixed order, with
+    no memset: bit-equal across runs, and the ticket back at 0."""
+    leaves, mask, cotangents = _composite_inputs(cuda, 14, 8192, 32)
+    plain = [v.detach() for v in leaves]
+    runs = [kc.composite_backward_cuda(*plain, mask, None, cotangents[0], None, None)[3] for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert kc._scratch[plain[0].device][0].item() == 0
+    want = torch.where(mask[:, None], kc.render_composite_reference(*plain, mask)[1][:, -1:] * cotangents[0],
+                       cotangents[0]).sum(dim=0)
+    torch.testing.assert_close(runs[0], want, rtol=1e-5, atol=1e-4)
+
+
+def test_composite_refuses_what_its_kernels_do_not_take(cuda):
+    leaves, mask, _ = _composite_inputs(cuda, 13, 4, 65, extras=3)
+    with pytest.raises(ValueError, match="1 to 8 extras"):
+        kc.render_composite(*leaves[:4], mask, torch.zeros(4, 65, 9, device=cuda))
+    with pytest.raises(ValueError, match="want deltas"):
+        kc.render_composite(leaves[0], leaves[1][:, :0], *leaves[2:4], mask)

@@ -156,18 +156,10 @@ def test_composite_alpha_and_aux_match_golden():
     mask = t(g["mask"])
     close(volume.composite(w, t(c["rgbs"]), t(c["background"]), mask), c["outputs"])
     close(volume.composite_alpha(w, mask), c["alphas"])
-    aux = volume.average_aux(w, {"a": t(c["aux_in"])}, torch.ones_like(mask))
-    np.testing.assert_allclose(aux["a"].item(), float(c["aux_mean"]), rtol=1e-5)
-
-
-def test_average_aux_is_the_masked_mean_of_the_jax_package():
-    rng = np.random.RandomState(2)
-    w = rng.rand(10, 7).astype(np.float32)
-    v = rng.randn(10, 6).astype(np.float32)
-    mask = rng.rand(10) < 0.6
-    out = volume.average_aux(t(w), {"a": t(v)}, t(mask))
-    ref = jvol.average_aux(jnp.asarray(w), {"a": jnp.asarray(v)}, jnp.asarray(mask))
-    np.testing.assert_allclose(out["a"].item(), float(ref["a"]), rtol=1e-5)
+    # The aux mean as the renderers take it: a column of the extras' blend.
+    extras = t(c["aux_in"])[..., None]
+    blended = volume.composite(w, extras, torch.zeros(1), torch.ones_like(mask))
+    np.testing.assert_allclose(blended.mean().item(), float(c["aux_mean"]), rtol=1e-5)
 
 
 def test_camera_rays_match_golden_and_jax_camera():

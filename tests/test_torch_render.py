@@ -70,6 +70,53 @@ def test_hierarchy_render_rays_matches_golden():
     assert out["fine"]["weights"].shape == (n, 21)
 
 
+class _JaxWithAux:
+    """A flax model's ``apply`` with one per-sample aux loss (|x|^2)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def apply(self, variables, x, d):
+        density, rgb, _ = self.model.apply(variables, x, d)
+        return density, rgb, {"sq": jnp.sum(x * x, axis=-1)}
+
+
+class _PortWithAux(torch.nn.Module):
+    def __init__(self, model):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, d):
+        density, rgb, _ = self.model(x, d)
+        return density, rgb, {"sq": (x * x).sum(dim=-1)}
+
+
+@pytest.mark.parametrize("samples", [8, 70])
+def test_render_ray_samples_matches_jax_with_per_sample_widths_and_aux(samples):
+    """One pass of the hierarchy (per-sample bin widths, the points and an
+    aux loss blended as extras) against learn_nerf_tpu.render's, on the
+    golden rays and weights, at a short pass and one past 64 samples."""
+    g = np.load(os.path.join(GOLDEN, "renderer_e2e.npz"))
+    params = load_params_pickle(os.path.join(GOLDEN, "vanilla_params.pkl"))
+    rays = g["rays"]
+    n = rays.shape[0]
+    t_min, t_max, mask = ray_bbox_range(t(rays[:, 0]), t(rays[:, 1]), t(g["bbox_min"]), t(g["bbox_max"]))
+    rng = np.random.RandomState(samples)
+    frac = np.sort(rng.rand(n, samples).astype(np.float32), axis=1)
+    ts = t_min[:, None] + (t_max - t_min)[:, None] * t(frac)
+    j_args = [jnp.asarray(a.numpy()) for a in (ts, t_min, t_max, mask)]
+    ref, ref_aux = jrender.render_ray_samples(
+        _JaxWithAux(FlaxNeRFModel(hidden_dim=48, color_layer_dim=16)), params["fine"], jnp.asarray(g["background"]),
+        jnp.asarray(rays), *j_args)
+    with torch.no_grad():
+        out, aux = render.render_ray_samples(
+            _PortWithAux(port_model(params["fine"])), t(g["background"]), t(rays), ts, t_min, t_max, mask)
+    assert set(out) == set(ref) and set(aux) == set(ref_aux) == {"sq"}
+    for key in ("outputs", "alphas", "coords", "weights", "densities", "rgbs"):
+        close(out[key], ref[key], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(aux["sq"].item(), float(ref_aux["sq"]), rtol=1e-5, atol=1e-6)
+
+
 def _hierarchy(seed=0):
     params = load_params_pickle(os.path.join(GOLDEN, "vanilla_params.pkl"))
     renderer = render.Renderer(

@@ -238,6 +238,8 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.utils.logging\n"
         "import learn_nerf_tpu_torch.kernels.hashgrid_backward\n"
         "import learn_nerf_tpu_torch.kernels.composite\n"
+        "import learn_nerf_tpu_torch.scripts.composite_ablations\n"
+        "import learn_nerf_tpu_torch.scripts.profile_trees\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
@@ -258,7 +260,27 @@ def test_profile_view_times_renders_on_cpu(scene):
     # No card: the device fields are not measured; the host ops are.
     assert result["device_ms"] is None and result["idle_share"] is None
     assert result["kernels_launched"] is None and result["port_kernels"] is None
+    assert result["memsets"] is None
     assert 0 < len(result["host_top"]) <= 5 and result["host_top"][0]["calls"] > 0
+
+
+def test_timed_launchers_add_up_host_time_and_restore():
+    """profile_train's host timer of the composite wrappers: every call is
+    counted and timed, its result passed on, and the functions come back."""
+    import types
+
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.scripts.profile_train import timed_launchers
+
+    module = types.SimpleNamespace(f=lambda x: x + 1, g=lambda: None)
+    original = module.f
+    with timed_launchers(module, ("f", "g")) as totals:
+        assert module.f(1) == 2 and module.f(2) == 3
+    assert module.f is original
+    assert totals["f"][1] == 2 and totals["f"][0] > 0 and totals["g"] == [0.0, 0]
+    with timed_launchers(kc, ("_forward_launcher", "_backward_launcher")):
+        pass
+    assert (kc._forward_launcher, kc._backward_launcher) == (kc._launch_forward, kc._launch_backward)
 
 
 def test_device_summary_merges_overlapping_device_spans():
