@@ -40,7 +40,14 @@ nonzero):
    samples (both paths of the kernels) with a part-full last block, on rays
    of optical depth 1-3, with the background's gradient bit-equal over two
    runs, the train step's two calls profiled to one kernel each and no
-   memset, and each shape timed), max abs error against the stated bound, both
+   memset, and each shape timed); the same kernels in the pool layout of the
+   pooled passes at the pooled step's pool (4096 rays, 16 rows a ray) and a
+   pooled frame's tile (8192 rays at budget 6 and 32), at rays of 0, 1, K
+   and 64 samples, a part-full tail and a pool that cuts the trailing rays,
+   with a check that the bounds catch starts shifted by one, the
+   background's gradient bit-equal over two runs, the step's two calls
+   profiled, each main shape timed beside the [N, K] route it replaced;
+   max abs error against the stated bound, both
    times, and each kernel's bound (the least time of its bytes at the HBM
    rate or of its operations at the peak rate of their type); ptxas must
    report no spills for the two MLP kernels;
@@ -52,7 +59,9 @@ nonzero):
    occupancy, pooled) against the plain route on the CPU on a small view,
    with the same uniforms; one full-width Instant-NGP train step's loss
    and gradients on the card (kernel route) against the plain route on the
-   CPU, with no table left without its gradient;
+   CPU, with no table left without its gradient, dense and pooled (at the
+   batch's auto budget), and the pooled step at a budget that holds every
+   survivor against the dense step on the card;
 4. the port's ``serve_nerf`` in a thread, vanilla with ``--bf16`` in
    hierarchy and occupancy mode, and NGP in f32 (the CLI default) in
    hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
@@ -60,16 +69,22 @@ nonzero):
    each answered 200 with a PNG of that shape, with latencies;
 5. every kernel of each mode launched during its serve phase (fused_mlp,
    fused_render, the encode kernel in the three NGP modes, the composite
-   kernel in both hierarchy modes, twice a tile, and in fixed-K NGP), and no
-   plain version called there;
+   kernel in both hierarchy modes, twice a tile, and in fixed-K NGP, its
+   pool layout in pooled NGP), and no plain version called there;
 6. a posed dataset of its own (views of the ball the occupancy grid
    models, coloured by position) and the port's ``train_nerf --instant_ngp
    --occupancy`` on it at full width (16 levels of 2^18 rows, 192 -> 32
-   samples, a 128^3 grid, batch 4096) for 96 steps: every logged loss
-   finite and falling, the encode, table-gradient and composite kernels
-   launched on every step and no plain version called, six grid refreshes,
-   and the trained checkpoint served by ``serve_nerf --instant_ngp
-   --occupancy``; steps/s and rays/s over the last 64 steps.
+   samples, a 128^3 grid, batch 4096) for 96 steps: every loss finite and
+   falling, the encode, table-gradient and composite kernels launched on
+   every step and no plain version called, six grid refreshes; then the
+   same run pooled, the flagship ``--occ_train_budget auto`` from step 36
+   with ``--steps_per_dispatch 8`` (the macro step 32-39 straddles the
+   switch): the pool-layout pair launched on every step from 36 on and on
+   no other, ``fine_pool_dropped`` 0 on every pooled step; both
+   checkpoints scored by the port's ``eval_psnr`` on two held-out views
+   (the pooled run's shortfall bounded) and served (the pooled one with
+   ``--occ_budget_per_ray auto``); steps/s and rays/s over the last 64 and
+   48 steps.
 
 It prints the card line and one JSON line of kernel results, then, as its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -82,7 +97,9 @@ adds, after phase 5, one JSON line per render mode and numerics mode
 in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
 scene and view size: median latency, one profiled render's device time,
 idle share, top kernels and the port's own kernels' share; and one such
-line for the train step from ``scripts.profile_train``.
+line for the train step from ``scripts.profile_train``, and two (the dense
+and the pooled step on ``bench_pooled``'s frozen grid) from
+``scripts.profile_train --pooled``.
 """
 
 import argparse
@@ -194,12 +211,40 @@ COMPOSITE_GRAD_BOUND = 3e-6
 # tile, the hierarchy's coarse and fine passes (tiles of 4096).
 COMPOSITE_SHAPES = ((4096, 32, False), (8192, 32, False), (4096, 64, True), (4096, 192, True))
 COMPOSITE_EDGE_SAMPLES = (1, 24, 33, 63, 65, 191)
+# The pool layout of the same kernels (the pooled passes) against its plain
+# version (the pool gathered back to [N, K] slots, then the dense plain
+# version): measured on an H100 over the cases below 6.0e-8 to 1.2e-7
+# (forward) and 1.4e-7 to 3.3e-7 (backward, relative); the bounds are
+# about three times that.  Starts shifted by one row must move the result
+# by at least SCAN_MARGIN times the bound (measured 0.27 and 1.2).
+POOLED_BOUND = 4e-7
+POOLED_GRAD_BOUND = 1e-6
+# (rays, K, pool rows per ray, mean survivors per ray) of the pooled train
+# step on bench_pooled's grid (5 % of 192 candidates survive, budget 16)
+# and of a pooled frame's tile at budget 6 (chip_smoke's served frames) and
+# 32.
+POOLED_SHAPES = {
+    "step 4096 x 16 of 32": (4096, 32, 16, 9.6),
+    "tile 8192 x 6 of 32": (8192, 32, 6, 4.6),
+    "tile 8192 x 32 of 32": (8192, 32, 32, 23.0),
+}
 # One train step by the kernel route on the card: (loss relative, table
 # gradients by L2 norm relative, other gradients relative to their max)
 # against the plain route on the card and on the CPU (check_train_step).
 STEP_BOUNDS_SAME_CARD = (1e-6, 1e-6, 1e-6)
 STEP_BOUNDS_CPU = (1e-5, 1e-2, 5e-4)
+# The pooled step at a budget that holds every survivor against the dense
+# step on the card: the same samples and arithmetic, the field model on the
+# pool's rows in place of N x K (relative loss).
+POOLED_DENSE_BOUND = 1e-5
 TRAIN_STEPS, TRAIN_WARMUP, TRAIN_VIEWS, TRAIN_SIDE = 96, 2, 8, 96
+# The pooled run switches at step 36 (inside its macro step 32-39), and
+# eval_psnr scores both runs on held-out views of the ball.  Three runs on
+# an H100 measured the pooled run's shortfall at -0.016, -0.005 and +0.002
+# dB (the two runs' atomics sum in different orders, and training carries
+# the difference on); the bound is about three times the largest.
+POOL_START, HELDOUT_VIEWS = 36, 2
+POOLED_PSNR_SHORTFALL = 0.05
 # Mean density of the NGP checkpoint's fine field inside the ball (set
 # through the density head's bias): rays crossing the occupied ball reach
 # optical depth ~1-3.
@@ -941,24 +986,234 @@ def check_composite_kernels(device, rng):
     return [forward, backward]
 
 
+def pool_case(rng, device, n, k, rows, counts, extras):
+    """A pool of ``rows`` from per-ray survivor counts (each at most k):
+    ray r owns rows starts[r] .. starts[r+1] - 1, the counts clamped at the
+    pool's end (trailing rays lose samples when it is short), optical
+    depth about 1-3 on a full ray; leaves (densities, rgbs, background,
+    extras) that require grad, the rest, and the cotangents."""
+    starts = np.concatenate([[0], np.minimum(np.cumsum(counts), rows)]).astype(np.int32)
+    densities = (rng.uniform(0, 2, rows) * (rng.rand(rows) < 0.8)).astype(np.float32)
+    leaves = [densities, rng.uniform(-1, 1, (rows, 3)).astype(np.float32),
+              np.array([-1.0, 0.3, 1.0], np.float32), rng.uniform(-1, 1, (rows, extras)).astype(np.float32)]
+    leaves = [torch.from_numpy(a).to(device).requires_grad_() for a in leaves]
+    deltas = torch.from_numpy((rng.uniform(0.03, 0.1, (n, 1)) * 32 / k).astype(np.float32)).to(device)
+    rest = (torch.from_numpy(starts).to(device), deltas, torch.from_numpy(rng.rand(n) < 0.9).to(device))
+    cotangents = [torch.from_numpy(rng.randn(*s).astype(np.float32)).to(device) for s in ((n, 3), (n, 1), (n, extras))]
+    return leaves, rest, cotangents
+
+
+def pooled_call(fn, leaves, rest, k):
+    densities, rgbs, background, extras = leaves
+    starts, deltas, mask = rest
+    return fn(densities, starts, deltas, rgbs, background, mask, extras, k)
+
+
+def dense_route(leaves, rest, k):
+    """The route the pool layout replaced: the pool gathered back to [N, K]
+    slots, the dense kernels, the gradients scattered back to pool order."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+
+    densities, rgbs, background, extras = [v.detach() for v in leaves]
+    starts, deltas, mask = rest
+    rows, n = densities.shape[0], starts.shape[0] - 1
+    first = starts[:-1].long()[:, None]
+    slot = torch.arange(k, device=densities.device)[None, :]
+    valid = slot < starts[1:].long()[:, None] - first
+    index = torch.where(valid, first + slot, rows).reshape(-1)  # row `rows`: the spare
+
+    def gathered():
+        def back(v):
+            return torch.cat([v, v.new_zeros((1, *v.shape[1:]))])[index].reshape(n, k, *v.shape[1:])
+        return back(densities), back(rgbs), back(extras)
+
+    def forward():
+        d, r, e = gathered()
+        return kc.composite_forward_cuda(d, deltas, r, background, mask, e)
+
+    def backward(g_out, g_alpha, g_ex):
+        d, r, e = gathered()
+        gd, _, gr, gb, ge = kc.composite_backward_cuda(d, deltas, r, background, mask, e, g_out, None, g_alpha, g_ex,
+                                                       wanted=(False, True, True, True))
+
+        def scatter(g, v):
+            pool = v.new_zeros((rows + 1, *v.shape[1:]))
+            return pool.index_copy_(0, index, g.reshape(n * k, *v.shape[1:]))[:rows]
+        return scatter(gd, densities), scatter(gr, rgbs), gb, scatter(ge, extras)
+
+    return forward, backward
+
+
+def check_pooled_composite_kernels(device, rng):
+    """The composite kernels in the pool layout against their plain version
+    at the pooled step's and a pooled frame tile's shapes and at the edges
+    (rays of 0, 1, K and 64 samples, a part-full tail, a pool that cuts the
+    trailing rays), with a check that the bounds catch starts shifted by
+    one, the background's gradient bit-equal over two runs, the step's two
+    calls profiled to one kernel each and no memset, each main shape timed
+    beside the dense route it replaced."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+
+    def counts(n, k, mean):
+        return np.minimum(rng.binomial(192, mean / 192, n), k)
+
+    cases = {}
+    for name, (n, k, budget, mean) in POOLED_SHAPES.items():
+        cases[name] = (k, pool_case(rng, device, n, k, n * budget, counts(n, k, mean), 3))
+    n = TRAIN_RAYS + 1
+    edge = np.resize([0, 1, 32, 64], n)
+    cases["4097 rays of 0, 1, 32, 64 samples, K 64"] = (64, pool_case(rng, device, n, 64, int(edge.sum()) + 77, edge, 3))
+    edge = np.resize([0, 1, 32], n)
+    cases["4097 rays of 0, 1, 32 samples, 5 extras"] = (32, pool_case(rng, device, n, 32, int(edge.sum()) + 5, edge, 5))
+    short = counts(n, 32, 9.6)
+    cases["4097 rays, a pool 0.7 of their survivors"] = (32, pool_case(rng, device, n, 32, int(0.7 * short.sum()), short, 3))
+
+    def errors(k, leaves, rest, cotangents):
+        outs = pooled_call(kc.render_composite_pooled, leaves, rest, k)
+        grads = torch.autograd.grad(outs, leaves, cotangents)
+        torch.cuda.synchronize()
+        ref = pooled_call(kc.render_composite_pooled_reference, leaves, rest, k)
+        ref_grads = torch.autograd.grad(ref, leaves, cotangents)
+        require(all(torch.isfinite(a).all().item() for a in (*outs, *grads)),
+                "the pooled composite kernels produced non-finite values")
+        tail = int(rest[0][-1])
+        require(all(g[tail:].abs().max().item() == 0 for g in (grads[0], grads[1], grads[3]) if g.shape[0] > tail),
+                "the pooled backward left the pool's tail without zeros")
+        return (max((a - b).abs().max().item() for a, b in zip(outs, ref)),
+                max(relative_errors(grads, ref_grads)))
+
+    fwd_errs, bwd_errs = {}, {}
+    for name, (k, (leaves, rest, cotangents)) in cases.items():
+        fwd_errs[name], bwd_errs[name] = errors(k, leaves, rest, cotangents)
+
+    # Starts shifted by one row: every ray but the first begins a sample late.
+    step_name = next(iter(POOLED_SHAPES))
+    k, (leaves, rest, cotangents) = cases[step_name]
+    shifted = rest[0].clone()
+    shifted[1:-1] += 1
+    ref = pooled_call(kc.render_composite_pooled_reference, leaves, rest, k)
+    moved = pooled_call(kc.render_composite_pooled_reference, leaves, (shifted, *rest[1:]), k)
+    ref_grad = torch.autograd.grad(ref, leaves[0], cotangents)[0]
+    moved_grad = torch.autograd.grad(moved, leaves[0], cotangents)[0]
+    forward_moved = max((a - b).abs().max().item() for a, b in zip(moved, ref))
+    grad_moved = ((moved_grad - ref_grad).abs().max() / ref_grad.abs().max()).item()
+    print(f"composite_pooled inputs: starts shifted by one move the forward by {forward_moved:.3e} and the "
+          f"densities' gradient by {grad_moved:.3e} of its max", flush=True)
+    require(forward_moved >= SCAN_MARGIN * POOLED_BOUND and grad_moved >= SCAN_MARGIN * POOLED_GRAD_BOUND,
+            "the pooled composite bounds would not catch starts shifted by one")
+
+    # The background's gradient, summed by the last block in a fixed order.
+    plain = [v.detach() for v in leaves]
+    runs = [pooled_call(lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None), plain, rest, k)[2]
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same_bits = torch.equal(runs[0], runs[1])
+    print(f"composite_pooled_backward: the background's gradient over two runs at {step_name}: "
+          f"{runs[0].tolist()} / {runs[1].tolist()}, bit-equal {same_bits}", flush=True)
+    require(same_bits, "two runs of composite_pooled_backward differ in the background's gradient")
+
+    # The train step's two calls (the points as extras without a
+    # cotangent), profiled: one kernel each, nothing zeroed.
+    step_calls = {
+        "forward": lambda: pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k),
+        "backward": lambda: pooled_call(
+            lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None, None, wanted=(True, True, False)),
+            plain, rest, k),
+    }
+
+    def synced(call):  # the host ms of one synchronised call
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for name, call in step_calls.items():
+        synced(call)
+        seen = profile_call(lambda: synced(call), device)
+        print(f"composite_pooled {name} as the train step calls it, profiled: {seen['kernels_launched']} "
+              f"kernel(s), {seen['memsets']} memset(s): {[t['name'] for t in seen['top']]}", flush=True)
+        require(seen["kernels_launched"] == 1 and seen["memsets"] == 0,
+                f"the step's pooled composite {name} ran {seen['kernels_launched']} kernels and "
+                f"{seen['memsets']} memsets")
+
+    # Times at the main shapes (graph replay), beside the bound of this
+    # run's tensors (the rows the rays own are read, every gradient row is
+    # written), the plain version and the replaced route.
+    timed = {}
+    for name in POOLED_SHAPES:
+        k, (leaves, rest, cotangents) = cases[name]
+        plain = [v.detach() for v in leaves]
+        starts, deltas, mask = rest
+        n, used, c = starts.shape[0] - 1, int(starts[-1]), plain[3].shape[1]
+        route_forward, route_backward = dense_route(leaves, rest, k)
+        graph = pooled_call(kc.render_composite_pooled_reference, leaves, rest, k)
+        ops = (SCAN_OPS + 2 * c) * used
+        small = nbytes(starts, deltas, mask, plain[2]) + 4 * n * (4 + c)  # outputs, alphas, extras_out
+        entry = dict(
+            ms=graph_ms(lambda: pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k), 50),
+            plain_ms=graph_ms(lambda: pooled_call(kc.render_composite_pooled_reference, plain, rest, k), 20),
+            route_ms=graph_ms(route_forward, 50),
+            backward_ms=graph_ms(lambda: pooled_call(
+                lambda *a: kc.composite_pooled_backward_cuda(*a, *cotangents), plain, rest, k), 50),
+            backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(graph, leaves, cotangents, retain_graph=True), 10),
+            backward_route_ms=graph_ms(lambda: route_backward(*cotangents), 50),
+        )
+        entry["bound_ms"], entry["bound_by"] = bound(4 * used * (4 + c) + small, f32_ops=ops)
+        entry["backward_bound_ms"], entry["backward_bound_by"] = bound(
+            4 * used * (4 + c) + 4 * plain[0].shape[0] * (4 + c) + small, f32_ops=2 * ops)
+        timed[name] = entry
+        print(f"composite_pooled {name} ({used} rows used): forward {1e3 * entry['ms']:.2f} us (graph replay), "
+              f"the [N, K] route {1e3 * entry['route_ms']:.2f} us, plain {1e3 * entry['plain_ms']:.2f} us, bound "
+              f"{1e3 * entry['bound_ms']:.2f} us ({entry['bound_by']}); backward {1e3 * entry['backward_ms']:.2f} us, "
+              f"the [N, K] route {1e3 * entry['backward_route_ms']:.2f} us, eager autograd "
+              f"{1e3 * entry['backward_plain_ms']:.1f} us, bound {1e3 * entry['backward_bound_ms']:.2f} us "
+              f"({entry['backward_bound_by']})", flush=True)
+
+    step = timed[step_name]
+    common = dict(route="cuda", source="learn_nerf_tpu_torch/csrc/composite.cu", library_ms=None)
+    forward = dict(
+        name="composite_pooled", **common,
+        replaces="learn_nerf_tpu/occ_render.py:613-654 (XLA: the segmented scan, weights and segment_sum blends)",
+        max_abs_err=max(fwd_errs.values()), ms=step["ms"], plain_ms=step["plain_ms"], route_ms=step["route_ms"],
+        bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+        shapes={name: dict(ms=e["ms"], route_ms=e["route_ms"], bound_ms=e["bound_ms"]) for name, e in timed.items()},
+    )
+    backward = dict(
+        name="composite_pooled_backward", **common,
+        replaces="the VJP of learn_nerf_tpu/occ_render.py:613-654 under jax.grad (XLA)",
+        max_abs_err=max(bwd_errs.values()), ms=step["backward_ms"], plain_ms=step["backward_plain_ms"],
+        route_ms=step["backward_route_ms"], bound_ms=step["backward_bound_ms"], bound_by=step["backward_bound_by"],
+        shapes={name: dict(ms=e["backward_ms"], route_ms=e["backward_route_ms"], bound_ms=e["backward_bound_ms"])
+                for name, e in timed.items()},
+    )
+    for entry, errs, limit in ((forward, fwd_errs, POOLED_BOUND), (backward, bwd_errs, POOLED_GRAD_BOUND)):
+        print(f"{entry['name']}: max err " + ", ".join(f"{a} {b:.2e}" for a, b in errs.items())
+              + f" (bound {limit:g})", flush=True)
+        require(entry["max_abs_err"] <= limit, f"{entry['name']} disagrees with its plain version")
+    return [forward, backward]
+
+
 @contextlib.contextmanager
 def plain_routes():
     """Inside, the port takes its plain versions for CUDA tensors too (the
-    encoding, and the composite of both renderers, which call it from
-    ``render.composite_samples``): the card's own plain route, for
-    ``check_train_step``."""
+    encoding, the composite of both renderers, which call it from
+    ``render.composite_samples``, and the pooled composite): the card's own
+    plain route, for ``check_train_step``."""
     from learn_nerf_tpu_torch import render
     from learn_nerf_tpu_torch.kernels import composite as kc
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.ops import hashgrid as hg
 
-    saved = ke._encode_on_card, render.render_composite
-    ke._encode_on_card, render.render_composite = (
-        hg.hash_grid_encode_reference, kc.render_composite_reference)
+    from learn_nerf_tpu_torch import occ_render
+
+    saved = ke._encode_on_card, render.render_composite, occ_render.render_composite_pooled
+    ke._encode_on_card, render.render_composite, occ_render.render_composite_pooled = (
+        hg.hash_grid_encode_reference, kc.render_composite_reference, kc.render_composite_pooled_reference)
     try:
         yield
     finally:
-        ke._encode_on_card, render.render_composite = saved
+        ke._encode_on_card, render.render_composite, occ_render.render_composite_pooled = saved
 
 
 def check_train_step(root, device, rng):
@@ -974,7 +1229,11 @@ def check_train_step(root, device, rng):
     So table gradients are held by their L2 norm, relative, and every other
     gradient by its max; the bounds against the CPU are two to four times
     what an H100 measured (2.7e-3 and 1.8e-4); against the card's own plain
-    route both measured 3e-7."""
+    route both measured 3e-7.
+
+    The pooled step (the pool at the batch's auto budget) is held the same
+    way, and at a budget that holds every survivor to the dense step on the
+    card (its loss within POOLED_DENSE_BOUND, no gradient missing)."""
     from learn_nerf_tpu_torch.checkpoint import load_params_pickle, ngp_params_from_flax
     from learn_nerf_tpu_torch.data.dataset import load_dataset
     from learn_nerf_tpu_torch.kernels import composite as kc
@@ -991,39 +1250,60 @@ def check_train_step(root, device, rng):
              torch.from_numpy(rng.randn(128, 3).astype(np.float32)))
     grids, sizes = fine_schedule(FINE_LEVELS)
 
-    def step(dev):
+    def step(dev, budget=None):
         model = InstantNGPModel(table_sizes=sizes, grid_sizes=grids, bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3)
         model.load_state_dict(ngp_params_from_flax(params["fine"]))
         loop = OccupancyTrainLoop(model, lr=1e-2, bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3,
                                   density_penalty=1e-3, device=dev)
         loop.grid_state = loop.grid.state_from_checkpoint(params, dev)
-        total, _ = loop._loss(loop.renderer, loop.background, batch.to(dev), u=u.to(dev),
-                              density_draws=tuple(d.to(dev) for d in draws))
+        total, values = loop._loss(loop.renderer, loop.background, batch.to(dev), budget, u=u.to(dev),
+                                   density_draws=tuple(d.to(dev) for d in draws))
         total.backward()
         grads = {name: p.grad.cpu() for name, p in loop.model.named_parameters()}
         grads["background"] = loop.background.grad.cpu()
+        if budget is not None:
+            step.dropped = int(values["fine_pool_dropped"])
         return total.item(), grads
 
-    counters = (ke.counter, kb.counter, kc.counter, kc.backward_counter)
-    for c in counters:
-        c.reset()
-    loss, got = step(device)
-    launched = [c.launches for c in counters]
-    require(launched == [2, 2, 1, 1] and not any(c.plain_calls for c in counters),
-            f"the card step launched (encode, backward, composite, its backward) {launched}")
-    with plain_routes():
-        card_plain = step(device)
-    require([c.launches for c in counters] == launched, "the card's plain route launched a kernel")
-    cpu_plain = step(torch.device("cpu"))
+    # The auto budget of this batch on this grid, resolved once (on the CPU)
+    # for both devices.
+    cpu_loop = OccupancyTrainLoop(InstantNGPModel(table_sizes=[2**10], grid_sizes=[16], bbox_min=(-0.7,) * 3,
+                                                  bbox_max=(0.7,) * 3), lr=1e-2, bbox_min=(-0.7,) * 3,
+                                  bbox_max=(0.7,) * 3, pool_budget_per_ray="auto", pool_start_step=0)
+    cpu_loop.grid_state = cpu_loop.grid.state_from_checkpoint(params)
+    with contextlib.redirect_stdout(io.StringIO()):
+        per_ray = cpu_loop._resolve_pool_budget(batch)
+    budget = TRAIN_RAYS * per_ray
 
-    def compare(name, reference, loss_bound, table_bound, other_bound):
+    counters = (ke.counter, kb.counter, kc.counter, kc.backward_counter, kc.pooled_counter,
+                kc.pooled_backward_counter)
+    results = {}
+    for name, step_budget, want_launched in (("train step", None, [2, 2, 1, 1, 0, 0]),
+                                             ("pooled train step", budget, [2, 2, 0, 0, 1, 1])):
+        for c in counters:
+            c.reset()
+        got = step(device, step_budget)
+        launched = [c.launches for c in counters]
+        require(launched == want_launched and not any(c.plain_calls for c in counters),
+                f"the card's {name} launched (encode, backward, composite, its backward, pooled composite, its "
+                f"backward) {launched}")
+        with plain_routes():
+            card_plain = step(device, step_budget)
+        require([c.launches for c in counters] == launched, "the card's plain route launched a kernel")
+        cpu_plain = step(torch.device("cpu"), step_budget)
+        if step_budget is not None:
+            print(f"pooled train step: auto budget {per_ray} samples/ray, a pool of {budget}, "
+                  f"{step.dropped} dropped", flush=True)
+        results[name] = got, card_plain, cpu_plain
+
+    def compare(name, loss, got, reference, loss_bound, table_bound, other_bound):
         ref_loss, want = reference
         loss_err = abs(loss - ref_loss) / abs(ref_loss)
         tables = {k: ((got[k] - want[k]).norm() / want[k].norm()).item() for k in want if "table" in k}
         others = {k: ((got[k] - want[k]).abs().max() / want[k].abs().max()).item()
                   for k in want if "table" not in k}
         worst_table, worst = max(tables, key=tables.get), max(others, key=others.get)
-        print(f"train step, kernel route on the card vs {name}: loss {loss:.7f} vs {ref_loss:.7f} "
+        print(f"{name}: loss {loss:.7f} vs {ref_loss:.7f} "
               f"(relative {loss_err:.2e}, bound {loss_bound:g}); table gradients, L2 relative: worst "
               f"{worst_table} {tables[worst_table]:.2e} (bound {table_bound:g}); other gradients, "
               f"relative to each tensor's max: worst {worst} {others[worst]:.2e} (bound "
@@ -1032,18 +1312,36 @@ def check_train_step(root, device, rng):
         require(max(tables.values()) <= table_bound and max(others.values()) <= other_bound,
                 f"the card step's gradients disagree with {name}")
 
-    compare("the plain route on the card", card_plain, *STEP_BOUNDS_SAME_CARD)
-    compare("the plain route on the CPU", cpu_plain, *STEP_BOUNDS_CPU)
-    want = cpu_plain[1]
-    missing = [name for name in want if got[name].abs().max() == 0 or (
-        "table" in name and ((want[name].abs() > 1e-3 * want[name].abs().max()) & (got[name] == 0)).any().item())]
-    touched = {name: (got[name] != 0).any(dim=1).float().mean().item() for name in want if "table" in name}
-    print(f"train step: rows with a gradient, share of each table: "
-          + ", ".join(f"{v:.3f}" for v in touched.values()) + f"; gradients missing: {missing}", flush=True)
-    require(not missing, f"the card step left gradients missing: {missing}")
+    def missing(got, want):
+        return [name for name in want if got[name].abs().max() == 0 or (
+            "table" in name and ((want[name].abs() > 1e-3 * want[name].abs().max()) & (got[name] == 0)).any().item())]
+
+    for name, ((loss, got), card_plain, cpu_plain) in results.items():
+        compare(f"{name}, kernel route on the card vs the plain route on the card", loss, got, card_plain,
+                *STEP_BOUNDS_SAME_CARD)
+        compare(f"{name}, kernel route on the card vs the plain route on the CPU", loss, got, cpu_plain,
+                *STEP_BOUNDS_CPU)
+        want = cpu_plain[1]
+        touched = {k: (got[k] != 0).any(dim=1).float().mean().item() for k in want if "table" in k}
+        print(f"{name}: rows with a gradient, share of each table: "
+              + ", ".join(f"{v:.3f}" for v in touched.values()) + f"; gradients missing: {missing(got, want)}",
+              flush=True)
+        require(not missing(got, want), f"the card's {name} left gradients missing: {missing(got, want)}")
+
+    # With a pool that holds every survivor, the pooled step is the dense one.
+    loss, got = results["train step"][0]
+    ample_loss, ample = step(device, TRAIN_RAYS * TRAIN_SAMPLES)
+    loss_err = abs(ample_loss - loss) / abs(loss)
+    others = max(((ample[k] - got[k]).abs().max() / got[k].abs().max()).item() for k in got if "table" not in k)
+    print(f"pooled train step at an ample budget ({step.dropped} dropped) vs the dense step on the card: loss "
+          f"{ample_loss:.7f} vs {loss:.7f} (relative {loss_err:.2e}, bound {POOLED_DENSE_BOUND:g}); other "
+          f"gradients, relative to each tensor's max: worst {others:.2e}; gradients missing: "
+          f"{missing(ample, got)}", flush=True)
+    require(step.dropped == 0 and loss_err <= POOLED_DENSE_BOUND and not missing(ample, got),
+            "the pooled step at an ample budget disagrees with the dense step")
 
 
-def write_train_scene(root, rng):
+def write_train_scene(root, rng, views=TRAIN_VIEWS):
     """A posed dataset of the ball the occupancy grid models: PNG + JSON
     views from a sphere of radius 2, the ball (radius 0.45) coloured by
     position on a grey background."""
@@ -1053,7 +1351,7 @@ def write_train_scene(root, rng):
 
     root.mkdir()
     (root / "metadata.json").write_text(json.dumps({"min": [-0.7] * 3, "max": [0.7] * 3}))
-    for i in range(TRAIN_VIEWS):
+    for i in range(views):
         z = -rng.randn(3)
         z /= np.linalg.norm(z)
         x = np.cross(z, [0.0, 0.0, 1.0])
@@ -1085,22 +1383,42 @@ def kernel_counters():
     return dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
                 hashgrid_corners=kh.counter, hashgrid_encode=ke.counter,
                 hashgrid_backward=kb.counter, composite=kc.counter,
-                composite_backward=kc.backward_counter)
+                composite_backward=kc.backward_counter, composite_pooled=kc.pooled_counter,
+                composite_pooled_backward=kc.pooled_backward_counter)
 
 
-def train_phase(root, profile):
-    """The port's train CLI at full width on the card, then the trained
-    checkpoint served; returns ``{kernel: (launches, plain calls)}``."""
-    from learn_nerf_tpu_torch.scripts import profile_train, train_nerf
+@contextlib.contextmanager
+def recording_steps():
+    """Inside, every gradient step of OccupancyTrainLoop appends its pool
+    budget (None: dense), its ``fine_pool_dropped`` (None: dense) and its
+    ``fine`` loss (tensors on the card, read after the run) to the yielded
+    list."""
+    from learn_nerf_tpu_torch.train import OccupancyTrainLoop
 
-    flags = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--lr", "1e-2",
-             "--batch_size", str(TRAIN_RAYS), "--occ_warmup", str(TRAIN_WARMUP)]
-    argv = [*flags, "--steps", str(TRAIN_STEPS), "--save_path", str(root / "trained.pkl"),
-            str(root / "train")]
+    original, steps = OccupancyTrainLoop._grad_step, []
+
+    def grad_step(self, batch, budget=None, **draws):
+        values = original(self, batch, budget, **draws)
+        steps.append((budget, values.get("fine_pool_dropped"), values["fine"]))
+        return values
+
+    OccupancyTrainLoop._grad_step = grad_step
+    try:
+        yield steps
+    finally:
+        OccupancyTrainLoop._grad_step = original
+
+
+def train_run(root, name, flags, checkpoint):
+    """One ``train_nerf`` run of TRAIN_STEPS steps; returns its kernel
+    counts, the per-step (budget, dropped) and the run's summary."""
+    from learn_nerf_tpu_torch.scripts import train_nerf
+
+    argv = [*flags, "--steps", str(TRAIN_STEPS), "--save_path", str(root / checkpoint), str(root / "train")]
     marks = {}
 
     def on_step(done, loop):
-        if done in (1, TRAIN_STEPS - 64, TRAIN_STEPS):
+        if done in (1, 8, TRAIN_STEPS - 64, TRAIN_STEPS - 48, TRAIN_STEPS):
             torch.cuda.synchronize()
             marks[done] = time.perf_counter()
 
@@ -1109,38 +1427,107 @@ def train_phase(root, profile):
         c.reset()
     log = io.StringIO()
     marks[0] = time.perf_counter()
-    with contextlib.redirect_stdout(log):
+    with contextlib.redirect_stdout(log), recording_steps() as steps:
         loop = train_nerf.main(argv, on_step=on_step)
     counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
-    lines = [line for line in log.getvalue().splitlines() if line.startswith("step ")]
-    fine = [float(re.search(r" fine=(\S+)", line).group(1)) for line in lines]
-    require(len(fine) == TRAIN_STEPS and np.isfinite(fine).all()
+    text = log.getvalue()
+    lines = [line for line in text.splitlines() if line.startswith("step ")]
+    fine = [float(v) for _, _, v in steps]
+    require(len(steps) == TRAIN_STEPS and np.isfinite(fine).all()
             and all(np.isfinite(float(v)) for line in lines for v in re.findall(r"=(\S+)", line)),
-            f"the train run logged {len(fine)} steps, or a value that is not finite")
+            f"{name} ran {len(steps)} steps, or logged a value that is not finite")
     first, last = float(np.mean(fine[:16])), float(np.mean(fine[-16:]))
-    seconds = marks[TRAIN_STEPS] - marks[TRAIN_STEPS - 64]
-    print(f"train {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at full width: first step "
-          f"{marks[1] - marks[0]:.3f} s (dataset, shuffle and model set-up included); last 64 steps "
-          f"{64 / seconds:.2f} steps/s, {64 * TRAIN_RAYS / seconds:.0f} rays/s; fine loss, mean of "
-          f"the first 16 steps {first:.5f}, of the last 16 {last:.5f}; grid updates "
-          f"{loop.grid_state.step}; {lines[-1]}; (launches, plain calls) {counts}", flush=True)
-    require(last < first, "the fine loss did not fall")
-    require(loop.grid_state.step == TRAIN_STEPS // 16, f"{loop.grid_state.step} grid updates")
-    refreshes = TRAIN_STEPS // 16
-    want = dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
-                composite=TRAIN_STEPS, composite_backward=TRAIN_STEPS)
-    require(all(counts[k][0] == v for k, v in want.items()),
-            f"the train run's launches {counts} are not {want}")
-    require(all(plain == 0 for _, plain in counts.values()), f"training called a plain version: {counts}")
+    rate = {n: n / (marks[TRAIN_STEPS] - marks[TRAIN_STEPS - n]) for n in (64, 48) if TRAIN_STEPS - n in marks}
+    budgets = [line for line in text.splitlines() if line.startswith("auto pool budget")]
+    print(f"{name}, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at full width: first step(s) "
+          f"{marks[min(marks.keys() - {0})] - marks[0]:.3f} s (dataset, shuffle and model set-up included); "
+          + "; ".join(f"last {n} steps {r:.2f} steps/s, {r * TRAIN_RAYS:.0f} rays/s" for n, r in rate.items())
+          + f"; fine loss, mean of the first 16 steps {first:.5f}, of the last 16 {last:.5f}; grid updates "
+          f"{loop.grid_state.step}; {budgets}; {lines[-1]}; (launches, plain calls) {counts}", flush=True)
+    require(last < first, f"{name}: the fine loss did not fall")
+    require(loop.grid_state.step == TRAIN_STEPS // 16, f"{name}: {loop.grid_state.step} grid updates")
+    require(all(plain == 0 for _, plain in counts.values()), f"{name} called a plain version: {counts}")
     del loop
     torch.cuda.empty_cache()
+    return counts, steps, rate
+
+
+def evaluate(root, checkpoint):
+    """The port's eval_psnr over the held-out views; the mean PSNR."""
+    from learn_nerf_tpu_torch.scripts import eval_psnr
+
+    argv = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--batch_size", "8192",
+            "--model_path", str(root / checkpoint), str(root / "heldout")]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        scores, ssims = eval_psnr.main(argv)
+    mean = float(re.search(r"mean_psnr=(\S+)", log.getvalue()).group(1))
+    require(len(scores) == HELDOUT_VIEWS and np.isfinite(scores).all(), f"eval_psnr on {checkpoint}: {scores}")
+    return mean, scores, ssims
+
+
+def train_phase(root, profile):
+    """The port's train CLI at full width on the card, dense and then pooled
+    from step POOL_START (the flagship ``--occ_train_budget auto``, with
+    macro steps of 8 that straddle the switch), each trained checkpoint
+    scored on held-out views by ``eval_psnr`` and served; returns ``{run:
+    {kernel: (launches, plain calls)}}``."""
+    from learn_nerf_tpu_torch.scripts import profile_train
+
+    flags = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--lr", "1e-2",
+             "--batch_size", str(TRAIN_RAYS), "--occ_warmup", str(TRAIN_WARMUP)]
+    pooled_flags = [*flags, "--occ_train_budget", "auto", "--occ_train_budget_start", str(POOL_START),
+                    "--steps_per_dispatch", "8"]
+    refreshes = TRAIN_STEPS // 16
+    counts = {}
+    counts["train"], dense_steps, _ = train_run(root, "train", flags, "trained.pkl")
+    counts["train pooled"], pooled_steps, _ = train_run(root, "train pooled", pooled_flags, "trained_pooled.pkl")
+    want = {
+        "train": dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
+                      composite=TRAIN_STEPS, composite_backward=TRAIN_STEPS, composite_pooled=0,
+                      composite_pooled_backward=0),
+        "train pooled": dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
+                             composite=POOL_START, composite_backward=POOL_START,
+                             composite_pooled=TRAIN_STEPS - POOL_START,
+                             composite_pooled_backward=TRAIN_STEPS - POOL_START),
+    }
+    for run, expected in want.items():
+        require(all(counts[run][k][0] == v for k, v in expected.items()),
+                f"the {run} run's launches {counts[run]} are not {expected}")
+    require(all(budget is None for budget, _, _ in dense_steps), "the dense run took a pooled step")
+    pooled = [(i, budget, int(dropped)) for i, (budget, dropped, _) in enumerate(pooled_steps) if budget is not None]
+    dropped = [d for _, _, d in pooled]
+    print(f"train pooled: steps {pooled[0][0]}-{pooled[-1][0]} pooled, pools of {sorted({b for _, b, _ in pooled})} "
+          f"samples ({sorted({b // TRAIN_RAYS for _, b, _ in pooled})} a ray), fine_pool_dropped max {max(dropped)}",
+          flush=True)
+    require([i for i, _, _ in pooled] == list(range(POOL_START, TRAIN_STEPS)),
+            "the pooled run did not pool exactly the steps from POOL_START on")
+    require(max(dropped) == 0, f"the pooled run dropped samples: {dropped}")
+
+    write_train_scene(root / "heldout", np.random.RandomState(SEED + 10), views=HELDOUT_VIEWS)
+    dense_psnr, dense_scores, _ = evaluate(root, "trained.pkl")
+    pooled_psnr, pooled_scores, _ = evaluate(root, "trained_pooled.pkl")
+    shortfall = dense_psnr - pooled_psnr
+    print(f"eval_psnr on {HELDOUT_VIEWS} held-out views: dense mean_psnr={dense_psnr:.3f} "
+          f"({[round(v, 3) for v in dense_scores]}), pooled mean_psnr={pooled_psnr:.3f} "
+          f"({[round(v, 3) for v in pooled_scores]}); the pooled run's shortfall {shortfall:.3f} dB (bound "
+          f"{POOLED_PSNR_SHORTFALL:g} dB)", flush=True)
+    require(shortfall <= POOLED_PSNR_SHORTFALL, "the pooled run fell short of the dense run's PSNR")
+
     served = serve_mode(root, "trained ngp occupancy", NGP_MODES["ngp occupancy"], bf16=False,
                         checkpoint="trained.pkl", requests=1)
+    served_pooled = serve_mode(root, "trained ngp pooled", ["--instant_ngp", "--occupancy", "--occ_budget_per_ray",
+                                                            "auto"], bf16=False, checkpoint="trained_pooled.pkl",
+                               requests=1)
     if profile:
         args = profile_train.argparser().parse_args([*flags, str(root / "train")])
         result = profile_train.profile_args(args)
         print("profile:", json.dumps({"mode": "ngp occupancy train step", **result}), flush=True)
-    return counts, served
+        args = profile_train.argparser().parse_args([*flags, "--pooled", str(root / "train")])
+        for mode, result in profile_train.profile_args(args).items():
+            print("profile:", json.dumps({"mode": f"ngp occupancy train step, bench_pooled grid, {mode}", **result}),
+                  flush=True)
+    return {**counts, "trained ngp occupancy": served, "trained ngp pooled": served_pooled}
 
 
 def ngp_tree(rng, levels):
@@ -1409,6 +1796,7 @@ def main():
     kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])
     torch.cuda.empty_cache()
     kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6))
+    kernels += check_pooled_composite_kernels(device, np.random.RandomState(SEED + 9))
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
         root = Path(tmp)
@@ -1422,16 +1810,19 @@ def main():
         served.update({name: serve_mode(root, name, mode, bf16=False) for name, mode in NGP_MODES.items()})
         if args.profile:
             profile_modes(root)
-        served["train"], served["trained ngp occupancy"] = train_phase(root, args.profile)
+        served.update(train_phase(root, args.profile))
 
     # Each mode's kernels ran in its serve phase (serve_mode holds that no
     # plain version ran there).
     require(served["hierarchy"]["fused_mlp"][0] > 0, "hierarchy serving never launched fused_mlp")
     require(served["occupancy"]["fused_render"][0] > 0, "occupancy serving never launched fused_render")
-    for name in (*NGP_MODES, "trained ngp occupancy"):
+    for name in (*NGP_MODES, "trained ngp occupancy", "trained ngp pooled"):
         require(served[name]["hashgrid_encode"][0] > 0, f"{name} serving never launched hashgrid_encode")
     for name in ("ngp occupancy", "trained ngp occupancy"):
         require(served[name]["composite"][0] > 0, f"{name} serving never launched composite")
+    for name in ("ngp pooled", "trained ngp pooled"):
+        require(served[name]["composite_pooled"][0] > 0 and served[name]["composite"][0] == 0,
+                f"{name} serving did not composite in the pool layout: {served[name]}")
     # The hierarchy composites each pass of each tile of 4096 rays in one
     # launch (and no plain version ran: serve_mode holds that).
     tiles = -(-SIDE * SIDE // 4096)
@@ -1442,7 +1833,7 @@ def main():
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",
-               "ms_step_rays", "plain_ms", "bound_ms", "bound_step_ms", "bound_by", "library_ms",
+               "ms_step_rays", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by", "library_ms",
                "share_of_bound", "tflops", "shapes"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])

@@ -59,6 +59,16 @@
 // - the widths' stride and the extras' capacity are template parameters:
 //   a run-time flag cost registers, and past 32 registers the backward's
 //   8,192-ray tiles take two waves.
+// The pool layout (template parameter Q) serves the pooled passes, whose
+// samples are packed ray-major into one [rows] pool (learn_nerf_tpu/
+// occ_render.py:613-654: the segmented exclusive scan, the weights and the
+// segment_sum blends): ray r owns rows starts[r] .. starts[r+1] - 1, at most
+// k <= 64 of them in t order, and rows starts[n] .. rows - 1 are the pool's
+// unused tail.  The same warp a ray and the same registers; the forward
+// writes no weights, and the backward takes the cotangents of the outputs,
+// alphas and extras only, writes the gradients in pool order and zeros on
+// the tail itself (a grid-stride loop after the rays: nothing is zeroed
+// before the launch), and sums the background's gradient as above.
 // Each part was kept on a same-call measurement against its alternative
 // (scripts/composite_ablations.py, which also builds the earlier kernels
 // and the bulk-copy staging of csrc/ablations/, both slower).  f32
@@ -107,6 +117,10 @@ struct CompositeInputs {
   const float* extras;      // [n, k, c], or null when c == 0
   int n, k, c;
   bool per_sample;
+  // The pool layout only (null otherwise): ray r's samples are pool rows
+  // starts[r] .. starts[r+1] - 1 of `rows`.
+  const int* starts;
+  int rows;
 };
 
 // What one lane holds of one sample; E is the extras' capacity (C <= E).
@@ -116,13 +130,14 @@ struct Sample {
   float density, delta, rgb[3], extra[E > 0 ? E : 1];
 };
 
-// Sample t of the ray whose first sample is `first` (= ray * k); past the
-// ray's end everything is 0 but the width, so s = 0 there.
+// Sample t of the ray whose first sample is row `first` (ray * k, or
+// starts[ray] in the pool) of `count`; past the ray's end everything is 0
+// but the width, so s = 0 there.
 template <int E, bool P>
-__device__ __forceinline__ Sample<E> load_sample(const CompositeInputs& in, long long first, int t,
-                                                 float ray_delta) {
+__device__ __forceinline__ Sample<E> load_sample(const CompositeInputs& in, long long first, int count,
+                                                 int t, float ray_delta) {
   Sample<E> x;
-  const bool inside = t < in.k;
+  const bool inside = t < count;
   const long long i = first + t;
   x.density = inside ? __ldg(in.densities + i) : 0.0f;
   x.delta = P ? (inside ? __ldg(in.deltas + i) : 0.0f) : ray_delta;
@@ -153,7 +168,20 @@ __device__ __forceinline__ ScanStep scan_step(float density, float delta, float&
 
 // S > 0: K <= 32 S, every load of the ray issued before the first scan
 // step; S == 0: any K, one chunk of 32 loaded ahead of the scan.
-template <int S, int E, bool P>
+// The first row and the number of samples of `ray`.
+template <bool Q>
+__device__ __forceinline__ void ray_rows(const CompositeInputs& in, int ray, long long& first, int& count) {
+  if constexpr (Q) {
+    first = __ldg(in.starts + ray);
+    count = __ldg(in.starts + ray + 1) - static_cast<int>(first);
+  } else {
+    first = static_cast<long long>(ray) * in.k;
+    count = in.k;
+  }
+}
+
+// Q: the pool layout (no weights written; P is false).
+template <int S, int E, bool P, bool Q>
 __global__ void __launch_bounds__(kCompositeThreads)
     composite_forward_kernel(CompositeInputs in, float* __restrict__ outputs,
                              float* __restrict__ weights, float* __restrict__ alphas,
@@ -161,16 +189,17 @@ __global__ void __launch_bounds__(kCompositeThreads)
   const int ray = blockIdx.x * kCompositeWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (ray >= in.n) return;  // a whole warp leaves together
-  const int k = in.k;
-  const long long first = static_cast<long long>(ray) * k;
-  float* w_row = weights + static_cast<long long>(ray) * (k + 1);
+  long long first;
+  int k;
+  ray_rows<Q>(in, ray, first, k);
+  float* w_row = Q ? nullptr : weights + static_cast<long long>(ray) * (k + 1);
   const float ray_delta = P ? 0.0f : __ldg(in.deltas + ray);
   const bool hit = __ldg(in.mask + ray) != 0;
   float carry = 0.0f, fg[3] = {0.0f, 0.0f, 0.0f}, ex[E > 0 ? E : 1] = {};
 
   auto step = [&](const Sample<E>& x, int t) {
     const ScanStep r = scan_step(x.density, x.delta, carry, lane);
-    if (t < k) w_row[t] = r.w;
+    if (!Q && t < k) w_row[t] = r.w;
 #pragma unroll
     for (int c = 0; c < 3; ++c) fg[c] += r.w * x.rgb[c];
 #pragma unroll
@@ -179,13 +208,13 @@ __global__ void __launch_bounds__(kCompositeThreads)
   if constexpr (S > 0) {
     Sample<E> x[S];
 #pragma unroll
-    for (int i = 0; i < S; ++i) x[i] = load_sample<E, P>(in, first, lane + 32 * i, ray_delta);
+    for (int i = 0; i < S; ++i) x[i] = load_sample<E, P>(in, first, k, lane + 32 * i, ray_delta);
 #pragma unroll
     for (int i = 0; i < S; ++i) step(x[i], lane + 32 * i);
   } else {
-    Sample<E> cur = load_sample<E, P>(in, first, lane, ray_delta), next;
+    Sample<E> cur = load_sample<E, P>(in, first, k, lane, ray_delta), next;
     for (int base = 0; base < k; base += 32) {
-      if (base + 32 < k) next = load_sample<E, P>(in, first, base + 32 + lane, ray_delta);
+      if (base + 32 < k) next = load_sample<E, P>(in, first, k, base + 32 + lane, ray_delta);
       step(cur, base + lane);
       cur = next;
     }
@@ -208,7 +237,7 @@ __global__ void __launch_bounds__(kCompositeThreads)
   if (lane < 3) outputs[ray * 3ll + lane] = mine;
   if (lane >= 3 && lane < 3 + in.c) extras_out[static_cast<long long>(ray) * in.c + lane - 3] = mine;
   if (lane == 31) {
-    w_row[k] = w_last;
+    if (!Q) w_row[k] = w_last;
     alphas[ray] = hit ? 1.0f - w_last : 0.0f;
   }
 }
@@ -277,20 +306,38 @@ __device__ __forceinline__ void sum_background(const float (&bg_part)[3], const 
   if (threadIdx.x == 0) *g.ticket = 0u;  // ready for the next launch on this stream
 }
 
-template <int S, int E, bool P>
+// The pool's unused tail, rows starts[n] .. rows - 1, gets zero gradients:
+// a grid-stride loop over each gradient's flat range (coalesced).
+__device__ __forceinline__ void zero_pool_tail(const CompositeInputs& in, const CompositeGrads& g) {
+  const long long tail = __ldg(in.starts + in.n);
+  const long long stride = static_cast<long long>(gridDim.x) * kCompositeThreads;
+  const long long start = static_cast<long long>(blockIdx.x) * kCompositeThreads + threadIdx.x;
+  for (long long i = tail + start; i < in.rows; i += stride) g.grad_densities[i] = 0.0f;
+  if (g.grad_rgbs != nullptr) {
+    for (long long i = 3 * tail + start; i < 3ll * in.rows; i += stride) g.grad_rgbs[i] = 0.0f;
+  }
+  if (g.grad_extras != nullptr) {
+    const long long c = in.c;
+    for (long long i = c * tail + start; i < c * in.rows; i += stride) g.grad_extras[i] = 0.0f;
+  }
+}
+
+template <int S, int E, bool P, bool Q>
 __global__ void __launch_bounds__(kCompositeThreads)
     composite_backward_kernel(CompositeInputs in, CompositeGrads g) {
   const int warp = threadIdx.x >> 5;
   const int ray = blockIdx.x * kCompositeWarps + warp;
   const int lane = threadIdx.x & 31;
-  const int k = in.k;
   float bg_part[3] = {0.0f, 0.0f, 0.0f};
   if (ray < in.n) {  // a whole warp together
-    const long long first = static_cast<long long>(ray) * k;
+    long long first;
+    int k;
+    ray_rows<Q>(in, ray, first, k);
     const float ray_delta = P ? 0.0f : __ldg(in.deltas + ray);
     const bool hit = __ldg(in.mask + ray) != 0;
-    const float* gw_row = g.grad_weights != nullptr ? g.grad_weights + static_cast<long long>(ray) * (k + 1)
-                                                    : nullptr;
+    const float* gw_row = !Q && g.grad_weights != nullptr
+                              ? g.grad_weights + static_cast<long long>(ray) * (k + 1)
+                              : nullptr;
     float go[3], gex[E > 0 ? E : 1];
 #pragma unroll
     for (int c = 0; c < 3; ++c) go[c] = g.grad_outputs != nullptr ? __ldg(g.grad_outputs + ray * 3ll + c) : 0.0f;
@@ -332,7 +379,7 @@ __global__ void __launch_bounds__(kCompositeThreads)
         g.grad_densities[i] = grad_s * x.delta;
         if (P) {
           if (g.grad_deltas != nullptr) g.grad_deltas[i] = grad_s * x.density;
-        } else {
+        } else if (!Q) {
           dt_part += grad_s * x.density;
         }
         if (g.grad_rgbs != nullptr) {
@@ -355,7 +402,7 @@ __global__ void __launch_bounds__(kCompositeThreads)
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         const int t = lane + 32 * i;
-        x[i] = load_sample<E, P>(in, first, t, ray_delta);
+        x[i] = load_sample<E, P>(in, first, k, t, ray_delta);
         gw[i] = gw_row != nullptr && t < k ? __ldg(gw_row + t) : 0.0f;
       }
 #pragma unroll
@@ -389,7 +436,7 @@ __global__ void __launch_bounds__(kCompositeThreads)
       float suffix = g_last * w_last, next_excl = carry;
       for (int chunk = chunks - 1; chunk >= 0; --chunk) {
         const int t = 32 * chunk + lane;
-        const Sample<E> x = load_sample<E, P>(in, first, t, ray_delta);
+        const Sample<E> x = load_sample<E, P>(in, first, k, t, ray_delta);
         const float gw = gw_row != nullptr && t < k ? __ldg(gw_row + t) : 0.0f;
         const float excl = chunk == chunks - 1 ? excl_last : g.grad_densities[first + t];
         float incl = __shfl_down_sync(kFullWarp, excl, 1);
@@ -399,13 +446,14 @@ __global__ void __launch_bounds__(kCompositeThreads)
         reverse_step(x, w, expf(-incl), gw, t, suffix);
       }
     }
-    if (!P && g.grad_deltas != nullptr) {
+    if (!P && !Q && g.grad_deltas != nullptr) {
       dt_part = warp_sum(dt_part);
       if (lane == 0) g.grad_deltas[ray] = dt_part;
     }
 #pragma unroll
     for (int c = 0; c < 3; ++c) bg_part[c] = hit ? w_last * go[c] : go[c];
   }
+  if constexpr (Q) zero_pool_tail(in, g);
   if (g.grad_background != nullptr) sum_background(bg_part, g, warp, lane);  // the same for every block
 }
 
@@ -413,13 +461,14 @@ inline int composite_blocks(int n) { return (n + kCompositeWarps - 1) / kComposi
 
 // Registers for up to 64 samples (S = 1, 2), else the chunk loop (S = 0);
 // extras' capacity 0, 4 or 8; widths per ray or per sample.
-template <template <int, int, bool> class Launch, typename... Args>
+template <template <int, int, bool, bool> class Launch, typename... Args>
 int composite_dispatch(int k, int c, bool per_sample, Args... args) {
   const int s = k <= 32 ? 1 : (k <= 64 ? 2 : 0);
   const int e = c == 0 ? 0 : (c <= 4 ? 4 : 8);
 #define NERF_COMPOSITE_CASE(S_, E_)                                                     \
   if (s == S_ && e == E_) {                                                             \
-    return per_sample ? Launch<S_, E_, true>::run(args...) : Launch<S_, E_, false>::run(args...); \
+    return per_sample ? Launch<S_, E_, true, false>::run(args...)                       \
+                      : Launch<S_, E_, false, false>::run(args...);                     \
   }
   NERF_COMPOSITE_CASE(1, 0) NERF_COMPOSITE_CASE(1, 4) NERF_COMPOSITE_CASE(1, 8)
   NERF_COMPOSITE_CASE(2, 0) NERF_COMPOSITE_CASE(2, 4) NERF_COMPOSITE_CASE(2, 8)
@@ -428,20 +477,34 @@ int composite_dispatch(int k, int c, bool per_sample, Args... args) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int S, int E, bool P>
+// The pool layout: registers only (k <= 64), widths per ray.
+template <template <int, int, bool, bool> class Launch, typename... Args>
+int composite_pooled_dispatch(int k, int c, Args... args) {
+  const int e = c == 0 ? 0 : (c <= 4 ? 4 : 8);
+#define NERF_COMPOSITE_POOLED_CASE(E_)                                                  \
+  if (e == E_) {                                                                        \
+    return k <= 32 ? Launch<1, E_, false, true>::run(args...)                           \
+                   : Launch<2, E_, false, true>::run(args...);                          \
+  }
+  NERF_COMPOSITE_POOLED_CASE(0) NERF_COMPOSITE_POOLED_CASE(4) NERF_COMPOSITE_POOLED_CASE(8)
+#undef NERF_COMPOSITE_POOLED_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int S, int E, bool P, bool Q>
 struct LaunchForward {
   static int run(CompositeInputs in, float* outputs, float* weights, float* alphas, float* extras_out,
                  cudaStream_t stream) {
-    composite_forward_kernel<S, E, P><<<composite_blocks(in.n), kCompositeThreads, 0, stream>>>(
+    composite_forward_kernel<S, E, P, Q><<<composite_blocks(in.n), kCompositeThreads, 0, stream>>>(
         in, outputs, weights, alphas, extras_out);
     return static_cast<int>(cudaGetLastError());
   }
 };
 
-template <int S, int E, bool P>
+template <int S, int E, bool P, bool Q>
 struct LaunchBackward {
   static int run(CompositeInputs in, CompositeGrads g, cudaStream_t stream) {
-    composite_backward_kernel<S, E, P><<<composite_blocks(in.n), kCompositeThreads, 0, stream>>>(in, g);
+    composite_backward_kernel<S, E, P, Q><<<composite_blocks(in.n), kCompositeThreads, 0, stream>>>(in, g);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -467,7 +530,7 @@ extern "C" int nerf_composite_forward(const float* densities, const float* delta
   if (!composite_valid(n, k, c, extras)) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const CompositeInputs in{densities, deltas, rgbs, background, mask, extras, n, k, c,
-                           per_sample_deltas != 0};
+                           per_sample_deltas != 0, nullptr, 0};
   return composite_dispatch<LaunchForward>(k, c, in.per_sample, in, outputs, weights, alphas, extras_out,
                                            static_cast<cudaStream_t>(stream));
 }
@@ -494,9 +557,56 @@ extern "C" int nerf_composite_backward(
   }
   if (n == 0) return 0;
   const CompositeInputs in{densities, deltas, rgbs, background, mask, extras, n, k, c,
-                           per_sample_deltas != 0};
+                           per_sample_deltas != 0, nullptr, 0};
   const CompositeGrads g{grad_outputs, grad_weights, grad_alphas, grad_extras_out,
                          grad_densities, grad_deltas, grad_rgbs, c > 0 ? grad_extras : nullptr,
                          background_partials, ticket, grad_background};
   return composite_dispatch<LaunchBackward>(k, c, in.per_sample, in, g, static_cast<cudaStream_t>(stream));
+}
+
+
+// The pool layout.  densities [rows], rgbs [rows, 3] and extras [rows, c]
+// (null when c = 0) f32, starts [n + 1] int32 (non-decreasing, starts[0] =
+// 0, starts[n] <= rows, at most k rows a ray), deltas [n] (one width a ray)
+// f32 and mask [n] bytes on the device; outputs [n, 3], alphas [n] and
+// extras_out [n, c] are written.  1 <= k <= 64, c <= 8.  Launches on the
+// given stream and returns the cudaError_t of the launch (0 on success).
+extern "C" int nerf_composite_pooled_forward(const float* densities, const int* starts, const float* deltas,
+                                             const float* rgbs, const float* background,
+                                             const unsigned char* mask, const float* extras, int n, int k,
+                                             int c, int rows, float* outputs, float* alphas,
+                                             float* extras_out, void* stream) {
+  using namespace nerf;
+  if (!composite_valid(n, k, c, extras) || k > 64 || rows < 0 || starts == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  const CompositeInputs in{densities, deltas, rgbs, background, mask, extras, n, k, c, false, starts, rows};
+  return composite_pooled_dispatch<LaunchForward>(k, c, in, outputs, nullptr, alphas, extras_out,
+                                                  static_cast<cudaStream_t>(stream));
+}
+
+// The pool layout's backward: the forward's inputs, then the cotangents
+// grad_outputs [n, 3], grad_alphas [n] and grad_extras_out [n, c] (each may
+// be null: zero); grad_densities [rows] is written, and so are grad_rgbs
+// [rows, 3], grad_extras [rows, c] and grad_background [3] unless null, all
+// in pool order with zeros on the tail (rows starts[n] .. rows - 1).
+// background_partials and ticket as for nerf_composite_backward.  n >= 1.
+extern "C" int nerf_composite_pooled_backward(
+    const float* densities, const int* starts, const float* deltas, const float* rgbs,
+    const float* background, const unsigned char* mask, const float* extras, const float* grad_outputs,
+    const float* grad_alphas, const float* grad_extras_out, int n, int k, int c, int rows,
+    float* grad_densities, float* grad_rgbs, float* grad_extras, float* background_partials,
+    unsigned int* ticket, float* grad_background, void* stream) {
+  using namespace nerf;
+  if (!composite_valid(n, k, c, extras) || n == 0 || k > 64 || rows < 0 || starts == nullptr ||
+      grad_densities == nullptr ||
+      (grad_background != nullptr && (background_partials == nullptr || ticket == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const CompositeInputs in{densities, deltas, rgbs, background, mask, extras, n, k, c, false, starts, rows};
+  const CompositeGrads g{grad_outputs, nullptr, grad_alphas, grad_extras_out,
+                         grad_densities, nullptr, grad_rgbs, c > 0 ? grad_extras : nullptr,
+                         background_partials, ticket, grad_background};
+  return composite_pooled_dispatch<LaunchBackward>(k, c, in, g, static_cast<cudaStream_t>(stream));
 }

@@ -140,6 +140,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_composite_forward.restype = i32
     lib.nerf_composite_backward.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 8
     lib.nerf_composite_backward.restype = i32
+    lib.nerf_composite_pooled_forward.argtypes = [ptr] * 7 + [i32] * 4 + [ptr] * 4
+    lib.nerf_composite_pooled_forward.restype = i32
+    lib.nerf_composite_pooled_backward.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 7
+    lib.nerf_composite_pooled_backward.restype = i32
     lib.nerf_hashgrid_encode_args_size.argtypes = []
     lib.nerf_hashgrid_encode_args_size.restype = i32
     lib.nerf_error_string.argtypes = [i32]

@@ -27,9 +27,18 @@ last column), ``dL/d(density_t delta_t) = G_t (T_t - w_t) - sum_{j>t} G_j
 w_j``: a reverse suffix sum.  The background's gradient is summed by the
 last block in a fixed order: no memset, the same bits every run.
 
-:func:`render_composite` runs the plain version for CPU tensors (the ops of
-:mod:`..ops.volume` under plain autograd) and the kernels for CUDA tensors,
-with no fallback between the two.
+:func:`render_composite_pooled` is the same pair in the pool layout of the
+pooled passes (``learn_nerf_tpu/occ_render.py:613-654``: the segmented
+exclusive scan, the weights and the ``segment_sum`` blends): ray r's
+samples are the pool rows ``starts[r] .. starts[r+1] - 1`` (at most K <= 64,
+in t order), the rest of the pool is its unused tail.  The kernels are the
+same warp-a-ray kernels with the pool layout compiled in (no weights out;
+the backward writes the pool's gradients and zeros on the tail itself).
+
+:func:`render_composite` and :func:`render_composite_pooled` run the plain
+version for CPU tensors (the ops of :mod:`..ops.volume` under plain
+autograd) and the kernels for CUDA tensors, with no fallback between the
+two.
 """
 
 from typing import Dict, Optional, Sequence, Tuple
@@ -42,14 +51,19 @@ from . import build
 Tensor = torch.Tensor
 Outputs = Tuple[Tensor, Tensor, Tensor, Optional[Tensor]]
 
-# Forward launches and plain calls; the backward kernel's launches.
+# Forward launches and plain calls; the backward kernel's launches; the
+# same two for the pool layout.
 counter = build.LaunchCounter()
 backward_counter = build.LaunchCounter()
+pooled_counter = build.LaunchCounter()
+pooled_backward_counter = build.LaunchCounter()
 
 # Rays per block (csrc kCompositeWarps: one warp per ray), and the extras'
-# widest row (kCompositeMaxExtras).  Any number of samples per ray.
+# widest row (kCompositeMaxExtras).  Any number of samples per ray; at most
+# MAX_POOLED_SAMPLES in the pool layout (its samples stay in registers).
 RAYS_PER_BLOCK = 8
 MAX_EXTRAS = 8
+MAX_POOLED_SAMPLES = 64
 
 
 def render_composite_reference(
@@ -73,6 +87,22 @@ _NAMES = ("densities", "deltas", "rgbs", "background", "mask", "extras")
 _DTYPES = (torch.float32,) * 4 + (torch.bool, torch.float32)
 
 
+def _checked(tensors, shapes, dtypes, names, device):
+    """``tensors`` made contiguous (a view that is not is copied), after a
+    check of each one's type, shape and device (all on ``device``)."""
+    index = device.index if device.type == "cuda" else -1
+    out = list(tensors)
+    for i, (value, shape, dtype) in enumerate(zip(tensors, shapes, dtypes)):
+        if value.dtype != dtype or value.shape != shape or value.get_device() != index:
+            raise ValueError(
+                f"want {names[i]} {dtype} {shape} on {device}; got {value.dtype} "
+                f"{tuple(value.shape)} on {value.device}"
+            )
+        if not value.is_contiguous():
+            out[i] = value.contiguous()
+    return out
+
+
 def _prepared(densities, deltas, rgbs, background, mask, extras):
     """The inputs as the kernels take them (contiguous; a view that is not
     is copied), after one check of type, shape and device (all on one).
@@ -92,15 +122,7 @@ def _prepared(densities, deltas, rgbs, background, mask, extras):
         shapes.append((n, k, c))
     if n * (k + 1) >= 2**31 or n * k * max(c, 3) >= 2**31:
         raise ValueError(f"{n} rays x {k} samples exceed the kernels' 32-bit counts")
-    index = densities.get_device()
-    for i, (value, shape, dtype) in enumerate(zip(tensors, shapes, _DTYPES)):
-        if value.dtype != dtype or value.shape != shape or value.get_device() != index:
-            raise ValueError(
-                f"want {_NAMES[i]} {dtype} {shape} on {densities.device}; got {value.dtype} "
-                f"{tuple(value.shape)} on {value.device}"
-            )
-        if not value.is_contiguous():
-            tensors[i] = value.contiguous()
+    tensors = _checked(tensors, shapes, _DTYPES, _NAMES, densities.device)
     if extras is None:
         tensors.append(None)
     return (*tensors, per_sample)
@@ -195,24 +217,27 @@ def composite_backward_cuda(
     return _launch_backward(*inputs, grad_outputs, grad_weights, grad_alphas, grad_extras_out, wanted)
 
 
+def _checked_cotangents(cotangents, shapes, names, device):
+    """:func:`_checked` for the f32 cotangents that are not ``None``."""
+    present = [i for i, value in enumerate(cotangents) if value is not None]
+    checked = _checked([cotangents[i] for i in present], [shapes[i] for i in present],
+                       [torch.float32] * len(present), [f"the cotangent of {names[i]}" for i in present], device)
+    out = list(cotangents)
+    for i, value in zip(present, checked):
+        out[i] = value
+    return out
+
+
 def _launch_backward(densities, deltas, rgbs, background, mask, extras, per_sample, grad_outputs,
                      grad_weights, grad_alphas, grad_extras_out, wanted):
     """The backward launch on inputs that :func:`_prepared` passed; checks
     the cotangents."""
     n, k = densities.shape
     c = 0 if extras is None else extras.shape[-1]
-    device, index = densities.device, densities.get_device()
-    cotangents = [grad_outputs, grad_weights, grad_alphas, grad_extras_out]
-    for i, shape in enumerate(((n, 3), (n, k + 1), (n, 1), (n, c))):
-        value = cotangents[i]
-        if value is None:
-            continue
-        if value.dtype != torch.float32 or value.shape != shape or value.get_device() != index:
-            name = ("outputs", "weights", "alphas", "extras_out")[i]
-            raise ValueError(f"want the cotangent of {name} f32 {shape} on {device}; got "
-                             f"{value.dtype} {tuple(value.shape)} on {value.device}")
-        if not value.is_contiguous():
-            cotangents[i] = value.contiguous()
+    device = densities.device
+    cotangents = _checked_cotangents([grad_outputs, grad_weights, grad_alphas, grad_extras_out],
+                                     ((n, 3), (n, k + 1), (n, 1), (n, c)),
+                                     ("outputs", "weights", "alphas", "extras_out"), device)
     want_deltas, want_rgbs, want_background, want_extras = wanted
     _require_card(device)
     grad_densities = torch.empty_like(densities)
@@ -303,4 +328,225 @@ def render_composite(
         counter.plain_calls += 1
         return render_composite_reference(densities, deltas, rgbs, background, mask, extras)
     outs = RenderComposite.apply(densities, deltas, rgbs, background, mask, extras)
+    return outs if extras is not None else (*outs, None)
+
+
+# -- the pool layout -------------------------------------------------------
+
+PooledOutputs = Tuple[Tensor, Tensor, Optional[Tensor]]
+
+
+def render_composite_pooled_reference(
+    densities: Tensor,
+    starts: Tensor,
+    deltas: Tensor,
+    rgbs: Tensor,
+    background: Tensor,
+    mask: Tensor,
+    extras: Optional[Tensor],
+    samples: int,
+) -> PooledOutputs:
+    """Plain PyTorch version, differentiable by autograd: the pool gathered
+    back to ``[N, samples]`` slots and :func:`render_composite_reference`'s
+    per-ray scan (never a global cumsum minus each ray's base, whose f32
+    difference of tile-sized sums loses the trailing rays' transmittance)."""
+    n, rows = starts.shape[0] - 1, densities.shape[0]
+    slot = torch.arange(samples, device=densities.device)
+    first = starts[:-1].to(torch.int64)[:, None]
+    valid = slot[None, :] < (starts[1:].to(torch.int64)[:, None] - first)
+    index = torch.clamp(first + slot[None, :], max=max(rows - 1, 0))
+
+    def back(values: Tensor) -> Tensor:
+        if rows == 0:
+            return values.new_zeros((n, samples, *values.shape[1:]))
+        gathered = values[index]
+        keep = valid.reshape(n, samples, *([1] * (values.dim() - 1)))
+        return torch.where(keep, gathered, 0.0)
+
+    outputs, _, alphas, blended = render_composite_reference(
+        back(densities), deltas, back(rgbs), background, mask, None if extras is None else back(extras))
+    return outputs, alphas, blended
+
+
+def _prepared_pooled(densities, starts, deltas, rgbs, background, mask, extras, samples):
+    """The pool-layout inputs as the kernels take them (contiguous), after
+    one check of type, shape and device."""
+    if densities.dim() != 1 or starts.dim() != 1 or starts.shape[0] < 1:
+        raise ValueError(f"want densities [B] and starts [N + 1]; got {tuple(densities.shape)} and "
+                         f"{tuple(starts.shape)}")
+    if not 1 <= samples <= MAX_POOLED_SAMPLES:
+        raise ValueError(f"the pooled composite kernels take 1 to {MAX_POOLED_SAMPLES} samples a ray; "
+                         f"got {samples}")
+    rows, n = densities.shape[0], starts.shape[0] - 1
+    tensors = [densities, starts, deltas, rgbs, background, mask]
+    shapes = [(rows,), (n + 1,), (n, 1), (rows, 3), (3,), (n,)]
+    dtypes = [torch.float32, torch.int32, torch.float32, torch.float32, torch.float32, torch.bool]
+    names = ["densities", "starts", "deltas", "rgbs", "background", "mask"]
+    c = 0
+    if extras is not None:
+        c = extras.shape[-1]
+        if not 1 <= c <= MAX_EXTRAS:
+            raise ValueError(f"the composite kernels blend 1 to {MAX_EXTRAS} extras; got {tuple(extras.shape)}")
+        tensors.append(extras)
+        shapes.append((rows, c))
+        dtypes.append(torch.float32)
+        names.append("extras")
+    if rows * max(c, 3) >= 2**31 or n * max(c, 3) >= 2**31:
+        raise ValueError(f"a pool of {rows} rows over {n} rays exceeds the kernels' 32-bit counts")
+    tensors = _checked(tensors, shapes, dtypes, names, densities.device)
+    if extras is None:
+        tensors.append(None)
+    return tensors
+
+
+def _launch_pooled_forward(densities, starts, deltas, rgbs, background, mask, extras, samples) -> PooledOutputs:
+    """The pool layout's forward launch on inputs that
+    :func:`_prepared_pooled` passed."""
+    rows, n = densities.shape[0], starts.shape[0] - 1
+    c = 0 if extras is None else extras.shape[-1]
+    device = densities.device
+    _require_card(device)
+    outputs = torch.empty((n, 3), dtype=torch.float32, device=device)
+    alphas = torch.empty((n, 1), dtype=torch.float32, device=device)
+    blended = None if extras is None else torch.empty((n, c), dtype=torch.float32, device=device)
+    if n == 0:
+        return outputs, alphas, blended
+    lib = build.library()
+    with build.launch_context(device):
+        err = lib.nerf_composite_pooled_forward(
+            densities.data_ptr(), starts.data_ptr(), deltas.data_ptr(), rgbs.data_ptr(),
+            background.data_ptr(), mask.data_ptr(), _ptr(extras), n, samples, c, rows,
+            outputs.data_ptr(), alphas.data_ptr(), _ptr(blended), build.current_stream(device),
+        )
+    build.check_launch(lib, err, "composite_pooled_forward")
+    pooled_counter.launches += 1
+    return outputs, alphas, blended
+
+
+def _launch_pooled_backward(densities, starts, deltas, rgbs, background, mask, extras, samples, grad_outputs,
+                            grad_alphas, grad_extras_out, wanted):
+    """The pool layout's backward launch on inputs that
+    :func:`_prepared_pooled` passed; checks the cotangents.  ``wanted``
+    says which of the gradients of ``(rgbs, background, extras)`` to write
+    (the densities' always is).
+
+    :return: gradients of ``(densities, rgbs, background, extras)`` in pool
+        order with zeros on the pool's tail, ``None`` where not wanted.
+    """
+    rows, n = densities.shape[0], starts.shape[0] - 1
+    c = 0 if extras is None else extras.shape[-1]
+    device = densities.device
+    cotangents = _checked_cotangents([grad_outputs, grad_alphas, grad_extras_out], ((n, 3), (n, 1), (n, c)),
+                                     ("outputs", "alphas", "extras_out"), device)
+    want_rgbs, want_background, want_extras = wanted
+    _require_card(device)
+    if n == 0:  # no ray: the whole pool is tail
+        return (torch.zeros_like(densities), torch.zeros_like(rgbs) if want_rgbs else None,
+                torch.zeros_like(background) if want_background else None,
+                torch.zeros_like(extras) if want_extras and extras is not None else None)
+    grad_densities = torch.empty_like(densities)
+    grad_rgbs = torch.empty_like(rgbs) if want_rgbs else None
+    grad_extras = None
+    if extras is not None and cotangents[2] is None:
+        # Extras without a cotangent move nothing (the step's points).
+        grad_extras = torch.zeros_like(extras) if want_extras else None
+        extras, c = None, 0
+    elif want_extras and extras is not None:
+        grad_extras = torch.empty_like(extras)
+    grad_background = ticket = partials = None
+    if want_background:
+        grad_background = torch.empty_like(background)
+        ticket, partials = _background_scratch(device, -(-n // RAYS_PER_BLOCK))
+    lib = build.library()
+    with build.launch_context(device):
+        err = lib.nerf_composite_pooled_backward(
+            densities.data_ptr(), starts.data_ptr(), deltas.data_ptr(), rgbs.data_ptr(),
+            background.data_ptr(), mask.data_ptr(), _ptr(extras), *map(_ptr, cotangents), n, samples, c,
+            rows, grad_densities.data_ptr(), _ptr(grad_rgbs), _ptr(grad_extras), _ptr(partials), _ptr(ticket),
+            _ptr(grad_background), build.current_stream(device),
+        )
+    build.check_launch(lib, err, "composite_pooled_backward")
+    pooled_backward_counter.launches += 1
+    return grad_densities, grad_rgbs, grad_background, grad_extras
+
+
+def composite_pooled_forward_cuda(densities, starts, deltas, rgbs, background, mask, extras, samples) -> PooledOutputs:
+    """Launch the pool layout's forward kernel on the current stream."""
+    return _launch_pooled_forward(*_prepared_pooled(densities, starts, deltas, rgbs, background, mask, extras,
+                                                    samples), samples)
+
+
+def composite_pooled_backward_cuda(densities, starts, deltas, rgbs, background, mask, extras, samples,
+                                   grad_outputs, grad_alphas, grad_extras_out=None,
+                                   wanted: Sequence[bool] = (True, True, True)):
+    """Launch the pool layout's backward kernel on the current stream; a
+    ``None`` cotangent is zero.  Returns the gradients of ``(densities,
+    rgbs, background, extras)``."""
+    inputs = _prepared_pooled(densities, starts, deltas, rgbs, background, mask, extras, samples)
+    return _launch_pooled_backward(*inputs, samples, grad_outputs, grad_alphas, grad_extras_out, wanted)
+
+
+class RenderCompositePooled(torch.autograd.Function):
+    """The pool layout's kernels as one differentiable function of
+    ``(densities, rgbs, background, extras)``; two outputs without extras,
+    three with.  The bin widths take no gradient (they come from the rays):
+    widths that require one are refused."""
+
+    @staticmethod
+    def forward(ctx, densities, starts, deltas, rgbs, background, mask, extras, samples):
+        if ctx.needs_input_grad[2]:
+            raise ValueError("the pooled composite kernels give the bin widths no gradient")
+        ctx.set_materialize_grads(False)
+        inputs = _prepared_pooled(densities, starts, deltas, rgbs, background, mask, extras, samples)
+        ctx.samples = samples
+        ctx.save_for_backward(*inputs)
+        outs = _pooled_forward_launcher(*inputs, samples)
+        return outs if extras is not None else outs[:2]
+
+    @staticmethod
+    def backward(ctx, grad_outputs, grad_alphas, grad_extras_out=None):
+        need = ctx.needs_input_grad
+        d_densities, d_rgbs, d_background, d_extras = _pooled_backward_launcher(
+            *ctx.saved_tensors, ctx.samples, grad_outputs, grad_alphas, grad_extras_out,
+            (need[3], need[4], need[6]),
+        )
+        return (d_densities if need[0] else None, None, None, d_rgbs, d_background, None, d_extras, None)
+
+
+# The launches behind RenderCompositePooled; a CPU test swaps in plain
+# versions to hold its autograd wiring.
+_pooled_forward_launcher = _launch_pooled_forward
+_pooled_backward_launcher = _launch_pooled_backward
+
+
+def render_composite_pooled(
+    densities: Tensor,
+    starts: Tensor,
+    deltas: Tensor,
+    rgbs: Tensor,
+    background: Tensor,
+    mask: Tensor,
+    extras: Optional[Tensor],
+    samples: int,
+) -> PooledOutputs:
+    """Scan, weights and blends of one pool of samples.
+
+    :param densities: ``[B]`` non-negative densities in pool order.
+    :param starts: ``[N + 1]`` int32: ray r owns pool rows ``starts[r] ..
+        starts[r+1] - 1`` (t order); rows from ``starts[N]`` on are unused.
+    :param deltas: ``[N, 1]`` bin width of every sample of the ray.
+    :param rgbs: ``[B, 3]`` per-sample colours.
+    :param background: ``[3]`` background colour.
+    :param mask: ``[N]`` bool; a masked-out ray returns the background,
+        alpha 0 and zero extras.
+    :param extras: optional ``[B, C]`` values blended with a zero
+        background (C <= 8 on the card): the sample points, then aux losses.
+    :param samples: K, the most samples a ray owns (<= 64 on the card).
+    :return: ``(outputs [N, 3], alphas [N, 1], extras_out [N, C] or None)``.
+    """
+    if densities.device.type == "cpu":
+        pooled_counter.plain_calls += 1
+        return render_composite_pooled_reference(densities, starts, deltas, rgbs, background, mask, extras,
+                                                 samples)
+    outs = RenderCompositePooled.apply(densities, starts, deltas, rgbs, background, mask, extras, samples)
     return outs if extras is not None else (*outs, None)

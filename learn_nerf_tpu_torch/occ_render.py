@@ -14,10 +14,11 @@ The pooled path (:meth:`OccupancyRenderer.render_rays_pooled`, the CLIs'
 not on the ``N * K`` worst case; :class:`OccupancyFrameSession` sizes the
 pool from measured demand.
 
-The fixed-K path (:meth:`OccupancyRenderer.render_rays`, which training
-differentiates) runs step 4's scan, weights and blends (colour, coords, aux)
+Both paths (:meth:`OccupancyRenderer.render_rays` and
+:meth:`OccupancyRenderer.render_rays_pooled`, which training
+differentiates) run step 4's scan, weights and blends (colour, coords, aux)
 through :mod:`.kernels.composite`: on the card one kernel, with a backward
-kernel.
+kernel (the pooled path in the pool's own layout).
 
 On the fixed-K frame path a ``bfloat16`` :class:`~.models.vanilla.NeRFModel`
 runs step 4's per-sample chain (points -> MLP -> scan -> composite) as one
@@ -40,6 +41,7 @@ from .acceleration import (
     compact_occupied_strided,
     next_budget_bucket,
 )
+from .kernels.composite import render_composite_pooled
 from .kernels.fused_render import fused_render
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
@@ -245,10 +247,13 @@ class OccupancyRenderer:
            pool, so the field model runs on the survivors only.  Slots at
            or past ``budget`` are dropped, never clamped: on overflow the
            trailing rays of the tile lose samples;
-        3. composites per ray.  The pool's values go back to their
-           ``[N, K]`` slots (a survivor's slot minus its ray's first slot
-           is its sample index), so the exclusive scan is a per-ray cumsum
-           whose partial sums stay at within-ray magnitude.
+        3. composites per ray in the pool's own layout
+           (:func:`~.kernels.composite.render_composite_pooled`: one
+           kernel on the card, with a backward kernel for pooled
+           training): ray r owns pool rows ``starts[r] .. starts[r+1] -
+           1``, from its survivor count clamped at ``budget``, and its
+           exclusive scan stays at within-ray magnitude.  The points and
+           the aux losses ride along as extras.
 
         :param rays: ``[N, 2, 3]`` (origin, direction).
         :param budget: total pooled samples for the tile.
@@ -277,38 +282,28 @@ class OccupancyRenderer:
         pool_src = torch.full((budget + 1,), flat_occ.shape[0], dtype=torch.int64, device=rays.device)
         pool_src.scatter_(0, torch.where(kept, slots, budget), flat_pos)
         pool_src = pool_src[:budget]
-        pool_valid = pool_src < flat_occ.shape[0]
         pool_ray = torch.clamp(pool_src // self.samples, max=n - 1)
         pool_t = torch.cat([sel_ts.reshape(-1), sel_ts.new_zeros(1)])[pool_src]
 
         dirs_p = dirs[pool_ray]
         points = origins[pool_ray] + dirs_p * pool_t[:, None]
         density, rgbs, aux = self.model(points, dirs_p)
-        sig_dt = density[..., 0] * pool_valid * (dt * delta_scale)[pool_ray, 0]
 
-        # Back to [N, K]: unselected and dropped samples contribute 0.
-        back = torch.clamp(slots, 0, budget - 1)
-        sig_nk = torch.where(kept, sig_dt[back], 0.0).reshape(n, self.samples)
-        acc = torch.cumsum(sig_nk, dim=1)
-        weights = torch.exp(-(acc - sig_nk)) * (1.0 - torch.exp(-sig_nk))  # [N, K]
-
-        def ray_sum(values: Tensor) -> Tensor:
-            return torch.einsum("nk,nkc->nc", weights, values[back].reshape(n, self.samples, -1))
-
-        bg_weight = torch.exp(-acc[:, -1:])
-        outputs = ray_sum(rgbs) + bg_weight * background[None, :]
-        outputs = torch.where(mask[:, None], outputs, background[None, :])
-        alphas = torch.where(mask[:, None], 1.0 - bg_weight, 0.0)
-        coords = torch.where(mask[:, None], ray_sum(points), 0.0)
-        aux_means = {
-            k: torch.where(mask, ray_sum(v[:, None])[:, 0], 0.0).mean() for k, v in aux.items()
-        }
+        # Ray r owns rows starts[r] .. starts[r+1] - 1: its kept survivors.
+        counts = torch.cumsum(sel_mask.sum(dim=1), dim=0)
+        starts = torch.cat([counts.new_zeros(1), torch.clamp(counts, max=budget)]).to(torch.int32)
+        extras = points
+        if aux:
+            extras = torch.cat([points, torch.stack(list(aux.values()), dim=-1).to(points.dtype)], dim=-1)
+        outputs, alphas, blended = render_composite_pooled(
+            density[..., 0], starts, dt * delta_scale, rgbs, background, mask, extras, self.samples)
+        aux_means = {name: blended[:, 3 + i].mean() for i, name in enumerate(aux)}
         selected = flat_occ.sum()
         dropped = torch.clamp(selected - budget, min=0)
         return dict(
             outputs=outputs,
             alphas=alphas,
-            coords=coords,
+            coords=blended[:, :3],
             aux=aux_means,
             selected=selected,
             dropped=dropped,

@@ -70,19 +70,28 @@ def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
         "--occ_train_budget",
         type=lambda v: v if v == "auto" else float(v),
         default=None,
-        help="training only: pooled training budget (not ported yet)",
+        help="training: after --occ_train_budget_start steps, pool each "
+        "batch's surviving samples into batch * this many slots (the field "
+        "model runs on actual survivor counts, not N*K padding); 'auto' "
+        "sizes the pool from measured demand, measured again every 256 steps",
     )
     parser.add_argument(
         "--occ_train_budget_start",
         type=int,
         default=512,
-        help="training only: step at which pooled training kicks in",
+        help="step at which pooled training kicks in (the grid must have "
+        "started culling or the pool would overflow)",
     )
     parser.add_argument(
         "--occ_train_t_eps",
         type=float,
         default=0.0,
-        help="training only: pooled-training transmittance prune",
+        help="pooled training only: prune candidates whose grid-estimated "
+        "transmittance falls below this before pooling. MEASURED HARMFUL "
+        "while the grid is still training (fog feedback: the EMA "
+        "overestimates young-model fog, pruning robs the surface behind "
+        "it of gradient; loss diverged 10x on the compound scene); keep "
+        "0 unless resuming with a converged grid",
     )
     parser.add_argument(
         "--occ_refresh_samples",
@@ -149,8 +158,6 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
 def check_ported(args: argparse.Namespace) -> None:
     """Refuse, with ``SystemExit``, every flag whose path is not ported."""
     refused = [
-        (getattr(args, "occ_train_budget", None) is not None,
-         "--occ_train_budget (pooled training)"),
         (getattr(args, "ref_nerf", False), "--ref_nerf (Ref-NeRF)"),
         (getattr(args, "baked", None) is not None, "--baked (baked NGP field)"),
         (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
@@ -165,7 +172,7 @@ def check_ported(args: argparse.Namespace) -> None:
                 f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
                 "package serves the vanilla NeRF and Instant-NGP, with the "
                 "hierarchy, fixed-K occupancy and pooled inference, and trains on "
-                "the fixed-K occupancy path (see ROADMAP.md)"
+                "the occupancy path, fixed-K or pooled (see ROADMAP.md)"
             )
     if torch.cuda.device_count() > 1:
         raise SystemExit(

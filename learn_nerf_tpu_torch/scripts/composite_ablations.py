@@ -21,7 +21,11 @@ the same data (rays of optical depth 1-3), by CUDA-graph replay:
   (as built: 8 rays, 256 threads);
 * ``parent``: the kernels as they were before
   (``csrc/ablations/composite_parent.cu``: K <= 64, one width per ray, no
-  extras, the background's gradient by atomics into a zeroed [3]).
+  extras, the background's gradient by atomics into a zeroed [3]);
+* ``other checkout``, with ``--against DIR``: ``csrc/composite.cu`` of
+  another checkout of the port (its dense kernels at this checkout's
+  interface), to hold a change of the source to the dense kernels' times
+  in one call.
 
 The calls:
 
@@ -47,7 +51,7 @@ Prints one JSON line per variant, call and turn, then the card's name and
 power limit.  The libraries build into
 ``learn_nerf_tpu_torch/_build/ablations/composite/``.
 
-    python -m learn_nerf_tpu_torch.scripts.composite_ablations [--turns N] [variant ...]
+    python -m learn_nerf_tpu_torch.scripts.composite_ablations [--turns N] [--against DIR] [variant ...]
 """
 
 import argparse
@@ -58,6 +62,7 @@ import shutil
 import subprocess
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -88,7 +93,7 @@ MEMSET_LAUNCH = ("  if (grad_background != nullptr) {\n"
 # take a term that depends on the scan's result and is always 0).
 FORWARD_PRELOAD = """    Sample<E> x[S];
 #pragma unroll
-    for (int i = 0; i < S; ++i) x[i] = load_sample<E, P>(in, first, lane + 32 * i, ray_delta);
+    for (int i = 0; i < S; ++i) x[i] = load_sample<E, P>(in, first, k, lane + 32 * i, ray_delta);
 #pragma unroll
     for (int i = 0; i < S; ++i) step(x[i], lane + 32 * i);"""
 FORWARD_AFTER_SCAN = """    ScanStep r[S];
@@ -103,7 +108,7 @@ FORWARD_AFTER_SCAN = """    ScanStep r[S];
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       const int t = lane + 32 * i;
-      const Sample<E> x = load_sample<E, P>(in, after, t, ray_delta);
+      const Sample<E> x = load_sample<E, P>(in, after, k, t, ray_delta);
       if (t < k) w_row[t] = r[i].w;
 #pragma unroll
       for (int c = 0; c < 3; ++c) fg[c] += r[i].w * x.rgb[c];
@@ -113,7 +118,7 @@ FORWARD_AFTER_SCAN = """    ScanStep r[S];
 BACKWARD_PRELOAD = """#pragma unroll
       for (int i = 0; i < S; ++i) {
         const int t = lane + 32 * i;
-        x[i] = load_sample<E, P>(in, first, t, ray_delta);
+        x[i] = load_sample<E, P>(in, first, k, t, ray_delta);
         gw[i] = gw_row != nullptr && t < k ? __ldg(gw_row + t) : 0.0f;
       }
 #pragma unroll
@@ -135,7 +140,7 @@ BACKWARD_AFTER_SCAN = """#pragma unroll
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         const int t = lane + 32 * i;
-        x[i] = load_sample<E, P>(in, after, t, ray_delta);
+        x[i] = load_sample<E, P>(in, after, k, t, ray_delta);
         gw[i] = gw_row != nullptr && t < k ? __ldg(gw_row + t + (after - first)) : 0.0f;
       }"""
 THREADS = "constexpr int kCompositeThreads = 256;"
@@ -153,6 +158,9 @@ VARIANTS = {
     "parent": (PARENT_SOURCE, [], 8),
 }
 RAYS = 4096
+OTHER = "other checkout"
+# The csrc directory each variant is built from (``--against`` adds one).
+CSRC_OF = {}
 
 
 def build_libraries(names):
@@ -164,7 +172,7 @@ def build_libraries(names):
         source, edits, _ = VARIANTS[name]
         out = root / name.replace(" ", "_")
         shutil.rmtree(out, ignore_errors=True)
-        shutil.copytree(build.CSRC_DIR, out)
+        shutil.copytree(CSRC_OF.get(name, build.CSRC_DIR), out)
         text = (out / source).read_text()
         for old, new in edits:
             if old not in text:
@@ -308,7 +316,14 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("variants", nargs="*", help=f"any of {list(VARIANTS)} (default: all)")
     parser.add_argument("--turns", type=int, default=3, help="turns over the variants")
+    parser.add_argument("--against", type=str, default=None,
+                        help="another checkout's root: time its csrc/composite.cu as the variant "
+                             f"{OTHER!r}")
     args = parser.parse_args(argv)
+    if args.against is not None:
+        VARIANTS[OTHER] = (SOURCE, [], 8)
+        CSRC_OF[OTHER] = Path(args.against).resolve() / "learn_nerf_tpu_torch" / "csrc"
+        args.variants = [*args.variants, OTHER] if args.variants else [*VARIANTS]
     unknown = set(args.variants) - set(VARIANTS)
     if unknown:
         parser.error(f"unknown variants {sorted(unknown)}; known: {list(VARIANTS)}")

@@ -13,26 +13,40 @@ Takes ``train_nerf``'s flags and its ``data_dir`` and prints one JSON line:
   more step (one without a grid refresh) under ``torch.profiler``, as
   :mod:`.profile_render` reports a render;
 * ``composite_host_us``: the composite kernels' wrappers' own host time a
-  call (forward, backward), on the host's clock around each call over the
-  timed steps: their checks, allocations and ctypes call, which in a
-  host-bound step delay every launch after them.
+  call (forward, backward; the pool layout's on a pooled step), on the
+  host's clock around each call over the timed steps: their checks,
+  allocations and ctypes call, which in a host-bound step delay every
+  launch after them.
+
+``--pooled`` profiles the JAX package's ``bench_pooled`` cell instead: a
+stand-in for a converged grid (5 % of the cells occupied, drawn from
+``RandomState(3)``, past warmup and never refreshed), on which the same
+weights take the dense step and then the pooled step
+(``pool_budget_per_ray="auto"`` from step 0) in one process; the line is
+``{"dense": {...}, "pooled": {...}}``, the pooled half with the resolved
+``pool_budget`` and the last step's ``fine_pool_dropped``.
 
 With ``--device cpu`` the device fields are ``null``; without it the
 profiler runs on the card and raises when there is none.
 
-Example:
+Examples:
   python -m learn_nerf_tpu_torch.scripts.profile_train --instant_ngp \\
       --occupancy --lr 1e-2 data/scene
+  python -m learn_nerf_tpu_torch.scripts.profile_train --instant_ngp \\
+      --occupancy --lr 1e-2 --pooled data/scene
 """
 
+import argparse
 import contextlib
 import json
 import os
 import statistics
 import time
 
+import numpy as np
 import torch
 
+from ..acceleration import OccupancyGridState
 from ..data.dataset import load_dataset
 from ..kernels import composite as kc
 from ..data.prefetch import prefetch_to_device
@@ -46,7 +60,20 @@ def argparser():
     parser = build_parser()
     parser.add_argument("--repeats", type=int, default=16, help="timed steps before the profiled one")
     parser.add_argument("--warmup_steps", type=int, default=3, help="untimed steps before the timed ones")
+    parser.add_argument("--pooled", action="store_true",
+                        help="the dense and the pooled step on bench_pooled's frozen 5 %% grid")
     return parser
+
+
+def freeze_pooled_grid(loop: OccupancyTrainLoop) -> None:
+    """``bench_pooled``'s stand-in for a converged grid: 5 % of the cells
+    occupied (``RandomState(3)``), past warmup, and no refresh after (a
+    refresh would max in the untrained model's densities)."""
+    cells = loop.grid.resolution**3
+    occupied = (np.random.RandomState(3).rand(cells) < 0.05).astype(np.float32)
+    loop.grid_state = OccupancyGridState(
+        densities=torch.from_numpy(occupied).to(loop.device), step=loop.grid.warmup_updates)
+    loop.grid_freeze_after = 0
 
 
 @contextlib.contextmanager
@@ -79,48 +106,75 @@ def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats
     """Step times and one profiled step of ``loop`` over ``batches`` (an
     iterator of ``[N, 3, 3]`` batches on the loop's device)."""
     device = loop.device
-    refreshed = []
+    refreshed, dropped = [], []
 
     def step():
         batch = next(batches)
         refreshed.append(loop._refresh_due())
         _sync(device)
         t0 = time.perf_counter()
-        loop.step_auto(base_seed, batch)
+        values = loop.step_auto(base_seed, batch)
         _sync(device)
+        if "fine_pool_dropped" in values:
+            dropped.append(values["fine_pool_dropped"])
         return (time.perf_counter() - t0) * 1e3
 
     for _ in range(warmup_steps):  # first-use costs stay out of the numbers
         step()
     del refreshed[:]
-    with timed_launchers(kc, ("_forward_launcher", "_backward_launcher")) as host:
+    # The dense pair's launchers and, where the checkout has them, the pool
+    # layout's (scripts/profile_trees.py runs this function in others).
+    launchers = [name for name in ("_forward_launcher", "_backward_launcher", "_pooled_forward_launcher",
+                                   "_pooled_backward_launcher") if hasattr(kc, name)]
+    with timed_launchers(kc, launchers) as host:
         times = [step() for _ in range(repeats)]
     with_refresh = [ms for ms, due in zip(times, refreshed) if due]
     while loop._refresh_due():  # profile a step without a grid refresh
         step()
     median = statistics.median(times)
     batch_size = next(batches).shape[0]
-    return dict(
+
+    def per_call(kind):  # a step calls the dense or the pooled pair
+        seconds, calls = (sum(v[i] for name, v in host.items() if kind in name) for i in (0, 1))
+        return seconds / max(calls, 1) * 1e6
+
+    result = dict(
         step_ms=times, median_ms=median, refresh_step_ms=with_refresh,
         rays_per_s=batch_size / median * 1e3, batch_size=batch_size,
-        composite_host_us={kind: seconds / max(calls, 1) * 1e6 for kind, (seconds, calls)
-                           in zip(("forward", "backward"), host.values())},
+        composite_host_us=dict(forward=per_call("forward"), backward=per_call("backward")),
         **profile_call(step, device),
     )
+    if dropped:
+        result["fine_pool_dropped"] = max(int(v) for v in dropped)
+    return result
 
 
 def profile_args(args) -> dict:
-    """The result for parsed flags: a fresh loop on the dataset's batches."""
+    """The result for parsed flags: a fresh loop on the dataset's batches
+    (with ``--pooled``, a dense and a pooled one on the frozen grid)."""
     check_train_ported(args)
     device = resolve_device(args.device)
     data = load_dataset(args.data_dir)
-    torch.manual_seed(args.seed if args.seed is not None else 0)
-    loop = make_loop(args, data.metadata, args.lr, device)
-    batches = prefetch_to_device(
-        data.iterate_batches(os.path.join(args.data_dir, "shuffled"), args.seed or 0, args.batch_size),
-        device,
-    )
-    return profile_steps(loop, batches, repeats=args.repeats, warmup_steps=args.warmup_steps)
+
+    def run(flags) -> dict:
+        torch.manual_seed(flags.seed if flags.seed is not None else 0)
+        loop = make_loop(flags, data.metadata, flags.lr, device)
+        if flags.pooled:
+            freeze_pooled_grid(loop)
+        batches = prefetch_to_device(
+            data.iterate_batches(os.path.join(flags.data_dir, "shuffled"), flags.seed or 0, flags.batch_size),
+            device,
+        )
+        result = profile_steps(loop, batches, repeats=flags.repeats, warmup_steps=flags.warmup_steps)
+        if flags.occ_train_budget is not None:
+            result["pool_budget"] = loop._auto_per_ray or flags.occ_train_budget
+        return result
+
+    if not args.pooled:
+        return run(args)
+    dense = run(argparse.Namespace(**dict(vars(args), occ_train_budget=None)))
+    pooled = run(argparse.Namespace(**dict(vars(args), occ_train_budget="auto", occ_train_budget_start=0)))
+    return dict(dense=dense, pooled=pooled)
 
 
 def main(argv=None):

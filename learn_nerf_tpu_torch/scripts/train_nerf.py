@@ -9,18 +9,24 @@ raises without one unless given ``--device cpu`` (a flag of this port
 only).  On the card every step runs the hash-grid encode kernel, its
 table-gradient kernel and the composite kernels.
 
+Pooled training, the JAX package's flagship recipe, runs as there:
+``--occ_train_budget auto`` (or a number of samples a ray) from step
+``--occ_train_budget_start`` on, ``--occ_train_t_eps`` its prune; on the
+card a pooled step runs the composite kernels in the pool's layout, and its
+log line adds ``fine_pool_dropped``.
+
 Not ported yet, refused with ``SystemExit`` (see ROADMAP.md): training
 without ``--occupancy`` (the coarse/fine hierarchy), ``--ref_nerf``,
-``--full_state_path``, ``--occ_train_budget`` (pooled training),
-``--coordinator_address``/``--num_processes`` (several processes) and
-``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
+``--full_state_path``, ``--coordinator_address``/``--num_processes``
+(several processes) and ``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
 steps per log line; a last chunk of fewer than k batches is dropped unless
 ``--steps`` cuts it (:func:`dispatch_chunks`), and checkpoints are written at
 the steps the JAX CLI writes them (:func:`save_due`).
 
-Example:
+Example (the flagship recipe):
   python -m learn_nerf_tpu_torch.scripts.train_nerf --instant_ngp \\
-      --occupancy --lr 1e-2 --steps 2000 --save_path ngp.pkl data/scene
+      --occupancy --occ_train_budget auto --steps_per_dispatch 8 \\
+      --lr_schedule cosine --lr 1e-2 --steps 2000 --save_path ngp.pkl data/scene
 """
 
 import argparse
@@ -156,6 +162,9 @@ def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device) -> O
         grid_threshold=args.occ_threshold,
         density_penalty=args.density_penalty,
         density_penalty_batch_size=args.density_penalty_batch_size,
+        pool_budget_per_ray=args.occ_train_budget,
+        pool_start_step=args.occ_train_budget_start,
+        pool_t_eps=args.occ_train_t_eps,
         grid_warmup_updates=args.occ_warmup,
         grid_refresh_samples=args.occ_refresh_samples,
         grid_freeze_after=args.occ_freeze_grid_after,

@@ -21,11 +21,20 @@ packages the same numbers.
 On the card the step runs three hand-written kernels: the all-level
 hash-grid encode and its table-gradient kernel (through
 :class:`~.kernels.hashgrid_encode.HashGridEncode`) and the composite
-kernels, forward and backward (:mod:`.kernels.composite`).
+kernels, forward and backward (:mod:`.kernels.composite`; a pooled step
+runs them in the pool's layout).
 
-Not ported yet (ROADMAP.md, Queue 1): the pooled training step (item 4),
-the hierarchy's ``TrainLoop`` (item 6), full-state checkpoints (item 8) and
-meshes of several cards (item 9); asking for any of them raises.
+Pooled training (``pool_budget_per_ray``, the JAX package's flagship
+``--occ_train_budget auto``): from ``pool_start_step`` on, each step packs
+the batch's survivors into one pool of ``batch * budget`` samples, so the
+field model runs on the samples that exist (:func:`compute_losses_occupancy_pooled`).
+Where the JAX loop draws the auto budget's demand batch with
+``fold_in(PRNGKey(17), host step)``, the port seeds a generator with
+``fold_seed(17, 0, host step)``.
+
+Not ported yet (ROADMAP.md, Queue 1): the hierarchy's ``TrainLoop`` (item
+6), full-state checkpoints (item 8) and meshes of several cards (item 9);
+asking for any of them raises.
 """
 
 import copy
@@ -37,7 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .acceleration import OccupancyGrid, OccupancyGridState
+from .acceleration import OccupancyGrid, OccupancyGridState, auto_budget_from_demand
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .occ_render import OccupancyRenderer
@@ -48,8 +57,10 @@ Schedule = Callable[[int], float]
 NOT_PORTED = "is not ported to learn_nerf_tpu_torch yet (ROADMAP.md, Queue 1 item {item})"
 
 # Stream tags of step_auto's per-step seeds (the JAX loop folds the same
-# two tags into its base key).
+# two tags into its base key), and the base seed of the auto pool budget's
+# demand draws (the JAX loop's PRNGKey(17)).
 TRAIN_TAG, GRID_TAG = 0, 1
+DEMAND_SEED = 17
 
 
 def default_loss_weights() -> Dict[str, float]:
@@ -179,6 +190,39 @@ def compute_losses_occupancy(
     )
 
 
+def compute_losses_occupancy_pooled(
+    renderer: OccupancyRenderer,
+    background: Tensor,
+    batch: Tensor,
+    grid_state: OccupancyGridState,
+    loss_weights: Dict[str, float],
+    budget: int,
+    density_penalty: Optional[float] = None,
+    density_penalty_batch_size: int = 128,
+    transmittance_eps: float = 0.0,
+    u: Optional[Tensor] = None,
+    density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The pooled variant of :func:`compute_losses_occupancy`: the field
+    model runs on one pool of ``budget`` samples
+    (:meth:`~.occ_render.OccupancyRenderer.render_rays_pooled`), and the
+    logged dict adds ``fine_pool_dropped``, the survivors that did not fit
+    (0 in a healthy run: a dropped sample starves its ray of gradient).
+    ``transmittance_eps`` > 0 prunes candidates the grid marks occluded
+    before pooling.  The same draws as the dense loss.
+    """
+    out = renderer.render_rays_pooled(
+        batch[:, :2], background, grid_state, budget, transmittance_eps, u=u, generator=generator
+    )
+    total, loss_dict = _single_model_loss_tail(
+        renderer, out["outputs"], out["aux"], batch[:, 2], loss_weights, density_penalty,
+        density_penalty_batch_size, density_draws=density_draws, generator=generator,
+    )
+    loss_dict["fine_pool_dropped"] = out["dropped"]
+    return total, loss_dict
+
+
 class TrainLoop:
     """The hierarchy's training loop, not ported yet."""
 
@@ -196,6 +240,16 @@ class OccupancyTrainLoop:
     refreshed every ``update_interval`` steps, before the step, with a
     partial EMA update (:meth:`~.acceleration.OccupancyGrid.update`); the
     grid is saved into the checkpoint so rendering can reuse it.
+
+    With ``pool_budget_per_ray`` set, steps from index ``pool_start_step``
+    on take the pooled loss (:func:`compute_losses_occupancy_pooled`) with
+    a pool of ``batch * budget`` samples: before that the grid is still
+    culling in and a pool would overflow.  ``"auto"`` sizes the budget from
+    a batch's measured mean survivor demand (``demand * 1.3`` up to a
+    bucket, :func:`~.acceleration.auto_budget_from_demand`), measured again
+    every ``_AUTO_REBUDGET_INTERVAL`` host steps; a change of bucket is
+    printed.  ``pool_t_eps`` > 0 also prunes grid-occluded candidates, which
+    the JAX package measured harmful while the grid still trains.
 
     :param model: the field model; the loop moves it to ``device`` and
         trains its parameters in place.
@@ -232,8 +286,6 @@ class OccupancyTrainLoop:
         mesh: Any = None,
         device: Union[None, str, torch.device] = None,
     ):
-        if pool_budget_per_ray is not None:
-            raise NotImplementedError("the pooled training step " + NOT_PORTED.format(item=4))
         if mesh is not None:
             raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item=9))
         if isinstance(model, NeRFModel) and model.compute_dtype == "bfloat16":
@@ -258,6 +310,13 @@ class OccupancyTrainLoop:
         self.loss_weights = loss_weights if loss_weights is not None else default_loss_weights()
         self.density_penalty = density_penalty
         self.density_penalty_batch_size = density_penalty_batch_size
+        self.pool_budget_per_ray = pool_budget_per_ray
+        self.pool_start_step = pool_start_step
+        self.pool_t_eps = pool_t_eps
+        # The "auto" budget's state (_resolve_pool_budget): reset here and
+        # by load, so a resumed loop measures the loaded grid.
+        self._auto_per_ray: Optional[int] = None
+        self._auto_resolved_at = 0
         self.update_interval = update_interval
         self.update_cells = update_cells
         self.grid_refresh_samples = grid_refresh_samples
@@ -312,18 +371,55 @@ class OccupancyTrainLoop:
 
     # -- steps ------------------------------------------------------------
 
-    def _loss(self, renderer, background, batch, **draws):
-        return compute_losses_occupancy(
-            renderer, background, batch, self.grid_state, self.loss_weights,
-            density_penalty=self.density_penalty,
-            density_penalty_batch_size=self.density_penalty_batch_size, **draws,
-        )
+    def _loss(self, renderer, background, batch, budget: Optional[int] = None, **draws):
+        """The dense loss, or the pooled one with a pool of ``budget``."""
+        common = dict(density_penalty=self.density_penalty,
+                      density_penalty_batch_size=self.density_penalty_batch_size, **draws)
+        if budget is None:
+            return compute_losses_occupancy(
+                renderer, background, batch, self.grid_state, self.loss_weights, **common)
+        return compute_losses_occupancy_pooled(
+            renderer, background, batch, self.grid_state, self.loss_weights, budget,
+            transmittance_eps=self.pool_t_eps, **common)
 
-    def _grad_step(self, batch: Tensor, **draws) -> Dict[str, Tensor]:
-        """THE gradient step: loss and gradients, the norm metrics, the
-        Adam update, the optional EMA."""
+    _AUTO_REBUDGET_INTERVAL = 256  # host steps between demand measurements
+
+    def _pooled(self, host_step: int) -> bool:
+        """Whether the step of index ``host_step`` is pooled."""
+        return self.pool_budget_per_ray is not None and host_step >= self.pool_start_step
+
+    def _resolve_pool_budget(self, batch: Tensor) -> float:
+        """The per-ray pool budget: the configured number, or for
+        ``"auto"`` the bucket of ``demand * 1.3``, where demand is the mean
+        survivor count of ``batch`` under the pooled pass's own selection
+        (``pool_t_eps`` included), measured again once
+        ``_AUTO_REBUDGET_INTERVAL`` host steps have passed since the last
+        measurement.  The budget follows demand both ways; each change of
+        bucket is printed."""
+        if self.pool_budget_per_ray != "auto":
+            return self.pool_budget_per_ray
+        if (self._auto_per_ray is None
+                or self._host_step - self._auto_resolved_at >= self._AUTO_REBUDGET_INTERVAL):
+            self._generator.manual_seed(fold_seed(DEMAND_SEED, 0, self._host_step))
+            demand = float(self.renderer.mean_sample_demand(
+                batch[:, :2], self.grid_state, self.pool_t_eps, generator=self._generator))
+            bucket = auto_budget_from_demand(demand, self.renderer.samples)
+            if bucket != self._auto_per_ray:
+                print(
+                    f"auto pool budget: {bucket} samples/ray at step {self._host_step} "
+                    f"(measured demand {demand:.1f}, was {self._auto_per_ray})",
+                    flush=True,
+                )
+                self._auto_per_ray = bucket
+            self._auto_resolved_at = self._host_step
+        return self._auto_per_ray
+
+    def _grad_step(self, batch: Tensor, budget: Optional[int] = None, **draws) -> Dict[str, Tensor]:
+        """THE gradient step: loss and gradients (pooled with a pool of
+        ``budget`` samples), the norm metrics, the Adam update, the
+        optional EMA."""
         self.optimizer.zero_grad(set_to_none=True)
-        total, values = self._loss(self.renderer, self.background, batch, **draws)
+        total, values = self._loss(self.renderer, self.background, batch, budget, **draws)
         total.backward()
         leaves = self._leaves()
         values = {k: v.detach() for k, v in values.items()}
@@ -374,33 +470,65 @@ class OccupancyTrainLoop:
         if self._refresh_due():
             self._refresh_grid(generator=generator, ids=grid_ids, jitter=grid_jitter)
         self._host_step += 1
+        batch = self._place(batch)
         return self._grad_step(
-            self._place(batch), u=u, density_draws=density_draws, generator=generator
+            batch, self._step_budget(batch), u=u, density_draws=density_draws, generator=generator
         )
+
+    def _step_budget(self, batch: Tensor) -> Optional[int]:
+        """The pool of the step just counted (the JAX loop's
+        ``_dispatch_step``: resolved after the host step's increment), or
+        None for a dense step."""
+        if not self._pooled(self._host_step - 1):
+            return None
+        return int(batch.shape[0] * self._resolve_pool_budget(batch))
 
     def step_auto(self, base_seed: int, batch) -> Dict[str, Tensor]:
         """Hot-loop step: pass the SAME ``base_seed`` every call.  The
         step's draws come from a generator seeded with ``(base_seed, 0,
         train step)``, a grid refresh's with ``(base_seed, 1, host
         step)``; both counters are checkpointed by :meth:`save`."""
+        return self._step_auto(base_seed, batch, self._step_budget)
+
+    def _step_auto(self, base_seed: int, batch, budget_of: Callable[[Tensor], Optional[int]]):
+        """:meth:`step_auto` with the step's pool from ``budget_of(batch)``
+        (None: dense), taken before the step's generator is seeded."""
         if self._refresh_due():
             self._generator.manual_seed(fold_seed(base_seed, GRID_TAG, self._host_step))
             self._refresh_grid(generator=self._generator)
         self._host_step += 1
+        batch = self._place(batch)
+        budget = budget_of(batch)
         self._generator.manual_seed(fold_seed(base_seed, TRAIN_TAG, self.step_count))
-        return self._grad_step(self._place(batch), generator=self._generator)
+        return self._grad_step(batch, budget, generator=self._generator)
 
     def step_auto_many(self, base_seed: int, batches: Sequence) -> Dict[str, Tensor]:
-        """K hot-loop steps, equal to K :meth:`step_auto` calls (a plain
-        loop); returns the LAST step's logging dict.
+        """K hot-loop steps (a plain loop), numerically K :meth:`step_auto`
+        calls, with the JAX loop's macro-step rules: a macro step that
+        straddles ``pool_start_step`` is split there, and each part holds
+        one pool budget, resolved before its first step on its first batch
+        (so the auto budget's re-measure falls on a macro boundary).
+        Returns the LAST step's logging dict.
 
         :param batches: ``[k, N, 3, 3]`` stacked ray batches.
         """
+        batches = list(batches)
+        if not batches:
+            raise ValueError("step_auto_many needs at least one batch")
+        split = self.pool_start_step - self._host_step
+        if self.pool_budget_per_ray is not None and 0 < split < len(batches):
+            self._step_macro(base_seed, batches[:split])
+            return self._step_macro(base_seed, batches[split:])
+        return self._step_macro(base_seed, batches)
+
+    def _step_macro(self, base_seed: int, batches: list) -> Dict[str, Tensor]:
+        budget = None
+        if self._pooled(self._host_step):
+            first = self._place(batches[0])
+            budget = int(first.shape[0] * self._resolve_pool_budget(first))
         values = None
         for batch in batches:
-            values = self.step_auto(base_seed, batch)
-        if values is None:
-            raise ValueError("step_auto_many needs at least one batch")
+            values = self._step_auto(base_seed, batch, lambda _: budget)
         return values
 
     def eval_losses(
@@ -462,9 +590,12 @@ class OccupancyTrainLoop:
             self.grid_state = self.grid.state_from_checkpoint(payload, self.device)
         if "occupancy_host_step" in payload:
             # Both counters: step_auto's seeds fold the train step, the
-            # refresh cadence and its seeds the host step.
+            # refresh cadence, the pooled switchover and the seeds the host
+            # step, so a run saved past pool_start_step resumes pooled.
             self._host_step = int(payload["occupancy_host_step"])
             self.step_count = self._host_step
+        # The auto budget is measured again on the loaded grid.
+        self._auto_per_ray, self._auto_resolved_at = None, 0
 
     def save_full(self, path: str) -> None:
         raise NotImplementedError("full-state checkpoints (save_full) " + NOT_PORTED.format(item=8))

@@ -31,7 +31,10 @@ backward within 5e-6 of each gradient's max against autograd through
 (the chunk loop) with a last block that is part full, with one bin width
 per ray or one per sample, with 0, 3 and 5 extras; finite differences on a
 tiny case within 2e-2 (f32 differences of step 1e-2); the background's
-gradient bit-equal across runs; the refusal of more than 8 extras.
+gradient bit-equal across runs; the refusal of more than 8 extras.  The
+same kernels in the pool layout, to the same bounds, with zero gradients
+on the pool's tail, a pool that cuts the trailing rays and K = 1, 32, 33,
+64, and their background's gradient bit-equal across runs.
 """
 
 import numpy as np
@@ -531,3 +534,57 @@ def test_composite_refuses_what_its_kernels_do_not_take(cuda):
         kc.render_composite(*leaves[:4], mask, torch.zeros(4, 65, 9, device=cuda))
     with pytest.raises(ValueError, match="want deltas"):
         kc.render_composite(leaves[0], leaves[1][:, :0], *leaves[2:4], mask)
+
+
+def _pooled_inputs(cuda, seed, n, k, rows, extras=3):
+    """A pool of ``rows`` whose rays own 0 to k rows each (clamped at the
+    pool's end), leaves that require grad, the rest, the cotangents."""
+    rng = np.random.RandomState(seed)
+    counts = rng.randint(0, k + 1, n)
+    starts = np.concatenate([[0], np.minimum(np.cumsum(counts), rows)]).astype(np.int32)
+    values = [(rng.uniform(0, 12, rows) * (rng.rand(rows) < 0.8)).astype(np.float32),
+              rng.uniform(-1, 1, (rows, 3)).astype(np.float32), np.array([-1.0, 0.3, 1.0], np.float32),
+              rng.uniform(-1, 1, (rows, extras)).astype(np.float32)]
+    leaves = [t(a).to(cuda).requires_grad_() for a in values]
+    rest = (t(starts).to(cuda), t(rng.uniform(0.5 / k, 4.0 / k, (n, 1)).astype(np.float32)).to(cuda),
+            t(rng.rand(n) < 0.9).to(cuda))
+    cotangents = [t(rng.randn(*s).astype(np.float32)).to(cuda) for s in ((n, 3), (n, 1), (n, extras))]
+    return leaves, rest, cotangents
+
+
+def _pooled(route, leaves, rest, k):
+    densities, rgbs, background, extras = leaves
+    starts, deltas, mask = rest
+    return route(densities, starts, deltas, rgbs, background, mask, extras, k)
+
+
+@pytest.mark.parametrize("extras", [3, 5])
+@pytest.mark.parametrize("n,k,rows", [(4096, 32, 4096 * 16), (4097, 32, 30000), (4099, 64, 4099 * 40),
+                                      (3, 1, 2), (1, 33, 40)])
+def test_pooled_composite_kernels_match_plain_version(cuda, n, k, rows, extras):
+    """The pool layout against its plain version: a part-full tail (zero
+    gradients there), a pool that cuts the trailing rays, K = 1, 33, 64."""
+    leaves, rest, cotangents = _pooled_inputs(cuda, n + k, n, k, rows, extras)
+    before = (kc.pooled_counter.launches, kc.pooled_backward_counter.launches)
+    outs = _pooled(kc.render_composite_pooled, leaves, rest, k)
+    grads = torch.autograd.grad(outs, leaves, cotangents)
+    torch.cuda.synchronize()
+    assert (kc.pooled_counter.launches, kc.pooled_backward_counter.launches) == (before[0] + 1, before[1] + 1)
+    assert kc.pooled_counter.plain_calls == 0
+    ref = _pooled(kc.render_composite_pooled_reference, leaves, rest, k)
+    ref_grads = torch.autograd.grad(ref, leaves, cotangents)
+    for out, want in zip(outs, ref):
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
+    assert max(_relative_errors(grads, ref_grads)) <= 5e-6
+    tail = int(rest[0][-1])
+    assert all(g[tail:].abs().max().item() == 0 for g in (grads[0], grads[1], grads[3]) if g.shape[0] > tail)
+
+
+def test_pooled_composite_background_gradient_is_the_same_every_run(cuda):
+    leaves, rest, cotangents = _pooled_inputs(cuda, 15, 8192, 32, 8192 * 6)
+    plain = [v.detach() for v in leaves]
+    runs = [_pooled(lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None), plain, rest, 32)[2]
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    assert kc._scratch[plain[0].device][0].item() == 0

@@ -240,6 +240,9 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.kernels.composite\n"
         "import learn_nerf_tpu_torch.scripts.composite_ablations\n"
         "import learn_nerf_tpu_torch.scripts.profile_trees\n"
+        "import learn_nerf_tpu_torch.scripts.eval_psnr\n"
+        "import learn_nerf_tpu_torch.utils.metrics\n"
+        "import learn_nerf_tpu_torch.utils.progress\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )

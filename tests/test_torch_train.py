@@ -468,8 +468,6 @@ def test_fold_seed_is_a_pure_function_of_its_arguments():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(pool_budget_per_ray=4.0), "item 4"),
-    (dict(pool_budget_per_ray="auto"), "item 4"),
     (dict(mesh=object()), "item 9"),
 ])
 def test_unported_loop_options_raise(kwargs, match):

@@ -136,8 +136,6 @@ def test_create_model_returns_the_ngp_adam_settings(scene):
     (["--instant_ngp"], "without --occupancy"),
     (["--instant_ngp", "--occupancy", "--ref_nerf"], "--ref_nerf"),
     (["--instant_ngp", "--occupancy", "--full_state_path", "s.msgpack"], "--full_state_path"),
-    (["--instant_ngp", "--occupancy", "--occ_train_budget", "auto"], "--occ_train_budget"),
-    (["--instant_ngp", "--occupancy", "--occ_train_budget", "8"], "--occ_train_budget"),
     (["--instant_ngp", "--occupancy", "--coordinator_address", "localhost:1"], "--coordinator_address"),
     (["--instant_ngp", "--occupancy", "--num_processes", "2"], "--num_processes"),
     (["--instant_ngp", "--occupancy", "--profile_dir", "p"], "--profile_dir"),
