@@ -51,13 +51,22 @@ nonzero):
    times, and each kernel's bound (the least time of its bytes at the HBM
    rate or of its operations at the peak rate of their type); ptxas must
    report no spills for the two MLP kernels;
+   the baked lookup at the JAX README's ``--baked 384``: the serving
+   scene's fine NGP field baked to 384^3 in bf16 on the card (its seconds,
+   and each pack's), the kernel against its plain version at packs 1, 2, 4
+   and 8 on 2^20 random points and 2^20 points along rays, on an f32
+   table, on the bbox's faces and beyond, on lattice vertices, at r = 2 and
+   3 and at 1, 31, 32, 33 and 2^20 - 37 points, every pack bit-equal to
+   pack 1, with a check that the bound catches a z-major corner order and
+   a row offset by one, timed at each pack beside ``grid_sample``;
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
    occupancy grid with empty and occupied cells); the kernel route of each
    render mode (vanilla: hierarchy, occupancy; NGP: hierarchy, fixed-K
-   occupancy, pooled) against the plain route on the CPU on a small view,
-   with the same uniforms; one full-width Instant-NGP train step's loss
+   occupancy, pooled, and baked pooled and baked fixed-K, whose CPU session
+   serves the card's bake) against the plain route on the CPU on a small
+   view, with the same uniforms; one full-width Instant-NGP train step's loss
    and gradients on the card (kernel route) against the plain route on the
    CPU, with no table left without its gradient, dense and pooled (at the
    batch's auto budget), and the pooled step at a budget that holds every
@@ -65,12 +74,16 @@ nonzero):
 4. the port's ``serve_nerf`` in a thread, vanilla with ``--bf16`` in
    hierarchy and occupancy mode, and NGP in f32 (the CLI default) in
    hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
-   --occ_t_eps 1e-2``): three ``POST /render`` requests each at 256x256,
+   --occ_t_eps 1e-2``), baked pooled (the same with ``--baked 384
+   --baked_pack 4``, serve_nerf's own example) and baked fixed-K
+   (``--baked 384``): three ``POST /render`` requests each at 256x256,
    each answered 200 with a PNG of that shape, with latencies;
 5. every kernel of each mode launched during its serve phase (fused_mlp,
-   fused_render, the encode kernel in the three NGP modes, the composite
-   kernel in both hierarchy modes, twice a tile, and in fixed-K NGP, its
-   pool layout in pooled NGP), and no plain version called there;
+   fused_render, the encode kernel in the three live NGP modes, the
+   composite kernel in both hierarchy modes, twice a tile, and in fixed-K
+   NGP, its pool layout in pooled NGP, the baked lookup once a tile in
+   the baked modes, whose encode kernel ran in the bake and never while
+   serving), and no plain version called there or in the set-up;
 6. a posed dataset of its own (views of the ball the occupancy grid
    models, coloured by position) and the port's ``train_nerf --instant_ngp
    --occupancy`` on it at full width (16 levels of 2^18 rows, 192 -> 32
@@ -82,9 +95,11 @@ nonzero):
    switch): the pool-layout pair launched on every step from 36 on and on
    no other, ``fine_pool_dropped`` 0 on every pooled step; both
    checkpoints scored by the port's ``eval_psnr`` on two held-out views
-   (the pooled run's shortfall bounded) and served (the pooled one with
-   ``--occ_budget_per_ray auto``); steps/s and rays/s over the last 64 and
-   48 steps.
+   (the pooled run's shortfall bounded), the dense one also baked
+   (``--baked 384 --baked_pack 4``: its shortfall against the live score
+   bounded, its frames' PSNR against the live frames printed), and both
+   served (the pooled one with ``--occ_budget_per_ray auto``); steps/s and
+   rays/s over the last 64 and 48 steps.
 
 It prints the card line and one JSON line of kernel results, then, as its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -94,7 +109,7 @@ exits nonzero before printing any result.
 
 adds, after phase 5, one JSON line per render mode and numerics mode
 (vanilla hierarchy and occupancy, ``--bf16`` and f32; the three NGP modes
-in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
+and the two baked modes in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
 scene and view size: median latency, one profiled render's device time,
 idle share, top kernels and the port's own kernels' share; and one such
 line for the train step from ``scripts.profile_train``, and two (the dense
@@ -104,6 +119,7 @@ and the pooled step on ``bench_pooled``'s frozen grid) from
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import re
@@ -249,12 +265,38 @@ POOLED_PSNR_SHORTFALL = 0.05
 # through the density head's bias): rays crossing the occupied ball reach
 # optical depth ~1-3.
 NGP_DENSITY = 2.5
+# The JAX README's baked serving (--baked 384, bf16) of the serving scene's
+# fine NGP field, the kernel at 2^20 points, and serve_nerf's own example
+# (pack 4) as the main path's pack.  The kernel sums the 8 weighted
+# corners in corner order, the plain version in PyTorch's: measured up to
+# 3.6e-7 on an H100 over the cases of check_baked_kernel (the features are
+# O(1)); the bound is about three times that.  A z-major corner order and a row offset by one must
+# move the output by at least SCAN_MARGIN times it.
+BAKE_RESOLUTION, BAKED_PACK = 384, 4
+BAKED_POINTS = 1 << 20
+BAKED_EDGE_POINTS = (1, 31, 32, 33, BAKED_POINTS - 37)
+BAKED_BOUND = 1e-6
+# eval_psnr on the dense trained checkpoint baked (--baked 384
+# --baked_pack 4) against live, on the same held-out views: three runs on
+# an H100 measured the baked shortfall at -0.002, -0.001 and -0.002 dB
+# (the baked field scored higher) and the baked frames at 46.1-46.6 dB
+# against the live frames; the bound is about five times the largest
+# shortfall, and a wrong table layout would bring the frames far below
+# the floor.
+BAKED_PSNR_SHORTFALL = 0.01
+BAKED_FRAME_PSNR = 40.0
 VANILLA_MODES = {"hierarchy": [], "occupancy": ["--occupancy"]}
 NGP_MODES = {
     "ngp hierarchy": ["--instant_ngp"],
     "ngp occupancy": ["--instant_ngp", "--occupancy"],
     "ngp pooled": ["--instant_ngp", "--occupancy", "--occ_budget_per_ray", "auto",
                    "--occ_t_eps", "1e-2"],
+}
+BAKED_EVAL_FLAGS = ["--baked", str(BAKE_RESOLUTION), "--baked_pack", str(BAKED_PACK)]
+BAKED_MODES = {
+    "ngp baked pooled": [*NGP_MODES["ngp pooled"], "--baked", str(BAKE_RESOLUTION), "--baked_pack",
+                         str(BAKED_PACK)],
+    "ngp baked occupancy": [*NGP_MODES["ngp occupancy"], "--baked", str(BAKE_RESOLUTION)],
 }
 
 
@@ -1194,6 +1236,178 @@ def check_pooled_composite_kernels(device, rng):
     return [forward, backward]
 
 
+def baked_vertices(pts, r, lo, hi):
+    """The distinct lattice vertices the lookups of ``pts`` read."""
+    from learn_nerf_tpu_torch.ops.hashgrid import corner_weights_and_coords
+
+    coords, _ = corner_weights_and_coords(pts, r, lo, hi, smooth=False)
+    return torch.unique(coords[..., 0] + r * (coords[..., 1] + r * coords[..., 2])).numel()
+
+
+def twisted_lookup(grid, pts, r, pack, lo, hi, twist):
+    """The plain lookup with one deliberate fault: the x and z corner bits
+    swapped (a z-major corner order), or every row read one row on."""
+    from learn_nerf_tpu_torch.ops.hashgrid import corner_weights_and_coords
+
+    coords, weights = corner_weights_and_coords(pts, r, lo, hi, smooth=False)
+    rows = coords[:, ::pack]
+    idx = rows[..., 0] + r * (rows[..., 1] + r * rows[..., 2])
+    if twist == "row + 1":
+        idx = (idx + 1).clamp(max=r**3 - 1)
+    else:
+        weights = weights[:, [0, 4, 2, 6, 1, 5, 3, 7]]
+    feats = grid.index_select(0, idx.reshape(-1)).float().view(len(pts), 8, -1)
+    return (weights[..., None] * feats).sum(dim=-2)
+
+
+def baked_edge_points(rng, lo, hi, r, device):
+    """Points on the bbox's faces, beyond them, on lattice vertices, and the
+    last 1, 31, 32, 33 and 2^20 - 37 of a random draw."""
+    lo_t, hi_t = np.array(lo, np.float32), np.array(hi, np.float32)
+    inside = rng.uniform(lo_t, hi_t, (4096, 3)).astype(np.float32)
+    faces = inside.copy()
+    axis = rng.randint(0, 3, len(faces))
+    faces[np.arange(len(faces)), axis] = np.where(rng.rand(len(faces)) < 0.5, lo_t[axis], hi_t[axis])
+    outside = inside + np.sign(inside) * rng.uniform(0.0, 0.5, inside.shape).astype(np.float32)
+    ids = rng.randint(0, r, (4096, 3))
+    vertices = (lo_t + ids.astype(np.float32) / (r - 1) * (hi_t - lo_t)).astype(np.float32)
+    draw = rng.uniform(-0.75, 0.75, (BAKED_POINTS, 3)).astype(np.float32)
+    cases = {"bbox faces": faces, "outside the bbox": outside, "lattice vertices": vertices}
+    cases.update({f"{n} points": draw[-n:] for n in BAKED_EDGE_POINTS})
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in cases.items()}
+
+
+def check_baked_kernel(root, device, rng):
+    """The baked lookup at the README's ``--baked 384``: the serving scene's
+    fine NGP tree baked to 384^3 in bf16 on the card, then the kernel against
+    its plain version at packs 1, 2, 4 and 8 on 2^20 random points and on
+    2^20 points along rays, on an f32 table, on the bbox's faces and beyond,
+    on lattice vertices, at r = 2 and 3 and at the edges of its thread grid;
+    every pack bit-equal to pack 1; timed beside ``grid_sample``."""
+    from learn_nerf_tpu_torch import baked
+    from learn_nerf_tpu_torch.checkpoint import load_params_pickle, ngp_params_from_flax
+    from learn_nerf_tpu_torch.kernels import baked as kbaked
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.models import InstantNGPModel
+
+    grids, tables = fine_schedule(FINE_LEVELS)
+    model = InstantNGPModel(table_sizes=tables, grid_sizes=grids, bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3)
+    model.load_state_dict(ngp_params_from_flax(load_params_pickle(str(root / "ngp.pkl"))["fine"]))
+    model = model.to(device).eval()
+    r = BAKE_RESOLUTION
+    encodes = ke.counter.launches
+    t0 = time.perf_counter()
+    table = baked.bake_instant_ngp(model, r, torch.bfloat16, pack=1).grid
+    bake_s = time.perf_counter() - t0
+    require(ke.counter.launches > encodes and torch.isfinite(table).all().item(),
+            "the bake did not run the encode kernel, or its table is not finite")
+    del model
+    lo, hi = (-0.7,) * 3, (0.7,) * 3
+    lookup = lambda grid, pts, p, res=r: kbaked.launch_lookup(grid, pts, res, p, lo, hi)
+    plain = lambda grid, pts, p, res=r: kbaked.baked_lookup_reference(grid, pts, res, p, lo, hi)
+
+    x = torch.from_numpy(rng.uniform(-0.75, 0.75, (BAKED_POINTS, 3)).astype(np.float32)).to(device)
+    ray_x = torch.from_numpy(ray_points(rng, BAKED_POINTS // 128, 128, 0.01, -0.7, 0.7)).to(device)
+    inputs = {"random": x, "along rays": ray_x, **baked_edge_points(rng, lo, hi, r, device)}
+    small = {res: torch.from_numpy(rng.uniform(-1, 1, (res**3, 16)).astype(np.float32)).to(device).to(torch.bfloat16)
+             for res in (2, 3)}
+    base = {name: lookup(table, pts, 1) for name, pts in inputs.items()}
+    base.update({f"r = {res}": lookup(t, x[:4096], 1, res) for res, t in small.items()})
+    errs, unequal, packs, pack_s = {}, [], {}, {}
+    # The least bytes at any pack: one copy of each distinct lattice vertex
+    # a point needs (16 features each), the points and the output.  A
+    # pack-p table holds each vertex in up to p rows, of which a lookup
+    # needs one.
+    least = lambda pts: baked_vertices(pts, r, lo, hi) * 16 * table.element_size() + nbytes(pts) + len(pts) * 16 * 4
+    bound_ms, bound_rays_ms = bound(least(x))[0], bound(least(ray_x))[0]
+    for p in baked.PACKS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid = table if p == 1 else baked.pack_baked_grid(table, r, p)
+        torch.cuda.synchronize()
+        pack_s[p] = time.perf_counter() - t0
+        cases = [(name, grid, pts, r) for name, pts in inputs.items()]
+        cases += [(f"r = {res}", baked.pack_baked_grid(t, res, p), x[:4096], res) for res, t in small.items()]
+        for name, g, pts, res in cases:
+            out = lookup(g, pts, p, res)
+            torch.cuda.synchronize()
+            require(torch.isfinite(out).all().item() and out.shape == (len(pts), 16),
+                    f"baked_lookup (pack {p}, {name}): non-finite values or the wrong shape")
+            errs[f"pack {p}, {name}"] = (out - plain(g, pts, p, res)).abs().max().item()
+            if not torch.equal(out, base[name]):
+                unequal.append(f"pack {p}, {name}")
+            del out
+        packs[p] = dict(
+            ms=cuda_ms(lambda: lookup(grid, x, p), 20), ms_rays=cuda_ms(lambda: lookup(grid, ray_x, p), 20),
+            bound_ms=bound_ms, bound_rays_ms=bound_rays_ms,
+        )
+        if p == BAKED_PACK:
+            plain_ms = cuda_ms(lambda: plain(grid, x, p), 3)
+        del grid, cases
+        torch.cuda.empty_cache()
+
+    # An f32 table of the same values gives the same bits (bf16 -> f32 is
+    # exact and the sums are the same).
+    wide = table.float()
+    out = lookup(wide, x, 1)
+    torch.cuda.synchronize()
+    errs["f32 table, pack 1"] = (out - plain(wide, x, 1)).abs().max().item()
+    if not torch.equal(out, base["random"]):
+        unequal.append("f32 table, pack 1")
+    f32_ms = cuda_ms(lambda: lookup(wide, x, 1), 20)
+    del wide, out
+    torch.cuda.empty_cache()
+
+    ref = plain(table, x, 1)
+    moves = {twist: (twisted_lookup(table, x, r, 1, lo, hi, twist) - ref).abs().max().item()
+             for twist in ("corner order", "row + 1")}
+    # The library call for the same function: grid_sample on the table as a
+    # [1, F, z, y, x] volume, the points scaled to [-1, 1].  It takes the
+    # volume and the points in one dtype: in f32 it computes this lookup
+    # (up to its own rounding of the positions); on the bf16 volume the
+    # points round to bf16 too, a coarser function, timed for comparison.
+    volume = table.view(r, r, r, 16).permute(3, 0, 1, 2).contiguous()[None]
+    coords = ((x - torch.tensor(lo, device=device)) / (hi[0] - lo[0]) * 2 - 1).view(1, -1, 1, 1, 3)
+    sample = lambda v, c: torch.nn.functional.grid_sample(v, c, mode="bilinear", padding_mode="border",
+                                                          align_corners=True)
+    bf16_coords = coords.to(torch.bfloat16)
+    library_bf16_ms = cuda_ms(lambda: sample(volume, bf16_coords), 10)
+    volume = volume.float()
+    library_err = (sample(volume, coords).view(16, -1).t() - ref).abs().max().item()
+    library_ms = cuda_ms(lambda: sample(volume, coords), 10)
+    del volume, coords, bf16_coords, ref
+    torch.cuda.empty_cache()
+
+    main = packs[BAKED_PACK]
+    result = dict(
+        name="baked_lookup", route="cuda", source="learn_nerf_tpu_torch/csrc/baked.cu",
+        replaces="learn_nerf_tpu/baked.py:109-162 (XLA)", max_abs_err=max(errs.values()),
+        ms=main["ms"], ms_rays=main["ms_rays"], plain_ms=plain_ms, bound_ms=main["bound_ms"],
+        bound_by="bytes", library_ms=library_ms,
+        shapes={f"pack {p}": e for p, e in packs.items()},
+    )
+    print(f"baked_lookup at {r}^3 x 16 bf16 (bake {bake_s:.3f} s on the card; packing "
+          + ", ".join(f"{p}: {s:.3f} s" for p, s in pack_s.items() if p > 1)
+          + f"): max abs err {result['max_abs_err']:.3e} (bound {BAKED_BOUND:g}) over "
+          f"{len(errs)} cases (packs 1-8 x random, along rays, bbox faces, outside, vertices, "
+          f"{BAKED_EDGE_POINTS} points, r = 2 and 3; f32 table); every pack bit-equal to pack 1: "
+          f"{not unequal} {unequal}; a z-major corner order moves the output by {moves['corner order']:.3e}, "
+          f"a row offset by one by {moves['row + 1']:.3e}; "
+          + "; ".join(f"pack {p} {e['ms']:.4f} ms random ({100 * e['bound_ms'] / e['ms']:.1f} % of "
+                      f"{e['bound_ms']:.4f}), {e['ms_rays']:.4f} ms along rays ({100 * e['bound_rays_ms'] / e['ms_rays']:.1f} % "
+                      f"of {e['bound_rays_ms']:.4f})" for p, e in packs.items())
+          + f"; f32 table pack 1 {f32_ms:.4f} ms; plain (pack {BAKED_PACK}) {plain_ms:.3f} ms; grid_sample "
+          f"{library_ms:.4f} ms on the f32 volume (differs from the plain lookup by {library_err:.3e}), "
+          f"{library_bf16_ms:.4f} ms on the bf16 volume with bf16 points", flush=True)
+    require(result["max_abs_err"] <= BAKED_BOUND, "baked_lookup disagrees with its plain version")
+    require(not unequal, f"baked_lookup differs from pack 1 in {unequal}")
+    require(min(moves.values()) >= SCAN_MARGIN * BAKED_BOUND,
+            f"baked_lookup's bound {BAKED_BOUND:g} would not catch a wrong corner order or row")
+    del table
+    torch.cuda.empty_cache()
+    return result
+
+
 @contextlib.contextmanager
 def plain_routes():
     """Inside, the port takes its plain versions for CUDA tensors too (the
@@ -1372,6 +1586,7 @@ def write_train_scene(root, rng, views=TRAIN_VIEWS):
 
 
 def kernel_counters():
+    from learn_nerf_tpu_torch.kernels import baked as kbaked
     from learn_nerf_tpu_torch.kernels import composite as kc
     from learn_nerf_tpu_torch.kernels import fused_mlp as fm
     from learn_nerf_tpu_torch.kernels import fused_render as fr
@@ -1384,7 +1599,7 @@ def kernel_counters():
                 hashgrid_corners=kh.counter, hashgrid_encode=ke.counter,
                 hashgrid_backward=kb.counter, composite=kc.counter,
                 composite_backward=kc.backward_counter, composite_pooled=kc.pooled_counter,
-                composite_pooled_backward=kc.pooled_backward_counter)
+                composite_pooled_backward=kc.pooled_backward_counter, baked_lookup=kbaked.counter)
 
 
 @contextlib.contextmanager
@@ -1452,18 +1667,39 @@ def train_run(root, name, flags, checkpoint):
     return counts, steps, rate
 
 
-def evaluate(root, checkpoint):
+def evaluate(root, checkpoint, flags=()):
     """The port's eval_psnr over the held-out views; the mean PSNR."""
     from learn_nerf_tpu_torch.scripts import eval_psnr
 
     argv = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--batch_size", "8192",
-            "--model_path", str(root / checkpoint), str(root / "heldout")]
+            "--model_path", str(root / checkpoint), *flags, str(root / "heldout")]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         scores, ssims = eval_psnr.main(argv)
     mean = float(re.search(r"mean_psnr=(\S+)", log.getvalue()).group(1))
     require(len(scores) == HELDOUT_VIEWS and np.isfinite(scores).all(), f"eval_psnr on {checkpoint}: {scores}")
     return mean, scores, ssims
+
+
+def baked_fidelity(root, checkpoint):
+    """PSNR of each held-out view's baked frame (``--baked 384
+    --baked_pack 4``) against its live frame, the same seed for both."""
+    from learn_nerf_tpu_torch.data.dataset import load_dataset
+    from learn_nerf_tpu_torch.scripts import render_nerf
+    from learn_nerf_tpu_torch.utils.metrics import psnr
+
+    views = load_dataset(str(root / "heldout")).views
+    frames = []
+    for flags in ([], BAKED_EVAL_FLAGS):
+        argv = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--batch_size", "8192",
+                "--model_path", str(root / checkpoint), *flags, str(root / "heldout" / "metadata.json")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            session = render_nerf.RenderSession(render_nerf.argparser().parse_args(argv))
+            frames.append([session.render_view(v, width=v.image().shape[1], height=v.image().shape[0])
+                           for v in views])
+        del session
+        torch.cuda.empty_cache()
+    return [psnr(baked, live) for live, baked in zip(*frames)]
 
 
 def train_phase(root, profile):
@@ -1513,12 +1749,22 @@ def train_phase(root, profile):
           f"({[round(v, 3) for v in pooled_scores]}); the pooled run's shortfall {shortfall:.3f} dB (bound "
           f"{POOLED_PSNR_SHORTFALL:g} dB)", flush=True)
     require(shortfall <= POOLED_PSNR_SHORTFALL, "the pooled run fell short of the dense run's PSNR")
+    baked_psnr, baked_scores, _ = evaluate(root, "trained.pkl", BAKED_EVAL_FLAGS)
+    fidelity = baked_fidelity(root, "trained.pkl")
+    baked_shortfall = dense_psnr - baked_psnr
+    print(f"eval_psnr {' '.join(BAKED_EVAL_FLAGS)} on the dense run: mean_psnr={baked_psnr:.3f} "
+          f"({[round(float(v), 3) for v in baked_scores]}); the baked shortfall {baked_shortfall:.3f} dB (bound "
+          f"{BAKED_PSNR_SHORTFALL:g} dB); the baked frames against the live frames: PSNR "
+          f"{[round(float(v), 3) for v in fidelity]} dB (floor {BAKED_FRAME_PSNR:g} dB)", flush=True)
+    require(baked_shortfall <= BAKED_PSNR_SHORTFALL, "the baked field fell short of the live field's PSNR")
+    require(min(fidelity) >= BAKED_FRAME_PSNR, f"the baked frames are under {BAKED_FRAME_PSNR:g} dB "
+            "against the live frames")
 
-    served = serve_mode(root, "trained ngp occupancy", NGP_MODES["ngp occupancy"], bf16=False,
-                        checkpoint="trained.pkl", requests=1)
-    served_pooled = serve_mode(root, "trained ngp pooled", ["--instant_ngp", "--occupancy", "--occ_budget_per_ray",
-                                                            "auto"], bf16=False, checkpoint="trained_pooled.pkl",
-                               requests=1)
+    served, _ = serve_mode(root, "trained ngp occupancy", NGP_MODES["ngp occupancy"], bf16=False,
+                           checkpoint="trained.pkl", requests=1)
+    served_pooled, _ = serve_mode(root, "trained ngp pooled", ["--instant_ngp", "--occupancy",
+                                                               "--occ_budget_per_ray", "auto"],
+                                  bf16=False, checkpoint="trained_pooled.pkl", requests=1)
     if profile:
         args = profile_train.argparser().parse_args([*flags, str(root / "train")])
         result = profile_train.profile_args(args)
@@ -1617,6 +1863,23 @@ def write_scene(root, rng):
     return views
 
 
+@contextlib.contextmanager
+def baked_on_cpu(field):
+    """Inside, with ``field`` given, ``render_nerf``'s sessions take a CPU
+    copy of ``field`` as their bake in place of baking their own."""
+    from learn_nerf_tpu_torch.scripts import render_nerf
+
+    if field is None:
+        yield
+        return
+    bake = render_nerf.apply_baking
+    render_nerf.apply_baking = lambda args, fine: copy.deepcopy(field).cpu()
+    try:
+        yield
+    finally:
+        render_nerf.apply_baking = bake
+
+
 def check_frames(root, views, device, rng, modes, bf16):
     """The kernel route (card) against the plain route (CPU) on a 16x16
     view through each mode's frame renderer, with the same uniforms (and,
@@ -1630,7 +1893,11 @@ def check_frames(root, views, device, rng, modes, bf16):
         argv = [*(["--bf16"] if bf16 else []), "--model_path", str(root / checkpoint_name(mode)),
                 *mode, str(root / "metadata.json")]
         args = render_nerf.argparser().parse_args(argv)
-        sessions = [render_nerf.RenderSession(args, device=dev) for dev in (device, torch.device("cpu"))]
+        card = render_nerf.RenderSession(args, device=device)
+        # A baked mode's CPU session serves the card's bake (a CPU bake of
+        # 384^3 vertices through 16 hash-grid levels would take minutes).
+        with baked_on_cpu(card.field if "--baked" in mode else None):
+            sessions = [card, render_nerf.RenderSession(args, device=torch.device("cpu"))]
         r = sessions[0].renderer
         occupancy = "--occupancy" in mode
         if occupancy:
@@ -1697,7 +1964,7 @@ def profile_modes(root):
 
     view = CameraView.from_json(str(root / "0000.json"))
     runs = [(name, mode, bf16) for name, mode in VANILLA_MODES.items() for bf16 in (True, False)]
-    runs += [(name, mode, False) for name, mode in NGP_MODES.items()]
+    runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES}.items()]
     for name, mode, bf16 in runs:
         argv = mode_flags(root, mode, bf16) + [str(root / "metadata.json")]
         session = render_nerf.RenderSession(render_nerf.argparser().parse_args(argv))
@@ -1710,12 +1977,16 @@ def profile_modes(root):
 
 def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS):
     """Serve, send the requests, return ``{kernel: (launches, plain
-    calls)}`` of the serve phase."""
+    calls)}`` of the serve phase and of the server's set-up (the bake in a
+    baked mode)."""
     from learn_nerf_tpu_torch.scripts import serve_nerf
 
     counters = kernel_counters()
     argv = mode_flags(root, mode, bf16, checkpoint) + ["--port", "0", str(root / "metadata.json")]
+    for c in counters.values():
+        c.reset()
     server = serve_nerf.make_server(serve_nerf.argparser().parse_args(argv))
+    setup = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address[:2]
@@ -1741,12 +2012,13 @@ def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS):
         thread.join(timeout=30)
     require(not thread.is_alive(), "server thread did not stop")
     pool_note = f"; last frame's pool {pool}" if pool else ""
+    setup_note = {k: v for k, v in setup.items() if v != (0, 0)}
     print(f"serve {name}{' --bf16' if bf16 else ''} {SIDE}x{SIDE}: latencies ms "
-          f"{[round(v, 3) for v in latencies]}; (launches, plain calls) {counts}{pool_note}",
-          flush=True)
-    require(all(plain == 0 for _, plain in counts.values()),
-            f"{name} serving called a plain version: {counts}")
-    return counts
+          f"{[round(v, 3) for v in latencies]}; (launches, plain calls) {counts}{pool_note}; "
+          f"set-up {setup_note}", flush=True)
+    require(all(plain == 0 for _, plain in [*counts.values(), *setup.values()]),
+            f"{name} serving or its set-up called a plain version: {counts}, {setup}")
+    return counts, setup
 
 
 def main():
@@ -1801,13 +2073,20 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
         root = Path(tmp)
         views = write_scene(root, rng)
+        kernels.append(check_baked_kernel(root, device, np.random.RandomState(SEED + 11)))
         check_frames(root, views, device, rng, VANILLA_MODES, bf16=True)
         check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
+        check_frames(root, views, device, np.random.RandomState(SEED + 12), BAKED_MODES, bf16=False)
+        torch.cuda.empty_cache()
         write_train_scene(root / "train", np.random.RandomState(SEED + 7))
         check_train_step(root, device, np.random.RandomState(SEED + 8))
         torch.cuda.empty_cache()
-        served = {name: serve_mode(root, name, mode, bf16=True) for name, mode in VANILLA_MODES.items()}
-        served.update({name: serve_mode(root, name, mode, bf16=False) for name, mode in NGP_MODES.items()})
+        served, setups = {}, {}
+        runs = [(name, mode, True) for name, mode in VANILLA_MODES.items()]
+        runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES}.items()]
+        for name, mode, bf16 in runs:
+            served[name], setups[name] = serve_mode(root, name, mode, bf16)
+            torch.cuda.empty_cache()
         if args.profile:
             profile_modes(root)
         served.update(train_phase(root, args.profile))
@@ -1830,6 +2109,20 @@ def main():
         require(served[name]["composite"][0] == 2 * tiles * REQUESTS,
                 f"{name} serving launched composite {served[name]['composite'][0]} times, not "
                 f"{2 * tiles * REQUESTS} (2 a tile)")
+    # A baked mode bakes once, in the server's set-up (the encode kernel), then
+    # serves every tile of 8192 rays through one baked lookup and never
+    # encodes.
+    baked_tiles = -(-SIDE * SIDE // 8192)
+    for name in BAKED_MODES:
+        counts, setup = served[name], setups[name]
+        require(setup["hashgrid_encode"][0] > 0 and setup["baked_lookup"][0] == 0,
+                f"{name}: the server's set-up did not bake on the card: {setup}")
+        require(counts["hashgrid_encode"][0] == 0, f"{name} serving ran the hash-grid encoding: {counts}")
+        lookups = counts["baked_lookup"][0]
+        require(lookups == baked_tiles * REQUESTS,
+                f"{name} serving launched baked_lookup {lookups} times, not once a tile ({baked_tiles * REQUESTS})")
+    require(served["ngp baked pooled"]["composite_pooled"][0] > 0
+            and served["ngp baked occupancy"]["composite"][0] > 0, "a baked mode did not composite on the card")
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",

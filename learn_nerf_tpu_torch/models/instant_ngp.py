@@ -26,6 +26,15 @@ Tensor = torch.Tensor
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
 
+def flax_dense(layer: nn.Linear, x: Tensor, compute_dtype: str) -> Tensor:
+    """``layer(x)`` as flax's ``Dense(dtype=compute_dtype)`` computes it: in
+    bf16, bf16 operands, the product rounded to bf16, then a bf16 bias add."""
+    if compute_dtype == "bfloat16":
+        bf16 = torch.bfloat16
+        return torch.matmul(x.to(bf16), layer.weight.to(bf16).t()) + layer.bias.to(bf16)
+    return layer(x)
+
+
 class HashGridEncoding(nn.Module):
     """Owns one ``table_{i}`` parameter per level (flax's
     ``HashGridEncoding_0/table_i``), initialized uniform in +-1e-4."""
@@ -116,12 +125,7 @@ class InstantNGPModel(FieldModel):
         return dict(density_layers=len(self.density_layers))
 
     def _dense(self, layer: nn.Linear, x: Tensor) -> Tensor:
-        if self.compute_dtype == "bfloat16":
-            # flax Dense(dtype=bfloat16): bf16 operands, the product rounded
-            # to bf16, then a bf16 bias add.
-            bf16 = torch.bfloat16
-            return torch.matmul(x.to(bf16), layer.weight.to(bf16).t()) + layer.bias.to(bf16)
-        return layer(x)
+        return flax_dense(layer, x, self.compute_dtype)
 
     def forward(self, x: Tensor, d: Tensor, spatial_only: bool = False):  # -> FieldOutput
         """``(density [..., 1], rgb [..., 3], {})``; with ``spatial_only``

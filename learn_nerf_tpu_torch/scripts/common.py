@@ -8,6 +8,8 @@ accepted by the parser and refused by :func:`check_ported` with
 """
 
 import argparse
+import hashlib
+import os
 import random
 from typing import Any, Dict, Optional, Tuple
 
@@ -15,6 +17,14 @@ import numpy as np
 import torch
 
 from ..acceleration import OccupancyGrid, OccupancyGridState
+from ..baked import (
+    GRID_DTYPES,
+    bake_instant_ngp,
+    baked_like,
+    baked_state_arrays,
+    baked_state_from_arrays,
+    check_bakeable,
+)
 from ..data.dataset import ModelMetadata
 from ..models import FieldModel, InstantNGPModel, NeRFModel
 from ..models.base import reset_parameters_like_flax
@@ -146,20 +156,47 @@ def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
 
 
 def add_baked_args(parser: argparse.ArgumentParser) -> None:
-    """Baked Instant-NGP flags (not ported yet)."""
-    parser.add_argument("--baked", type=int, default=None, metavar="RESOLUTION")
+    """Inference-only flags for the baked NGP field (:mod:`..baked`;
+    render-family CLIs only)."""
     parser.add_argument(
-        "--baked_dtype", type=str, default="bfloat16", choices=("bfloat16", "float32")
+        "--baked",
+        type=int,
+        default=None,
+        metavar="RESOLUTION",
+        help="bake the trained Instant-NGP spatial field onto a dense "
+        "RESOLUTION^3 grid at startup and render from it (one trilinear "
+        "lookup per sample instead of the full hash stack; requires "
+        "--instant_ngp --occupancy; the JAX package's README serves 384)",
     )
-    parser.add_argument("--baked_cache", action="store_true")
-    parser.add_argument("--baked_pack", type=int, default=1, choices=(1, 2, 4, 8))
+    parser.add_argument(
+        "--baked_dtype",
+        type=str,
+        default="bfloat16",
+        choices=("bfloat16", "float32"),
+        help="baked grid storage dtype (bfloat16 halves device memory)",
+    )
+    parser.add_argument(
+        "--baked_cache",
+        action="store_true",
+        help="cache the baked grid to <model_path>.baked<R>.<dtype>[.p<PACK>]"
+        ".<bbox>.logical.npz and reuse it while it is newer than the "
+        "checkpoint (skips the bake sweep on later sessions)",
+    )
+    parser.add_argument(
+        "--baked_pack",
+        type=int,
+        default=1,
+        choices=(1, 2, 4, 8),
+        help="corners stored per baked-grid row: PACKx the grid memory "
+        "for 8/PACK row reads per sample, identical output",
+    )
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Refuse, with ``SystemExit``, every flag whose path is not ported."""
+    """Refuse, with ``SystemExit``, every flag whose path is not ported, and
+    ``--baked`` without ``--occupancy`` (as the JAX package does)."""
     refused = [
         (getattr(args, "ref_nerf", False), "--ref_nerf (Ref-NeRF)"),
-        (getattr(args, "baked", None) is not None, "--baked (baked NGP field)"),
         (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
         (getattr(args, "occ_span_pool_factor", 8) != 8,
          "--occ_span_pool_factor (the span path's supergrid)"),
@@ -171,14 +208,71 @@ def check_ported(args: argparse.Namespace) -> None:
             raise SystemExit(
                 f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
                 "package serves the vanilla NeRF and Instant-NGP, with the "
-                "hierarchy, fixed-K occupancy and pooled inference, and trains on "
+                "hierarchy, fixed-K occupancy and pooled inference and baked "
+                "Instant-NGP serving (--baked under --occupancy), and trains on "
                 "the occupancy path, fixed-K or pooled (see ROADMAP.md)"
             )
+    require_occupancy_for_baking(args)
     if torch.cuda.device_count() > 1:
         raise SystemExit(
             "multi-GPU frame sharding is not ported yet; expose one card "
             "(CUDA_VISIBLE_DEVICES=0)"
         )
+
+
+def require_occupancy_for_baking(args: argparse.Namespace) -> None:
+    if getattr(args, "baked", None) is not None and not getattr(args, "occupancy", False):
+        raise SystemExit("--baked requires --occupancy")
+
+
+def baked_cache_path(args: argparse.Namespace, fine: InstantNGPModel) -> str:
+    """``<model_path>.baked<R>.<dtype>[.p<pack>].<bbox md5>.logical.npz``.
+
+    The bbox is part of the identity: the grid is sampled on this bbox's
+    lattice, so the same checkpoint under another metadata.json bakes anew.
+    ``.logical`` names the port's layout (rows ``[r^3, pack * F]``); the
+    JAX package writes its 128-lane layout as ``.seg128``, so neither
+    package reads the other's file.
+    """
+    pack = getattr(args, "baked_pack", 1)
+    pack_tag = f".p{pack}" if pack != 1 else ""
+    bbox = (tuple(fine.encoding.bbox_min), tuple(fine.encoding.bbox_max))
+    bbox_tag = hashlib.md5(repr(bbox).encode()).hexdigest()[:8]
+    return f"{args.model_path}.baked{args.baked}.{args.baked_dtype}{pack_tag}.{bbox_tag}.logical.npz"
+
+
+def apply_baking(args: argparse.Namespace, fine: FieldModel) -> FieldModel:
+    """The field the occupancy renderer serves: ``fine`` itself, or with
+    ``--baked`` its bake on ``fine``'s device (from ``--baked_cache`` when
+    that file is newer than the checkpoint)."""
+    if getattr(args, "baked", None) is None:
+        return fine
+    require_occupancy_for_baking(args)
+    check_bakeable(fine)
+    pack = getattr(args, "baked_pack", 1)
+    dtype = GRID_DTYPES[args.baked_dtype]
+    cache_path = baked_cache_path(args, fine) if getattr(args, "baked_cache", False) else None
+    if (
+        cache_path is not None
+        and os.path.exists(cache_path)
+        and os.path.getmtime(cache_path) >= os.path.getmtime(args.model_path)
+    ):
+        with np.load(cache_path) as data:
+            state = baked_state_from_arrays(data, dtype)
+        baked = baked_like(fine, state["grid"], args.baked, pack)
+        baked.load_state_dict(state)
+        print(f"loaded baked grid cache: {cache_path}", flush=True)
+        return baked.to(fine.rgb.weight.device).eval()
+
+    baked = bake_instant_ngp(fine, args.baked, dtype=dtype, pack=pack)
+    if cache_path is not None:
+        # Atomic (tmp + rename): a kill mid-write would leave a truncated
+        # file whose mtime still passes the freshness check.
+        tmp = cache_path + ".tmp.npz"
+        np.savez(tmp, **baked_state_arrays(baked))
+        os.replace(tmp, cache_path)
+        print(f"wrote baked grid cache: {cache_path}", flush=True)
+    return baked
 
 
 def add_device_arg(parser: argparse.ArgumentParser) -> None:

@@ -46,7 +46,7 @@ from .render_nerf import RenderSession, argparser as render_argparser
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # The port's hand-written kernels, by the name their CUDA function carries.
 PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode",
-                "hashgrid_backward", "composite_forward", "composite_backward")
+                "hashgrid_backward", "composite_forward", "composite_backward", "baked_lookup")
 
 
 def argparser():

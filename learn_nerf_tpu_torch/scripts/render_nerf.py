@@ -6,8 +6,10 @@ The CLI of ``learn_nerf_tpu.scripts.render_nerf``: positional
 concatenated horizontally, u8 encoding ``(x + 1) * 127.5``.  Runs on the
 CUDA card, and raises without one unless given ``--device cpu`` (a flag of
 this port only).  On the card the vanilla model's ``--bf16`` routes
-its MLPs through the fused Hopper kernels, and every hash-grid lookup of
-an Instant-NGP model runs through the corner and table-gather kernels.
+its MLPs through the fused Hopper kernels, every hash-grid lookup of an
+Instant-NGP model runs through the encode kernel, and with ``--baked``
+(under ``--occupancy``) every sample's lookup in the baked grid through the
+baked-lookup kernel.
 """
 
 import argparse
@@ -26,6 +28,7 @@ from .common import (
     add_device_arg,
     add_model_args,
     add_occupancy_args,
+    apply_baking,
     build_occupancy_renderer,
     check_ported,
     create_model,
@@ -67,7 +70,9 @@ class RenderSession:
     """A loaded model on its device + whole-frame rendering.
 
     The device is ``device`` when given, else the one ``args.device``
-    names (the card by default, which raises when there is none).
+    names (the card by default, which raises when there is none).  The
+    occupancy path serves the checkpoint's fine model or, with
+    ``--baked``, its bake.
     """
 
     def __init__(self, args: argparse.Namespace, device: Optional[torch.device] = None):
@@ -95,8 +100,9 @@ class RenderSession:
         self.images = []
 
         if getattr(args, "occupancy", False):
+            self.field = apply_baking(args, self.fine)
             self.renderer, self.grid_state = build_occupancy_renderer(
-                args, self.metadata, self.fine, params, self.device
+                args, self.metadata, self.field, params, self.device
             )
             self.frames = OccupancyFrameSession(
                 self.renderer,

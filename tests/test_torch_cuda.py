@@ -34,13 +34,20 @@ tiny case within 2e-2 (f32 differences of step 1e-2); the background's
 gradient bit-equal across runs; the refusal of more than 8 extras.  The
 same kernels in the pool layout, to the same bounds, with zero gradients
 on the pool's tail, a pool that cuts the trailing rays and K = 1, 32, 33,
-64, and their background's gradient bit-equal across runs.
+64, and their background's gradient bit-equal across runs.  The baked
+lookup: within 1e-6 of its plain version (8 weighted unit-scale corners
+summed in another order) in bf16 and f32, at packs 1, 2, 4 and 8, with r =
+2, 3, 17 and 33, at 1, 31, 32, 33 and 5000 points on and outside the bbox's
+and the cells' faces, every pack bit-equal to pack 1; the baked model on
+the card against the CPU (1e-5); the wrapper's refusals.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from learn_nerf_tpu_torch import baked
+from learn_nerf_tpu_torch.kernels import baked as kbaked
 from learn_nerf_tpu_torch.kernels import fused_mlp as fm
 from learn_nerf_tpu_torch.kernels import fused_render as fr
 from learn_nerf_tpu_torch.kernels import composite as kc
@@ -588,3 +595,70 @@ def test_pooled_composite_background_gradient_is_the_same_every_run(cuda):
     torch.cuda.synchronize()
     assert all(torch.equal(runs[0], r) for r in runs[1:])
     assert kc._scratch[plain[0].device][0].item() == 0
+
+
+# The baked lookup's bbox: the points below reach its faces and beyond.
+BAKED_BOX = ((-1.0,) * 3, (1.0,) * 3)
+
+
+def _baked_inputs(cuda, r, n, dtype, seed):
+    """A pack-1 table of unit-scale features and ``n`` points: random ones
+    inside and outside the bbox, and ones on its faces and on cell faces."""
+    rng = np.random.RandomState(seed)
+    table = t(rng.uniform(-1, 1, (r**3, kbaked.KERNEL_FEATURES)).astype(np.float32)).to(cuda).to(dtype)
+    x = rng.uniform(-1.1, 1.1, (n, 3)).astype(np.float32)
+    faces = min(n, 8)
+    x[:faces, rng.randint(0, 3, faces)] = rng.choice([-1.0, 1.0], faces)
+    x[faces : 2 * faces] = np.round(x[faces : 2 * faces] * (r - 1) / 2) * 2 / (r - 1)
+    return table, t(x).to(cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("pack", [1, 2, 4, 8])
+@pytest.mark.parametrize("r,n", [(2, 33), (3, 31), (17, 5000), (33, 1), (33, 32)])
+def test_baked_lookup_kernel_matches_plain_version(cuda, dtype, pack, r, n):
+    """Within 1e-6 of the plain version (8 weighted unit-scale corners summed
+    in another order), and every pack bit-equal to pack 1."""
+    table, x = _baked_inputs(cuda, r, n, dtype, r * 100 + n)
+    grid = baked.pack_baked_grid(table, r, pack)
+    launches = kbaked.counter.launches
+    out = kbaked.launch_lookup(grid, x, r, pack, *BAKED_BOX)
+    one = kbaked.launch_lookup(table, x, r, 1, *BAKED_BOX)
+    torch.cuda.synchronize()
+    assert kbaked.counter.launches == launches + 2 and out.shape == (n, kbaked.KERNEL_FEATURES)
+    torch.testing.assert_close(out, kbaked.baked_lookup_reference(grid, x, r, pack, *BAKED_BOX), rtol=0, atol=1e-6)
+    assert torch.equal(out, one)
+
+
+def test_baked_model_on_the_card_matches_the_cpu(cuda):
+    """BakedInstantNGP through the kernel against the same model's plain
+    route on the CPU (colour head in f32 on cuBLAS vs the CPU)."""
+    rng = np.random.RandomState(7)
+    table, x = _baked_inputs(cuda, 9, 3000, torch.bfloat16, 7)
+    model = baked.BakedInstantNGP(baked.pack_baked_grid(table, 9, 4), 9, bbox_min=(-1.0,) * 3,
+                                  bbox_max=(1.0,) * 3, pack=4)
+    d = t(rng.randn(3000, 3).astype(np.float32))
+    d = d / d.norm(dim=-1, keepdim=True)
+    with torch.no_grad():
+        got = model.to(cuda)(x, d.to(cuda))
+        want = model.cpu()(x.cpu(), d)
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def test_baked_lookup_refuses_what_its_kernel_does_not_take(cuda):
+    table, x = _baked_inputs(cuda, 5, 10, torch.float32, 0)
+    with pytest.raises(ValueError, match="F = 16"):
+        kbaked.launch_lookup(torch.zeros((125, 8), device=cuda), x, 5, 1, *BAKED_BOX)
+    with pytest.raises(ValueError, match="bf16 or f32 table"):
+        kbaked.launch_lookup(table.double(), x, 5, 1, *BAKED_BOX)
+    misaligned = torch.zeros(125 * 16 + 1, device=cuda)[1:].view(125, 16)
+    with pytest.raises(ValueError, match="aligned to 16 bytes"):
+        kbaked.launch_lookup(misaligned, x, 5, 1, *BAKED_BOX)
+    with pytest.raises(ValueError, match="points on cpu"):
+        kbaked.baked_lookup(table, x.cpu(), 5, 1, *BAKED_BOX)
+    with pytest.raises(NotImplementedError, match="inference only"):
+        kbaked.baked_lookup(table.requires_grad_(), x, 5, 1, *BAKED_BOX)
+    launches = kbaked.counter.launches
+    assert kbaked.launch_lookup(table.detach(), x[:0], 5, 1, *BAKED_BOX).shape == (0, 16)
+    assert kbaked.counter.launches == launches  # no points, no launch

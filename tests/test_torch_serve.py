@@ -2,7 +2,8 @@
 scripts), following tests/test_serve.py: endpoints against a live server
 on a loopback port, determinism against a direct RenderSession with the
 same seed, request validation, the occupancy bf16 route, the flags that
-must still refuse (Ref-NeRF, baking, the span and block-word levers), flag parity with the JAX CLI, an import without jax, and the
+must still refuse (Ref-NeRF, the span and block-word levers, baking without
+``--occupancy``), flag parity with the JAX CLI, an import without jax, and the
 render profiler."""
 
 import io
@@ -190,7 +191,7 @@ def test_render_cli_writes_views_side_by_side(scene, tmp_path):
         ["--instant_ngp", "--ref_nerf"],
         ["--ref_nerf"],
         ["--baked", "64"],
-        ["--instant_ngp", "--occupancy", "--baked", "64"],
+        ["--instant_ngp", "--baked", "64"],
         ["--occupancy", "--occ_budget_per_ray", "auto", "--occ_span_candidates", "64"],
         ["--occupancy", "--occ_span_candidates", "64"],
         ["--occupancy", "--occ_block_gather", "2"],
@@ -200,7 +201,9 @@ def test_render_cli_writes_views_side_by_side(scene, tmp_path):
 def test_unported_flags_refuse_with_system_exit(scene, flags):
     scene_dir, pkl = scene
     args = serve_nerf.argparser().parse_args(_argv(scene_dir, pkl, *flags))
-    with pytest.raises(SystemExit, match="not ported"):
+    # Baking is ported, but only under --occupancy (as in the JAX CLI).
+    match = "--baked requires --occupancy" if "--baked" in flags else "not ported"
+    with pytest.raises(SystemExit, match=match):
         serve_nerf.make_server(args)
 
 
@@ -243,6 +246,8 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.scripts.eval_psnr\n"
         "import learn_nerf_tpu_torch.utils.metrics\n"
         "import learn_nerf_tpu_torch.utils.progress\n"
+        "import learn_nerf_tpu_torch.baked\n"
+        "import learn_nerf_tpu_torch.kernels.baked\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
