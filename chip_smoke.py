@@ -57,8 +57,14 @@ nonzero):
    and 8 on 2^20 random points and 2^20 points along rays, on an f32
    table, on the bbox's faces and beyond, on lattice vertices, at r = 2 and
    3 and at 1, 31, 32, 33 and 2^20 - 37 points, every pack bit-equal to
-   pack 1, with a check that the bound catches a z-major corner order and
-   a row offset by one, timed at each pack beside ``grid_sample``;
+   pack 1 and to the kernel it replaced (``csrc/ablations/baked_parent.cu``,
+   built on its own), with a check that the bound catches a z-major corner
+   order and a row offset by one, timed at each pack beside the replaced
+   kernel (in turns) on random points, along rays and on a pooled frame
+   tile's pool (its unused rows one repeated point) and a fixed-K frame
+   tile's points, beside ``grid_sample``, and beside the card's own rate
+   for the random runs of rows that its points read, over the table's bytes
+   (``csrc/ablations/probes.cu``);
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -1277,18 +1283,21 @@ def baked_edge_points(rng, lo, hi, r, device):
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in cases.items()}
 
 
-def check_baked_kernel(root, device, rng):
+def check_baked_kernel(root, device, rng, parent, probes):
     """The baked lookup at the README's ``--baked 384``: the serving scene's
     fine NGP tree baked to 384^3 in bf16 on the card, then the kernel against
     its plain version at packs 1, 2, 4 and 8 on 2^20 random points and on
     2^20 points along rays, on an f32 table, on the bbox's faces and beyond,
     on lattice vertices, at r = 2 and 3 and at the edges of its thread grid;
-    every pack bit-equal to pack 1; timed beside ``grid_sample``."""
+    every pack bit-equal to pack 1 and to the kernel it replaced (``parent``,
+    a ``baked_ablations`` entry point); timed beside that kernel, beside
+    ``grid_sample`` and beside the card's rate for random rows (``probes``)."""
     from learn_nerf_tpu_torch import baked
     from learn_nerf_tpu_torch.checkpoint import load_params_pickle, ngp_params_from_flax
     from learn_nerf_tpu_torch.kernels import baked as kbaked
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.models import InstantNGPModel
+    from learn_nerf_tpu_torch.scripts.baked_ablations import frame_tiles, lookup_with, probe_ms, probe_shapes
 
     grids, tables = fine_schedule(FINE_LEVELS)
     model = InstantNGPModel(table_sizes=tables, grid_sizes=grids, bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3)
@@ -1304,22 +1313,27 @@ def check_baked_kernel(root, device, rng):
     del model
     lo, hi = (-0.7,) * 3, (0.7,) * 3
     lookup = lambda grid, pts, p, res=r: kbaked.launch_lookup(grid, pts, res, p, lo, hi)
+    replaced = lambda grid, pts, p, res=r: lookup_with(parent, grid, pts, res, p, lo, hi)
     plain = lambda grid, pts, p, res=r: kbaked.baked_lookup_reference(grid, pts, res, p, lo, hi)
 
     x = torch.from_numpy(rng.uniform(-0.75, 0.75, (BAKED_POINTS, 3)).astype(np.float32)).to(device)
     ray_x = torch.from_numpy(ray_points(rng, BAKED_POINTS // 128, 128, 0.01, -0.7, 0.7)).to(device)
     inputs = {"random": x, "along rays": ray_x, **baked_edge_points(rng, lo, hi, r, device)}
+    # The main path's other shapes: a baked pooled frame tile's pool (its
+    # unused rows all one point) and a fixed-K tile.
+    timed = {"random": x, "along rays": ray_x,
+             **{name: torch.from_numpy(pts).to(device) for name, pts in frame_tiles(rng).items()}}
     small = {res: torch.from_numpy(rng.uniform(-1, 1, (res**3, 16)).astype(np.float32)).to(device).to(torch.bfloat16)
              for res in (2, 3)}
     base = {name: lookup(table, pts, 1) for name, pts in inputs.items()}
     base.update({f"r = {res}": lookup(t, x[:4096], 1, res) for res, t in small.items()})
-    errs, unequal, packs, pack_s = {}, [], {}, {}
+    errs, unequal, unequal_parent, packs, pack_s = {}, [], [], {}, {}
     # The least bytes at any pack: one copy of each distinct lattice vertex
     # a point needs (16 features each), the points and the output.  A
     # pack-p table holds each vertex in up to p rows, of which a lookup
     # needs one.
     least = lambda pts: baked_vertices(pts, r, lo, hi) * 16 * table.element_size() + nbytes(pts) + len(pts) * 16 * 4
-    bound_ms, bound_rays_ms = bound(least(x))[0], bound(least(ray_x))[0]
+    bounds = {name: bound(least(pts))[0] for name, pts in timed.items()}
     for p in baked.PACKS:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1336,12 +1350,28 @@ def check_baked_kernel(root, device, rng):
             errs[f"pack {p}, {name}"] = (out - plain(g, pts, p, res)).abs().max().item()
             if not torch.equal(out, base[name]):
                 unequal.append(f"pack {p}, {name}")
+            if not torch.equal(out, replaced(g, pts, p, res)):
+                unequal_parent.append(f"pack {p}, {name}")
             del out
+        # Each shape by graph replay, the kernel and the one it replaced in
+        # turns (A B B A); then the card's rate for the random runs that 2^20
+        # points read from this table (its rows apart, and as the table holds
+        # them: the rows of corners c and c + 4 side by side), over its bytes.
+        times = {name: ([], []) for name in timed}
+        for turn in (0, 1, 1, 0):
+            for name, pts in timed.items():
+                fn = (lambda: lookup(grid, pts, p)) if turn == 0 else (lambda: replaced(grid, pts, p))
+                times[name][turn].append(graph_ms(fn, 20 if len(pts) >= BAKED_POINTS else 50))
+        rates = {pattern: probe_ms(probes, grid, nbytes(grid), run, BAKED_POINTS * per_point)
+                 for pattern, (run, per_point) in probe_shapes(grid.dtype, p).items()}
         packs[p] = dict(
-            ms=cuda_ms(lambda: lookup(grid, x, p), 20), ms_rays=cuda_ms(lambda: lookup(grid, ray_x, p), 20),
-            bound_ms=bound_ms, bound_rays_ms=bound_rays_ms,
+            ms={name: sum(t[0]) / 2 for name, t in times.items()},
+            parent_ms={name: sum(t[1]) / 2 for name, t in times.items()},
+            bound_ms=bounds, card_rate_ms=rates["row pairs"], card_rate_rows_apart_ms=rates["rows"],
         )
         if p == BAKED_PACK:
+            run, per_point = probe_shapes(grid.dtype, p)["row pairs"]
+            small_rate_ms = probe_ms(probes, grid, 32 << 20, run, BAKED_POINTS * per_point)
             plain_ms = cuda_ms(lambda: plain(grid, x, p), 3)
         del grid, cases
         torch.cuda.empty_cache()
@@ -1354,7 +1384,12 @@ def check_baked_kernel(root, device, rng):
     errs["f32 table, pack 1"] = (out - plain(wide, x, 1)).abs().max().item()
     if not torch.equal(out, base["random"]):
         unequal.append("f32 table, pack 1")
-    f32_ms = cuda_ms(lambda: lookup(wide, x, 1), 20)
+    if not torch.equal(out, replaced(wide, x, 1)):
+        unequal_parent.append("f32 table, pack 1")
+    f32_ms = [graph_ms(lambda: lookup(wide, x, 1), 20) for _ in range(2)]
+    f32_parent_ms = [graph_ms(lambda: replaced(wide, x, 1), 20) for _ in range(2)]
+    run, per_point = probe_shapes(wide.dtype, 1)["row pairs"]
+    f32_rate_ms = probe_ms(probes, wide, nbytes(wide), run, BAKED_POINTS * per_point)
     del wide, out
     torch.cuda.empty_cache()
 
@@ -1382,10 +1417,15 @@ def check_baked_kernel(root, device, rng):
     result = dict(
         name="baked_lookup", route="cuda", source="learn_nerf_tpu_torch/csrc/baked.cu",
         replaces="learn_nerf_tpu/baked.py:109-162 (XLA)", max_abs_err=max(errs.values()),
-        ms=main["ms"], ms_rays=main["ms_rays"], plain_ms=plain_ms, bound_ms=main["bound_ms"],
-        bound_by="bytes", library_ms=library_ms,
-        shapes={f"pack {p}": e for p, e in packs.items()},
+        ms=main["ms"]["random"], ms_rays=main["ms"]["along rays"], parent_ms=main["parent_ms"]["random"],
+        plain_ms=plain_ms, bound_ms=main["bound_ms"]["random"], bound_by="bytes", library_ms=library_ms,
+        card_rate_ms=main["card_rate_ms"],
+        shapes={**{f"pack {p}": e for p, e in packs.items()},
+                "f32 pack 1 random": dict(ms=f32_ms, parent_ms=f32_parent_ms, card_rate_ms=f32_rate_ms)},
     )
+    shares = lambda e, key: ", ".join(
+        f"{name} {e['ms'][name]:.4f} ms (replaced kernel {e['parent_ms'][name]:.4f}; {100 * e[key][name] / e['ms'][name]:.1f} % of its bound {e[key][name]:.4f})"
+        for name in timed)
     print(f"baked_lookup at {r}^3 x 16 bf16 (bake {bake_s:.3f} s on the card; packing "
           + ", ".join(f"{p}: {s:.3f} s" for p, s in pack_s.items() if p > 1)
           + f"): max abs err {result['max_abs_err']:.3e} (bound {BAKED_BOUND:g}) over "
@@ -1393,14 +1433,19 @@ def check_baked_kernel(root, device, rng):
           f"{BAKED_EDGE_POINTS} points, r = 2 and 3; f32 table); every pack bit-equal to pack 1: "
           f"{not unequal} {unequal}; a z-major corner order moves the output by {moves['corner order']:.3e}, "
           f"a row offset by one by {moves['row + 1']:.3e}; "
-          + "; ".join(f"pack {p} {e['ms']:.4f} ms random ({100 * e['bound_ms'] / e['ms']:.1f} % of "
-                      f"{e['bound_ms']:.4f}), {e['ms_rays']:.4f} ms along rays ({100 * e['bound_rays_ms'] / e['ms_rays']:.1f} % "
-                      f"of {e['bound_rays_ms']:.4f})" for p, e in packs.items())
-          + f"; f32 table pack 1 {f32_ms:.4f} ms; plain (pack {BAKED_PACK}) {plain_ms:.3f} ms; grid_sample "
+          + f"bit-equal to the kernel it replaced: {not unequal_parent} {unequal_parent}; "
+          + "; ".join(f"pack {p}: {shares(e, 'bound_ms')}; the card's rate for the random runs of 2^20 points "
+                      f"in this table: {e['card_rate_ms']:.4f} ms as the table holds them (the kernel at "
+                      f"{100 * e['card_rate_ms'] / e['ms']['random']:.1f} % of it), {e['card_rate_rows_apart_ms']:.4f} "
+                      f"ms with the rows apart" for p, e in packs.items())
+          + f"; the same runs at pack {BAKED_PACK} from 32 MB (in L2): {small_rate_ms:.4f} ms"
+          + f"; f32 table pack 1 {f32_ms} ms (replaced kernel {f32_parent_ms}; the card's rate {f32_rate_ms:.4f} ms)"
+          + f"; plain (pack {BAKED_PACK}) {plain_ms:.3f} ms; grid_sample "
           f"{library_ms:.4f} ms on the f32 volume (differs from the plain lookup by {library_err:.3e}), "
           f"{library_bf16_ms:.4f} ms on the bf16 volume with bf16 points", flush=True)
     require(result["max_abs_err"] <= BAKED_BOUND, "baked_lookup disagrees with its plain version")
     require(not unequal, f"baked_lookup differs from pack 1 in {unequal}")
+    require(not unequal_parent, f"baked_lookup differs from the kernel it replaced in {unequal_parent}")
     require(min(moves.values()) >= SCAN_MARGIN * BAKED_BOUND,
             f"baked_lookup's bound {BAKED_BOUND:g} would not catch a wrong corner order or row")
     del table
@@ -2049,20 +2094,28 @@ def main():
         spills = [v[1] for k, v in report.items() if kernel in k]
         require(spills == [0], f"ptxas reports spills for {kernel}: {spills}")
 
-    # Two measured variants of the hash-grid kernels build (from
-    # csrc/ablations) while the MLP kernels are checked.
-    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import VARIANTS
+    # Two measured variants of the hash-grid kernels, the baked lookup's
+    # replaced kernel and the probes build (from csrc/ablations) while the
+    # MLP kernels are checked.
+    from learn_nerf_tpu_torch.scripts.baked_ablations import build_libraries
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import VARIANTS, build_probes
     from learn_nerf_tpu_torch.scripts.mlp_ablations import build_variants
 
-    variant = {}
-    variants_thread = threading.Thread(
-        target=lambda: variant.update(build_variants([PARENT_LAYOUT, ENCODE_TILES], VARIANTS)))
-    variants_thread.start()
+    variant, baked_parts = {}, {}
+    threads = [
+        threading.Thread(target=lambda: variant.update(build_variants([PARENT_LAYOUT, ENCODE_TILES], VARIANTS))),
+        threading.Thread(target=lambda: baked_parts.update(parent=build_libraries(["parent"])["parent"],
+                                                           probes=build_probes())),
+    ]
+    for thread in threads:
+        thread.start()
     rng = np.random.RandomState(SEED)
     kernels = check_kernels(device, rng)
-    variants_thread.join()
+    for thread in threads:
+        thread.join()
     require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,
             "the hash-grid kernels' measured variants did not build")
+    require(len(baked_parts) == 2, "the replaced baked-lookup kernel or the probes did not build")
     kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3), variant[ENCODE_TILES])
     torch.cuda.empty_cache()
     kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])
@@ -2073,7 +2126,8 @@ def main():
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
         root = Path(tmp)
         views = write_scene(root, rng)
-        kernels.append(check_baked_kernel(root, device, np.random.RandomState(SEED + 11)))
+        kernels.append(check_baked_kernel(root, device, np.random.RandomState(SEED + 11), baked_parts["parent"],
+                                          baked_parts["probes"]))
         check_frames(root, views, device, rng, VANILLA_MODES, bf16=True)
         check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
         check_frames(root, views, device, np.random.RandomState(SEED + 12), BAKED_MODES, bf16=False)
@@ -2126,8 +2180,8 @@ def main():
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",
-               "ms_step_rays", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by", "library_ms",
-               "share_of_bound", "tflops", "shapes"]
+               "ms_step_rays", "parent_ms", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by",
+               "library_ms", "card_rate_ms", "share_of_bound", "tflops", "shapes"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])
     print(card)

@@ -1,8 +1,10 @@
-// The card's own rate for the two access patterns that bound the hash-grid
-// kernels, measured because no profiler counter can be read: random 8-byte
-// row reads that each pull their own 32-byte sector (the encode kernel),
-// and random vector atomics (the table-gradient kernel).  Built and timed by
-// scripts/hashgrid_ablations.py; nothing on a path uses them.
+// The card's own rate for the access patterns that bound the hash-grid and
+// baked kernels, measured because no profiler counter can be read: random
+// 8-byte row reads that each pull their own 32-byte sector (the encode
+// kernel), random vector atomics (the table-gradient kernel), and random
+// runs of 32-512 bytes read by lane groups (the baked lookup's rows).  Built
+// and timed by scripts/hashgrid_ablations.py and scripts/baked_ablations.py;
+// nothing on a path uses them.
 //
 // A thread stands for one (point, level pair) of the encode kernel: it
 // makes the accesses of 8 corners in each of its two levels' buffers, at
@@ -99,6 +101,35 @@ __global__ void __launch_bounds__(kProbeThreads)
   }
 }
 
+// Random runs of kRunVectors 16-byte vectors (a baked table's rows: 32 * P
+// bytes in bf16, 64 * P in f32), read as the lookup reads them: the
+// kRunVectors lanes of a group load one run together, a vector each, so a
+// load instruction requests 32 / kRunVectors whole runs.  A group takes
+// kProbeRunLoads runs, all loads in flight at once, each at a row drawn by a
+// hash of the run's index from `rows` rows; a lane keeps the XOR of its words.
+constexpr int kProbeRunLoads = 8;
+
+template <int kRunVectors>
+__global__ void __launch_bounds__(kProbeThreads)
+    probe_runs_kernel(const uint4* __restrict__ buf, unsigned int rows, long long runs,
+                      long long threads, unsigned int* __restrict__ out) {
+  const long long t = static_cast<long long>(blockIdx.x) * kProbeThreads + threadIdx.x;
+  if (t >= threads) return;
+  const long long group = t / kRunVectors;
+  const int v = static_cast<int>(t % kRunVectors);
+  uint4 held[kProbeRunLoads];
+#pragma unroll
+  for (int u = 0; u < kProbeRunLoads; ++u) {
+    const long long run = group * kProbeRunLoads + u;
+    const unsigned int row = mix(static_cast<unsigned int>(run), 0u) % rows;
+    held[u] = run < runs ? __ldg(buf + static_cast<long long>(row) * kRunVectors + v) : make_uint4(0, 0, 0, 0);
+  }
+  unsigned int acc = 0;
+#pragma unroll
+  for (int u = 0; u < kProbeRunLoads; ++u) acc ^= held[u].x ^ held[u].y ^ held[u].z ^ held[u].w;
+  out[t] = acc;
+}
+
 }  // namespace nerf
 
 // `threads` threads (< 2^32), each reading 16 rows (pairs = 0) or 8 row
@@ -130,6 +161,34 @@ extern "C" int nerf_probe_atomics(const nerf::ProbeArgs* args, long long threads
     probe_atomics_kernel<4><<<blocks, kProbeThreads, 0, s>>>(*args, n);
   } else {
     probe_atomics_kernel<2><<<blocks, kProbeThreads, 0, s>>>(*args, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// `runs` random runs of `run_bytes` (32, 64, 128, 256 or 512) bytes from a
+// buffer of `bytes` bytes (aligned to 16; at most 2^32 runs), each loaded
+// by run_bytes / 16 lanes; out [nerf_probe_runs_threads(runs, run_bytes)]
+// u32.  Returns the cudaError_t of the launch.
+extern "C" long long nerf_probe_runs_threads(long long runs, int run_bytes) {
+  using namespace nerf;
+  return (runs + kProbeRunLoads - 1) / kProbeRunLoads * (run_bytes / 16);
+}
+
+extern "C" int nerf_probe_runs(const void* buf, long long bytes, int run_bytes, long long runs,
+                               unsigned int* out, void* stream) {
+  using namespace nerf;
+  const long long threads = nerf_probe_runs_threads(runs, run_bytes);
+  const unsigned int rows = static_cast<unsigned int>(bytes / run_bytes);
+  const unsigned int blocks = static_cast<unsigned int>((threads + kProbeThreads - 1) / kProbeThreads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint4* b = static_cast<const uint4*>(buf);
+  switch (run_bytes) {
+    case 32: probe_runs_kernel<2><<<blocks, kProbeThreads, 0, s>>>(b, rows, runs, threads, out); break;
+    case 64: probe_runs_kernel<4><<<blocks, kProbeThreads, 0, s>>>(b, rows, runs, threads, out); break;
+    case 128: probe_runs_kernel<8><<<blocks, kProbeThreads, 0, s>>>(b, rows, runs, threads, out); break;
+    case 256: probe_runs_kernel<16><<<blocks, kProbeThreads, 0, s>>>(b, rows, runs, threads, out); break;
+    case 512: probe_runs_kernel<32><<<blocks, kProbeThreads, 0, s>>>(b, rows, runs, threads, out); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 The JAX package's ``BakedInstantNGP.__call__`` evaluates its spatial field
 with one trilinear lookup in a dense vertex lattice, an XLA gather and sum
 (``learn_nerf_tpu/baked.py:118-158``); here ``csrc/baked.cu``,
-``baked_lookup_kernel``.  Points ``x [N, 3]`` in an ``r^3`` lattice over
+``baked_lookup_kernel`` (in one of two thread layouts, by the table's type
+and pack).  Points ``x [N, 3]`` in an ``r^3`` lattice over
 the bbox, the table ``grid [r^3, pack * F]`` (bf16 or f32, x-major rows,
 segment ``s`` of a row = the corner whose low bits are ``s``, see
 :mod:`..baked`) give ``[N, F]`` f32: each point reads the ``8 / pack``

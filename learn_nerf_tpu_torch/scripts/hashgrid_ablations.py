@@ -236,6 +236,8 @@ def build_probes():
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nerf_probe_reads.argtypes, lib.nerf_probe_reads.restype = [ptr, i64, i32, ptr, ptr], i32
     lib.nerf_probe_atomics.argtypes, lib.nerf_probe_atomics.restype = [ptr, i64, i32, ptr], i32
+    lib.nerf_probe_runs.argtypes, lib.nerf_probe_runs.restype = [ptr, i64, i32, i64, ptr, ptr], i32
+    lib.nerf_probe_runs_threads.argtypes, lib.nerf_probe_runs_threads.restype = [i64, i32], i64
     return lib
 
 

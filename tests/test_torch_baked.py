@@ -42,7 +42,7 @@ from learn_nerf_tpu_torch import acceleration, baked, checkpoint, occ_render
 from learn_nerf_tpu_torch.kernels import baked as kbaked
 from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
 from learn_nerf_tpu_torch.models import InstantNGPModel
-from learn_nerf_tpu_torch.scripts import common, render_nerf
+from learn_nerf_tpu_torch.scripts import baked_ablations, common, render_nerf
 
 from .torch_helpers import t
 
@@ -205,6 +205,52 @@ def test_packed_layout_is_the_clamped_corner_shift(r):
                         dz, dy, dx = s & 1, (s >> 1) & 1, (s >> 2) & 1
                         want[z, y, x, s] = g[clamp(z + dz), clamp(y + dy), clamp(x + dx)]
         np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pack", [1, 2, 4, 8])
+def test_probe_rows_are_the_packed_tables_rows(dtype, pack):
+    """baked_ablations' random-row probe reads runs of a packed row's bytes,
+    as many a point as the lookup reads rows."""
+    grid = baked.pack_baked_grid(torch.zeros((27, kbaked.KERNEL_FEATURES), dtype=dtype), 3, pack)
+    assert baked_ablations.run_bytes(dtype, pack) == grid.shape[1] * grid.element_size()
+    assert baked_ablations.run_bytes(dtype, pack) // pack == (32 if dtype == torch.bfloat16 else 64)
+
+
+def test_least_bytes_counts_each_vertex_once():
+    """The baked lookup's byte bound counts one copy of each distinct lattice
+    vertex the points read (16 features each), the points and the output."""
+    r, lo, hi = 5, (-1.0,) * 3, (1.0,) * 3
+    per_point = 3 * 4 + kbaked.KERNEL_FEATURES * 4
+    vertex = kbaked.KERNEL_FEATURES * 2  # bf16
+    cases = [
+        (8, [[0.1, 0.1, 0.1]]),  # one cell
+        (8, [[0.1, 0.1, 0.1], [0.2, 0.4, 0.3]]),  # the same cell
+        (12, [[0.1, 0.1, 0.1], [0.6, 0.1, 0.1]]),  # two cells that share a face
+        (16, [[0.1, 0.1, 0.1], [-0.9, -0.9, -0.9]]),  # two cells apart
+    ]
+    for vertices, pts in cases:
+        x = t(np.array(pts, np.float32))
+        got = baked_ablations.least_bytes(x, r, 2, lo, hi)
+        assert got == vertices * vertex + len(pts) * per_point, pts
+
+
+def test_ablation_shapes_are_the_frames_point_counts():
+    """The four shapes the baked kernels are timed at: 2^20 random points in
+    the bbox +- 0.05, 2^20 points along rays, a pooled frame tile's pool
+    (8,192 rays at budget 6: 37,736 samples, the unused rows one point
+    outside the bbox, as render_rays_pooled pads them) and a fixed-K tile,
+    samples 0.01 apart along each ray."""
+    pts = baked_ablations.shapes(np.random.RandomState(0), torch.device("cpu"))
+    assert {k: v.shape[0] for k, v in pts.items()} == {
+        "random": 1 << 20, "rays": 1 << 20, "pooled tile": 8192 * 6, "fixed-K tile": 8192 * 32}
+    pad = pts["pooled tile"][37_736:]
+    assert (pad == pad[0]).all() and pad[0].abs().max() > 1.0
+    assert all(v.dtype == torch.float32 and v.is_contiguous() for v in pts.values())
+    assert pts["random"].abs().max() <= 0.75
+    for name, per_ray in (("rays", 128), ("fixed-K tile", 32)):
+        steps = pts[name].view(-1, per_ray, 3).diff(dim=1).norm(dim=-1)
+        torch.testing.assert_close(steps, torch.full_like(steps, 0.01), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

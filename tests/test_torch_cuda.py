@@ -38,8 +38,10 @@ on the pool's tail, a pool that cuts the trailing rays and K = 1, 32, 33,
 lookup: within 1e-6 of its plain version (8 weighted unit-scale corners
 summed in another order) in bf16 and f32, at packs 1, 2, 4 and 8, with r =
 2, 3, 17 and 33, at 1, 31, 32, 33 and 5000 points on and outside the bbox's
-and the cells' faces, every pack bit-equal to pack 1; the baked model on
-the card against the CPU (1e-5); the wrapper's refusals.
+and the cells' faces, every pack bit-equal to pack 1; and at r = 2, 3 and
+384 (the served table) and 1, 31, 32, 33, 999 and 2^16 points bit-equal to
+the kernel it replaced (one thread a point, built from csrc/ablations); the
+baked model on the card against the CPU (1e-5); the wrapper's refusals.
 """
 
 import numpy as np
@@ -628,6 +630,63 @@ def test_baked_lookup_kernel_matches_plain_version(cuda, dtype, pack, r, n):
     assert kbaked.counter.launches == launches + 2 and out.shape == (n, kbaked.KERNEL_FEATURES)
     torch.testing.assert_close(out, kbaked.baked_lookup_reference(grid, x, r, pack, *BAKED_BOX), rtol=0, atol=1e-6)
     assert torch.equal(out, one)
+
+
+@pytest.fixture(scope="module")
+def baked_parent():
+    """The kernel the baked lookup replaced (``csrc/ablations/baked_parent.cu``,
+    one thread a point), built on its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from learn_nerf_tpu_torch.scripts.baked_ablations import build_libraries
+
+    return build_libraries(["parent"])["parent"]
+
+
+_BAKED_TABLE = {}
+
+
+def _baked_table(cuda, r, dtype):
+    """A pack-1 table of unit-scale features made on the card (384^3 is 1.8
+    GB in bf16), kept for the next test of the same shape and type."""
+    from learn_nerf_tpu_torch.scripts.baked_ablations import random_table
+
+    key = (r, dtype)
+    if key not in _BAKED_TABLE:
+        _BAKED_TABLE.clear()
+        torch.cuda.empty_cache()
+        _BAKED_TABLE[key] = random_table(r, cuda, seed=r).to(dtype)
+    return _BAKED_TABLE[key]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("r", [2, 3, 384])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 999, 1 << 16])
+def test_baked_lookup_kernel_equals_the_kernel_it_replaced(cuda, baked_parent, dtype, r, n):
+    """At every pack: bit-equal to the thread-a-point kernel it replaced and
+    to pack 1, and within 1e-6 of the plain version (chip_smoke.py's
+    BAKED_BOUND), at point counts that leave a warp's 32 points and a lane
+    group part full (999 is odd), on and outside the bbox's and the cells'
+    faces."""
+    from learn_nerf_tpu_torch.scripts.baked_ablations import lookup_with
+
+    table = _baked_table(cuda, r, dtype)
+    _, x = _baked_inputs(cuda, 2, n, dtype, r * 1000 + n)  # the points only (their faces fit any r)
+    x[n // 2:] = x[n // 2:] * 0.5  # and cells' faces at this r
+    x[n // 2 : n // 2 + 8] = torch.round(x[n // 2 : n // 2 + 8] * (r - 1) / 2) * 2 / (r - 1)
+    one = kbaked.launch_lookup(table, x, r, 1, *BAKED_BOX)
+    for pack in baked.PACKS:
+        grid = table if pack == 1 else baked.pack_baked_grid(table, r, pack)
+        out = kbaked.launch_lookup(grid, x, r, pack, *BAKED_BOX)
+        replaced = lookup_with(baked_parent, grid, x, r, pack, *BAKED_BOX)
+        torch.cuda.synchronize()
+        assert torch.equal(out, replaced), pack
+        assert torch.equal(out, one), pack
+        want = kbaked.baked_lookup_reference(grid, x, r, pack, *BAKED_BOX)
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
+        del grid, out, replaced, want
+    if r == 384:
+        torch.cuda.empty_cache()
 
 
 def test_baked_model_on_the_card_matches_the_cpu(cuda):

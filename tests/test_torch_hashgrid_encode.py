@@ -197,7 +197,7 @@ def test_argument_cache_key_sees_dtype_and_layout_at_one_address():
         assert key(table) != key(as_f32), name
 
 
-@pytest.mark.parametrize("script", ["hashgrid_ablations", "mlp_ablations"])
+@pytest.mark.parametrize("script", ["hashgrid_ablations", "mlp_ablations", "baked_ablations"])
 def test_ablation_variants_apply_to_the_sources(script, monkeypatch):
     module = importlib.import_module(f"learn_nerf_tpu_torch.scripts.{script}")
     for name, edits in module.VARIANTS.items():
