@@ -39,14 +39,26 @@ nonzero):
    points as extras), with five extras, and at 1, 24, 33, 63, 65 and 191
    samples (both paths of the kernels) with a part-full last block, on rays
    of optical depth 1-3, with the background's gradient bit-equal over two
-   runs, the train step's two calls profiled to one kernel each and no
-   memset, and each shape timed); the same kernels in the pool layout of the
-   pooled passes at the pooled step's pool (4096 rays, 16 rows a ray) and a
-   pooled frame's tile (8192 rays at budget 6 and 32), at rays of 0, 1, K
-   and 64 samples, a part-full tail and a pool that cuts the trailing rays,
-   with a check that the bounds catch starts shifted by one, the
-   background's gradient bit-equal over two runs, the step's two calls
-   profiled, each main shape timed beside the [N, K] route it replaced;
+   runs, every main shape bit-equal to the dense kernels of the source
+   before the pool layout had kernels of its own
+   (``csrc/ablations/composite_pooled_parent.cu``, built on its own), the
+   train step's two calls profiled to one kernel each and no memset, and
+   each shape timed); the pool layout's kernels (a warp a ray, or a group of
+   2-32 rays a warp, as the wrappers pick from the pool's rows a ray) at the
+   pooled step's pool (4096 rays, 16 rows a ray) and a pooled frame's tile
+   (8192 rays at budget 6 and 32 on short rays, and at budget 6 with the
+   rows in runs of long rays, as the served frame's tiles have them), at
+   rays of 0, 1, K and 64 samples, a
+   part-full tail, a pool that cuts the trailing rays, every ray one row,
+   rays alternating 0 and 64 rows, a run of 31, 33, 1 rows across chunks
+   and groups and 8195 rays (no multiple of a group), each case at every
+   rays-a-warp, with a check that the bounds catch starts shifted by one,
+   the forward and the background's gradient bit-equal over two runs, the
+   step's and a budget-6 tile's two calls profiled to one kernel each and
+   no memset, each main shape timed beside the pair it replaced (one warp
+   a ray, from the same parent source, in turns A B B A), beside the floor of one
+   launch at the same grid (an empty kernel, ``csrc/ablations/probes.cu``)
+   and beside the [N, K] route before them;
    max abs error against the stated bound, both
    times, and each kernel's bound (the least time of its bytes at the HBM
    rate or of its operations at the peak rate of their type); ptxas must
@@ -135,6 +147,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 from pathlib import Path
 
@@ -241,14 +254,18 @@ COMPOSITE_EDGE_SAMPLES = (1, 24, 33, 63, 65, 191)
 # by at least SCAN_MARGIN times the bound (measured 0.27 and 1.2).
 POOLED_BOUND = 4e-7
 POOLED_GRAD_BOUND = 1e-6
-# (rays, K, pool rows per ray, mean survivors per ray) of the pooled train
-# step on bench_pooled's grid (5 % of 192 candidates survive, budget 16)
-# and of a pooled frame's tile at budget 6 (chip_smoke's served frames) and
-# 32.
+# (rays, K, pool rows per ray, mean survivors per ray, width of the run of
+# rays that own rows in each image row of 256 or None) of the pooled train
+# step on bench_pooled's grid (5 % of 192 candidates survive, budget 16), of
+# a pooled frame's tile at budget 6 (chip_smoke's served frames) and 32 on
+# short rays, and of a budget-6 tile as a served frame fills it: a run of
+# 36 rays a row crossing the ball own ~31 rows each, the rest none
+# (measured on the served view: 1,153-1,170 of 8,192 rays, 30.4-30.9 rows).
 POOLED_SHAPES = {
-    "step 4096 x 16 of 32": (4096, 32, 16, 9.6),
-    "tile 8192 x 6 of 32": (8192, 32, 6, 4.6),
-    "tile 8192 x 32 of 32": (8192, 32, 32, 23.0),
+    "step 4096 x 16 of 32": (4096, 32, 16, 9.6, None),
+    "tile 8192 x 6 of 32": (8192, 32, 6, 4.6, None),
+    "tile 8192 x 32 of 32": (8192, 32, 32, 23.0, None),
+    "tile 8192 x 6 of 32, runs": (8192, 32, 6, 34.0, 36),
 }
 # One train step by the kernel route on the card: (loss relative, table
 # gradients by L2 norm relative, other gradients relative to their max)
@@ -864,11 +881,29 @@ def composite_closed_form(densities, dt, rgbs, background, mask, cotangents,
     return out, (big_g * torch.exp(-acc) - after_t) * dt
 
 
-def check_composite_kernels(device, rng):
+@contextlib.contextmanager
+def dense_composite_from(lib):
+    """Inside, the dense composite wrappers launch the dense entry points of
+    ``lib``, csrc/ablations/composite_pooled_parent.cu built on its own."""
+    from learn_nerf_tpu_torch.kernels import build
+
+    built = build._library
+    build._library = types.SimpleNamespace(nerf_composite_forward=lib.nerf_composite_forward_parent,
+                                           nerf_composite_backward=lib.nerf_composite_backward_parent,
+                                           nerf_error_string=build.library().nerf_error_string)
+    try:
+        yield
+    finally:
+        build._library = built
+
+
+def check_composite_kernels(device, rng, parent):
     """The composite kernels against autograd through ops/volume at the main
     path's shapes and at the edges of their register and chunk paths, with
-    the off-by-one checks, the background gradient's bits over two runs, and
-    each shape timed beside its bound."""
+    the off-by-one checks, the background gradient's bits over two runs,
+    every shape bit-equal to the dense kernels of ``parent`` (the source
+    before the pool layout had kernels of its own), and each shape timed
+    beside its bound."""
     from learn_nerf_tpu_torch.kernels import composite as kc
 
     def on_card(a):
@@ -923,6 +958,24 @@ def check_composite_kernels(device, rng):
         for per_sample in (False, True):
             name = f"{TRAIN_RAYS + 1} x {samples}{' per sample' if per_sample else ''}"
             fwd_errs[name], bwd_errs[name] = errors(*case(TRAIN_RAYS + 1, samples, per_sample, 3))
+
+    # The dense kernels as the parent source built them, bit for bit: the
+    # pool layout's kernels moved out of their template.
+    unequal = []
+    for name in shapes:
+        leaves, mask, cotangents = cases[name]
+        *inputs, extras = split([v.detach() for v in leaves])
+        runs = []
+        for context in (contextlib.nullcontext(), dense_composite_from(parent)):
+            with context:
+                runs.append([*present(kc.composite_forward_cuda(*inputs, mask, extras)),
+                             *present(kc.composite_backward_cuda(*inputs, mask, extras, *cotangents))])
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            unequal.append(name)
+    print(f"composite: outputs and gradients bit-equal to the parent source's dense kernels at {list(shapes)}: "
+          f"{not unequal} {unequal}", flush=True)
+    require(not unequal, f"the dense composite kernels differ from the parent source's at {unequal}")
 
     # Off by one, forward or reverse, at the step's shape (no extras).
     leaves, mask, cotangents = cases[f"{TRAIN_RAYS} x {TRAIN_SAMPLES}"]
@@ -1092,37 +1145,77 @@ def dense_route(leaves, rest, k):
     return forward, backward
 
 
-def check_pooled_composite_kernels(device, rng):
-    """The composite kernels in the pool layout against their plain version
-    at the pooled step's and a pooled frame tile's shapes and at the edges
-    (rays of 0, 1, K and 64 samples, a part-full tail, a pool that cuts the
-    trailing rays), with a check that the bounds catch starts shifted by
-    one, the background's gradient bit-equal over two runs, the step's two
-    calls profiled to one kernel each and no memset, each main shape timed
-    beside the dense route it replaced."""
-    from learn_nerf_tpu_torch.kernels import composite as kc
-    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+def pool_edges(rng, device):
+    """``{case: (k, pool_case(...))}``: the pool layout's edges, at 4097 rays
+    or more (one past whole groups of every rays-a-warp): rays of 0, 1, 32
+    and 64 rows with a part-full tail; five extras; a pool 0.7 of its
+    survivors (the trailing rays cut); every ray one row; rays alternating 0
+    and 64 rows; a run of 31, 33, 1 rows that straddles chunks and groups;
+    8195 rays at a budget-6 tile's counts (no multiple of any rays-a-warp
+    but 1)."""
+    n = TRAIN_RAYS + 1
 
-    def counts(n, k, mean):
+    def survivors(n, k, mean):
         return np.minimum(rng.binomial(192, mean / 192, n), k)
 
     cases = {}
-    for name, (n, k, budget, mean) in POOLED_SHAPES.items():
-        cases[name] = (k, pool_case(rng, device, n, k, n * budget, counts(n, k, mean), 3))
-    n = TRAIN_RAYS + 1
     edge = np.resize([0, 1, 32, 64], n)
     cases["4097 rays of 0, 1, 32, 64 samples, K 64"] = (64, pool_case(rng, device, n, 64, int(edge.sum()) + 77, edge, 3))
     edge = np.resize([0, 1, 32], n)
     cases["4097 rays of 0, 1, 32 samples, 5 extras"] = (32, pool_case(rng, device, n, 32, int(edge.sum()) + 5, edge, 5))
-    short = counts(n, 32, 9.6)
+    short = survivors(n, 32, 9.6)
     cases["4097 rays, a pool 0.7 of their survivors"] = (32, pool_case(rng, device, n, 32, int(0.7 * short.sum()), short, 3))
+    ones = np.ones(n, np.int64)
+    cases["4097 rays of 1 sample each"] = (32, pool_case(rng, device, n, 32, n, ones, 3))
+    edge = np.resize([0, 64], n)
+    cases["4097 rays alternating 0 and 64 samples"] = (64, pool_case(rng, device, n, 64, int(edge.sum()) + 3, edge, 3))
+    edge = np.resize([31, 33, 1], n)
+    cases["4097 rays of 31, 33, 1 samples"] = (64, pool_case(rng, device, n, 64, int(edge.sum()), edge, 3))
+    tile = survivors(8195, 32, 4.6)
+    cases["8195 rays at a budget-6 tile's counts"] = (32, pool_case(rng, device, 8195, 32, 8195 * 6, tile, 3))
+    return cases
 
-    def errors(k, leaves, rest, cotangents):
+
+@contextlib.contextmanager
+def rays_per_warp(rays):
+    """Inside, the pool-layout wrappers give a warp ``rays`` rays (None: their
+    own rule)."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+
+    rule = kc.pooled_rays_per_warp
+    if rays is not None:
+        kc.pooled_rays_per_warp = lambda n, rows: rays
+    try:
+        yield
+    finally:
+        kc.pooled_rays_per_warp = rule
+
+
+def check_pooled_composite_kernels(device, rng, parent, probes):
+    """The composite kernels in the pool layout against their plain version
+    at the pooled step's and a pooled frame tile's shapes and at the edges
+    (``pool_edges``), each at every rays-a-warp and at the wrappers' own
+    rule, with a check that the bounds catch starts shifted by one, the
+    forward and the background's gradient bit-equal over two runs, the
+    step's two calls and a tile's profiled to one kernel each and no memset,
+    each main shape timed beside the kernels they replaced (``parent``, PR
+    8's pair, built from csrc/ablations/composite_pooled_parent.cu, in turns
+    A B B A; the same grid, a warp a ray), beside the floor of a launch at
+    that grid (an empty kernel from ``probes``) and beside the dense route
+    they replaced before."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.scripts.composite_ablations import floor_ms, launching_pooled_from, pool_counts
+    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+
+    cases = {}
+    for name, (n, k, budget, mean, run) in POOLED_SHAPES.items():
+        cases[name] = (k, pool_case(rng, device, n, k, n * budget, pool_counts(rng, n, k, mean, run), 3))
+    cases.update(pool_edges(rng, device))
+
+    def errors(k, leaves, rest, cotangents, ref, ref_grads):
         outs = pooled_call(kc.render_composite_pooled, leaves, rest, k)
         grads = torch.autograd.grad(outs, leaves, cotangents)
         torch.cuda.synchronize()
-        ref = pooled_call(kc.render_composite_pooled_reference, leaves, rest, k)
-        ref_grads = torch.autograd.grad(ref, leaves, cotangents)
         require(all(torch.isfinite(a).all().item() for a in (*outs, *grads)),
                 "the pooled composite kernels produced non-finite values")
         tail = int(rest[0][-1])
@@ -1133,7 +1226,14 @@ def check_pooled_composite_kernels(device, rng):
 
     fwd_errs, bwd_errs = {}, {}
     for name, (k, (leaves, rest, cotangents)) in cases.items():
-        fwd_errs[name], bwd_errs[name] = errors(k, leaves, rest, cotangents)
+        ref = pooled_call(kc.render_composite_pooled_reference, leaves, rest, k)
+        ref_grads = torch.autograd.grad(ref, leaves, cotangents)
+        ref = [r.detach() for r in ref]
+        n, rows = rest[0].shape[0] - 1, leaves[0].shape[0]
+        for rays in (None, *kc.POOLED_RAYS_PER_WARP):
+            with rays_per_warp(rays):
+                key = f"{name}, {kc.pooled_rays_per_warp(n, rows)} a warp{'' if rays else ' (rule)'}"
+                fwd_errs[key], bwd_errs[key] = errors(k, leaves, rest, cotangents, ref, ref_grads)
 
     # Starts shifted by one row: every ray but the first begins a sample late.
     step_name = next(iter(POOLED_SHAPES))
@@ -1151,88 +1251,119 @@ def check_pooled_composite_kernels(device, rng):
     require(forward_moved >= SCAN_MARGIN * POOLED_BOUND and grad_moved >= SCAN_MARGIN * POOLED_GRAD_BOUND,
             "the pooled composite bounds would not catch starts shifted by one")
 
-    # The background's gradient, summed by the last block in a fixed order.
-    plain = [v.detach() for v in leaves]
-    runs = [pooled_call(lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None), plain, rest, k)[2]
-            for _ in range(2)]
-    torch.cuda.synchronize()
-    same_bits = torch.equal(runs[0], runs[1])
-    print(f"composite_pooled_backward: the background's gradient over two runs at {step_name}: "
-          f"{runs[0].tolist()} / {runs[1].tolist()}, bit-equal {same_bits}", flush=True)
-    require(same_bits, "two runs of composite_pooled_backward differ in the background's gradient")
+    # The forward and the background's gradient (summed by the last block in
+    # a fixed order) bit-equal over two runs, at each main shape.
+    unequal = []
+    for name in POOLED_SHAPES:
+        k, (leaves, rest, cotangents) = cases[name]
+        plain = [v.detach() for v in leaves]
+        fwd = [pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k) for _ in range(2)]
+        bg = [pooled_call(lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None), plain, rest, k)[2]
+              for _ in range(2)]
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(*fwd)):
+            unequal.append(f"{name} forward")
+        if not torch.equal(*bg):
+            unequal.append(f"{name} background gradient")
+        print(f"composite_pooled at {name}: the background's gradient over two runs {bg[0].tolist()} / "
+              f"{bg[1].tolist()}", flush=True)
+    print(f"composite_pooled: forward and background gradient bit-equal over two runs: {not unequal} {unequal}",
+          flush=True)
+    require(not unequal, f"two runs of the pooled composite kernels differ: {unequal}")
 
     # The train step's two calls (the points as extras without a
-    # cotangent), profiled: one kernel each, nothing zeroed.
-    step_calls = {
-        "forward": lambda: pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k),
-        "backward": lambda: pooled_call(
-            lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None, None, wanted=(True, True, False)),
-            plain, rest, k),
-    }
-
+    # cotangent) and a budget-6 tile's, profiled: one kernel each, nothing
+    # zeroed.
     def synced(call):  # the host ms of one synchronised call
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    for name, call in step_calls.items():
-        synced(call)
-        seen = profile_call(lambda: synced(call), device)
-        print(f"composite_pooled {name} as the train step calls it, profiled: {seen['kernels_launched']} "
-              f"kernel(s), {seen['memsets']} memset(s): {[t['name'] for t in seen['top']]}", flush=True)
-        require(seen["kernels_launched"] == 1 and seen["memsets"] == 0,
-                f"the step's pooled composite {name} ran {seen['kernels_launched']} kernels and "
-                f"{seen['memsets']} memsets")
+    for name in list(POOLED_SHAPES)[:2]:
+        k, (leaves, rest, cotangents) = cases[name]
+        plain = [v.detach() for v in leaves]
+        calls = {
+            "forward": lambda: pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k),
+            "backward": lambda: pooled_call(
+                lambda *a: kc.composite_pooled_backward_cuda(*a, cotangents[0], None, None, wanted=(True, True, False)),
+                plain, rest, k),
+        }
+        for which, call in calls.items():
+            synced(call)
+            seen = profile_call(lambda: synced(call), device)
+            print(f"composite_pooled {which} at {name} as the train step calls it, profiled: "
+                  f"{seen['kernels_launched']} kernel(s), {seen['memsets']} memset(s): "
+                  f"{[t['name'] for t in seen['top']]}", flush=True)
+            require(seen["kernels_launched"] == 1 and seen["memsets"] == 0,
+                    f"the pooled composite {which} at {name} ran {seen['kernels_launched']} kernels and "
+                    f"{seen['memsets']} memsets")
 
-    # Times at the main shapes (graph replay), beside the bound of this
-    # run's tensors (the rows the rays own are read, every gradient row is
-    # written), the plain version and the replaced route.
+    # Times at the main shapes (graph replay): the kernels and the parent's in
+    # turns A B B A, the floor of a launch at the kernels' grid, the bound of
+    # this run's tensors (the rows the rays own are read, every gradient row
+    # is written), the plain version and the dense route.
     timed = {}
     for name in POOLED_SHAPES:
         k, (leaves, rest, cotangents) = cases[name]
         plain = [v.detach() for v in leaves]
         starts, deltas, mask = rest
-        n, used, c = starts.shape[0] - 1, int(starts[-1]), plain[3].shape[1]
+        n, used, c, rows = starts.shape[0] - 1, int(starts[-1]), plain[3].shape[1], plain[0].shape[0]
         route_forward, route_backward = dense_route(leaves, rest, k)
         graph = pooled_call(kc.render_composite_pooled_reference, leaves, rest, k)
+        forward = lambda: pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k)  # noqa: E731
+        backward = lambda: pooled_call(  # noqa: E731
+            lambda *a: kc.composite_pooled_backward_cuda(*a, *cotangents), plain, rest, k)
+        turns = {"ms": [], "backward_ms": [], "parent_ms": [], "backward_parent_ms": []}
+        for own in (True, False, False, True):
+            with contextlib.nullcontext() if own else launching_pooled_from(parent):
+                turns["ms" if own else "parent_ms"].append(graph_ms(forward, 50))
+                turns["backward_ms" if own else "backward_parent_ms"].append(graph_ms(backward, 50))
+        rays = kc.pooled_rays_per_warp(n, rows)
         ops = (SCAN_OPS + 2 * c) * used
         small = nbytes(starts, deltas, mask, plain[2]) + 4 * n * (4 + c)  # outputs, alphas, extras_out
         entry = dict(
-            ms=graph_ms(lambda: pooled_call(kc.composite_pooled_forward_cuda, plain, rest, k), 50),
+            {key: sum(v) / len(v) for key, v in turns.items()}, turns=turns, rays_per_warp=rays,
+            floor_ms=floor_ms(probes, kc.pooled_blocks(n), device),
             plain_ms=graph_ms(lambda: pooled_call(kc.render_composite_pooled_reference, plain, rest, k), 20),
             route_ms=graph_ms(route_forward, 50),
-            backward_ms=graph_ms(lambda: pooled_call(
-                lambda *a: kc.composite_pooled_backward_cuda(*a, *cotangents), plain, rest, k), 50),
             backward_plain_ms=cuda_ms(lambda: torch.autograd.grad(graph, leaves, cotangents, retain_graph=True), 10),
             backward_route_ms=graph_ms(lambda: route_backward(*cotangents), 50),
         )
         entry["bound_ms"], entry["bound_by"] = bound(4 * used * (4 + c) + small, f32_ops=ops)
         entry["backward_bound_ms"], entry["backward_bound_by"] = bound(
-            4 * used * (4 + c) + 4 * plain[0].shape[0] * (4 + c) + small, f32_ops=2 * ops)
+            4 * used * (4 + c) + 4 * rows * (4 + c) + small, f32_ops=2 * ops)
         timed[name] = entry
-        print(f"composite_pooled {name} ({used} rows used): forward {1e3 * entry['ms']:.2f} us (graph replay), "
-              f"the [N, K] route {1e3 * entry['route_ms']:.2f} us, plain {1e3 * entry['plain_ms']:.2f} us, bound "
-              f"{1e3 * entry['bound_ms']:.2f} us ({entry['bound_by']}); backward {1e3 * entry['backward_ms']:.2f} us, "
-              f"the [N, K] route {1e3 * entry['backward_route_ms']:.2f} us, eager autograd "
-              f"{1e3 * entry['backward_plain_ms']:.1f} us, bound {1e3 * entry['backward_bound_ms']:.2f} us "
-              f"({entry['backward_bound_by']})", flush=True)
+        us = {key: [round(1e3 * v, 3) for v in vals] for key, vals in turns.items()}
+        print(f"composite_pooled {name} ({used} rows used, {rays} a warp): forward {us['ms']} us against the parent's "
+              f"{us['parent_ms']} (graph replay, turns A B B A), the launch floor at both grids "
+              f"{1e3 * entry['floor_ms']:.2f} us, bound {1e3 * entry['bound_ms']:.2f} us "
+              f"({entry['bound_by']}), the [N, K] route {1e3 * entry['route_ms']:.2f} us, plain "
+              f"{1e3 * entry['plain_ms']:.2f} us; backward {us['backward_ms']} us against the parent's "
+              f"{us['backward_parent_ms']}, bound {1e3 * entry['backward_bound_ms']:.2f} us "
+              f"({entry['backward_bound_by']}), the [N, K] route {1e3 * entry['backward_route_ms']:.2f} us, eager "
+              f"autograd {1e3 * entry['backward_plain_ms']:.1f} us", flush=True)
 
     step = timed[step_name]
     common = dict(route="cuda", source="learn_nerf_tpu_torch/csrc/composite.cu", library_ms=None)
     forward = dict(
         name="composite_pooled", **common,
         replaces="learn_nerf_tpu/occ_render.py:613-654 (XLA: the segmented scan, weights and segment_sum blends)",
-        max_abs_err=max(fwd_errs.values()), ms=step["ms"], plain_ms=step["plain_ms"], route_ms=step["route_ms"],
-        bound_ms=step["bound_ms"], bound_by=step["bound_by"],
-        shapes={name: dict(ms=e["ms"], route_ms=e["route_ms"], bound_ms=e["bound_ms"]) for name, e in timed.items()},
+        max_abs_err=max(fwd_errs.values()), ms=step["ms"], parent_ms=step["parent_ms"], floor_ms=step["floor_ms"],
+        plain_ms=step["plain_ms"], route_ms=step["route_ms"], bound_ms=step["bound_ms"], bound_by=step["bound_by"],
+        shapes={name: dict(ms=e["ms"], parent_ms=e["parent_ms"], floor_ms=e["floor_ms"],
+                           rays_per_warp=e["rays_per_warp"], route_ms=e["route_ms"], bound_ms=e["bound_ms"])
+                for name, e in timed.items()},
     )
     backward = dict(
         name="composite_pooled_backward", **common,
         replaces="the VJP of learn_nerf_tpu/occ_render.py:613-654 under jax.grad (XLA)",
-        max_abs_err=max(bwd_errs.values()), ms=step["backward_ms"], plain_ms=step["backward_plain_ms"],
-        route_ms=step["backward_route_ms"], bound_ms=step["backward_bound_ms"], bound_by=step["backward_bound_by"],
-        shapes={name: dict(ms=e["backward_ms"], route_ms=e["backward_route_ms"], bound_ms=e["backward_bound_ms"])
+        max_abs_err=max(bwd_errs.values()), ms=step["backward_ms"], parent_ms=step["backward_parent_ms"],
+        floor_ms=step["floor_ms"], plain_ms=step["backward_plain_ms"], route_ms=step["backward_route_ms"],
+        bound_ms=step["backward_bound_ms"], bound_by=step["backward_bound_by"],
+        shapes={name: dict(ms=e["backward_ms"], parent_ms=e["backward_parent_ms"], floor_ms=e["floor_ms"],
+                           rays_per_warp=e["rays_per_warp"], route_ms=e["backward_route_ms"],
+                           bound_ms=e["backward_bound_ms"])
                 for name, e in timed.items()},
     )
     for entry, errs, limit in ((forward, fwd_errs, POOLED_BOUND), (backward, bwd_errs, POOLED_GRAD_BOUND)):
@@ -2095,8 +2226,10 @@ def main():
         require(spills == [0], f"ptxas reports spills for {kernel}: {spills}")
 
     # Two measured variants of the hash-grid kernels, the baked lookup's
-    # replaced kernel and the probes build (from csrc/ablations) while the
-    # MLP kernels are checked.
+    # replaced kernel, the composite source before the pool layout's
+    # kernels and the probes build (from csrc/ablations) while the MLP
+    # kernels are checked.
+    from learn_nerf_tpu_torch.scripts import composite_ablations
     from learn_nerf_tpu_torch.scripts.baked_ablations import build_libraries
     from learn_nerf_tpu_torch.scripts.hashgrid_ablations import VARIANTS, build_probes
     from learn_nerf_tpu_torch.scripts.mlp_ablations import build_variants
@@ -2106,6 +2239,8 @@ def main():
         threading.Thread(target=lambda: variant.update(build_variants([PARENT_LAYOUT, ENCODE_TILES], VARIANTS))),
         threading.Thread(target=lambda: baked_parts.update(parent=build_libraries(["parent"])["parent"],
                                                            probes=build_probes())),
+        threading.Thread(target=lambda: baked_parts.update(composite_parent=composite_ablations.build_libraries(
+            ["parent"], composite_ablations.POOLED_VARIANTS)["parent"])),
     ]
     for thread in threads:
         thread.start()
@@ -2115,13 +2250,14 @@ def main():
         thread.join()
     require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,
             "the hash-grid kernels' measured variants did not build")
-    require(len(baked_parts) == 2, "the replaced baked-lookup kernel or the probes did not build")
+    require(len(baked_parts) == 3, "the replaced baked-lookup or composite kernels or the probes did not build")
     kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3), variant[ENCODE_TILES])
     torch.cuda.empty_cache()
     kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])
     torch.cuda.empty_cache()
-    kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6))
-    kernels += check_pooled_composite_kernels(device, np.random.RandomState(SEED + 9))
+    kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6), baked_parts["composite_parent"])
+    kernels += check_pooled_composite_kernels(device, np.random.RandomState(SEED + 9), baked_parts["composite_parent"],
+                                              baked_parts["probes"])
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
         root = Path(tmp)
@@ -2180,7 +2316,7 @@ def main():
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",
-               "ms_step_rays", "parent_ms", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by",
+               "ms_step_rays", "parent_ms", "floor_ms", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by",
                "library_ms", "card_rate_ms", "share_of_bound", "tflops", "shapes"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])

@@ -2,9 +2,12 @@
 // baked kernels, measured because no profiler counter can be read: random
 // 8-byte row reads that each pull their own 32-byte sector (the encode
 // kernel), random vector atomics (the table-gradient kernel), and random
-// runs of 32-512 bytes read by lane groups (the baked lookup's rows).  Built
-// and timed by scripts/hashgrid_ablations.py and scripts/baked_ablations.py;
-// nothing on a path uses them.
+// runs of 32-512 bytes read by lane groups (the baked lookup's rows); and
+// the floor of a launch: an empty kernel at a kernel's grid and block (the
+// pool-layout composite kernels, which do little work).  Built and timed by
+// scripts/hashgrid_ablations.py, scripts/baked_ablations.py,
+// scripts/composite_ablations.py and chip_smoke.py; nothing on a path uses
+// them.
 //
 // A thread stands for one (point, level pair) of the encode kernel: it
 // makes the accesses of 8 corners in each of its two levels' buffers, at
@@ -130,6 +133,9 @@ __global__ void __launch_bounds__(kProbeThreads)
   out[t] = acc;
 }
 
+// Does nothing: what one launch of a grid costs.
+__global__ void probe_empty_kernel() {}
+
 }  // namespace nerf
 
 // `threads` threads (< 2^32), each reading 16 rows (pairs = 0) or 8 row
@@ -190,5 +196,13 @@ extern "C" int nerf_probe_runs(const void* buf, long long bytes, int run_bytes, 
     case 512: probe_runs_kernel<32><<<blocks, kProbeThreads, 0, s>>>(b, rows, runs, threads, out); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel of `blocks` blocks of `threads` threads.  Returns the
+// cudaError_t of the launch.
+extern "C" int nerf_probe_empty(long long blocks, int threads, void* stream) {
+  using namespace nerf;
+  probe_empty_kernel<<<static_cast<unsigned int>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -140,9 +140,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_composite_forward.restype = i32
     lib.nerf_composite_backward.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 8
     lib.nerf_composite_backward.restype = i32
-    lib.nerf_composite_pooled_forward.argtypes = [ptr] * 7 + [i32] * 4 + [ptr] * 4
+    lib.nerf_composite_pooled_forward.argtypes = [ptr] * 7 + [i32] * 5 + [ptr] * 4
     lib.nerf_composite_pooled_forward.restype = i32
-    lib.nerf_composite_pooled_backward.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 7
+    lib.nerf_composite_pooled_backward.argtypes = [ptr] * 10 + [i32] * 5 + [ptr] * 7
     lib.nerf_composite_pooled_backward.restype = i32
     lib.nerf_baked_lookup.argtypes = [ptr, i32, i32, i32, ptr, i64, i32] + [ctypes.c_float] * 6 + [ptr, ptr]
     lib.nerf_baked_lookup.restype = i32

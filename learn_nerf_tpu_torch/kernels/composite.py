@@ -27,13 +27,16 @@ last column), ``dL/d(density_t delta_t) = G_t (T_t - w_t) - sum_{j>t} G_j
 w_j``: a reverse suffix sum.  The background's gradient is summed by the
 last block in a fixed order: no memset, the same bits every run.
 
-:func:`render_composite_pooled` is the same pair in the pool layout of the
+:func:`render_composite_pooled` computes the same in the pool layout of the
 pooled passes (``learn_nerf_tpu/occ_render.py:613-654``: the segmented
 exclusive scan, the weights and the ``segment_sum`` blends): ray r's
 samples are the pool rows ``starts[r] .. starts[r+1] - 1`` (at most K <= 64,
-in t order), the rest of the pool is its unused tail.  The kernels are the
-same warp-a-ray kernels with the pool layout compiled in (no weights out;
-the backward writes the pool's gradients and zeros on the tail itself).
+in t order), the rest of the pool is its unused tail.  Its kernels
+(``composite_pooled_forward_kernel``, ``composite_pooled_backward_kernel``)
+give a warp a ray, or one warp a group of consecutive short rays whose rows
+fit in 32 lanes, with segmented scans (no weights out; the backward writes
+the pool's gradients and zeros on the tail itself); the group's size
+follows the pool's rows a ray (:func:`pooled_rays_per_warp`).
 
 :func:`render_composite` and :func:`render_composite_pooled` run the plain
 version for CPU tensors (the ops of :mod:`..ops.volume` under plain
@@ -58,12 +61,19 @@ backward_counter = build.LaunchCounter()
 pooled_counter = build.LaunchCounter()
 pooled_backward_counter = build.LaunchCounter()
 
-# Rays per block (csrc kCompositeWarps: one warp per ray), and the extras'
-# widest row (kCompositeMaxExtras).  Any number of samples per ray; at most
-# MAX_POOLED_SAMPLES in the pool layout (its samples stay in registers).
+# Rays per block (csrc kCompositeWarps: one warp per ray, and the warps of
+# a pool-layout block), and the extras' widest row (kCompositeMaxExtras).
+# Any number of samples per ray; at most MAX_POOLED_SAMPLES in the pool
+# layout.
 RAYS_PER_BLOCK = 8
 MAX_EXTRAS = 8
 MAX_POOLED_SAMPLES = 64
+# The pool layout's kernels give one warp a group of R consecutive rays
+# whose rows fit in a chunk of 32, and every other ray a warp of its own;
+# R is one of POOLED_RAYS_PER_WARP: the most whose pool rows (rows / n a
+# ray) fit in POOLED_ROWS_PER_WARP (R = 1: a warp a ray throughout).
+POOLED_RAYS_PER_WARP = (1, 2, 4, 8, 16, 32)
+POOLED_ROWS_PER_WARP = 24
 
 
 def render_composite_reference(
@@ -399,12 +409,37 @@ def _prepared_pooled(densities, starts, deltas, rgbs, background, mask, extras, 
     return tensors
 
 
+def pooled_rays_per_warp(n: int, rows: int) -> int:
+    """The rays a warp of the pool-layout kernels takes for ``n`` rays over
+    a pool of ``rows`` rows: the most of :data:`POOLED_RAYS_PER_WARP` whose
+    rows fit in :data:`POOLED_ROWS_PER_WARP`."""
+    rays = POOLED_RAYS_PER_WARP[0]
+    for r in POOLED_RAYS_PER_WARP[1:]:
+        if r * rows <= POOLED_ROWS_PER_WARP * n:
+            rays = r
+    return rays
+
+
+def pooled_blocks(n: int) -> int:
+    """Blocks of a pool-layout launch (csrc ``pooled_blocks``): a warp a
+    ray, RAYS_PER_BLOCK warps a block, whatever the groups."""
+    return -(-n // RAYS_PER_BLOCK)
+
+
+def _rays_per_warp(n: int, rows: int) -> int:
+    rays = pooled_rays_per_warp(n, rows)
+    if rays not in POOLED_RAYS_PER_WARP:
+        raise ValueError(f"the pooled composite kernels take {POOLED_RAYS_PER_WARP} rays a warp; got {rays}")
+    return rays
+
+
 def _launch_pooled_forward(densities, starts, deltas, rgbs, background, mask, extras, samples) -> PooledOutputs:
     """The pool layout's forward launch on inputs that
     :func:`_prepared_pooled` passed."""
     rows, n = densities.shape[0], starts.shape[0] - 1
     c = 0 if extras is None else extras.shape[-1]
     device = densities.device
+    rays_per_warp = _rays_per_warp(n, rows)
     _require_card(device)
     outputs = torch.empty((n, 3), dtype=torch.float32, device=device)
     alphas = torch.empty((n, 1), dtype=torch.float32, device=device)
@@ -415,7 +450,7 @@ def _launch_pooled_forward(densities, starts, deltas, rgbs, background, mask, ex
     with build.launch_context(device):
         err = lib.nerf_composite_pooled_forward(
             densities.data_ptr(), starts.data_ptr(), deltas.data_ptr(), rgbs.data_ptr(),
-            background.data_ptr(), mask.data_ptr(), _ptr(extras), n, samples, c, rows,
+            background.data_ptr(), mask.data_ptr(), _ptr(extras), n, samples, c, rows, rays_per_warp,
             outputs.data_ptr(), alphas.data_ptr(), _ptr(blended), build.current_stream(device),
         )
     build.check_launch(lib, err, "composite_pooled_forward")
@@ -439,6 +474,7 @@ def _launch_pooled_backward(densities, starts, deltas, rgbs, background, mask, e
     cotangents = _checked_cotangents([grad_outputs, grad_alphas, grad_extras_out], ((n, 3), (n, 1), (n, c)),
                                      ("outputs", "alphas", "extras_out"), device)
     want_rgbs, want_background, want_extras = wanted
+    rays_per_warp = _rays_per_warp(n, rows)
     _require_card(device)
     if n == 0:  # no ray: the whole pool is tail
         return (torch.zeros_like(densities), torch.zeros_like(rgbs) if want_rgbs else None,
@@ -456,13 +492,13 @@ def _launch_pooled_backward(densities, starts, deltas, rgbs, background, mask, e
     grad_background = ticket = partials = None
     if want_background:
         grad_background = torch.empty_like(background)
-        ticket, partials = _background_scratch(device, -(-n // RAYS_PER_BLOCK))
+        ticket, partials = _background_scratch(device, pooled_blocks(n))
     lib = build.library()
     with build.launch_context(device):
         err = lib.nerf_composite_pooled_backward(
             densities.data_ptr(), starts.data_ptr(), deltas.data_ptr(), rgbs.data_ptr(),
             background.data_ptr(), mask.data_ptr(), _ptr(extras), *map(_ptr, cotangents), n, samples, c,
-            rows, grad_densities.data_ptr(), _ptr(grad_rgbs), _ptr(grad_extras), _ptr(partials), _ptr(ticket),
+            rows, rays_per_warp, grad_densities.data_ptr(), _ptr(grad_rgbs), _ptr(grad_extras), _ptr(partials), _ptr(ticket),
             _ptr(grad_background), build.current_stream(device),
         )
     build.check_launch(lib, err, "composite_pooled_backward")

@@ -299,7 +299,7 @@ def _encode_on_card(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smoo
             raise NotImplementedError(
                 "the encode kernel has no gradient in the points (Ref-NeRF's normals "
                 "need d/dx and, in smooth mode, its double backward: ROADMAP.md, "
-                "Queue 1 item 7); detach the points, or encode on the CPU"
+                "Queue 1: Ref-NeRF); detach the points, or encode on the CPU"
             )
         if any(t.requires_grad for t in tables):
             config = (

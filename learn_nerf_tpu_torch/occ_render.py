@@ -26,7 +26,7 @@ fused kernel (:mod:`.kernels.fused_render`), as
 ``tools/pallas_recipe/fused_render.fused_render_occupancy`` does.
 
 Not ported yet: the two-phase span and the block-word gathers (ROADMAP.md,
-Queue 1 item 1); asking for them raises.
+Queue 1: the span and the block-word gathers); asking for them raises.
 """
 
 from dataclasses import dataclass
@@ -53,7 +53,7 @@ Tensor = torch.Tensor
 
 NOT_PORTED = (
     "is not ported yet; the two-phase span and the block-word gathers are "
-    "left of ROADMAP.md, Queue 1 item 1"
+    "left of ROADMAP.md, Queue 1: the span and the block-word gathers"
 )
 
 

@@ -238,6 +238,7 @@ def build_probes():
     lib.nerf_probe_atomics.argtypes, lib.nerf_probe_atomics.restype = [ptr, i64, i32, ptr], i32
     lib.nerf_probe_runs.argtypes, lib.nerf_probe_runs.restype = [ptr, i64, i32, i64, ptr, ptr], i32
     lib.nerf_probe_runs_threads.argtypes, lib.nerf_probe_runs_threads.restype = [i64, i32], i64
+    lib.nerf_probe_empty.argtypes, lib.nerf_probe_empty.restype = [i64, i32, ptr], i32
     return lib
 
 

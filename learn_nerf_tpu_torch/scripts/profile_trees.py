@@ -13,8 +13,10 @@ one profiled) and, unless ``--train_only``, each render mode of
 ``chip_smoke.py --profile`` (the vanilla hierarchy
 and occupancy, ``--bf16`` and f32; the three NGP modes in f32;
 ``scripts/profile_render.py``: one warm-up render at 256x256, five timed,
-one profiled).  Checkouts run in the order given on even turns and in the
-reverse order on odd ones (A B, then B A).
+one profiled); with ``--pooled`` also ``bench_pooled``'s cell
+(``profile_train.py --pooled``: the dense and the auto-pooled step on a
+frozen 5 %-occupied grid).  Checkouts run in the order given on even turns
+and in the reverse order on odd ones (A B, then B A).
 
 Every run counts the memsets of each profiled call, and times the train
 steps with this checkout's ``profile_train.profile_steps`` whichever
@@ -86,6 +88,10 @@ try:
     profile_train.kc, profile_train.contextlib = kc, contextlib
     exec(os.environ["PROFILE_STEPS_SOURCE"], profile_train.__dict__)
     emit("ngp occupancy train step", profile_train.profile_args(args))
+    if os.environ["PROFILE_POOLED"] == "1":
+        pooled = profile_train.argparser().parse_args(flags + ["--repeats", os.environ["PROFILE_REPEATS"], "--pooled"])
+        for half, result in profile_train.profile_args(pooled).items():
+            emit(f"ngp occupancy train step, bench_pooled grid, {half}", result)
     view = CameraView.from_json(str(root / "0000.json"))
     runs = [(name, mode, bf16) for name, mode in cs.VANILLA_MODES.items() for bf16 in (True, False)]
     runs += [(name, mode, False) for name, mode in cs.NGP_MODES.items()]
@@ -108,6 +114,7 @@ def main(argv=None):
     parser.add_argument("--timeout", type=float, default=600, help="seconds a run may take")
     parser.add_argument("--repeats", type=int, default=16, help="timed train steps a run")
     parser.add_argument("--train_only", action="store_true", help="profile the train step, no render mode")
+    parser.add_argument("--pooled", action="store_true", help="also profile bench_pooled's dense and pooled step")
     args = parser.parse_args(argv)
     trees = [str(Path(t).resolve()) for t in args.trees]
     for tree in trees:
@@ -119,7 +126,8 @@ def main(argv=None):
     for turn in range(args.turns):
         for tree in trees if turn % 2 == 0 else trees[::-1]:
             env = dict(os.environ, PROFILE_TREE=tree, PROFILE_TURN=str(turn), PROFILE_STEPS_SOURCE=steps_source,
-                       PROFILE_REPEATS=str(args.repeats), PROFILE_RENDERS="0" if args.train_only else "1")
+                       PROFILE_REPEATS=str(args.repeats), PROFILE_RENDERS="0" if args.train_only else "1",
+                       PROFILE_POOLED="1" if args.pooled else "0")
             proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, env=env, capture_output=True,
                                   text=True, timeout=args.timeout)
             if proc.returncode != 0:

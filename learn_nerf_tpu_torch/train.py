@@ -32,9 +32,9 @@ Where the JAX loop draws the auto budget's demand batch with
 ``fold_in(PRNGKey(17), host step)``, the port seeds a generator with
 ``fold_seed(17, 0, host step)``.
 
-Not ported yet (ROADMAP.md, Queue 1): the hierarchy's ``TrainLoop`` (item
-6), full-state checkpoints (item 8) and meshes of several cards (item 9);
-asking for any of them raises.
+Not ported yet (ROADMAP.md, Queue 1): the hierarchy's ``TrainLoop``
+(vanilla training), full-state checkpoints and meshes of several cards
+(data parallelism); asking for any of them raises.
 """
 
 import copy
@@ -54,7 +54,7 @@ from .occ_render import OccupancyRenderer
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
 
-NOT_PORTED = "is not ported to learn_nerf_tpu_torch yet (ROADMAP.md, Queue 1 item {item})"
+NOT_PORTED = "is not ported to learn_nerf_tpu_torch yet (ROADMAP.md, Queue 1: {item})"
 
 # Stream tags of step_auto's per-step seeds (the JAX loop folds the same
 # two tags into its base key), and the base seed of the auto pool budget's
@@ -228,7 +228,7 @@ class TrainLoop:
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "training the coarse/fine hierarchy (TrainLoop) " + NOT_PORTED.format(item=6)
+            "training the coarse/fine hierarchy (TrainLoop) " + NOT_PORTED.format(item="vanilla training")
             + "; train with OccupancyTrainLoop (--occupancy)"
         )
 
@@ -287,13 +287,13 @@ class OccupancyTrainLoop:
         device: Union[None, str, torch.device] = None,
     ):
         if mesh is not None:
-            raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item=9))
+            raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item="data parallelism"))
         if isinstance(model, NeRFModel) and model.compute_dtype == "bfloat16":
             # Its forward is the fused MLP kernel over packed (detached)
             # weights: a backward through it would leave every gradient None.
             raise NotImplementedError(
                 "training a bfloat16 vanilla model is not ported: its forward is the fused "
-                "MLP kernel, which has no backward (ROADMAP.md, Queue 3); train it in float32"
+                "MLP kernel, which has no backward (ROADMAP.md, Queue 1: vanilla training); train it in float32"
             )
         bbox_min_t = tuple(np.asarray(bbox_min, dtype=np.float32).tolist())
         bbox_max_t = tuple(np.asarray(bbox_max, dtype=np.float32).tolist())
@@ -598,7 +598,7 @@ class OccupancyTrainLoop:
         self._auto_per_ray, self._auto_resolved_at = None, 0
 
     def save_full(self, path: str) -> None:
-        raise NotImplementedError("full-state checkpoints (save_full) " + NOT_PORTED.format(item=8))
+        raise NotImplementedError(f"full-state checkpoints (save_full) {NOT_PORTED.format(item='full-state checkpoints')}")
 
     def load_full(self, path: str) -> None:
-        raise NotImplementedError("full-state checkpoints (load_full) " + NOT_PORTED.format(item=8))
+        raise NotImplementedError(f"full-state checkpoints (load_full) {NOT_PORTED.format(item='full-state checkpoints')}")

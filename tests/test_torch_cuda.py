@@ -32,9 +32,14 @@ backward within 5e-6 of each gradient's max against autograd through
 per ray or one per sample, with 0, 3 and 5 extras; finite differences on a
 tiny case within 2e-2 (f32 differences of step 1e-2); the background's
 gradient bit-equal across runs; the refusal of more than 8 extras.  The
-same kernels in the pool layout, to the same bounds, with zero gradients
-on the pool's tail, a pool that cuts the trailing rays and K = 1, 32, 33,
-64, and their background's gradient bit-equal across runs.  The baked
+pool layout's kernels to the same bounds, at every rays-a-warp (a warp a
+ray, or a group of 2-32 rays a warp) and at the wrappers' own rule, with
+zero gradients on the pool's tail, a pool that cuts the trailing rays, K =
+1, 32, 33, 64, every ray one row, rays of 0 and 64 rows, runs of 31, 33, 1
+rows across chunks and groups, rays counts no rays-a-warp divides; held to
+the pair they replaced (csrc/ablations/composite_pooled_parent.cu, built on
+its own) within the same bounds; their background's gradient bit-equal
+across runs.  The baked
 lookup: within 1e-6 of its plain version (8 weighted unit-scale corners
 summed in another order) in bf16 and f32, at packs 1, 2, 4 and 8, with r =
 2, 3, 17 and 33, at 1, 31, 32, 33 and 5000 points on and outside the bbox's
@@ -43,6 +48,8 @@ and the cells' faces, every pack bit-equal to pack 1; and at r = 2, 3 and
 the kernel it replaced (one thread a point, built from csrc/ablations); the
 baked model on the card against the CPU (1e-5); the wrapper's refusals.
 """
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -545,11 +552,26 @@ def test_composite_refuses_what_its_kernels_do_not_take(cuda):
         kc.render_composite(leaves[0], leaves[1][:, :0], *leaves[2:4], mask)
 
 
-def _pooled_inputs(cuda, seed, n, k, rows, extras=3):
-    """A pool of ``rows`` whose rays own 0 to k rows each (clamped at the
-    pool's end), leaves that require grad, the rest, the cotangents."""
+# Rows a ray for the pool layout's edge cases: every ray one row, rays
+# alternating 0 and 64 rows, a run of 31, 33, 1 that straddles chunks and
+# groups, a budget-6 tile's survivors, runs of 36 long rays in 256 (a
+# served frame's tile).
+POOLED_PATTERNS = {
+    "ones": lambda rng, n, k: np.ones(n, np.int64),
+    "0 and 64": lambda rng, n, k: np.resize([0, 64], n),
+    "31, 33, 1": lambda rng, n, k: np.resize([31, 33, 1], n),
+    "a tile's survivors": lambda rng, n, k: np.minimum(rng.binomial(192, 4.6 / 192, n), k),
+    "runs of long rays": lambda rng, n, k: np.where(np.arange(n) % 256 < 36,
+                                                    np.minimum(rng.binomial(192, 34 / 192, n), k), 0),
+}
+
+
+def _pooled_inputs(cuda, seed, n, k, rows, extras=3, pattern=None):
+    """A pool of ``rows`` whose rays own 0 to k rows each (or as
+    ``POOLED_PATTERNS[pattern]`` gives; clamped at the pool's end), leaves
+    that require grad, the rest, the cotangents."""
     rng = np.random.RandomState(seed)
-    counts = rng.randint(0, k + 1, n)
+    counts = rng.randint(0, k + 1, n) if pattern is None else POOLED_PATTERNS[pattern](rng, n, k)
     starts = np.concatenate([[0], np.minimum(np.cumsum(counts), rows)]).astype(np.int32)
     values = [(rng.uniform(0, 12, rows) * (rng.rand(rows) < 0.8)).astype(np.float32),
               rng.uniform(-1, 1, (rows, 3)).astype(np.float32), np.array([-1.0, 0.3, 1.0], np.float32),
@@ -567,16 +589,37 @@ def _pooled(route, leaves, rest, k):
     return route(densities, starts, deltas, rgbs, background, mask, extras, k)
 
 
+@contextlib.contextmanager
+def _rays_per_warp(rays):
+    """Inside, the pool-layout wrappers give a warp ``rays`` rays (None:
+    their own rule)."""
+    rule = kc.pooled_rays_per_warp
+    if rays is not None:
+        kc.pooled_rays_per_warp = lambda n, rows: rays
+    try:
+        yield
+    finally:
+        kc.pooled_rays_per_warp = rule
+
+
+@pytest.mark.parametrize("rays", [None, *kc.POOLED_RAYS_PER_WARP])
 @pytest.mark.parametrize("extras", [3, 5])
-@pytest.mark.parametrize("n,k,rows", [(4096, 32, 4096 * 16), (4097, 32, 30000), (4099, 64, 4099 * 40),
-                                      (3, 1, 2), (1, 33, 40)])
-def test_pooled_composite_kernels_match_plain_version(cuda, n, k, rows, extras):
-    """The pool layout against its plain version: a part-full tail (zero
-    gradients there), a pool that cuts the trailing rays, K = 1, 33, 64."""
-    leaves, rest, cotangents = _pooled_inputs(cuda, n + k, n, k, rows, extras)
+@pytest.mark.parametrize("n,k,rows,pattern", [
+    (4096, 32, 4096 * 16, None), (4097, 32, 30000, None), (4099, 64, 4099 * 40, None), (3, 1, 2, None),
+    (1, 33, 40, None), (4097, 32, 4097, "ones"), (4097, 64, 4097 * 32 + 3, "0 and 64"),
+    (4099, 64, 4099 * 22, "31, 33, 1"), (8195, 32, 8195 * 6, "a tile's survivors"),
+    (8192, 32, 8192 * 6, "runs of long rays")])
+def test_pooled_composite_kernels_match_plain_version(cuda, n, k, rows, pattern, extras, rays):
+    """The pool layout against its plain version at every rays-a-warp and
+    the wrappers' rule: a part-full tail (zero gradients there), a pool that
+    cuts the trailing rays, K = 1, 33, 64, every ray one row, rays of 0 and
+    64 rows, runs across chunks and groups, a rays count no rays-a-warp
+    divides."""
+    leaves, rest, cotangents = _pooled_inputs(cuda, n + k, n, k, rows, extras, pattern)
     before = (kc.pooled_counter.launches, kc.pooled_backward_counter.launches)
-    outs = _pooled(kc.render_composite_pooled, leaves, rest, k)
-    grads = torch.autograd.grad(outs, leaves, cotangents)
+    with _rays_per_warp(rays):
+        outs = _pooled(kc.render_composite_pooled, leaves, rest, k)
+        grads = torch.autograd.grad(outs, leaves, cotangents)
     torch.cuda.synchronize()
     assert (kc.pooled_counter.launches, kc.pooled_backward_counter.launches) == (before[0] + 1, before[1] + 1)
     assert kc.pooled_counter.plain_calls == 0
@@ -587,6 +630,38 @@ def test_pooled_composite_kernels_match_plain_version(cuda, n, k, rows, extras):
     assert max(_relative_errors(grads, ref_grads)) <= 5e-6
     tail = int(rest[0][-1])
     assert all(g[tail:].abs().max().item() == 0 for g in (grads[0], grads[1], grads[3]) if g.shape[0] > tail)
+
+
+@pytest.fixture(scope="module")
+def pooled_parent():
+    """The pool-layout pair these kernels replaced (csrc/ablations/composite_pooled_parent.cu),
+    built on its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from learn_nerf_tpu_torch.scripts.composite_ablations import POOLED_VARIANTS, build_libraries
+    return build_libraries(["parent"], POOLED_VARIANTS)["parent"]
+
+
+@pytest.mark.parametrize("pattern", [None, "ones", "31, 33, 1", "a tile's survivors", "runs of long rays"])
+def test_pooled_composite_kernels_match_the_kernels_they_replaced(cuda, pooled_parent, pattern):
+    """The pool-layout pair against the pair it replaced (one warp a ray) on the same
+    pool, within the bounds they are held to against the plain version."""
+    from learn_nerf_tpu_torch.scripts.composite_ablations import launching_pooled_from
+
+    n, k = 8195, 64
+    leaves, rest, cotangents = _pooled_inputs(cuda, 7, n, k, n * 12, 3, pattern)
+    plain = [v.detach() for v in leaves]
+    runs = []
+    for context in (contextlib.nullcontext(), launching_pooled_from(pooled_parent)):
+        with context:
+            outs = _pooled(kc.composite_pooled_forward_cuda, plain, rest, k)
+            grads = _pooled(lambda *a: kc.composite_pooled_backward_cuda(*a, *cotangents), plain, rest, k)
+            runs.append((outs, grads))
+    torch.cuda.synchronize()
+    (outs, grads), (parent_outs, parent_grads) = runs
+    for out, want in zip(outs, parent_outs):
+        torch.testing.assert_close(out, want, rtol=0, atol=1e-6)
+    assert max(_relative_errors(grads, parent_grads)) <= 5e-6
 
 
 def test_pooled_composite_background_gradient_is_the_same_every_run(cuda):

@@ -289,7 +289,7 @@ def test_occupancy_frame_session_renders_and_refuses_unported_levers(occupancy_s
     assert set(out) == {"outputs"} and out["outputs"].shape == (96, 3)
     assert torch.isfinite(out["outputs"]).all()
     for lever in ("span_candidates", "block_gather_stride", "span_block_gather"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
+        with pytest.raises(NotImplementedError, match="Queue 1: the span and the block-word gathers"):
             occ_render.OccupancyRenderer(
                 model=renderer.model, grid=renderer.grid, bbox_min=renderer.bbox_min,
                 bbox_max=renderer.bbox_max, **{lever: 64},

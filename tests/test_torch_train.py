@@ -468,7 +468,7 @@ def test_fold_seed_is_a_pure_function_of_its_arguments():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "item 9"),
+    (dict(mesh=object()), "Queue 1: data parallelism"),
 ])
 def test_unported_loop_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -476,12 +476,12 @@ def test_unported_loop_options_raise(kwargs, match):
 
 
 def test_unported_loops_and_checkpoints_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1: vanilla training"):
         train.TrainLoop()
     loop = port_loop()
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1: full-state checkpoints"):
         loop.save_full("x")
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1: full-state checkpoints"):
         loop.load_full("x")
     # A bf16 vanilla model's forward is the fused kernel over detached
     # weights: training it would leave every gradient None.

@@ -374,8 +374,9 @@ def test_pooled_plain_version_equals_the_dense_one_on_the_same_samples():
         torch.testing.assert_close(g, w)
 
 
-@pytest.mark.parametrize("case", ["on the cpu", "65 samples", "int64 starts", "rgbs", "9 extras", "cotangent"])
-def test_pooled_cuda_wrappers_refuse_what_the_kernels_do_not_take(case):
+@pytest.mark.parametrize("case", ["on the cpu", "65 samples", "int64 starts", "rgbs", "9 extras", "cotangent",
+                                  "3 rays a warp"])
+def test_pooled_cuda_wrappers_refuse_what_the_kernels_do_not_take(case, monkeypatch):
     args = pooled_inputs(3)
     samples = 65 if case == "65 samples" else 6
     if case == "int64 starts":
@@ -384,14 +385,16 @@ def test_pooled_cuda_wrappers_refuse_what_the_kernels_do_not_take(case):
         args[3] = args[3][:-1]
     elif case == "9 extras":
         args[6] = torch.zeros(140, 9)
+    elif case == "3 rays a warp":  # the kernels take 1, 2, 4, ..., 32
+        monkeypatch.setattr(kc, "pooled_rays_per_warp", lambda n, rows: 3)
     message = {"on the cpu": "CUDA", "65 samples": "1 to 64 samples", "9 extras": "1 to 8 extras",
-               "cotangent": "cotangent of outputs"}.get(case, "want [a-z]+ torch")
+               "cotangent": "cotangent of outputs", "3 rays a warp": "rays a warp"}.get(case, "want [a-z]+ torch")
     with pytest.raises(ValueError, match=message):
         if case == "cotangent":
             kc.composite_pooled_backward_cuda(*args, samples, torch.zeros(37, 2), None)
         else:
             kc.composite_pooled_forward_cuda(*args, samples)
-    assert kc.MAX_POOLED_SAMPLES == 64
+    assert kc.MAX_POOLED_SAMPLES == 64 and kc.POOLED_RAYS_PER_WARP == (1, 2, 4, 8, 16, 32)
 
 
 # -- the CLIs -----------------------------------------------------------------
