@@ -16,9 +16,20 @@ nonzero):
    the edges of their persistent tile loops: fused_mlp at 1, 127, 128, 129
    and 2^20 - 37 points and on a hidden-40 model, fused_render at 1, 24,
    32 and 64 samples per ray with a last tile that is not full;
-   table_gather at pallas_gather's own shape, [2^18, 2] f32 rows at
-   999,424 indices, exactly, and at 1, 3, 4 and 5 indices with wrapped and
-   NaN rows; the corner kernel at the 16-level fine schedule on 2^20
+   table_gather's two routes at 999,424 indices: the block route at
+   [4096, 2], the L2 route at pallas_gather's own shape, [2^18, 2] f32
+   rows (the wrapper's pick there), and at [2^21, 2], and the cluster
+   kernel (``csrc/ablations/table_gather_cluster.cu``, which the wrapper
+   picks for no table) at [2^18, 2]; each exactly equal to index_select
+   and its plain version, at 1, 3, 4 and 5 indices with wrapped and NaN
+   rows and from offset views, and at C = 1, 3 and 4 on the tables at the
+   routes' edges, with a check that a cluster kernel reading the
+   neighbouring block's slice is caught, the routes and the clusters
+   placed printed, each timed beside the kernel it replaced
+   (``csrc/ablations/table_gather_parent.cu``, in turns A B B A),
+   ``index_select`` and the card's rate for its reads (shared-memory and
+   distributed shared-memory reads and the fill, or L2 sectors;
+   ``csrc/ablations/probes.cu``); the corner kernel at the 16-level fine schedule on 2^20
    points; the all-level encode kernel at the fine schedule on 2^20 points
    with unit-scale tables, at the 6-level coarse schedule, in smooth mode
    and at 1, 31, 32, 33 and 2^20 - 37 points, on points along rays and on
@@ -199,9 +210,17 @@ REQUESTS = 3
 # pallas_gather's shape (tools/exp_gather.py): one NGP level, [2^18, 2] f32,
 # gathered at 122 tiles of 8192 int32 indices.  Rows are moved, not summed:
 # the kernel must equal index_select exactly, and its plain version at the
-# edge lengths, NaN rows included.
+# edge lengths, NaN rows included.  table_gather picks its route from the
+# table's shape: a [4096, 2] table (a 16^3 dense level) takes the block
+# route, pallas_gather's table and [2^21, 2] (past what a cluster of 16
+# holds) the L2 route; the cluster kernel, which the wrapper gives no
+# table, is held and timed at pallas_gather's.  Each is held at C = 2 and on the
+# tables at the routes' edges at C = 1, 3 and 4, and timed beside the
+# kernel it replaced in turns A B B A.
 GATHER_ROWS, GATHER_INDICES = 1 << 18, 999_424
 GATHER_EDGE_INDICES = (1, 3, 4, 5)
+GATHER_SHAPES = {"block": 4096, "pallas_gather": GATHER_ROWS, "past a cluster": 1 << 21}
+GATHER_PARENT, GATHER_CLUSTER, GATHER_NEIGHBOUR = "gather parent", "gather cluster 16", "gather neighbour slice"
 # The NGP encoding at the fine schedule (16 levels of 2^18 rows, lattices
 # 2^(4 + i//2)) on 2^20 points with unit-scale tables U(-1, 1), and at the
 # edges of the encode kernel's grid of (point, level pair) threads, 8 to a
@@ -556,13 +575,198 @@ def launching_from(lib):
         build._library = built
 
 
+def gather_routes(rows, columns, cluster_lib):
+    """``{kernel: (gather, route)}`` for a ``[rows, columns]`` table, each
+    ``gather(table, idx, route)`` adding nothing to the wrapper's launch
+    count: the route the wrapper picks, and the cluster kernel
+    (``cluster_lib``, which the wrapper gives no table) where the table is
+    past the block route and a cluster holds it."""
+    from learn_nerf_tpu_torch.kernels import table_gather as tg
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import cluster_route, gather_with
+
+    picked = tg.gather_route(rows, columns)
+    routes = {picked: (gather_with(None), picked)}
+    cluster = cluster_route(rows, columns)
+    if picked == "l2" and cluster:
+        routes["cluster"] = (gather_with(cluster_lib), cluster)
+    return routes
+
+
+def gather_tables(columns):
+    """``{case: rows}``: the tables at the edges of table_gather's kernels
+    at ``columns``: the largest the block route takes, one past it (no
+    cluster size divides 100,003 rows), the largest a cluster of 16 holds
+    and one row past it."""
+    from learn_nerf_tpu_torch.kernels import table_gather as tg
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import LARGEST_CLUSTER, SLICE_BYTES
+
+    block = tg.BLOCK_TABLE_BYTES // (4 * columns)
+    cluster = LARGEST_CLUSTER * (1 << ((SLICE_BYTES // (4 * columns)).bit_length() - 1))
+    return {"largest block": block, "100,003 rows": 100_003, "largest cluster": cluster, "past a cluster": cluster + 1}
+
+
+def profiled(call, device, counters, tries=3):
+    """``profile_render.profile_call`` of ``call``, profiled again, up to
+    ``tries`` times, only while its trace holds no device event at all and
+    the wrappers' launch ``counters`` show that the call did launch:
+    torch.profiler on an H100 now and then records a call's host side and
+    none of its kernels (one profiled call in two to four runs of this
+    script).  A call that launched nothing is not profiled again, and its
+    check fails."""
+    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+
+    for attempt in range(tries):
+        before = sum(c.launches for c in counters)
+        seen = profile_call(call, device)
+        launched = sum(c.launches for c in counters) - before
+        if seen["kernels_launched"] or seen["memsets"] or not launched:
+            break
+        print(f"  the call launched {launched} kernel(s) and the profiler recorded no device event "
+              f"(try {attempt + 1} of {tries})", flush=True)
+    return seen
+
+
+def same_rows(got, want):
+    """Equal, NaN rows where the other has them."""
+    return bool(torch.equal(torch.isnan(got), torch.isnan(want))
+                and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)))
+
+
+def check_table_gather(device, rng, libs, probes):
+    """table_gather's kernels (routes) at 999,424 indices, exactly
+    index_select and the plain version: the block route at [4096, 2], the
+    L2 route at pallas_gather's [2^18, 2] and at [2^21, 2], the cluster
+    kernel (``libs[GATHER_CLUSTER]``, which the wrapper picks for no table)
+    at [2^18, 2]; each at C = 1, 3 and 4 on the tables at the routes'
+    edges, at 1, 3, 4 and 5 indices with wrapped and NaN rows, from offset
+    views; a variant of the cluster kernel that reads the neighbouring
+    block's slice must be caught; each timed beside the kernel it replaced
+    (``libs[GATHER_PARENT]``, in turns A B B A), ``index_select`` and the
+    card's rate for its reads (``probes``)."""
+    from learn_nerf_tpu_torch.kernels import table_gather as tg
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import (LARGEST_CLUSTER, cluster_placement, gather_with,
+                                                                  sector_us, shared_probes)
+
+    def on_card(a):
+        return torch.from_numpy(a).to(device)
+
+    def edged(rows, m):
+        """m in-range indices, then a wrapped one (-1) and two out of range
+        (T, -T - 1) in their first places."""
+        idx = rng.randint(0, rows, m).astype(np.int32)
+        idx[: min(m, 3)] = [-1, rows, -rows - 1][: min(m, 3)]
+        return on_card(idx)
+
+    def table_of(rows, columns):
+        return on_card(rng.uniform(-1, 1, (rows, columns)).astype(np.float32))
+
+    def synced(gather, table, idx, route):
+        out = gather(table, idx, route)
+        torch.cuda.synchronize()
+        return out
+
+    placed, unequal, main = {}, [], {}
+    for rows in sorted(set(GATHER_SHAPES.values())):
+        table, idx = table_of(rows, 2), on_card(rng.randint(0, rows, GATHER_INDICES).astype(np.int32))
+        storage, raw = table_of(rows + 1, 2), edged(rows, GATHER_INDICES + 1)
+        for kind, (gather, route) in gather_routes(rows, 2, libs[GATHER_CLUSTER]).items():
+            name = f"{kind} [{rows}, 2]"
+            if kind == "cluster":
+                placed[name] = cluster_placement(libs[GATHER_CLUSTER], rows, 2, route)
+            out = tg.table_gather_cuda(table, idx) if kind != "cluster" else gather(table, idx, route)
+            torch.cuda.synchronize()
+            if not (torch.equal(out, table.index_select(0, idx))
+                    and torch.equal(out, tg.table_gather_reference(table, idx))):
+                unequal.append(name)
+            main[name] = (table, idx, out, gather, route)
+            for m in GATHER_EDGE_INDICES:
+                edge = edged(rows, m)
+                if not same_rows(synced(gather, table, edge, route), tg.table_gather_reference(table, edge)):
+                    unequal.append(f"{name} at M = {m}")
+            # Offset views: the table one row into its storage (8 bytes: no
+            # 16-byte vector copies of it), the indices one element into
+            # theirs.
+            view, idx_view = storage[1:], raw[1:]
+            if not same_rows(synced(gather, view, idx_view, route), tg.table_gather_reference(view, idx_view)):
+                unequal.append(f"{name} from offset views")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(f"table_gather: the wrapper's routes {({r: tg.gather_route(r, 2) for r in GATHER_SHAPES.values()})}; "
+          f"the block route runs one block on each of the {sms} SMs; the cluster kernel's clusters placed at once "
+          f"{placed}", flush=True)
+    columns = {}
+    for c in (1, 3, 4):
+        for case, rows in gather_tables(c).items():
+            table, idx = table_of(rows, c), edged(rows, GATHER_INDICES)
+            view = table_of(rows + 1, c)[1:]  # 4 * C bytes into its storage
+            for kind, (gather, route) in gather_routes(rows, c, libs[GATHER_CLUSTER]).items():
+                name = f"C = {c}, {case} [{rows}, {c}], {kind}"
+                columns[name] = same_rows(synced(gather, table, idx, route), tg.table_gather_reference(table, idx))
+                if not (columns[name] and same_rows(synced(gather, view, idx, route),
+                                                    tg.table_gather_reference(view, idx))):
+                    unequal.append(name)
+    print(f"table_gather at C = 1, 3, 4, 999,424 indices with wrapped and NaN rows, from the table and from an "
+          f"offset view: {sorted(columns)}", flush=True)
+    table, idx, out, _, route = main[f"cluster [{GATHER_ROWS}, 2]"]
+    wrong = synced(gather_with(libs[GATHER_NEIGHBOUR]), table, idx, route)
+    caught = (wrong != out).any(dim=1).double().mean().item()
+    print(f"table_gather: unequal cases {unequal}; a cluster kernel reading the neighbouring block's slice gets "
+          f"{100 * caught:.1f} % of the rows wrong", flush=True)
+    require(not unequal, f"table_gather disagrees with index_select or its plain version: {unequal}")
+    require(caught > 0.5, "the equality check would not catch a kernel that reads the neighbouring block's slice")
+
+    rates = shared_probes(probes, device)
+    print("card's rate for random 8-byte shared-memory reads: "
+          + ", ".join(f"{'own' if q == 1 else f'cluster of {q}'} {r['giga_reads_per_s']:.1f} G/s ({r['blocks']} blocks)"
+                      for q, r in rates["reads"].items())
+          + "; the fill from L2: "
+          + ", ".join(f"{k} {r['us']:.2f} us ({r['blocks']} blocks, {r['tb_per_s']:.2f} TB/s)"
+                      for k, r in rates["fills"].items()), flush=True)
+    fill, reads = rates["fills"], rates["reads"]
+    card_us = {  # the fill and the reads at the probed rates, or random L2 sectors
+        "block": fill["32 KiB a block, one block a SM"]["us"] + GATHER_INDICES / reads[1]["giga_reads_per_s"] / 1e3,
+        "cluster": fill["128 KiB a block, clusters of 16"]["us"]
+        + GATHER_INDICES / reads[LARGEST_CLUSTER]["giga_reads_per_s"] / 1e3,
+    }
+    parent = gather_with(libs[GATHER_PARENT])
+    shapes = {}
+    for name, (table, idx, out, gather, route) in main.items():
+        kind = name.split()[0]
+        kernel = lambda: gather(table, idx, route)
+        replaced = lambda: parent(table, idx, route)
+        turns = {"ms": [], "parent_ms": []}
+        for own in (True, False, False, True):
+            turns["ms" if own else "parent_ms"].append(graph_ms(kernel if own else replaced, 50))
+        rate_us = card_us.get(kind) or sector_us(probes, table.shape[0], GATHER_INDICES, device)
+        entry = dict(route=kind, picked=kind == tg.gather_route(*table.shape),
+                     **{k: sum(v) / len(v) for k, v in turns.items()}, turns_ms=turns,
+                     plain_ms=graph_ms(lambda: tg.table_gather_reference(table, idx), 50),
+                     library_ms=graph_ms(lambda: table.index_select(0, idx), 50), card_rate_ms=rate_us / 1e3,
+                     eager_ms=cuda_ms(kernel, 200), bound_ms=bound(nbytes(table, idx, out))[0])
+        shapes[f"{name} x {GATHER_INDICES}"] = entry
+        print(f"table_gather {name} x {GATHER_INDICES}{'' if entry['picked'] else ' (not the wrapper pick)'} "
+              f"(graph replay, turns A B B A): kernel {[round(1e3 * t, 3) for t in turns['ms']]} us, the kernel it "
+              f"replaced {[round(1e3 * t, 3) for t in turns['parent_ms']]} us, index_select "
+              f"{1e3 * entry['library_ms']:.3f} us, plain {1e3 * entry['plain_ms']:.3f} us, bound "
+              f"{1e3 * entry['bound_ms']:.3f} us ({100 * entry['bound_ms'] / entry['ms']:.1f} % of it), the card's "
+              f"rate {rate_us:.3f} us; back-to-back eager calls {1e3 * entry['eager_ms']:.3f} us", flush=True)
+    first = shapes[f"l2 [{GATHER_ROWS}, 2] x {GATHER_INDICES}"]  # the wrapper's pick at pallas_gather's shape
+    err = max((out - table.index_select(0, idx)).abs().max().item() for table, idx, out, _, _ in main.values())
+    gather = dict(
+        name="table_gather", route="cuda", source="learn_nerf_tpu_torch/csrc/table_gather.cu",
+        replaces="tools/exp_gather.py:64", max_abs_err=err, ms=first["ms"], parent_ms=first["parent_ms"],
+        plain_ms=first["plain_ms"], library_ms=first["library_ms"],  # index_select, the one PyTorch call for it
+        card_rate_ms=first["card_rate_ms"], shapes=shapes,
+    )
+    gather["bound_ms"], gather["bound_by"] = bound(nbytes(*main[f"l2 [{GATHER_ROWS}, 2]"][:3]))
+    return gather
+
+
 def check_hashgrid_kernels(device, rng, tiles):
-    """table_gather at pallas_gather's shape and at its edges, the corner
-    kernel at the fine schedule, then the all-level encode kernel at the
-    fine and coarse schedules, in smooth mode, at the edges of its thread
-    grid and on points along rays, each against its plain version, and bit
-    for bit against the kernel in the table-gradient kernel's thread layout
-    (``tiles``, a variant library)."""
+    """The corner kernel at the fine schedule, then the all-level encode
+    kernel at the fine and coarse schedules, in smooth mode, at the edges
+    of its thread grid and on points along rays, each against its plain
+    version, and bit for bit against the kernel in the table-gradient
+    kernel's thread layout (``tiles``, a variant library)."""
     from learn_nerf_tpu_torch.kernels import hashgrid as kh
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.kernels import table_gather as tg
@@ -570,42 +774,6 @@ def check_hashgrid_kernels(device, rng, tiles):
 
     def on_card(a):
         return torch.from_numpy(a).to(device)
-
-    table = on_card(rng.uniform(-1, 1, (GATHER_ROWS, 2)).astype(np.float32))
-    idx = on_card(rng.randint(0, GATHER_ROWS, GATHER_INDICES).astype(np.int32))
-    out = tg.table_gather_cuda(table, idx)
-    torch.cuda.synchronize()
-    err = max((out - table.index_select(0, idx)).abs().max().item(),
-              (out - tg.table_gather_reference(table, idx)).abs().max().item())
-    # The edges: M not a multiple of anything, with a wrapped index (-1)
-    # and out-of-range ones (T, -T - 1), which give NaN rows.
-    for m in GATHER_EDGE_INDICES:
-        edge = rng.randint(0, GATHER_ROWS, m).astype(np.int32)
-        edge[: min(m, 3)] = [-1, GATHER_ROWS, -GATHER_ROWS - 1][: min(m, 3)]
-        edge = on_card(edge)
-        got, want = tg.table_gather_cuda(table, edge), tg.table_gather_reference(table, edge)
-        torch.cuda.synchronize()
-        require(torch.equal(torch.isnan(got), torch.isnan(want))
-                and torch.equal(torch.nan_to_num(got), torch.nan_to_num(want)),
-                f"table_gather disagrees with its plain version at M = {m}")
-    kernel, reference = (lambda: tg.table_gather_cuda(table, idx),
-                         lambda: tg.table_gather_reference(table, idx))
-    select = lambda: table.index_select(0, idx)
-    gather = dict(
-        name="table_gather", route="cuda", source="learn_nerf_tpu_torch/csrc/table_gather.cu",
-        replaces="tools/exp_gather.py:64", max_abs_err=err,
-        ms=graph_ms(kernel, 50), plain_ms=graph_ms(reference, 50),
-    )
-    select_ms = graph_ms(select, 50)
-    gather["bound_ms"], gather["bound_by"] = bound(nbytes(table, idx, out))
-    gather["library_ms"] = select_ms  # index_select, the one PyTorch call for it
-    eager = [cuda_ms(fn, 200) for fn in (kernel, reference, select)]
-    print(f"table_gather [{GATHER_ROWS}, 2] x {GATHER_INDICES}: max abs err {err:.3e} (bound 0), "
-          f"equal at M = {GATHER_EDGE_INDICES} with wrapped and NaN rows; device time per call "
-          f"(graph replay): kernel {gather['ms']:.4f} ms, plain {gather['plain_ms']:.4f} ms, "
-          f"index_select {select_ms:.4f} ms; back-to-back eager calls: {eager[0]:.4f} / "
-          f"{eager[1]:.4f} / {eager[2]:.4f} ms", flush=True)
-    require(err == 0, "table_gather disagrees with index_select")
 
     grids, tables = fine_schedule(FINE_LEVELS)
     values = [on_card(rng.uniform(-1, 1, (hg.dense_level_rows(g, t), 2)).astype(np.float32))
@@ -711,7 +879,7 @@ def check_hashgrid_kernels(device, rng, tiles):
     require(wrong_err >= SCAN_MARGIN * ENCODE_BOUND,
             f"the encoding's bound {ENCODE_BOUND:g} would not catch a wrong hash index")
     require(enc["ms"] <= route_ms, "the encode kernel is slower than the per-level route")
-    return [gather, corners, enc]
+    return [corners, enc]
 
 
 def encode_cases(values, x, grids, tables, bbox_min, bbox_max, device, rng):
@@ -1011,7 +1179,6 @@ def check_composite_kernels(device, rng, parent):
     require(same_bits, "two runs of composite_backward differ in the background's gradient")
 
     # The train step's two calls, profiled: one kernel each, nothing zeroed.
-    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
 
     leaves, mask, cotangents = cases[f"{TRAIN_RAYS} x {TRAIN_SAMPLES}"]
     plain = [v.detach() for v in leaves]
@@ -1028,7 +1195,7 @@ def check_composite_kernels(device, rng, parent):
 
     for name, call in step_calls.items():
         timed(call)
-        seen = profile_call(lambda: timed(call), device)
+        seen = profiled(lambda: timed(call), device, (kc.counter, kc.backward_counter))
         print(f"composite {name} as the train step calls it, profiled: {seen['kernels_launched']} kernel(s), "
               f"{seen['memsets']} memset(s): {[t['name'] for t in seen['top']]}", flush=True)
         require(seen["kernels_launched"] == 1 and seen["memsets"] == 0,
@@ -1205,7 +1372,6 @@ def check_pooled_composite_kernels(device, rng, parent, probes):
     they replaced before."""
     from learn_nerf_tpu_torch.kernels import composite as kc
     from learn_nerf_tpu_torch.scripts.composite_ablations import floor_ms, launching_pooled_from, pool_counts
-    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
 
     cases = {}
     for name, (n, k, budget, mean, run) in POOLED_SHAPES.items():
@@ -1291,7 +1457,7 @@ def check_pooled_composite_kernels(device, rng, parent, probes):
         }
         for which, call in calls.items():
             synced(call)
-            seen = profile_call(lambda: synced(call), device)
+            seen = profiled(lambda: synced(call), device, (kc.pooled_counter, kc.pooled_backward_counter))
             print(f"composite_pooled {which} at {name} as the train step calls it, profiled: "
                   f"{seen['kernels_launched']} kernel(s), {seen['memsets']} memset(s): "
                   f"{[t['name'] for t in seen['top']]}", flush=True)
@@ -2231,16 +2397,20 @@ def main():
     # kernels are checked.
     from learn_nerf_tpu_torch.scripts import composite_ablations
     from learn_nerf_tpu_torch.scripts.baked_ablations import build_libraries
-    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import VARIANTS, build_probes
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import (NEIGHBOUR_SLICE, VARIANTS, build_gather_libraries,
+                                                                  build_probes)
     from learn_nerf_tpu_torch.scripts.mlp_ablations import build_variants
 
     variant, baked_parts = {}, {}
+    gathers = {name: VARIANTS[name] for name in (GATHER_PARENT, GATHER_CLUSTER)}
+    gathers[GATHER_NEIGHBOUR] = NEIGHBOUR_SLICE
     threads = [
         threading.Thread(target=lambda: variant.update(build_variants([PARENT_LAYOUT, ENCODE_TILES], VARIANTS))),
         threading.Thread(target=lambda: baked_parts.update(parent=build_libraries(["parent"])["parent"],
                                                            probes=build_probes())),
         threading.Thread(target=lambda: baked_parts.update(composite_parent=composite_ablations.build_libraries(
             ["parent"], composite_ablations.POOLED_VARIANTS)["parent"])),
+        threading.Thread(target=lambda: baked_parts.update(gather=build_gather_libraries(list(gathers), gathers))),
     ]
     for thread in threads:
         thread.start()
@@ -2250,7 +2420,11 @@ def main():
         thread.join()
     require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,
             "the hash-grid kernels' measured variants did not build")
-    require(len(baked_parts) == 3, "the replaced baked-lookup or composite kernels or the probes did not build")
+    require(len(baked_parts) == 4,
+            "the replaced baked-lookup, composite or gather kernels, the gather fault or the probes did not build")
+    kernels.append(check_table_gather(device, np.random.RandomState(SEED + 13), baked_parts["gather"],
+                                      baked_parts["probes"]))
+    torch.cuda.empty_cache()
     kernels += check_hashgrid_kernels(device, np.random.RandomState(SEED + 3), variant[ENCODE_TILES])
     torch.cuda.empty_cache()
     kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])

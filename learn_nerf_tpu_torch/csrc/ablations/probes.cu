@@ -4,7 +4,10 @@
 // kernel), random vector atomics (the table-gradient kernel), and random
 // runs of 32-512 bytes read by lane groups (the baked lookup's rows); and
 // the floor of a launch: an empty kernel at a kernel's grid and block (the
-// pool-layout composite kernels, which do little work).  Built and timed by
+// pool-layout composite kernels, which do little work); and random 8-byte
+// reads from shared memory, the block's own or any block's of its cluster
+// (distributed shared memory), and the bulk copy that fills it from L2 (the
+// resident routes of table_gather).  Built and timed by
 // scripts/hashgrid_ablations.py, scripts/baked_ablations.py,
 // scripts/composite_ablations.py and chip_smoke.py; nothing on a path uses
 // them.
@@ -14,6 +17,8 @@
 // rows drawn by an integer hash of the thread index, so nothing of a
 // lattice, a ray or a cell remains: every access is to an unrelated sector.
 #include <cuda_runtime.h>
+
+#include "../sm90.cuh"
 
 namespace nerf {
 
@@ -136,6 +141,132 @@ __global__ void __launch_bounds__(kProbeThreads)
 // Does nothing: what one launch of a grid costs.
 __global__ void probe_empty_kernel() {}
 
+// Random 8-byte reads from shared memory.  Each block holds a slice of
+// kProbeSliceBytes; a thread makes kProbeSharedRounds rounds of
+// kProbeSharedLoads reads, all of a round in flight at once, each at a row
+// (and, with kRemote, a block of the cluster) drawn by a hash of the
+// thread and the read: kRemote reads go through distributed shared memory
+// (mapa, ld.shared::cluster), the others read the block's own.
+constexpr int kProbeSharedThreads = 512;
+constexpr int kProbeSliceBytes = 128 << 10;
+constexpr int kProbeSharedRounds = 32;
+constexpr int kProbeSharedLoads = 8;
+constexpr int kProbeChunk = 16384;
+constexpr int kProbeMaxShared = 224 * 1024;
+
+template <bool kRemote>
+__global__ void __launch_bounds__(kProbeSharedThreads, 1) probe_shared_kernel(unsigned int* __restrict__ out) {
+  extern __shared__ __align__(16) float2 held[];
+  constexpr unsigned int rows = kProbeSliceBytes / 8;
+  const unsigned int rank = kRemote ? cluster_rank() : 0;
+  const unsigned int ranks = kRemote ? cluster_blocks() : 1;
+  for (unsigned int k = threadIdx.x; k < rows; k += kProbeSharedThreads) {
+    held[k] = make_float2(static_cast<float>(k), static_cast<float>(rank));
+  }
+  if constexpr (kRemote) {
+    cluster_sync();
+  } else {
+    __syncthreads();
+  }
+  const unsigned int t = blockIdx.x * kProbeSharedThreads + threadIdx.x;
+  const uint32_t base = smem_addr(held);
+  unsigned int acc = 0;
+  for (int round = 0; round < kProbeSharedRounds; ++round) {
+    float2 v[kProbeSharedLoads];
+#pragma unroll
+    for (int u = 0; u < kProbeSharedLoads; ++u) {
+      const unsigned int h = mix(t, round * kProbeSharedLoads + u);
+      const unsigned int row = h % rows;
+      if constexpr (kRemote) {
+        v[u] = ld_cluster_f32x2(map_shared_rank(base + row * 8, (h >> 16) % ranks));
+      } else {
+        v[u] = held[row];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kProbeSharedLoads; ++u) acc ^= __float_as_uint(v[u].x) ^ __float_as_uint(v[u].y);
+  }
+  out[t] = acc;
+  if constexpr (kRemote) cluster_sync();  // no block leaves while a peer may read its slice
+}
+
+// Block `rank` of each cluster (every block, without kCluster) copies
+// `bytes` from table + rank * bytes into its shared memory by bulk copies
+// on an mbarrier, as table_gather's resident routes fill their slices.
+template <bool kCluster>
+__global__ void __launch_bounds__(kProbeSharedThreads, 1)
+    probe_fill_kernel(const char* __restrict__ table, unsigned int bytes) {
+  extern __shared__ __align__(16) unsigned char slice[];
+  __shared__ uint64_t filled;
+  const unsigned int rank = kCluster ? cluster_rank() : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(&filled, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) mbar_arrive_expect_tx(&filled, bytes);
+    __syncwarp();
+    for (uint32_t off = threadIdx.x * kProbeChunk; off < bytes; off += 32 * kProbeChunk) {
+      const uint32_t chunk = bytes - off < kProbeChunk ? bytes - off : kProbeChunk;
+      bulk_load(slice + off, table + static_cast<size_t>(rank) * bytes + off, chunk, &filled);
+    }
+  }
+  mbar_wait(&filled, 0);
+  if constexpr (kCluster) cluster_sync();
+}
+
+// Blocks of a persistent grid of `kernel` with clusters of `cluster`
+// blocks: the clusters the card places at once times `cluster`, or one
+// block a SM for cluster = 1 (0: none fits); negative: minus the
+// cudaError_t of the query.
+template <typename Kernel>
+long long probe_grid(Kernel kernel, int cluster, size_t smem) {
+  int device = 0, sms = 0, count = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kProbeMaxShared);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  if (cluster == 1) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, kernel, kProbeSharedThreads, smem);
+    return err != cudaSuccess ? -static_cast<long long>(err) : count > 0 ? sms : 0;
+  }
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(cluster);
+  config.blockDim = dim3(kProbeSharedThreads);
+  config.dynamicSmemBytes = smem;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(&count, kernel, &config);
+  return err != cudaSuccess ? -static_cast<long long>(err) : static_cast<long long>(count) * cluster;
+}
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_clustered(Kernel kernel, int cluster, long long blocks, size_t smem, cudaStream_t stream,
+                             Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned int>(blocks));
+  config.blockDim = dim3(kProbeSharedThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&config, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace nerf
 
 // `threads` threads (< 2^32), each reading 16 rows (pairs = 0) or 8 row
@@ -205,4 +336,44 @@ extern "C" int nerf_probe_empty(long long blocks, int threads, void* stream) {
   using namespace nerf;
   probe_empty_kernel<<<static_cast<unsigned int>(blocks), threads, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
+}
+
+// The shared-memory probes.  kind 0: the reads (cluster = 1: each block's
+// own shared memory; 2-16: any block's of its cluster), kind 1: the fill
+// of `bytes` a block.  nerf_probe_shared_blocks gives the grid's blocks
+// (see probe_grid); nerf_probe_shared_reads the reads a block makes; out
+// [blocks * 512] u32.  Each returns the cudaError_t of its launch.
+extern "C" long long nerf_probe_shared_blocks(int kind, int cluster, long long bytes) {
+  using namespace nerf;
+  if (cluster < 1 || cluster > 16) return -static_cast<long long>(cudaErrorInvalidValue);
+  if (kind == 0) {
+    return cluster == 1 ? probe_grid(probe_shared_kernel<false>, 1, kProbeSliceBytes)
+                        : probe_grid(probe_shared_kernel<true>, cluster, kProbeSliceBytes);
+  }
+  return cluster == 1 ? probe_grid(probe_fill_kernel<false>, 1, bytes)
+                      : probe_grid(probe_fill_kernel<true>, cluster, bytes);
+}
+
+extern "C" long long nerf_probe_shared_reads() {
+  using namespace nerf;
+  return static_cast<long long>(kProbeSharedThreads) * kProbeSharedRounds * kProbeSharedLoads;
+}
+
+extern "C" int nerf_probe_shared(int cluster, long long blocks, unsigned int* out, void* stream) {
+  using namespace nerf;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cluster == 1) return static_cast<int>(launch_clustered(probe_shared_kernel<false>, 1, blocks, kProbeSliceBytes, s, out));
+  return static_cast<int>(launch_clustered(probe_shared_kernel<true>, cluster, blocks, kProbeSliceBytes, s, out));
+}
+
+// `table` holds cluster * bytes bytes (aligned to 16; bytes a multiple of
+// 16, at most 224 KB).
+extern "C" int nerf_probe_fill(const void* table, long long bytes, int cluster, long long blocks, void* stream) {
+  using namespace nerf;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const char* t = static_cast<const char*>(table);
+  const unsigned int b = static_cast<unsigned int>(bytes);
+  if (bytes % 16 || bytes > kProbeMaxShared) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster == 1) return static_cast<int>(launch_clustered(probe_fill_kernel<false>, 1, blocks, b, s, t, b));
+  return static_cast<int>(launch_clustered(probe_fill_kernel<true>, cluster, blocks, b, s, t, b));
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the fused NeRF kernels, as inline
 // PTX: mbarriers, the bulk copy from global to shared memory that signals
-// one, named barriers, register reallocation between warpgroups, and the
-// bf16 -> f32 warpgroup matrix products (wgmma) the MLP core issues.
+// one, thread block clusters and their distributed shared memory, named
+// barriers, register reallocation between warpgroups, and the bf16 -> f32
+// warpgroup matrix products (wgmma) the MLP core issues.
 //
 // Shared-memory operands of wgmma use the canonical K-major layout with the
 // 128-byte swizzle: one 128-byte row (64 bf16 along K) per row of the
@@ -69,6 +70,56 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// --- thread block clusters and distributed shared memory ---------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster: what a thread wrote before
+// it is visible to all of them after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The shared::cluster address of this block's shared-memory address
+// `addr` in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_shared_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float2 ld_cluster_f32x2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];" : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
 }
 
 // Makes this thread's ordinary shared-memory stores visible to wgmma.

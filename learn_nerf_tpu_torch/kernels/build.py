@@ -120,14 +120,21 @@ def build() -> Path:
     return lib_path
 
 
+def bind_table_gather(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/table_gather.cu``'s entry points."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.nerf_table_gather.argtypes = [ptr, i64, i32, ptr, i64, ptr, i32, ptr]
+    lib.nerf_table_gather.restype = i32
+    return lib
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nerf_fused_mlp.argtypes = [ptr] * 5 + [i64] + [i32] * 4 + [ptr]
     lib.nerf_fused_mlp.restype = i32
     lib.nerf_fused_render.argtypes = [ptr] * 6 + [i64, i32] + [i32] * 4 + [ptr]
     lib.nerf_fused_render.restype = i32
-    lib.nerf_table_gather.argtypes = [ptr, i64, i32, ptr, i64, ptr, ptr]
-    lib.nerf_table_gather.restype = i32
+    bind_table_gather(lib)
     lib.nerf_hashgrid_corners.argtypes = (
         [ptr, i64, ptr, ptr, ptr, i32] + [ctypes.c_float] * 6 + [i32, ptr, ptr, ptr]
     )

@@ -67,7 +67,6 @@ import argparse
 import ctypes
 import json
 import re
-import shutil
 import subprocess
 
 import numpy as np
@@ -79,6 +78,7 @@ from ..kernels import build
 from ..kernels.hashgrid import bbox_floats
 from ..ops.hashgrid import corner_weights_and_coords
 from .hashgrid_ablations import build_probes, ray_points
+from .mlp_ablations import variant_sources
 from .timing import cuda_ms, graph_ms
 
 BAKED, PARENT = "baked.cu", "ablations/baked_parent.cu"
@@ -172,16 +172,7 @@ def build_libraries(names, variants=VARIANTS):
     procs = {}
     for name in names:
         out = variant_dir(name)
-        shutil.rmtree(out, ignore_errors=True)
-        shutil.copytree(build.CSRC_DIR, out)
-        for file, old, new in variants[name]:
-            if old is None:
-                shutil.copyfile(out / new, out / file)
-                continue
-            text = (out / file).read_text()
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in {file}")
-            (out / file).write_text(text.replace(old, new))
+        variant_sources(out, name, variants[name])
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out / "libbaked.so"), str(out / BAKED)]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     entries = {}

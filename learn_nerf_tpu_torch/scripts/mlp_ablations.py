@@ -71,6 +71,22 @@ VARIANTS = {
 }
 
 
+def variant_sources(out, name, edits):
+    """A copy of ``csrc/`` in ``out`` with a variant's edits: (file, old
+    text, new text), or (file, None, the file that takes its place,
+    relative to ``csrc/``)."""
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(build.CSRC_DIR, out)
+    for file, old, new in edits:
+        if old is None:
+            shutil.copyfile(out / new, out / file)
+            continue
+        text = (out / file).read_text()
+        if old not in text:
+            raise RuntimeError(f"variant {name!r}: {old!r} is not in {file}")
+        (out / file).write_text(text.replace(old, new))
+
+
 def build_variants(names, variants=VARIANTS):
     """Compile each variant's sources into its own library, in parallel
     (``variants``: name -> [(file, old text, new text)]; with ``None`` for
@@ -80,16 +96,7 @@ def build_variants(names, variants=VARIANTS):
     procs = {}
     for name in names:
         out = root / name.replace(" ", "_")
-        shutil.rmtree(out, ignore_errors=True)
-        shutil.copytree(build.CSRC_DIR, out)
-        for file, old, new in variants[name]:
-            if old is None:
-                shutil.copyfile(out / new, out / file)
-                continue
-            text = (out / file).read_text()
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: {old!r} is not in {file}")
-            (out / file).write_text(text.replace(old, new))
+        variant_sources(out, name, variants[name])
         sources = [str(p) for p in sorted(out.glob("*.cu"))]
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out / build.LIB_NAME), *sources]
         procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -9,7 +9,12 @@ rounding: atol 2e-3 at these small sizes, and chip_smoke.py's full-size
 bounds (5e-3, 5e-4) where a run covers many tiles of the persistent grid.
 Their edge cases are the ragged last tile (M around the 128-row tile) and
 rays that do not fill the last tile.  The hash-grid kernels: table_gather
-equals ``index_select`` exactly (NaN rows included); the corner kernel's
+equals ``index_select`` exactly (NaN rows included), on each of its two
+routes (block, L2) and on the cluster kernel the wrapper picks for no table
+(csrc/ablations/table_gather_cluster.cu) at C = 1 to 4, at 1 to 100,003
+indices with the edge indices first, from offset views, on every cluster
+size, and the kernel it replaced (csrc/ablations/table_gather_parent.cu);
+the corner kernel's
 indices and weights equal its plain version's; the all-level encode kernel
 sums the 8 weighted corners in another order than the plain version, so
 it is held to 1e-6 (chip_smoke.py's bound) with F = 1, 2, 4, dense and
@@ -264,6 +269,104 @@ def test_table_gather_at_lengths_and_offsets_of_every_kind(cuda, m):
     out = tg.table_gather(table, idx)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, tg.table_gather_reference(table, idx), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.fixture(scope="module")
+def gather_libs():
+    """table_gather as it was before the block route
+    (csrc/ablations/table_gather_parent.cu) and the cluster kernel the
+    wrapper picks for no table (csrc/ablations/table_gather_cluster.cu),
+    each built on its own."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import build_gather_libraries
+
+    return build_gather_libraries(["gather parent", "gather cluster 16"])
+
+
+def _gather_route(kind, columns, libs):
+    """A table's rows, a gather ``(table, idx, route) -> rows`` and its
+    route of ``kind``: a 16^3 dense level (block), 100,003 rows (no cluster
+    size divides it; the cluster kernel), one row past what a cluster of 16
+    holds (L2)."""
+    from learn_nerf_tpu_torch.scripts import hashgrid_ablations as ha
+
+    most = 1 << ((ha.SLICE_BYTES // (4 * columns)).bit_length() - 1)
+    rows = {"block": 4096, "cluster": 100_003, "l2": ha.LARGEST_CLUSTER * most + 1}[kind]
+    if kind == "cluster":
+        route = ha.cluster_route(rows, columns)
+        return rows, ha.gather_with(libs["gather cluster 16"]), route
+    assert tg.gather_route(rows, columns) == kind
+    return rows, ha.gather_with(None), kind
+
+
+def _gather_indices(rng, rows, m):
+    """m indices, the edges first: in range at both ends, wrapped at both
+    ends, out of range at both ends."""
+    idx = rng.randint(0, rows, m).astype(np.int32)
+    edges = np.array([0, rows - 1, -1, -rows, rows, -rows - 1], np.int32)
+    idx[: min(m, 6)] = edges[: min(m, 6)]
+    return idx
+
+
+@pytest.mark.parametrize("m", [1, 3, 5, 1001, 100_003])
+@pytest.mark.parametrize("columns", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", ["block", "cluster", "l2"])
+def test_table_gather_on_each_route(cuda, gather_libs, kind, columns, m):
+    rng = np.random.RandomState(columns * m)
+    rows, gather, route = _gather_route(kind, columns, gather_libs)
+    table = t(rng.uniform(-1, 1, (rows, columns)).astype(np.float32)).to(cuda)
+    idx = t(_gather_indices(rng, rows, m)).to(cuda)
+    launches = tg.counter.launches
+    out = tg.table_gather(table, idx) if kind != "cluster" else gather(table, idx, route)
+    torch.cuda.synchronize()
+    assert tg.counter.launches == launches + (kind != "cluster")
+    torch.testing.assert_close(out, tg.table_gather_reference(table, idx), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("columns", [1, 2, 3, 4])
+@pytest.mark.parametrize("kind", ["block", "cluster", "l2"])
+def test_table_gather_on_each_route_from_offset_views(cuda, gather_libs, kind, columns):
+    # The table one row into its storage (4-16 bytes: its 16-byte vector
+    # copies lose their alignment), the indices one element into theirs.
+    rng = np.random.RandomState(columns)
+    rows, gather, route = _gather_route(kind, columns, gather_libs)
+    table = t(rng.uniform(-1, 1, (rows + 1, columns)).astype(np.float32)).to(cuda)[1:]
+    idx = t(_gather_indices(rng, rows, 20_001)).to(cuda)[1:]
+    out = gather(table, idx, route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tg.table_gather_reference(table, idx), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("cluster", range(2, 17))
+def test_table_gather_places_every_cluster_size(cuda, gather_libs, cluster):
+    from learn_nerf_tpu_torch.scripts import hashgrid_ablations as ha
+
+    rows = cluster * (1 << 14) - 5
+    route = ha.cluster_route(rows, 2)
+    assert route.cluster == cluster
+    lib = gather_libs["gather cluster 16"]
+    assert ha.cluster_placement(lib, rows, 2, route) > 0
+    rng = np.random.RandomState(cluster)
+    table = t(rng.uniform(-1, 1, (rows, 2)).astype(np.float32)).to(cuda)
+    idx = t(_gather_indices(rng, rows, 65_537)).to(cuda)
+    out = ha.gather_with(lib)(table, idx, route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, tg.table_gather_reference(table, idx), rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("kind", ["block", "cluster", "l2"])
+def test_table_gather_equals_the_kernel_it_replaced(cuda, gather_libs, kind):
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import gather_with
+
+    rng = np.random.RandomState(3)
+    rows, gather, route = _gather_route(kind, 2, gather_libs)
+    table = t(rng.uniform(-1, 1, (rows, 2)).astype(np.float32)).to(cuda)
+    idx = t(_gather_indices(rng, rows, 999_424)).to(cuda)
+    out = gather(table, idx, route)
+    want = gather_with(gather_libs["gather parent"])(table, idx, route)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, want, rtol=0, atol=0, equal_nan=True)
 
 
 def test_hash_grid_wrappers_refuse_what_their_kernels_do_not_take(cuda):

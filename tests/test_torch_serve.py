@@ -249,6 +249,8 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.baked\n"
         "import learn_nerf_tpu_torch.kernels.baked\n"
         "import learn_nerf_tpu_torch.scripts.baked_ablations\n"
+        "import learn_nerf_tpu_torch.scripts.exp_gather\n"
+        "import learn_nerf_tpu_torch.scripts.hashgrid_ablations\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
