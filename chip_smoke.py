@@ -128,7 +128,29 @@ nonzero):
    (``--baked 384 --baked_pack 4``: its shortfall against the live score
    bounded, its frames' PSNR against the live frames printed), and both
    served (the pooled one with ``--occ_budget_per_ray auto``); steps/s and
-   rays/s over the last 64 and 48 steps.
+   rays/s over the last 64 and 48 steps;
+7. the coarse/fine hierarchy through ``train_nerf`` without
+   ``--occupancy`` on the same dataset, at the vanilla model's full width
+   (5 + 4 layers of 256, a 128-wide colour branch, batch 4096, 64 coarse
+   and 128 fine samples) in f32 (96 steps, cosine lr) and with ``--bf16``
+   (16 steps), and with ``--instant_ngp`` at the JAX widths (96 steps):
+   the loss falls, the composite pair, forward and backward, launched at
+   4096 x 64 and 4096 x 192 on every step, in NGP the encode and
+   table-gradient kernels twice a step, no plain version called; each run
+   scored by ``eval_psnr`` on the held-out views; the f32 run stopped
+   after step 49 (its full state saved at 48) and resumed from its full
+   state: the step counter and the lr continue, and every resumed step's
+   losses equal the uninterrupted run's within RESUME_BOUND.  Before the
+   serve phase, one full-width step of each of these models by the kernel
+   route against the plain route on the card (loss and gradients), and in
+   phase 2 both hash-grid kernels at the NGP hierarchy's two passes;
+8. the JAX package's Blender stand-in quality gate through the port: the
+   capture written here (``write_blender_capture``, the cube of the repo's
+   synthetic scene from 40 train and 7 test orbit views at 64x64),
+   converted by ``learn_nerf_tpu_torch.convert.blender``, trained with the
+   JAX recipe (1000 steps, batch 1024, vanilla f32 occupancy) and scored
+   by ``eval_psnr --occupancy`` on the test views: mean dB and SSIM, and
+   the dB held to GATE_FLOOR.
 
 It prints the card line and one JSON line of kernel results, then, as its
 last line, ``{"ok": true, "device": {...}}``.  Without a CUDA device it
@@ -143,7 +165,13 @@ scene and view size: median latency, one profiled render's device time,
 idle share, top kernels and the port's own kernels' share; and one such
 line for the train step from ``scripts.profile_train``, and two (the dense
 and the pooled step on ``bench_pooled``'s frozen grid) from
-``scripts.profile_train --pooled``.
+``scripts.profile_train --pooled``, and one for each hierarchy model's step
+(``scripts.profile_train --hierarchy``).
+
+    python3 chip_smoke.py --gate_seeds 0 1 2 3 4
+
+runs phase 8 alone at each seed and prints ``{"quality_gate": {seed: [mean
+PSNR, mean SSIM]}}`` (the five seeds that set GATE_FLOOR).
 """
 
 import argparse
@@ -246,6 +274,11 @@ ENCODE_EDGE_POINTS = (1, 31, 32, 33, ENCODE_POINTS - 37)
 TRAIN_RAYS, TRAIN_SAMPLES = 4096, 32
 TRAIN_POINTS = TRAIN_RAYS * TRAIN_SAMPLES
 BACKWARD_BOUND = 4e-6
+# The NGP hierarchy's fine pass feeds 786,432 points along rays 0.01 apart
+# (HIERARCHY_PASSES): 786,432 x 8 corner terms over the 17^3 rows of the
+# coarsest level, ~1,300 a row on average, and an H100 measured 3.5e-6
+# there (2.2e-6 in the coarse pass); the bound is about three times that.
+HIERARCHY_BACKWARD_BOUND = 1e-5
 BACKWARD_EDGE_POINTS = (1, 31, 32, 33)
 # Variants of scripts/hashgrid_ablations.py: the table-gradient kernel in the
 # layout it had before the ray-ordered one, and the encode kernel in the
@@ -303,6 +336,61 @@ TRAIN_STEPS, TRAIN_WARMUP, TRAIN_VIEWS, TRAIN_SIDE = 96, 2, 8, 96
 # the difference on); the bound is about three times the largest.
 POOL_START, HELDOUT_VIEWS = 36, 2
 POOLED_PSNR_SHORTFALL = 0.05
+# The hierarchy's train phase: train_nerf without --occupancy at the
+# vanilla model's full width (5 + 4 layers of 256, a 128-wide colour
+# branch) and the JAX widths of --instant_ngp (6 coarse and 16 fine levels
+# of 2^18 rows, F = 2), batch 4096, 64 coarse and 128 fine samples (192 in
+# the fine pass), on the ball: (flags, steps) of each run.  The f32 run
+# decays its lr (cosine), so the resume check holds the lr on.
+COARSE_SAMPLES, FINE_SAMPLES = 64, 128
+HIERARCHY_FLAGS = ["--seed", str(SEED), "--batch_size", str(TRAIN_RAYS), "--coarse_samples",
+                   str(COARSE_SAMPLES), "--fine_samples", str(FINE_SAMPLES)]
+HIERARCHY_RUNS = {
+    "hierarchy f32": (["--lr", "5e-4", "--lr_schedule", "cosine"], 96),
+    "hierarchy ngp": (["--instant_ngp", "--lr", "1e-2"], 96),
+    "hierarchy bf16": (["--bf16", "--lr", "5e-4"], 16),
+}
+# One step by the kernel route against the plain route on the card (the
+# composite pair, and in NGP the hash-grid kernels, against their plain
+# versions): the loss, relative, and the gradients by the measures each
+# model's rounding allows: every gradient but the tables' relative to its
+# tensor's max; table gradients by L2 norm, relative; in bf16 all
+# gradients together by L2 norm (a scalar bias's gradient is a cancelling
+# sum whose bf16 rounding alone moves it by tens of percents).  The fine
+# pass samples where the coarse weights put it, and the two routes' coarse
+# weights differ in the last place, so some of the 786,432 fine points
+# land across a cell face of a fine lattice and move the rows they alone
+# touch.  An H100 measured 1.3e-3 on the NGP tables by L2 (4.5e-7 over all
+# gradients together), 3.1e-5 / 3.7e-5 on the f32 / NGP MLP gradients by
+# max, and 1.0e-4 over all bf16 gradients together (4.0e-3 on its worst
+# tensor by max); the losses within 1.1e-7.  The bounds are about three
+# times that.
+HIERARCHY_LOSS_BOUND = 1e-5
+HIERARCHY_GRAD_BOUNDS = {"hierarchy f32": {"others max": 1e-4},
+                         "hierarchy ngp": {"tables L2": 4e-3, "others max": 1e-4},
+                         "hierarchy bf16": {"all L2": 3e-4}}
+# The f32 run stopped after step RESUME_AT + 1 with its full state saved at
+# RESUME_AT, then resumed from it: every resumed step's coarse and fine
+# losses against the uninterrupted run's (absolute).
+RESUME_AT, RESUME_BOUND = 48, 1e-5
+# The NGP hierarchy step's two passes as the hash-grid kernels see them:
+# (label, levels, samples a ray, spacing of the samples along a ray).
+HIERARCHY_PASSES = (("coarse 4096 x 64, 6 levels", COARSE_LEVELS, COARSE_SAMPLES, 0.03),
+                    ("fine 4096 x 192, 16 levels", FINE_LEVELS, COARSE_SAMPLES + FINE_SAMPLES, 0.01))
+# The JAX package's Blender stand-in gate (tools/bench_queue/queues.py:239-262,
+# BASELINE.md): a 64x64 capture of the cube, 40 train orbit views and 7 test
+# views at distance 2.3, through the Blender converter, 1000 steps of
+# vanilla f32 occupancy training, eval_psnr --occupancy on the test views.
+# The JAX package scored 27.62 dB there (CPU).  The port at seeds 0-4 on an
+# H100 (chip_smoke.py --gate_seeds 0 1 2 3 4): 29.341, 27.800, 27.972,
+# 28.355 and 28.900 dB (SSIM 0.9461-0.9535); the floor is the larger of
+# 27.62 - 1.0 and the lowest of the five less 0.3 dB.
+BLENDER_SIDE, BLENDER_TRAIN_VIEWS, BLENDER_TEST_VIEWS, BLENDER_FOV = 64, 40, 7, 0.9
+GATE_RAYS, GATE_STEPS = 1024, 1000
+GATE_FLAGS = ["--batch_size", str(GATE_RAYS), "--lr", "2e-3", "--occupancy", "--occ_candidates", "64",
+              "--occ_samples", "24", "--occ_grid", "64"]
+JAX_GATE_PSNR = 27.62
+GATE_FLOOR = max(JAX_GATE_PSNR - 1.0, 27.800 - 0.3)
 # Mean density of the NGP checkpoint's fine field inside the ball (set
 # through the density head's bias): rays crossing the occupied ball reach
 # optical depth ~1-3.
@@ -844,10 +932,20 @@ def check_hashgrid_kernels(device, rng, tiles):
                                          .view(len(x), 8, v.shape[1]))
                           for level, v in enumerate(values)], dim=-1)
 
+    # The NGP hierarchy's train step: each pass's points along rays, the
+    # coarse model's levels and the fine model's (HIERARCHY_PASSES).
+    hierarchy = {}
+    for label, levels, samples, spacing in HIERARCHY_PASSES:
+        pts = on_card(ray_points(rng, TRAIN_RAYS, samples, spacing, -0.7, 0.4))
+        shape = (values[:levels], pts, grids[:levels], tables[:levels], bbox_min, bbox_max)
+        errs[f"hierarchy {label}"] = (ke.hashgrid_encode_cuda(*shape, False)
+                                      - hg.hash_grid_encode_reference(*shape)).abs().max().item()
+        hierarchy[label] = dict(ms=cuda_ms(lambda: ke.hashgrid_encode_cuda(*shape, False), 20),
+                                bound_ms=bound(nbytes(pts, *values[:levels]) + len(pts) * 2 * levels * 4)[0])
     enc = dict(
         name="hashgrid_encode", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_encode.cu",
         replaces="learn_nerf_tpu/ops/hashgrid.py:135 (XLA)", max_abs_err=max(errs.values()),
-        ms=cuda_ms(encode, 20), plain_ms=cuda_ms(plain, 3), library_ms=None,
+        ms=cuda_ms(encode, 20), plain_ms=cuda_ms(plain, 3), library_ms=None, hierarchy=hierarchy,
     )
     route_ms = cuda_ms(per_level, 5)
     on = lambda pts: (lambda: ke.hashgrid_encode_cuda(values, pts, grids, tables, bbox_min, bbox_max, False))
@@ -872,8 +970,9 @@ def check_hashgrid_kernels(device, rng, tiles):
           f"{l2_gb / enc['ms']:.2f} TB/s; at a train step's {TRAIN_POINTS} points {step_random_ms:.4f} ms "
           f"random, {enc['ms_step_rays']:.4f} ms along rays (bound {enc['bound_step_ms']:.4f} ms); in the "
           f"table-gradient kernel's layout {tiles_ms[0]:.4f} ms random, {tiles_ms[1]:.4f} ms along rays, "
-          f"{tiles_ms[2]:.4f} ms on a step's rays; bit for bit equal to it on every input: {same_bits}",
-          flush=True)
+          f"{tiles_ms[2]:.4f} ms on a step's rays; bit for bit equal to it on every input: {same_bits}; "
+          f"the hierarchy's passes along rays: " + ", ".join(
+              f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms)" for k, v in hierarchy.items()), flush=True)
     require(enc["max_abs_err"] <= ENCODE_BOUND, "the encode kernel disagrees with its plain version")
     require(same_bits, "the encode kernel's bits differ between its two thread layouts")
     require(wrong_err >= SCAN_MARGIN * ENCODE_BOUND,
@@ -1001,6 +1100,18 @@ def check_backward_kernel(device, rng, parent):
     # The main path feeds points along rays: ms_rays (as many bytes: the
     # same bound).
     ray_ms = entry["ms_rays"] = graph_ms(lambda: kb.hashgrid_backward_cuda(ray_x, g, args), 20)
+    # The NGP hierarchy's train step: each pass's points along rays, the
+    # coarse model's levels and the fine model's (HIERARCHY_PASSES).
+    entry["hierarchy"] = {}
+    for label, levels, samples, spacing in HIERARCHY_PASSES:
+        tb, xs, gs, a, cfg = case(0, levels=levels,
+                                  points=on_card(ray_points(rng, TRAIN_RAYS, samples, spacing, -0.7, 0.4)))
+        got = kb.hashgrid_backward_cuda(xs, gs, a)
+        err = max(relative_errors(got, kb.hashgrid_backward_reference(tb, xs, gs, *cfg)))
+        entry["hierarchy"][label] = dict(ms=graph_ms(lambda: kb.hashgrid_backward_cuda(xs, gs, a), 20),
+                                         bound_ms=bound(nbytes(xs, gs, *got))[0], max_abs_err=err)
+        del got, tb
+    hierarchy_err = max(v["max_abs_err"] for v in entry["hierarchy"].values())
     with launching_from(parent):
         earlier_ms = [graph_ms(lambda: kb.hashgrid_backward_cuda(pts, g, args), 20) for pts in (x, ray_x)]
     entry["bound_ms"], entry["bound_by"] = bound(nbytes(x, g, *out))
@@ -1020,10 +1131,13 @@ def check_backward_kernel(device, rng, parent):
           f"kernel {entry['ms']:.4f} ms, {ray_ms:.4f} ms on points along rays, {big_ms:.4f} ms at {ENCODE_POINTS} "
           f"points; in its earlier layout {earlier_ms[0]:.4f} ms, {earlier_ms[1]:.4f} ms along rays; plain "
           f"{entry['plain_ms']:.4f} ms; corners + {FINE_LEVELS} index_add_ "
-          f"{entry['library_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms", flush=True)
+          f"{entry['library_ms']:.4f} ms; bound {entry['bound_ms']:.4f} ms; the hierarchy's passes along rays: "
+          + ", ".join(f"{k} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms), max err {v['max_abs_err']:.3e}"
+                      for k, v in entry["hierarchy"].items()) + f" (bound {HIERARCHY_BACKWARD_BOUND:g})", flush=True)
     print("hashgrid_backward per level, us (lattice: random points / along rays): " + ", ".join(
         f"{grids[i]}: {a:.1f} / {b:.1f}" for i, (a, b) in enumerate(level_us)), flush=True)
-    require(entry["max_abs_err"] <= BACKWARD_BOUND, "hashgrid_backward disagrees with its plain version")
+    require(entry["max_abs_err"] <= BACKWARD_BOUND and hierarchy_err <= HIERARCHY_BACKWARD_BOUND,
+            "hashgrid_backward disagrees with its plain version")
     require(wrong_err >= SCAN_MARGIN * BACKWARD_BOUND,
             f"hashgrid_backward's bound {BACKWARD_BOUND:g} would not catch a wrong hash index")
     return [entry]
@@ -1946,80 +2060,96 @@ def kernel_counters():
 
 @contextlib.contextmanager
 def recording_steps():
-    """Inside, every gradient step of OccupancyTrainLoop appends its pool
-    budget (None: dense), its ``fine_pool_dropped`` (None: dense) and its
-    ``fine`` loss (tensors on the card, read after the run) to the yielded
-    list."""
-    from learn_nerf_tpu_torch.train import OccupancyTrainLoop
+    """Inside, every gradient step of either train loop appends its logging
+    dict (tensors on the card, read after the run) and its lr to the
+    yielded list."""
+    from learn_nerf_tpu_torch import train
 
-    original, steps = OccupancyTrainLoop._grad_step, []
+    original, steps = train.grad_step, []
 
-    def grad_step(self, batch, budget=None, **draws):
-        values = original(self, batch, budget, **draws)
-        steps.append((budget, values.get("fine_pool_dropped"), values["fine"]))
+    def grad_step(loop, loss_fn):
+        values = original(loop, loss_fn)
+        steps.append((values, loop.optimizer.param_groups[0]["lr"]))
         return values
 
-    OccupancyTrainLoop._grad_step = grad_step
+    train.grad_step = grad_step
     try:
         yield steps
     finally:
-        OccupancyTrainLoop._grad_step = original
+        train.grad_step = original
 
 
-def train_run(root, name, flags, checkpoint):
-    """One ``train_nerf`` run of TRAIN_STEPS steps; returns its kernel
-    counts, the per-step (budget, dropped) and the run's summary."""
+class Interrupted(Exception):
+    """Raised from ``train_nerf``'s step hook to stop a run as a crash would."""
+
+
+def train_run(root, name, flags, checkpoint, steps=TRAIN_STEPS, data="train", stop_at=None, expect=None,
+              rays=TRAIN_RAYS):
+    """One ``train_nerf`` run of ``steps`` steps (stopped, as by a crash,
+    once ``stop_at`` steps are done; a resumed run takes the ``expect``
+    steps that remain); returns its kernel counts, the per-step (logging
+    dict, lr), the last steps' rates and the loop (None when stopped).  A
+    whole run's loss must fall."""
     from learn_nerf_tpu_torch.scripts import train_nerf
 
-    argv = [*flags, "--steps", str(TRAIN_STEPS), "--save_path", str(root / checkpoint), str(root / "train")]
+    argv = [*flags, "--steps", str(steps), "--save_path", str(root / checkpoint), str(root / data)]
     marks = {}
 
     def on_step(done, loop):
-        if done in (1, 8, TRAIN_STEPS - 64, TRAIN_STEPS - 48, TRAIN_STEPS):
+        if done in (1, 8, steps - 64, steps - 48, steps):
             torch.cuda.synchronize()
             marks[done] = time.perf_counter()
+        if done == stop_at:
+            raise Interrupted
 
     counters = kernel_counters()
     for c in counters.values():
         c.reset()
     log = io.StringIO()
     marks[0] = time.perf_counter()
-    with contextlib.redirect_stdout(log), recording_steps() as steps:
-        loop = train_nerf.main(argv, on_step=on_step)
+    loop = None
+    with contextlib.redirect_stdout(log), recording_steps() as records:
+        try:
+            loop = train_nerf.main(argv, on_step=on_step)
+        except Interrupted:
+            pass
     counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
     text = log.getvalue()
     lines = [line for line in text.splitlines() if line.startswith("step ")]
-    fine = [float(v) for _, _, v in steps]
-    require(len(steps) == TRAIN_STEPS and np.isfinite(fine).all()
+    fine = [float(v["fine"]) for v, _ in records]
+    done = expect or stop_at or steps
+    require(len(records) == done and np.isfinite(fine).all()
             and all(np.isfinite(float(v)) for line in lines for v in re.findall(r"=(\S+)", line)),
-            f"{name} ran {len(steps)} steps, or logged a value that is not finite")
-    first, last = float(np.mean(fine[:16])), float(np.mean(fine[-16:]))
-    rate = {n: n / (marks[TRAIN_STEPS] - marks[TRAIN_STEPS - n]) for n in (64, 48) if TRAIN_STEPS - n in marks}
-    budgets = [line for line in text.splitlines() if line.startswith("auto pool budget")]
-    print(f"{name}, {TRAIN_STEPS} steps of {TRAIN_RAYS} rays at full width: first step(s) "
+            f"{name} ran {len(records)} steps, or logged a value that is not finite")
+    head = max(len(fine) // 6, 1)
+    first, last = float(np.mean(fine[:head])), float(np.mean(fine[-head:]))
+    rate = {n: n / (marks[steps] - marks[steps - n]) for n in (64, 48) if steps - n in marks and steps in marks}
+    notes = [line for line in text.splitlines() if line.startswith(("auto pool budget", "cosine", "skipping"))]
+    grid = f"; grid updates {loop.grid_state.step}" if hasattr(loop, "grid_state") else ""
+    print(f"{name}, {len(records)} steps of {rays} rays: first step(s) "
           f"{marks[min(marks.keys() - {0})] - marks[0]:.3f} s (dataset, shuffle and model set-up included); "
-          + "; ".join(f"last {n} steps {r:.2f} steps/s, {r * TRAIN_RAYS:.0f} rays/s" for n, r in rate.items())
-          + f"; fine loss, mean of the first 16 steps {first:.5f}, of the last 16 {last:.5f}; grid updates "
-          f"{loop.grid_state.step}; {budgets}; {lines[-1]}; (launches, plain calls) {counts}", flush=True)
-    require(last < first, f"{name}: the fine loss did not fall")
-    require(loop.grid_state.step == TRAIN_STEPS // 16, f"{name}: {loop.grid_state.step} grid updates")
+          + "; ".join(f"last {n} steps {r:.2f} steps/s, {r * rays:.0f} rays/s" for n, r in rate.items())
+          + f"; fine loss, mean of the first {head} steps {first:.5f}, of the last {head} {last:.5f}{grid}; "
+          f"{notes}; {lines[-1] if lines else ''}; (launches, plain calls) {counts}", flush=True)
+    require(done != steps or last < first, f"{name}: the fine loss did not fall")
     require(all(plain == 0 for _, plain in counts.values()), f"{name} called a plain version: {counts}")
-    del loop
     torch.cuda.empty_cache()
-    return counts, steps, rate
+    return counts, records, rate, loop
 
 
-def evaluate(root, checkpoint, flags=()):
-    """The port's eval_psnr over the held-out views; the mean PSNR."""
+def evaluate(root, checkpoint, flags=(), mode=("--instant_ngp", "--occupancy"), data="heldout",
+             views=HELDOUT_VIEWS, batch=8192):
+    """The port's eval_psnr over a dataset's views (the held-out views of
+    the ball by default); the mean PSNR, each view's PSNR and SSIM."""
     from learn_nerf_tpu_torch.scripts import eval_psnr
 
-    argv = ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--batch_size", "8192",
-            "--model_path", str(root / checkpoint), *flags, str(root / "heldout")]
+    argv = [*mode, "--seed", str(SEED), "--batch_size", str(batch),
+            "--model_path", str(root / checkpoint), *flags, str(root / data)]
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         scores, ssims = eval_psnr.main(argv)
     mean = float(re.search(r"mean_psnr=(\S+)", log.getvalue()).group(1))
-    require(len(scores) == HELDOUT_VIEWS and np.isfinite(scores).all(), f"eval_psnr on {checkpoint}: {scores}")
+    require(len(scores) == views and np.isfinite(scores).all(), f"eval_psnr on {checkpoint}: {scores}")
     return mean, scores, ssims
 
 
@@ -2057,9 +2187,15 @@ def train_phase(root, profile):
     pooled_flags = [*flags, "--occ_train_budget", "auto", "--occ_train_budget_start", str(POOL_START),
                     "--steps_per_dispatch", "8"]
     refreshes = TRAIN_STEPS // 16
-    counts = {}
-    counts["train"], dense_steps, _ = train_run(root, "train", flags, "trained.pkl")
-    counts["train pooled"], pooled_steps, _ = train_run(root, "train pooled", pooled_flags, "trained_pooled.pkl")
+    counts, pooled_at = {}, {}
+    for run, run_flags, checkpoint in (("train", flags, "trained.pkl"),
+                                       ("train pooled", pooled_flags, "trained_pooled.pkl")):
+        counts[run], records, _, loop = train_run(root, run, run_flags, checkpoint)
+        require(loop.grid_state.step == refreshes, f"{run}: {loop.grid_state.step} grid updates")
+        pooled_at[run] = [(i, int(v["fine_pool_dropped"])) for i, (v, _) in enumerate(records)
+                          if "fine_pool_dropped" in v]
+        per_ray = loop._auto_per_ray
+        del loop
     want = {
         "train": dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
                       composite=TRAIN_STEPS, composite_backward=TRAIN_STEPS, composite_pooled=0,
@@ -2072,13 +2208,12 @@ def train_phase(root, profile):
     for run, expected in want.items():
         require(all(counts[run][k][0] == v for k, v in expected.items()),
                 f"the {run} run's launches {counts[run]} are not {expected}")
-    require(all(budget is None for budget, _, _ in dense_steps), "the dense run took a pooled step")
-    pooled = [(i, budget, int(dropped)) for i, (budget, dropped, _) in enumerate(pooled_steps) if budget is not None]
-    dropped = [d for _, _, d in pooled]
-    print(f"train pooled: steps {pooled[0][0]}-{pooled[-1][0]} pooled, pools of {sorted({b for _, b, _ in pooled})} "
-          f"samples ({sorted({b // TRAIN_RAYS for _, b, _ in pooled})} a ray), fine_pool_dropped max {max(dropped)}",
-          flush=True)
-    require([i for i, _, _ in pooled] == list(range(POOL_START, TRAIN_STEPS)),
+    require(not pooled_at["train"], "the dense run took a pooled step")
+    pooled = pooled_at["train pooled"]
+    dropped = [d for _, d in pooled]
+    print(f"train pooled: steps {pooled[0][0]}-{pooled[-1][0]} pooled, {per_ray} samples a ray at the end, "
+          f"fine_pool_dropped max {max(dropped)}", flush=True)
+    require([i for i, _ in pooled] == list(range(POOL_START, TRAIN_STEPS)),
             "the pooled run did not pool exactly the steps from POOL_START on")
     require(max(dropped) == 0, f"the pooled run dropped samples: {dropped}")
 
@@ -2116,6 +2251,232 @@ def train_phase(root, profile):
             print("profile:", json.dumps({"mode": f"ngp occupancy train step, bench_pooled grid, {mode}", **result}),
                   flush=True)
     return {**counts, "trained ngp occupancy": served, "trained ngp pooled": served_pooled}
+
+
+def hierarchy_step_check(root, device, rng):
+    """One full-width hierarchy step of each HIERARCHY_RUNS model (the
+    flags' own loop, ``train_nerf.make_loop``): loss and gradients by the
+    kernel route against the plain route on the card, from the same
+    weights, batch and uniforms, one graph alive at a time.  Both passes'
+    composite pairs (K = 64 and the long-ray path at K = 192, which share the
+    background's gradient) and, in NGP, both models' encode and
+    table-gradient kernels launch once each; the plain route launches
+    none."""
+    from learn_nerf_tpu_torch.data.dataset import load_dataset
+    from learn_nerf_tpu_torch.scripts import train_nerf
+
+    data = load_dataset(str(root / "train"))
+    rays = np.concatenate([v.rays() for v in data.views])
+    batch = torch.from_numpy(rays[rng.permutation(len(rays))[:TRAIN_RAYS]]).to(device)
+    u_coarse = torch.from_numpy(rng.rand(TRAIN_RAYS, COARSE_SAMPLES).astype(np.float32)).to(device)
+    u_fine = torch.from_numpy(rng.rand(TRAIN_RAYS, FINE_SAMPLES).astype(np.float32)).to(device)
+    counters = kernel_counters()
+    for name, (flags, _) in HIERARCHY_RUNS.items():
+        args = train_nerf.build_parser().parse_args([*HIERARCHY_FLAGS, *flags, str(root / "train")])
+        torch.manual_seed(SEED)
+        loop = train_nerf.make_loop(args, data.metadata, args.lr, device)
+        leaves = [(f"{m}.{n}", p) for m, model in loop._models.items() for n, p in model.named_parameters()]
+        leaves.append(("background", loop.background))
+
+        def step():
+            loop.optimizer.zero_grad(set_to_none=True)
+            total, _ = loop._loss(loop.renderer, loop.background, batch, u_coarse=u_coarse, u_fine=u_fine)
+            total.backward()
+            return total.item(), {k: p.grad.detach().clone() for k, p in leaves}
+
+        for c in counters.values():
+            c.reset()
+        loss, got = step()
+        launched = {k: c.launches for k, c in counters.items() if c.launches}
+        ngp = "--instant_ngp" in flags
+        want = dict(composite=2, composite_backward=2, **(dict(hashgrid_encode=2, hashgrid_backward=2) if ngp else {}))
+        require(launched == want, f"{name}: the kernel route's step launched {launched}, not {want}")
+        with plain_routes():
+            ref_loss, want_grads = step()
+        require({k: c.launches for k, c in counters.items() if c.launches} == launched,
+                f"{name}: the plain route launched a kernel")
+        loss_err = abs(loss - ref_loss) / abs(ref_loss)
+        tables = {k: ((got[k] - want_grads[k]).norm() / want_grads[k].norm()).item() for k in got if "table" in k}
+        others = {k: ((got[k] - want_grads[k]).abs().max() / want_grads[k].abs().max()).item()
+                  for k in got if "table" not in k}
+        flat_got, flat_want = (torch.cat([g[k].flatten() for k in got]) for g in (got, want_grads))
+        errs = {"tables L2": max(tables.values(), default=0.0), "others max": max(others.values()),
+                "all L2": ((flat_got - flat_want).norm() / flat_want.norm()).item()}
+        worst = max(others, key=others.get)
+        worst_table = max(tables, key=tables.get) if tables else None
+        missing = [k for k in got if got[k].abs().max() == 0]
+        bounds = HIERARCHY_GRAD_BOUNDS[name]
+        print(f"{name} step, kernel route vs plain route on the card: loss {loss:.7f} vs {ref_loss:.7f} "
+              f"(relative {loss_err:.2e}, bound {HIERARCHY_LOSS_BOUND:g}); gradients: table gradients by L2, "
+              f"relative, worst {worst_table} {errs['tables L2']:.2e}; other gradients relative to each tensor's "
+              f"max, worst {worst} {errs['others max']:.2e}, background {others['background']:.2e}; all "
+              f"gradients together by L2, relative, {errs['all L2']:.2e} (bounds {bounds}); gradients that are "
+              f"zero: {missing}", flush=True)
+        require(np.isfinite(loss) and loss_err <= HIERARCHY_LOSS_BOUND, f"{name}: the step's loss disagrees")
+        require(all(errs[k] <= v for k, v in bounds.items()) and not missing, f"{name}: the step's gradients disagree")
+        del loop, leaves, got, want_grads
+        torch.cuda.empty_cache()
+
+
+def hierarchy_phase(root, profile):
+    """``train_nerf`` without ``--occupancy`` at full width on the ball:
+    each HIERARCHY_RUNS run (the loss falls; the composite pair, forward and
+    backward, at 4096 x 64 and 4096 x 192 on every step; in NGP the encode
+    and table-gradient kernels twice a step), each scored by ``eval_psnr``
+    on the held-out views; then the f32 run again, stopped after step
+    RESUME_AT + 1 with its full state saved at RESUME_AT, and resumed from
+    that state to the end: the step counter and the lr continue, and every
+    resumed step's losses equal the uninterrupted run's within
+    RESUME_BOUND.  With ``profile``, each run's step profiled
+    (``scripts.profile_train --hierarchy``).  Returns ``{run: {kernel:
+    (launches, plain calls)}}``."""
+    counts, records = {}, {}
+    for name, (flags, steps) in HIERARCHY_RUNS.items():
+        checkpoint = name.replace(" ", "_") + ".pkl"
+        counts[name], records[name], _, loop = train_run(root, name, [*HIERARCHY_FLAGS, *flags], checkpoint,
+                                                         steps=steps)
+        del loop
+        ngp = "--instant_ngp" in flags
+        want = dict(composite=2 * steps, composite_backward=2 * steps, composite_pooled=0,
+                    hashgrid_encode=2 * steps if ngp else 0, hashgrid_backward=2 * steps if ngp else 0)
+        require(all(counts[name][k][0] == v for k, v in want.items()),
+                f"the {name} run's launches {counts[name]} are not {want}")
+        mode = [f for f in flags if f in ("--instant_ngp", "--bf16")]
+        mean, scores, ssims = evaluate(root, checkpoint, mode=mode)
+        print(f"eval_psnr {' '.join(mode)} on the {name} run ({steps} steps), {HELDOUT_VIEWS} held-out views: "
+              f"mean_psnr={mean:.3f} ({[round(float(v), 3) for v in scores]}), "
+              f"ssim {[round(float(v), 4) for v in ssims]}", flush=True)
+
+    name = "hierarchy f32"
+    flags, steps = HIERARCHY_RUNS[name]
+    state = root / "hierarchy_state.pt"
+    resume_flags = [*HIERARCHY_FLAGS, *flags, "--full_state_path", str(state), "--save_interval", str(RESUME_AT - 1)]
+    _, stopped, _, _ = train_run(root, f"{name}, stopped after step {RESUME_AT + 1}", resume_flags,
+                                 "hierarchy_resumed.pkl", steps=steps, stop_at=RESUME_AT + 1)
+    from learn_nerf_tpu_torch.checkpoint import peek_train_state_step
+
+    saved_at = peek_train_state_step(str(state))
+    _, resumed, _, loop = train_run(root, f"{name}, resumed from its full state", resume_flags,
+                                    "hierarchy_resumed.pkl", steps=steps, expect=steps - RESUME_AT)
+    whole = records[name]
+    diffs = [max(abs(float(a[k]) - float(b[k])) for k in ("coarse", "fine"))
+             for (a, _), (b, _) in zip(stopped[:RESUME_AT] + resumed, whole[:RESUME_AT] + whole[RESUME_AT:])]
+    lrs_equal = [lr for _, lr in stopped[:RESUME_AT] + resumed] == [lr for _, lr in whole]
+    bit_equal = all(d == 0 for d in diffs[RESUME_AT:])
+    print(f"{name} resume: full state saved at step {saved_at}; resumed run {len(resumed)} steps, ends at train step "
+          f"{loop.step_count} and optimizer step {loop._opt_count}; lr of every step equal to the uninterrupted "
+          f"run's: {lrs_equal} (resumed lr {resumed[0][1]:.6e} -> {resumed[-1][1]:.6e}); losses against the "
+          f"uninterrupted run: max abs difference {max(diffs):.3e} (bound {RESUME_BOUND:g}), bit-equal after the "
+          f"resume: {bit_equal}", flush=True)
+    require(saved_at == RESUME_AT and loop.step_count == loop._opt_count == steps and lrs_equal,
+            f"{name}: the resumed run's step counter or lr did not continue")
+    require(max(diffs) <= RESUME_BOUND, f"{name}: the resumed run's losses left the uninterrupted run's")
+    del loop
+    torch.cuda.empty_cache()
+    if profile:
+        from learn_nerf_tpu_torch.scripts import profile_train
+
+        for name, (flags, _) in HIERARCHY_RUNS.items():
+            args = profile_train.argparser().parse_args([*HIERARCHY_FLAGS, *flags, "--hierarchy", str(root / "train")])
+            print("profile:", json.dumps({"mode": f"{name} train step", **profile_train.profile_args(args)}), flush=True)
+            torch.cuda.empty_cache()
+    return counts
+
+
+def cube_color(origins, dirs, half=0.5):
+    """Colour rays by the face of the cube ``[-half, half]^3`` they first hit
+    (black where they miss): the cube of the repo's synthetic test scene."""
+    bmin, bmax = -half, half
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t0 = (bmin - origins) / dirs
+        t1 = (bmax - origins) / dirs
+    near = np.minimum(t0, t1)
+    far = np.maximum(t0, t1)
+    t_enter = np.maximum(near.max(axis=-1), 0.0)
+    t_exit = far.min(axis=-1)
+    hit = t_enter < t_exit
+    pts = origins + dirs * t_enter[:, None]
+    axis = np.argmax(np.abs(pts), axis=-1)
+    sign = np.take_along_axis(pts, axis[:, None], axis=-1)[:, 0] > 0
+    palette = np.array([[255, 60, 60], [60, 255, 60], [60, 60, 255], [255, 255, 60], [60, 255, 255],
+                        [255, 60, 255]], dtype=np.uint8)
+    colors = palette[axis * 2 + sign.astype(int)]
+    colors[~hit] = 0
+    return colors
+
+
+def orbit_views(n, distance=2.0, fov=1.0):
+    """``n`` cameras on a wavy orbit around the origin, looking at it."""
+    from learn_nerf_tpu_torch.data.camera import CameraView
+
+    views = []
+    for i in range(n):
+        theta = 2 * np.pi * i / n
+        phi = 0.3 * np.sin(3 * theta)
+        z = -np.array([np.cos(theta) * np.cos(phi), np.sin(theta) * np.cos(phi), np.sin(phi)])
+        x = np.cross(z, [0.0, 0.0, 1.0])
+        x /= np.linalg.norm(x)
+        y = np.cross(z, x)
+        views.append(CameraView(tuple(z.tolist()), tuple((-z * distance).tolist()), tuple(x.tolist()),
+                                tuple(y.tolist()), fov, fov))
+    return views
+
+
+def write_blender_capture(out_dir, res=BLENDER_SIDE, n_views=BLENDER_TRAIN_VIEWS, fov=BLENDER_FOV):
+    """The Blender stand-in in the original NeRF format: ``n_views`` train
+    and BLENDER_TEST_VIEWS test orbit views (at distance 2.3) of the cube,
+    ``transforms_{split}.json`` with OpenGL ``transform_matrix`` columns
+    (x right, y up, z backward) and ``{split}/r_i.png``, built by inverting
+    the Blender converter's decode, as ``tools/make_blender_standin.py``
+    writes it."""
+    from PIL import Image
+
+    for split, views in (("train", orbit_views(n_views, fov=fov)),
+                         ("test", orbit_views(BLENDER_TEST_VIEWS, distance=2.3, fov=fov))):
+        (out_dir / split).mkdir(parents=True, exist_ok=True)
+        frames = []
+        for i, view in enumerate(views):
+            rays = view.bare_rays(res, res)
+            Image.fromarray(cube_color(rays[:, 0], rays[:, 1]).reshape(res, res, 3)).save(
+                out_dir / split / f"r_{i}.png")
+            mat = np.eye(4)
+            mat[:3, 0] = view.x_axis
+            mat[:3, 1] = -np.asarray(view.y_axis)
+            mat[:3, 2] = -np.asarray(view.camera_direction)
+            mat[:3, 3] = view.camera_origin
+            frames.append(dict(file_path=f"./{split}/r_{i}", transform_matrix=mat.tolist()))
+        (out_dir / f"transforms_{split}.json").write_text(json.dumps(dict(camera_angle_x=fov, frames=frames)))
+
+
+def quality_gate(root, seeds):
+    """The JAX package's Blender stand-in gate through the port: the
+    capture from write_blender_capture, converted by the port's
+    ``convert.blender``, trained by ``train_nerf`` with the JAX recipe
+    (GATE_FLAGS, GATE_STEPS steps, vanilla f32) at each seed, and scored by
+    ``eval_psnr --occupancy`` on the test views.  Returns ``{seed: (mean
+    PSNR, mean SSIM)}`` and the last run's kernel counts."""
+    from learn_nerf_tpu_torch.convert import blender
+
+    capture = root / "blender_capture"
+    write_blender_capture(capture)
+    for split in ("train", "test"):
+        blender.main(["--split", split, str(capture), str(root / f"blender_{split}")])
+    results = {}
+    for seed in seeds:
+        checkpoint = f"blender_{seed}.pkl"
+        counts, _, _, loop = train_run(root, f"quality gate, seed {seed}", [*GATE_FLAGS, "--seed", str(seed)],
+                                       checkpoint, steps=GATE_STEPS, data="blender_train", rays=GATE_RAYS)
+        del loop
+        require(counts["composite"][0] == counts["composite_backward"][0] == GATE_STEPS,
+                f"the quality gate's run launched {counts}")
+        mean, scores, ssims = evaluate(root, checkpoint, mode=("--occupancy",), data="blender_test",
+                                       views=BLENDER_TEST_VIEWS, batch=4096)
+        results[seed] = (mean, float(np.mean(ssims)))
+        print(f"quality gate, seed {seed}: eval_psnr --occupancy on {BLENDER_TEST_VIEWS} test views: "
+              f"mean_psnr={mean:.3f} mean_ssim={results[seed][1]:.4f} ({[round(float(v), 3) for v in scores]}); "
+              f"the JAX package's {JAX_GATE_PSNR} dB, floor {GATE_FLOOR:g} dB", flush=True)
+        torch.cuda.empty_cache()
+    return results, counts
 
 
 def ngp_tree(rng, levels):
@@ -2363,14 +2724,33 @@ def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS):
     return counts, setup
 
 
+def gate_seeds(seeds):
+    """``--gate_seeds``: the quality gate alone at each seed, on the card;
+    one JSON line of ``{seed: [mean PSNR, mean SSIM]}``."""
+    from learn_nerf_tpu_torch.kernels import build
+    from learn_nerf_tpu_torch.scripts.common import default_device
+
+    default_device()
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
+        results, _ = quality_gate(Path(tmp), seeds)
+    print(json.dumps({"quality_gate": {seed: list(v) for seed, v in results.items()}}))
+    return 0
+
+
 def main():
     parser = argparse.ArgumentParser(description="Smoke test of the port on one card.")
     parser.add_argument("--profile", action="store_true",
                         help="also profile one render per mode (see the module doc)")
+    parser.add_argument("--gate_seeds", type=int, nargs="+", default=None,
+                        help="run only the Blender stand-in quality gate, at these seeds, and print each score")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card", file=sys.stderr)
         return 2
+    if args.gate_seeds is not None:
+        return gate_seeds(args.gate_seeds)
 
     from learn_nerf_tpu_torch.kernels import build
     from learn_nerf_tpu_torch.scripts.common import default_device
@@ -2445,6 +2825,7 @@ def main():
         write_train_scene(root / "train", np.random.RandomState(SEED + 7))
         check_train_step(root, device, np.random.RandomState(SEED + 8))
         torch.cuda.empty_cache()
+        hierarchy_step_check(root, device, np.random.RandomState(SEED + 14))
         served, setups = {}, {}
         runs = [(name, mode, True) for name, mode in VANILLA_MODES.items()]
         runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES}.items()]
@@ -2454,6 +2835,10 @@ def main():
         if args.profile:
             profile_modes(root)
         served.update(train_phase(root, args.profile))
+        served.update(hierarchy_phase(root, args.profile))
+        gate, served["quality gate"] = quality_gate(root, [SEED])
+        require(gate[SEED][0] >= GATE_FLOOR, f"the quality gate scored {gate[SEED][0]:.3f} dB, under its floor "
+                f"{GATE_FLOOR:g} dB")
 
     # Each mode's kernels ran in its serve phase (serve_mode holds that no
     # plain version ran there).
@@ -2490,7 +2875,7 @@ def main():
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",
-               "ms_step_rays", "parent_ms", "floor_ms", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by",
+               "ms_step_rays", "hierarchy", "parent_ms", "floor_ms", "plain_ms", "route_ms", "bound_ms", "bound_step_ms", "bound_by",
                "library_ms", "card_rate_ms", "share_of_bound", "tflops", "shapes"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])

@@ -1,5 +1,6 @@
-"""Checkpoints: the pickle contract shared with ``learn_nerf_tpu``, and the
-bridge between flax parameter trees and torch state dicts.
+"""Checkpoints: the pickle contract shared with ``learn_nerf_tpu``, the
+bridge between flax parameter trees and torch state dicts, and the port's
+full train state.
 
 The pickle holds a plain dict ``{"coarse": tree, "fine": tree,
 "background": [3]}`` of NumPy arrays, where each tree is flax's
@@ -12,11 +13,22 @@ the other: the model trees convert by kind (:func:`model_params_from_flax`
 unchanged.  NGP trees saved by the reference implementation
 (``MultiresHashTableEncoding_i/HashTableEncoding_j/table``) are renamed on
 load, as ``learn_nerf_tpu.checkpoint.load_params_pickle`` does.
+
+The full train state (:func:`save_train_state`) is the port's own format:
+an atomic ``torch.save`` of plain tensors, dicts and numbers (it loads with
+``torch.load(..., weights_only=True)``): the models' state dicts and the
+background, ``optimizer.state_dict()`` (Adam's moments and step), the
+optimizer's and the train state's step counters, the EMA average, and for
+the occupancy loop its grid, host step and auto budget.  The JAX package
+writes a flax msgpack there; neither package reads the other's full state,
+and handing the port a msgpack refuses.  The params pickle stays the format
+both read.
 """
 
 import os
 import pickle
-from typing import Any, Dict, List
+import zipfile
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -156,9 +168,11 @@ def checkpoint_from_flax(
 
 
 def checkpoint_to_flax(
-    ckpt: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4
+    ckpt: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1
 ) -> Dict[str, Any]:
-    """Inverse of :func:`checkpoint_from_flax`; other values become NumPy."""
+    """Inverse of :func:`checkpoint_from_flax`; other values become NumPy.
+    Takes any model's ``flax_layout()`` (an NGP state names its own layers,
+    so ``density_layers`` is not needed here)."""
     out = {}
     for k, v in ckpt.items():
         if k in MODEL_KEYS:
@@ -219,14 +233,102 @@ def load_params_pickle(path: str) -> Dict[str, Any]:
     return params
 
 
-def save_params_pickle(path: str, params: Dict[str, Any]) -> None:
-    """Write a pickle-contract dict atomically (tmp + fsync + rename)."""
+def _atomic_write(path: str, write: Callable[[Any], None]) -> None:
+    """``write(file)`` into ``path + ".tmp"``, fsync, rename over ``path``,
+    fsync the directory: a crash leaves the old file or the new one."""
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
-        pickle.dump(params, f)
+        write(f)
         f.flush()
         os.fsync(f.fileno())
     os.rename(tmp, path)
+    dir_fd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+    try:
+        os.fsync(dir_fd)
+    finally:
+        os.close(dir_fd)
+
+
+def save_params_pickle(path: str, params: Dict[str, Any]) -> None:
+    """Write a pickle-contract dict atomically (tmp + fsync + rename)."""
+    _atomic_write(path, lambda f: pickle.dump(params, f))
+
+
+FULL_STATE_FORMAT = "learn_nerf_tpu_torch full train state"
+FULL_STATE_VERSION = 1
+
+
+def _on_cpu(tree: Any) -> Any:
+    """``tree`` with every tensor detached, copied to the CPU."""
+    if isinstance(tree, Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    return tree
+
+
+def save_train_state(path: str, state: Dict[str, Any]) -> None:
+    """Write a loop's full train state (atomic ``torch.save``, tensors on
+    the CPU), tagged with the format and version."""
+    state = dict(_on_cpu(state), format=FULL_STATE_FORMAT, version=FULL_STATE_VERSION)
+    _atomic_write(path, lambda f: torch.save(state, f))
+
+
+def _read_train_state(path: str) -> Dict[str, Any]:
+    if not zipfile.is_zipfile(path):
+        raise ValueError(
+            f"{path} is not a full train state of learn_nerf_tpu_torch (a torch.save archive); "
+            "learn_nerf_tpu writes its full state as a flax msgpack, which the port does not read. "
+            "Resume from the params pickle (--save_path), which both packages read"
+        )
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(state, dict) or state.get("format") != FULL_STATE_FORMAT:
+        raise ValueError(f"{path} is not a full train state of learn_nerf_tpu_torch")
+    if state["version"] != FULL_STATE_VERSION:
+        raise ValueError(f"{path}: full-state version {state['version']}, this package reads {FULL_STATE_VERSION}")
+    return state
+
+
+def _reconcile_ema(raw: Dict[str, Any], ema_enabled: bool) -> Dict[str, Any]:
+    """Match the state's ``ema`` to the loading loop's EMA setting (port of
+    ``learn_nerf_tpu.checkpoint._reconcile_ema``), four cases:
+
+    * no average saved, EMA off: nothing;
+    * no average saved (the key absent, or None: saved EMA-off), EMA on:
+      seed the average from a copy of the saved ``params``;
+    * an average saved, EMA off: drop it (the raw parameters continue, and
+      a stale average must not reach ``eval_params``).
+    * an average saved, EMA on: keep it.
+    """
+    if not ema_enabled:
+        raw["ema"] = None
+    elif raw.get("ema") is None:
+        raw["ema"] = _clone(raw["params"])
+    return raw
+
+
+def _clone(tree: Any) -> Any:
+    if isinstance(tree, Tensor):
+        return tree.clone()
+    return {k: _clone(v) for k, v in tree.items()}
+
+
+def load_train_state(path: str, loop: str, ema_enabled: bool) -> Dict[str, Any]:
+    """Read a full train state written by :func:`save_train_state` for a
+    loop of kind ``loop`` (``"hierarchy"`` or ``"occupancy"``), its ``ema``
+    reconciled with ``ema_enabled`` (:func:`_reconcile_ema`)."""
+    state = _read_train_state(path)
+    if state["loop"] != loop:
+        raise ValueError(f"{path} holds the {state['loop']} loop's state, not the {loop} loop's")
+    return _reconcile_ema(state, ema_enabled)
+
+
+def peek_train_state_step(path: str) -> int:
+    """The train state's step counter of a full-state checkpoint, with no
+    loop built (the cosine-schedule CLI reads it before it knows how many
+    steps remain), as ``learn_nerf_tpu.checkpoint.peek_train_state_step``
+    reads ``state.step``."""
+    return int(_read_train_state(path)["step"])
 
 
 def train_state_from_flax(

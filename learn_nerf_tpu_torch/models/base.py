@@ -9,6 +9,15 @@ Tensor = torch.Tensor
 FieldOutput = Tuple[Tensor, Tensor, Dict[str, Tensor]]
 
 
+def flax_dense(layer: nn.Linear, x: Tensor, compute_dtype: str) -> Tensor:
+    """``layer(x)`` as flax's ``Dense(dtype=compute_dtype)`` computes it: in
+    bf16, bf16 operands, the product rounded to bf16, then a bf16 bias add."""
+    if compute_dtype == "bfloat16":
+        bf16 = torch.bfloat16
+        return torch.matmul(x.to(bf16), layer.weight.to(bf16).t()) + layer.bias.to(bf16)
+    return layer(x)
+
+
 class FieldModel(nn.Module):
     """A neural field.
 

@@ -19,20 +19,11 @@ from torch import nn
 
 from ..ops.encoding import sinusoidal_features
 from ..ops.hashgrid import dense_level_rows, hash_grid_encode
-from .base import FieldModel
+from .base import FieldModel, flax_dense
 
 Tensor = torch.Tensor
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
-
-
-def flax_dense(layer: nn.Linear, x: Tensor, compute_dtype: str) -> Tensor:
-    """``layer(x)`` as flax's ``Dense(dtype=compute_dtype)`` computes it: in
-    bf16, bf16 operands, the product rounded to bf16, then a bf16 bias add."""
-    if compute_dtype == "bfloat16":
-        bf16 = torch.bfloat16
-        return torch.matmul(x.to(bf16), layer.weight.to(bf16).t()) + layer.bias.to(bf16)
-    return layer(x)
 
 
 class HashGridEncoding(nn.Module):

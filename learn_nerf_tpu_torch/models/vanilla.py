@@ -6,10 +6,21 @@
 branch conditioned on the direction embedding with a tanh output.
 
 ``compute_dtype="float32"`` runs ``nn.Linear`` layers in f32.
-``compute_dtype="bfloat16"`` runs the whole forward through the fused MLP
-(:mod:`..kernels.fused_mlp`): the CUDA kernel for CUDA tensors, its plain
-version for CPU tensors.  Its rounding points are the Pallas kernel's
-(bf16 product operands, f32 sums and biases), not flax's bf16 module's.
+``compute_dtype="bfloat16"`` has two routes (:meth:`NeRFModel.set_bf16_route`):
+
+* ``"fused"`` (the default, for serving): the whole forward through the
+  fused MLP (:mod:`..kernels.fused_mlp`), the CUDA kernel for CUDA tensors
+  and its plain version for CPU tensors.  Its rounding points are the
+  Pallas kernel's (bf16 product operands, f32 sums and biases).  It works
+  on detached packed weights, so it has no backward: with grad enabled and
+  parameters that require grad it raises.
+* ``"flax"`` (what the train loops select):
+  autograd through plain ``torch`` products, rounded where flax's bf16
+  ``Dense`` rounds: operands, biases and layer outputs in bf16, the
+  encodings computed in f32, the density and rgb heads cast to f32 before
+  softplus and tanh.  The JAX package trains this model through flax, not
+  through Pallas.
+
 Parameters stay f32 either way.
 """
 
@@ -21,11 +32,12 @@ from torch import nn
 
 from ..kernels.fused_mlp import PackedMLP, fused_mlp, pack_vanilla_params
 from ..ops.encoding import sinusoidal_features
-from .base import FieldModel, FieldOutput
+from .base import FieldModel, FieldOutput, flax_dense
 
 Tensor = torch.Tensor
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
+BF16_ROUTES = ("fused", "flax")
 
 
 class NeRFModel(FieldModel):
@@ -47,6 +59,7 @@ class NeRFModel(FieldModel):
         super().__init__()
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}")
+        self.bf16_route = "fused"
         self.num_input_layers = input_layers
         self.num_mid_layers = mid_layers
         self.hidden_dim = hidden_dim
@@ -68,6 +81,14 @@ class NeRFModel(FieldModel):
         self.rgb = nn.Linear(color_layer_dim, 3)
         self._packed = None
         self._packed_key = None
+
+    def set_bf16_route(self, route: str) -> "NeRFModel":
+        """Pick the bf16 forward: ``"fused"`` (serving) or ``"flax"``
+        (training; see the module doc).  No effect in f32."""
+        if route not in BF16_ROUTES:
+            raise ValueError(f"bf16_route must be one of {BF16_ROUTES}, got {route!r}")
+        self.bf16_route = route
+        return self
 
     def dense_layers(self) -> List[nn.Linear]:
         """The layers in flax's ``Dense_i`` order."""
@@ -101,18 +122,29 @@ class NeRFModel(FieldModel):
         return self._packed
 
     def forward(self, x: Tensor, d: Tensor) -> FieldOutput:
-        if self.compute_dtype == "bfloat16":
+        if self.compute_dtype == "bfloat16" and self.bf16_route == "fused":
+            if torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters()):
+                raise RuntimeError(
+                    "the fused bf16 route works on detached packed weights and has no backward; "
+                    "train through set_bf16_route('flax') (the train loops select it), or run "
+                    "under torch.no_grad()"
+                )
             density, rgb = fused_mlp(self.packed(), x, d)
             return density, rgb, {}
-        x_emb = sinusoidal_features(x, self.x_freqs)
-        d_emb = sinusoidal_features(d, self.d_freqs)
+        dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
+
+        def dense(layer: nn.Linear, z: Tensor) -> Tensor:
+            return flax_dense(layer, z, self.compute_dtype)
+
+        x_emb = sinusoidal_features(x, self.x_freqs).to(dtype)
+        d_emb = sinusoidal_features(d, self.d_freqs).to(dtype)
         z = x_emb
         for layer in self.input_layers:
-            z = torch.relu(layer(z))
-        z = self.skip(torch.cat([z, x_emb], dim=-1))
+            z = torch.relu(dense(layer, z))
+        z = dense(self.skip, torch.cat([z, x_emb], dim=-1))
         for layer in self.mid_layers:
-            z = layer(torch.relu(z))
-        density = F.softplus(self.density(z))
-        z = torch.relu(self.color(torch.cat([z, d_emb], dim=-1)))
-        rgb = torch.tanh(self.rgb(z))
+            z = dense(layer, torch.relu(z))
+        density = F.softplus(dense(self.density, z).float())
+        z = torch.relu(dense(self.color, torch.cat([z, d_emb], dim=-1)))
+        rgb = torch.tanh(dense(self.rgb, z).float())
         return density, rgb, {}

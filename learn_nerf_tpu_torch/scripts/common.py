@@ -209,8 +209,8 @@ def check_ported(args: argparse.Namespace) -> None:
                 f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
                 "package serves the vanilla NeRF and Instant-NGP, with the "
                 "hierarchy, fixed-K occupancy and pooled inference and baked "
-                "Instant-NGP serving (--baked under --occupancy), and trains on "
-                "the occupancy path, fixed-K or pooled (see ROADMAP.md)"
+                "Instant-NGP serving (--baked under --occupancy), and trains the "
+                "hierarchy and the occupancy path, fixed-K or pooled (see ROADMAP.md)"
             )
     require_occupancy_for_baking(args)
     if torch.cuda.device_count() > 1:
@@ -317,7 +317,8 @@ def create_model(
     ``--instant_ngp``: 6 coarse and 16 fine hash-grid levels of ``2^18``
     rows, lattices ``2^(4 + i//2)``, over the metadata's bbox; ``--bf16``
     runs their MLPs in bf16.  Otherwise the vanilla pair, where ``--bf16``
-    selects the fused route.  Callers refuse unported model flags first
+    serves through the fused route (the train loops select the
+    flax-rounded one).  Callers refuse unported model flags first
     (:func:`check_ported`).
     """
     compute_dtype = "bfloat16" if getattr(args, "bf16", False) else "float32"

@@ -12,7 +12,9 @@ and prints one JSON line for the view:
 * ``device_ms``: the time the card was busy in that profiled call (the
   union of its kernel, memcpy and memset intervals in the trace), and
   ``idle_share = 1 - device_ms / profiled_ms`` of that same call;
-* ``top``: the kernels with the most device time in that call;
+* ``top``: the kernels with the most device time in that call, and
+  ``gemm_ms`` the device time of all its matrix products (the kernels
+  whose name holds ``gemm``: cuBLAS's and CUTLASS's);
 * ``port_kernels``: device time and share of each of the port's own
   kernels (``csrc/``) that ran in that call;
 * ``kernels_launched``: the number of kernels the card ran in that call,
@@ -130,6 +132,7 @@ def profile_call(call, device: torch.device) -> dict:
         device_ms=None,
         idle_share=None,
         top=None,
+        gemm_ms=None,
         port_kernels=None,
         kernels_launched=None,
         memsets=None,
@@ -150,6 +153,8 @@ def profile_call(call, device: torch.device) -> dict:
             device_ms=busy,
             idle_share=1.0 - busy / profiled,
             top=[dict(name=name[:80], ms=ms, share=ms / busy) for name, ms in ranked],
+            gemm_ms=sum(float(e["dur"]) / 1e3 for e in events
+                        if e.get("ph") == "X" and e.get("cat") == "kernel" and "gemm" in e["name"]),
             port_kernels={name: dict(ms=ms, share=ms / busy) for name, ms in ours.items()},
         )
     return result

@@ -1,16 +1,18 @@
-"""Time and profile occupancy train steps (the train CLI's model and loop
-flags all apply).
+"""Time and profile train steps (the train CLI's model and loop flags all
+apply): the occupancy loop's with ``--occupancy``, the hierarchy's without
+it or with ``--hierarchy``.
 
 Takes ``train_nerf``'s flags and its ``data_dir`` and prints one JSON line:
 
-* ``step_ms``: the host-clock time of each of ``--repeats`` steps of
-  ``OccupancyTrainLoop.step_auto`` (each synchronised at its end), after
+* ``step_ms``: the host-clock time of each of ``--repeats`` steps of the
+  loop's ``step_auto`` (each synchronised at its end), after
   ``--warmup_steps`` untimed ones; ``median_ms`` their median, and
   ``refresh_step_ms`` those of them that began with a grid refresh;
 * ``rays_per_s``: the batch size over the median step;
 * ``profiled_ms``, ``device_ms``, ``idle_share``, ``top``,
   ``port_kernels``, ``kernels_launched``, ``memsets``, ``host_top``: one
-  more step (one without a grid refresh) under ``torch.profiler``, as
+  more step (on the occupancy path one without a grid refresh) under
+  ``torch.profiler``, as
   :mod:`.profile_render` reports a render;
 * ``composite_host_us``: the composite kernels' wrappers' own host time a
   call (forward, backward; the pool layout's on a pooled step), on the
@@ -26,6 +28,10 @@ weights take the dense step and then the pooled step
 ``{"dense": {...}, "pooled": {...}}``, the pooled half with the resolved
 ``pool_budget`` and the last step's ``fine_pool_dropped``.
 
+``--hierarchy`` profiles the coarse/fine hierarchy's step (``TrainLoop``, as
+``train_nerf`` trains it without ``--occupancy``) on the same model flags:
+the flags' ``--occupancy`` is dropped, so one flag list serves both.
+
 With ``--device cpu`` the device fields are ``null``; without it the
 profiler runs on the card and raises when there is none.
 
@@ -34,6 +40,7 @@ Examples:
       --occupancy --lr 1e-2 data/scene
   python -m learn_nerf_tpu_torch.scripts.profile_train --instant_ngp \\
       --occupancy --lr 1e-2 --pooled data/scene
+  python -m learn_nerf_tpu_torch.scripts.profile_train --hierarchy data/scene
 """
 
 import argparse
@@ -62,6 +69,8 @@ def argparser():
     parser.add_argument("--warmup_steps", type=int, default=3, help="untimed steps before the timed ones")
     parser.add_argument("--pooled", action="store_true",
                         help="the dense and the pooled step on bench_pooled's frozen 5 %% grid")
+    parser.add_argument("--hierarchy", action="store_true",
+                        help="the coarse/fine hierarchy's step (drops --occupancy)")
     return parser
 
 
@@ -101,16 +110,17 @@ def timed_launchers(module, names):
             setattr(module, name, fn)
 
 
-def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats: int = 16,
-                  warmup_steps: int = 3) -> dict:
-    """Step times and one profiled step of ``loop`` over ``batches`` (an
-    iterator of ``[N, 3, 3]`` batches on the loop's device)."""
+def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_steps: int = 3) -> dict:
+    """Step times and one profiled step of ``loop`` (either train loop)
+    over ``batches`` (an iterator of ``[N, 3, 3]`` batches on the loop's
+    device)."""
     device = loop.device
     refreshed, dropped = [], []
+    refresh_due = getattr(loop, "_refresh_due", lambda: False)  # the hierarchy has no grid
 
     def step():
         batch = next(batches)
-        refreshed.append(loop._refresh_due())
+        refreshed.append(refresh_due())
         _sync(device)
         t0 = time.perf_counter()
         values = loop.step_auto(base_seed, batch)
@@ -129,7 +139,7 @@ def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats
     with timed_launchers(kc, launchers) as host:
         times = [step() for _ in range(repeats)]
     with_refresh = [ms for ms, due in zip(times, refreshed) if due]
-    while loop._refresh_due():  # profile a step without a grid refresh
+    while refresh_due():  # profile a step without a grid refresh
         step()
     median = statistics.median(times)
     batch_size = next(batches).shape[0]
@@ -152,6 +162,10 @@ def profile_steps(loop: OccupancyTrainLoop, batches, base_seed: int = 0, repeats
 def profile_args(args) -> dict:
     """The result for parsed flags: a fresh loop on the dataset's batches
     (with ``--pooled``, a dense and a pooled one on the frozen grid)."""
+    if args.hierarchy:
+        if args.pooled:
+            raise SystemExit("--hierarchy and --pooled profile different loops; pick one")
+        args.occupancy = False
     check_train_ported(args)
     device = resolve_device(args.device)
     data = load_dataset(args.data_dir)

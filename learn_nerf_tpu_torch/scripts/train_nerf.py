@@ -1,13 +1,16 @@
-"""Train a NeRF model on a scene: Instant-NGP with occupancy-grid sampling
-(``--instant_ngp --occupancy``), or the vanilla model on the same path.
+"""Train a NeRF model on a scene: the coarse/fine hierarchy (vanilla, or
+Instant-NGP with ``--instant_ngp``; ``--bf16`` runs the MLPs in bf16), or
+one field model with occupancy-grid sampling (``--occupancy``).
 
 The CLI of ``learn_nerf_tpu.scripts.train_nerf``: the same flags and
-defaults, auto-resume from ``--save_path``, optional per-step test losses,
-the ``step i: k=v ...`` line with a rays/sec counter, and a checkpoint in
-the pickle contract that both packages render.  Runs on the CUDA card, and
-raises without one unless given ``--device cpu`` (a flag of this port
-only).  On the card every step runs the hash-grid encode kernel, its
-table-gradient kernel and the composite kernels.
+defaults, auto-resume from ``--save_path`` (or from ``--full_state_path``
+when that file exists), optional per-step test losses, the ``step i: k=v
+...`` line with a rays/sec counter, and a checkpoint in the pickle contract
+that both packages render.  Runs on the CUDA card, and raises without one
+unless given ``--device cpu`` (a flag of this port only).  On the card
+every step runs the composite kernels (once a pass of the hierarchy), and
+with ``--instant_ngp`` the hash-grid encode kernel and its table-gradient
+kernel (once a model).
 
 Pooled training, the JAX package's flagship recipe, runs as there:
 ``--occ_train_budget auto`` (or a number of samples a ray) from step
@@ -15,18 +18,27 @@ Pooled training, the JAX package's flagship recipe, runs as there:
 card a pooled step runs the composite kernels in the pool's layout, and its
 log line adds ``fine_pool_dropped``.
 
-Not ported yet, refused with ``SystemExit`` (see ROADMAP.md): training
-without ``--occupancy`` (the coarse/fine hierarchy), ``--ref_nerf``,
-``--full_state_path``, ``--coordinator_address``/``--num_processes``
-(several processes) and ``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
+``--full_state_path`` checkpoints the full train state (Adam's moments, the
+step counters, the average, the grid) at the JAX CLI's save points, in the
+port's own format (:func:`~..checkpoint.save_train_state`; the JAX
+package's msgpack is refused).  A run resumed from it skips the batches the
+saved run consumed (the JAX CLI starts its batch stream again), so it
+continues the uninterrupted run step for step; with ``--lr_schedule
+cosine`` the restored optimizer count carries the schedule on.
+
+Not ported yet, refused with ``SystemExit`` (see ROADMAP.md): ``--ref_nerf``,
+``--coordinator_address``/``--num_processes`` (several processes) and
+``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
 steps per log line; a last chunk of fewer than k batches is dropped unless
 ``--steps`` cuts it (:func:`dispatch_chunks`), and checkpoints are written at
 the steps the JAX CLI writes them (:func:`save_due`).
 
-Example (the flagship recipe):
+Examples (the flagship recipe; the vanilla hierarchy, resumable):
   python -m learn_nerf_tpu_torch.scripts.train_nerf --instant_ngp \\
       --occupancy --occ_train_budget auto --steps_per_dispatch 8 \\
       --lr_schedule cosine --lr 1e-2 --steps 2000 --save_path ngp.pkl data/scene
+  python -m learn_nerf_tpu_torch.scripts.train_nerf --lr 5e-4 --steps 20000 \\
+      --save_path nerf.pkl --full_state_path nerf_state.pt data/scene
 """
 
 import argparse
@@ -37,10 +49,10 @@ import random
 import numpy as np
 import torch
 
-from ..checkpoint import load_params_pickle
+from ..checkpoint import load_params_pickle, peek_train_state_step
 from ..data.dataset import load_dataset
 from ..data.prefetch import prefetch_to_device
-from ..train import OccupancyTrainLoop, cosine_decay_schedule
+from ..train import OccupancyTrainLoop, TrainLoop, cosine_decay_schedule
 from ..utils.logging import MetricLogger
 from .common import (
     add_device_arg,
@@ -92,7 +104,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--save_path", type=str, default="nerf.pkl")
     parser.add_argument(
         "--full_state_path", type=str, default=None,
-        help="also checkpoint the full train state (not ported yet)",
+        help="also checkpoint the full train state (Adam moments, step counters, grid) here, "
+        "and resume from it when it exists",
     )
     parser.add_argument("--one_view", action="store_true")
     parser.add_argument("--test_data_dir", type=str, default=None)
@@ -121,10 +134,6 @@ def check_train_ported(args: argparse.Namespace) -> None:
     """Refuse, with ``SystemExit``, every training flag whose path is not
     ported (pure flag checks, before any dataset or checkpoint is read)."""
     refused = [
-        (not args.occupancy, "training without --occupancy (the coarse/fine hierarchy's TrainLoop)"),
-        (args.bf16 and not args.instant_ngp,
-         "--bf16 training of the vanilla model (its fused MLP kernel has no backward)"),
-        (args.full_state_path is not None, "--full_state_path (full-state checkpoints)"),
         (args.coordinator_address is not None or (args.num_processes or 1) > 1,
          "--coordinator_address/--num_processes (training in several processes)"),
         (args.profile_dir is not None,
@@ -134,43 +143,51 @@ def check_train_ported(args: argparse.Namespace) -> None:
         if is_set:
             raise SystemExit(
                 f"{what} is not ported to learn_nerf_tpu_torch yet; this package trains "
-                "with --occupancy on one card (see ROADMAP.md, Queue 1)"
+                "on one card in one process (see ROADMAP.md, Queue 1)"
             )
     check_ported(args)
 
 
-def resume_step_of(save_path: str) -> int:
-    """The step counter of the checkpoint a run would resume from (0
-    without one)."""
+def resume_step_of(save_path: str, full_state_path=None) -> int:
+    """The train-state step a run would resume from: the full state's when
+    that file exists, else the params pickle's (0 without either)."""
+    if full_state_path is not None and os.path.exists(full_state_path):
+        return peek_train_state_step(full_state_path)
     if not os.path.exists(save_path):
         return 0
     payload = load_params_pickle(save_path)
     return int(payload.get("occupancy_host_step", payload.get("train_host_step", 0)))
 
 
-def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device) -> OccupancyTrainLoop:
-    """The occupancy train loop the flags describe, on ``device``."""
-    _, fine, train_kwargs = create_model(args, metadata)
-    return OccupancyTrainLoop(
-        fine,
+def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device):
+    """The train loop the flags describe, on ``device``: the occupancy loop
+    with ``--occupancy``, else the hierarchy's."""
+    coarse, fine, train_kwargs = create_model(args, metadata)
+    common = dict(
         lr=lr,
         bbox_min=metadata.bbox_min,
         bbox_max=metadata.bbox_max,
+        density_penalty=args.density_penalty,
+        density_penalty_batch_size=args.density_penalty_batch_size,
+        ema_decay=args.ema,
+        device=device,
+        **train_kwargs,
+    )
+    if not args.occupancy:
+        return TrainLoop(coarse, fine, coarse_ts=args.coarse_samples, fine_ts=args.fine_samples, **common)
+    return OccupancyTrainLoop(
+        fine,
         candidates=args.occ_candidates,
         samples=args.occ_samples,
         grid_resolution=args.occ_grid,
         grid_threshold=args.occ_threshold,
-        density_penalty=args.density_penalty,
-        density_penalty_batch_size=args.density_penalty_batch_size,
         pool_budget_per_ray=args.occ_train_budget,
         pool_start_step=args.occ_train_budget_start,
         pool_t_eps=args.occ_train_t_eps,
         grid_warmup_updates=args.occ_warmup,
         grid_refresh_samples=args.occ_refresh_samples,
         grid_freeze_after=args.occ_freeze_grid_after,
-        ema_decay=args.ema,
-        device=device,
-        **train_kwargs,
+        **common,
     )
 
 
@@ -200,7 +217,7 @@ def save_due(step: int, save_interval: int, k: int) -> bool:
     return bool(step) and (step + 1) % save_interval < k
 
 
-def main(argv=None, on_step=None) -> OccupancyTrainLoop:
+def main(argv=None, on_step=None):
     """Train as the flags say and return the loop.
 
     :param on_step: optional ``on_step(steps_done, loop)``, called after
@@ -233,16 +250,18 @@ def main(argv=None, on_step=None) -> OccupancyTrainLoop:
     rng = np.random.Generator(np.random.Philox(seed))
 
     print("creating model and train loop...")
+    full_resume = args.full_state_path is not None and os.path.exists(args.full_state_path)
     if args.lr_schedule == "cosine":
         if args.steps is None:
             raise SystemExit("--lr_schedule cosine needs --steps (the decay span)")
-        # The optimizer's own step count drives the schedule, and a params
-        # pickle resumes with a fresh optimizer (count 0): without an
+        # The optimizer's own step count drives the schedule.  A full-state
+        # resume restores it, so the decay continues as it was; a params
+        # pickle resumes with a fresh optimizer (count 0), and without an
         # offset the schedule would restart at the peak lr on
         # near-converged params.  --steps is the TOTAL decay span, so a
         # resumed run trains only the remaining steps.
         base_schedule = cosine_decay_schedule(args.lr, args.steps, args.lr_final_frac)
-        resume_step = resume_step_of(args.save_path)
+        resume_step = resume_step_of(args.save_path, args.full_state_path)
         lr = base_schedule
         if resume_step:
             remaining = max(args.steps - resume_step, 0)
@@ -254,7 +273,8 @@ def main(argv=None, on_step=None) -> OccupancyTrainLoop:
                 print("nothing to do: the checkpoint already covers --steps")
                 return None
             args.steps = remaining
-            lr = lambda count: base_schedule(count + resume_step)  # noqa: E731
+            if not full_resume:
+                lr = lambda count: base_schedule(count + resume_step)  # noqa: E731
     else:
         lr = args.lr
         if args.steps is not None and args.steps >= 1000:
@@ -264,9 +284,20 @@ def main(argv=None, on_step=None) -> OccupancyTrainLoop:
                 "(+ --occ_freeze_grid_after, --ema)"
             )
     loop = make_loop(args, data.metadata, lr, device)
-    if os.path.exists(args.save_path):
+    skip = 0
+    if full_resume:
+        print(f"loading full train state: {args.full_state_path}")
+        loop.load_full(args.full_state_path)
+        skip = loop.step_count
+        print(f"skipping the {skip} batches the saved run consumed")
+    elif os.path.exists(args.save_path):
         print(f"loading from checkpoint: {args.save_path}")
         loop.load(args.save_path)
+
+    def save():
+        loop.save(args.save_path)
+        if args.full_state_path is not None:
+            loop.save_full(args.full_state_path)
 
     print("training...")
     seed_base = int(rng.integers(0, 2**31 - 1))
@@ -291,7 +322,7 @@ def main(argv=None, on_step=None) -> OccupancyTrainLoop:
     # one step late, so nothing here waits for the card.  The per-step
     # test-loss path keeps explicit generators.
     batches = prefetch_to_device(
-        data.iterate_batches(shuffle_dir, data_seed, args.batch_size), device
+        itertools.islice(data.iterate_batches(shuffle_dir, data_seed, args.batch_size), skip, None), device
     )
     done = 0
     try:
@@ -307,10 +338,10 @@ def main(argv=None, on_step=None) -> OccupancyTrainLoop:
             if on_step is not None:
                 on_step(done, loop)
             if save_due(done - 1, args.save_interval, k):
-                loop.save(args.save_path)
+                save()
     finally:
         logger.flush()
-    loop.save(args.save_path)
+    save()
     return loop
 
 

@@ -1,28 +1,35 @@
-"""Training on the occupancy-grid fast path: the loss, the gradient step
-and a stateful loop (port of ``learn_nerf_tpu.train``'s occupancy half).
+"""Training: the losses, the gradient step and the two stateful loops
+(port of ``learn_nerf_tpu.train``): :class:`TrainLoop` over the coarse/fine
+hierarchy, and :class:`OccupancyTrainLoop` on the occupancy-grid fast path.
 
-Loss contract of the JAX package: ``MSE(fine) + sum of weighted aux
-losses`` with default weights ``normal_mse=3e-4, neg_normal=0.1``, plus an
-optional mean-density penalty at uniform random bbox points; the logged dict
-carries the per-term losses under the ``fine`` prefix plus ``grad_norm`` and
-``param_norm``.  The optimizer is Adam in optax's form
-(``m_hat / (sqrt(v_hat) + eps)``, which ``torch.optim.Adam`` shares).
+Loss contract of the JAX package: ``MSE(coarse) + MSE(fine)`` (the
+occupancy path: ``MSE(fine)``) ``+ sum of weighted aux losses`` with
+default weights ``normal_mse=3e-4, neg_normal=0.1``, plus an optional
+mean-density penalty at uniform random bbox points; the logged dict carries
+the per-term losses under the ``coarse`` / ``fine`` prefixes plus
+``grad_norm`` and ``param_norm``.  The optimizer is Adam in optax's form
+(``m_hat / (sqrt(v_hat) + eps)``, which ``torch.optim.Adam`` shares), and
+both loops take the one gradient step of :func:`grad_step`.
 
 Where the JAX package threads a parameter tree through pure functions, the
-port's field model owns its parameters; the loop's trained parameters are
-``dict(fine=<the model's parameters by name>, background=[3])``, and the
-background is trained.  Where it folds PRNG keys inside the jitted step, the
-port seeds one generator per step from ``(base seed, tag, step)``
-(:func:`fold_seed`), so a resumed run draws what an unbroken one would.
-Every draw can also be given explicitly (``u=``, ``density_draws=``,
+port's field models own their parameters; a loop trains its models' (by
+checkpoint key, ``coarse`` and ``fine``; the occupancy loop has no coarse
+model) and the background ``[3]``.
+Where it folds PRNG keys inside the jitted step, the port seeds one
+generator per step from ``(base seed, tag, step)`` (:func:`fold_seed`), so
+a resumed run draws what an unbroken one would.  Every draw can also be
+given explicitly (``u_coarse=``, ``u_fine=``, ``u=``, ``density_draws=``,
 ``grid_ids=``, ``grid_jitter=``), which is how the parity tests feed both
 packages the same numbers.
 
-On the card the step runs three hand-written kernels: the all-level
-hash-grid encode and its table-gradient kernel (through
-:class:`~.kernels.hashgrid_encode.HashGridEncode`) and the composite
-kernels, forward and backward (:mod:`.kernels.composite`; a pooled step
-runs them in the pool's layout).
+On the card the hierarchy's step runs the composite kernels, forward and
+backward, once a pass (:mod:`.kernels.composite`), and with Instant-NGP
+models the all-level hash-grid encode and its table-gradient kernel once a
+model (through :class:`~.kernels.hashgrid_encode.HashGridEncode`).  The
+occupancy step runs the same kernels once (a pooled step runs the
+composite pair in the pool's layout).  A bf16 vanilla model trains on its
+flax-rounded route (:meth:`~.models.vanilla.NeRFModel.set_bf16_route`, which
+the loops select), whose products are plain ``torch`` matmuls.
 
 Pooled training (``pool_budget_per_ray``, the JAX package's flagship
 ``--occ_train_budget auto``): from ``pool_start_step`` on, each step packs
@@ -32,9 +39,12 @@ Where the JAX loop draws the auto budget's demand batch with
 ``fold_in(PRNGKey(17), host step)``, the port seeds a generator with
 ``fold_seed(17, 0, host step)``.
 
-Not ported yet (ROADMAP.md, Queue 1): the hierarchy's ``TrainLoop``
-(vanilla training), full-state checkpoints and meshes of several cards
-(data parallelism); asking for any of them raises.
+Both loops write the params pickle both packages read (:meth:`save`) and
+the port's own full train state (:meth:`save_full`, the format of
+:func:`~.checkpoint.save_train_state`).
+
+Not ported yet (ROADMAP.md, Queue 1): meshes of several cards (data
+parallelism); asking for one raises.
 """
 
 import copy
@@ -47,9 +57,18 @@ import torch
 from torch import nn
 
 from .acceleration import OccupancyGrid, OccupancyGridState, auto_budget_from_demand
+from .checkpoint import (
+    checkpoint_from_flax,
+    checkpoint_to_flax,
+    load_params_pickle,
+    load_train_state,
+    save_params_pickle,
+    save_train_state,
+)
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .occ_render import OccupancyRenderer
+from .render import Renderer
 
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
@@ -129,6 +148,60 @@ def average_density(
     return densities.mean()
 
 
+def _bbox(renderer, device) -> Tuple[Tensor, Tensor]:
+    return (torch.tensor(renderer.bbox_min, dtype=torch.float32, device=device),
+            torch.tensor(renderer.bbox_max, dtype=torch.float32, device=device))
+
+
+def compute_losses(
+    renderer: Renderer,
+    background: Tensor,
+    batch: Tensor,
+    loss_weights: Dict[str, float],
+    density_penalty: Optional[float] = None,
+    density_penalty_batch_size: int = 128,
+    u_coarse: Optional[Tensor] = None,
+    u_fine: Optional[Tensor] = None,
+    density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """Total loss and the logging dict of one ray batch through the
+    coarse/fine hierarchy (``learn_nerf_tpu.train.compute_losses``).  The
+    parameters are ``renderer.coarse``'s and ``renderer.fine``'s.
+
+    :param batch: ``[N, 3, 3]`` rows of (origin, direction, target colour).
+    :param u_coarse: optional ``[N, coarse_ts]`` uniforms of the stratified
+        coarse draw; ``u_fine`` optional ``[N, fine_ts]`` of the inverse-CDF
+        draw (see :meth:`~.render.Renderer.render_rays`).
+    :param density_draws: optional ``(uniforms [B, 3], normals [B, 3])`` of
+        the density penalty, shared by both models as the JAX function
+        shares its one key; drawn after the render's draws when absent.
+    """
+    out = renderer.render_rays(batch[:, :2], background, generator=generator, u_coarse=u_coarse, u_fine=u_fine)
+    targets = batch[:, 2]
+    coarse_loss = ((out["coarse"]["outputs"] - targets) ** 2).mean()
+    fine_loss = ((out["fine"]["outputs"] - targets) ** 2).mean()
+    loss_dict = dict(coarse=coarse_loss, fine=fine_loss)
+    total = coarse_loss + fine_loss
+    for prefix in ("coarse", "fine"):
+        for name, value in out[f"{prefix}_aux"].items():
+            loss_dict[f"{prefix}_{name}"] = value
+            total = total + loss_weights[name] * value
+    if density_penalty is not None:
+        device = batch.device
+        if density_draws is None:
+            density_draws = (
+                torch.rand((density_penalty_batch_size, 3), generator=generator, device=device),
+                torch.randn((density_penalty_batch_size, 3), generator=generator, device=device),
+            )
+        for prefix, model in (("fine", renderer.fine), ("coarse", renderer.coarse)):
+            penalty = average_density(model, *_bbox(renderer, device), density_penalty_batch_size,
+                                      *density_draws)
+            loss_dict[f"{prefix}_density"] = penalty
+            total = total + density_penalty * penalty
+    return total, loss_dict
+
+
 def _single_model_loss_tail(
     renderer: OccupancyRenderer,
     outputs: Tensor,
@@ -150,12 +223,8 @@ def _single_model_loss_tail(
         total = total + loss_weights[name] * value
     if density_penalty is not None:
         coords_u, dirs_normal = density_draws if density_draws is not None else (None, None)
-        device = outputs.device
         penalty = average_density(
-            renderer.model,
-            torch.tensor(renderer.bbox_min, dtype=torch.float32, device=device),
-            torch.tensor(renderer.bbox_max, dtype=torch.float32, device=device),
-            density_penalty_batch_size,
+            renderer.model, *_bbox(renderer, outputs.device), density_penalty_batch_size,
             coords_u=coords_u, dirs_normal=dirs_normal, generator=generator,
         )
         loss_dict["fine_density"] = penalty
@@ -223,17 +292,306 @@ def compute_losses_occupancy_pooled(
     return total, loss_dict
 
 
-class TrainLoop:
-    """The hierarchy's training loop, not ported yet."""
+def grad_step(loop: "_Trainer", loss_fn: Callable[[], Tuple[Tensor, Dict[str, Tensor]]]) -> Dict[str, Tensor]:
+    """THE gradient step both loops take (JAX's ``_grad_step``): the loss
+    with its logging dict from ``loss_fn()``, the gradients, ``grad_norm`` /
+    ``param_norm`` (before the update), the Adam step at the schedule's
+    lr, the step counters and the optional EMA.  Returns the logging dict
+    of 0-dim tensors (on the device: read them late)."""
+    loop.optimizer.zero_grad(set_to_none=True)
+    total, values = loss_fn()
+    total.backward()
+    leaves = loop._leaves()
+    values = {k: v.detach() for k, v in values.items()}
+    values["grad_norm"] = tree_norm(p.grad for p in leaves)
+    values["param_norm"] = tree_norm(leaves)
+    for group in loop.optimizer.param_groups:
+        group["lr"] = loop._schedule(loop._opt_count)
+    loop.optimizer.step()
+    loop._opt_count += 1
+    loop.step_count += 1
+    if loop.ema_decay is not None:
+        loop._ema_step()
+    return values
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "training the coarse/fine hierarchy (TrainLoop) " + NOT_PORTED.format(item="vanilla training")
-            + "; train with OccupancyTrainLoop (--occupancy)"
+
+class _Trainer:
+    """What both loops share: the trained models (``self._models``, by
+    checkpoint key) and the background, Adam and its lr schedule, the step
+    counters, the EMA average, the eval parameters and the full train
+    state.  A subclass sets ``LOOP`` (the full state's kind), builds its
+    models on ``self.device`` and calls :meth:`_init_training`."""
+
+    LOOP = ""
+
+    def _init_training(
+        self,
+        models: Dict[str, FieldModel],
+        lr: Union[float, Schedule],
+        adam_b1: float,
+        adam_b2: float,
+        adam_eps: float,
+        ema_decay: Optional[float],
+    ) -> None:
+        for model in models.values():
+            # The loops differentiate through every model: a bf16 vanilla
+            # model trains on its flax-rounded route, never the fused one.
+            if isinstance(model, NeRFModel):
+                model.set_bf16_route("flax")
+        self._models = models
+        self.background = nn.Parameter(torch.tensor([-1.0, -1.0, -1.0], device=self.device))
+        self._schedule = lr if callable(lr) else constant_schedule(float(lr))
+        self.optimizer = torch.optim.Adam(
+            self._leaves(), lr=self._schedule(0), betas=(adam_b1, adam_b2), eps=adam_eps,
+            foreach=True,
+        )
+        # Optimizer steps taken (drives the lr schedule; a params pickle
+        # does not restore it, the full state does), and the train-state
+        # step (drives step_auto's seeds; both checkpoints restore it).
+        self._opt_count = 0
+        self.step_count = 0
+        self.ema_decay = ema_decay
+        self._ema_models: Optional[Dict[str, FieldModel]] = None
+        self._ema_background: Optional[Tensor] = None
+        if ema_decay is not None:
+            self._seed_ema()
+        self._generator = torch.Generator(device=self.device)
+
+    def _leaves(self) -> list:
+        return [p for m in self._models.values() for p in m.parameters()] + [self.background]
+
+    def _seed_ema(self) -> None:
+        """An independent copy of the parameters to seed the average."""
+        self._ema_models = {name: copy.deepcopy(m).requires_grad_(False) for name, m in self._models.items()}
+        self._ema_background = self.background.detach().clone()
+
+    def _ema_step(self) -> None:
+        """``ema <- decay * ema + (1 - decay) * params``, in place."""
+        ema = [p for m in self._ema_models.values() for p in m.parameters()] + [self._ema_background]
+        with torch.no_grad():
+            torch._foreach_mul_(ema, self.ema_decay)
+            torch._foreach_add_(ema, [p.detach() for p in self._leaves()], alpha=1.0 - self.ema_decay)
+
+    def _eval_models(self) -> Tuple[Dict[str, FieldModel], Tensor]:
+        """The models and background of :attr:`eval_params`."""
+        if self.ema_decay is not None and self._ema_models is not None:
+            return self._ema_models, self._ema_background
+        return self._models, self.background
+
+    @property
+    def eval_params(self) -> Dict[str, Any]:
+        """What rendering and checkpoints use: the Polyak average when
+        ``ema_decay`` is set, the raw train parameters otherwise (each
+        model as a state dict)."""
+        models, background = self._eval_models()
+        return dict({name: m.state_dict() for name, m in models.items()}, background=background.detach())
+
+    def _place(self, batch) -> Tensor:
+        if not isinstance(batch, Tensor):
+            batch = torch.from_numpy(np.asarray(batch, dtype=np.float32))
+        return batch.to(self.device, non_blocking=True)
+
+    # -- checkpointing ----------------------------------------------------
+
+    def _layout(self) -> Dict[str, int]:
+        return self._models["fine"].flax_layout()
+
+    def _save_pickle(self, path: str, **extra) -> None:
+        """Write the params pickle both packages render (atomic): the eval
+        parameters (the EMA average when enabled) as flax trees, and
+        ``extra``."""
+        save_params_pickle(path, checkpoint_to_flax(dict(self.eval_params, **extra), **self._layout()))
+
+    def _load_pickle(self, path: str) -> Dict[str, Any]:
+        """Load the models and the background from a params pickle written
+        by either package, reseed the average from them, and return the
+        pickle for the loop's own keys.  Adam's moments are not in it: the
+        optimizer keeps whatever state it has (a fresh loop's is empty)."""
+        payload = load_params_pickle(path)
+        ckpt = checkpoint_from_flax(payload, **self._layout())
+        for name, model in self._models.items():
+            model.load_state_dict(ckpt[name])
+        with torch.no_grad():
+            self.background.copy_(torch.as_tensor(np.asarray(payload["background"], dtype=np.float32)))
+        if self._ema_models is not None:
+            self._seed_ema()  # a params pickle has one tree: seed the average from it
+        return payload
+
+    def _full_state(self) -> Dict[str, Any]:
+        def params(models, background):
+            return dict({name: m.state_dict() for name, m in models.items()}, background=background.detach())
+
+        return dict(
+            loop=self.LOOP,
+            params=params(self._models, self.background),
+            optimizer=self.optimizer.state_dict(),
+            opt_count=self._opt_count,
+            step=self.step_count,
+            ema=None if self._ema_models is None else params(self._ema_models, self._ema_background),
         )
 
+    def save_full(self, path: str) -> None:
+        """Write the full train state (atomic): parameters, Adam's moments
+        and step, both step counters and the average, so a resumed run
+        continues the uninterrupted one (the JAX package's ``save_full``, in
+        the port's own format: :func:`~.checkpoint.save_train_state`)."""
+        save_train_state(path, self._full_state())
 
-class OccupancyTrainLoop:
+    def load_full(self, path: str) -> Dict[str, Any]:
+        """Restore a state written by :meth:`save_full` of a loop of the
+        same kind and models; its average is reconciled with this loop's
+        ``ema_decay`` (:func:`~.checkpoint._reconcile_ema`).  Returns the
+        state for the loop's own keys."""
+        state = load_train_state(path, self.LOOP, ema_enabled=self.ema_decay is not None)
+
+        def load(models, background, saved):
+            for name, model in models.items():
+                model.load_state_dict(saved[name])
+            with torch.no_grad():
+                background.copy_(saved["background"])
+
+        load(self._models, self.background, state["params"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self._opt_count, self.step_count = int(state["opt_count"]), int(state["step"])
+        if self.ema_decay is not None:
+            load(self._ema_models, self._ema_background, state["ema"])
+        return state
+
+
+def _refuse_mesh(mesh: Any) -> None:
+    if mesh is not None:
+        raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item="data parallelism"))
+
+
+class TrainLoop(_Trainer):
+    """Training loop over a coarse/fine hierarchy (``learn_nerf_tpu.train.
+    TrainLoop``): each step renders the batch through both models
+    (:func:`compute_losses`) and takes :func:`grad_step`.
+
+    :param coarse: the coarse field model; ``fine`` the fine one.  The loop
+        moves both to ``device`` and trains their parameters in place.
+    :param lr: a float, or a schedule of the optimizer step
+        (:func:`cosine_decay_schedule`).
+    :param coarse_ts: stratified samples a ray; ``fine_ts`` the
+        importance samples added to them for the fine pass.
+    :param device: where to train (default: where the fine model lies).
+    """
+
+    LOOP = "hierarchy"
+
+    def __init__(
+        self,
+        coarse: FieldModel,
+        fine: FieldModel,
+        lr: Union[float, Schedule],
+        coarse_ts: int,
+        fine_ts: int,
+        bbox_min,
+        bbox_max,
+        adam_b1: float = 0.9,
+        adam_b2: float = 0.999,
+        adam_eps: float = 1e-7,
+        loss_weights: Optional[Dict[str, float]] = None,
+        density_penalty: Optional[float] = None,
+        density_penalty_batch_size: int = 128,
+        ema_decay: Optional[float] = None,
+        mesh: Any = None,
+        device: Union[None, str, torch.device] = None,
+    ):
+        _refuse_mesh(mesh)
+        self.device = torch.device(device) if device is not None else next(fine.parameters()).device
+        self.coarse, self.fine = coarse.to(self.device), fine.to(self.device)
+        self.renderer = Renderer(
+            coarse=self.coarse, fine=self.fine,
+            bbox_min=tuple(np.asarray(bbox_min, dtype=np.float32).tolist()),
+            bbox_max=tuple(np.asarray(bbox_max, dtype=np.float32).tolist()),
+            coarse_ts=coarse_ts, fine_ts=fine_ts,
+        )
+        self.loss_weights = loss_weights if loss_weights is not None else default_loss_weights()
+        self.density_penalty = density_penalty
+        self.density_penalty_batch_size = density_penalty_batch_size
+        self._init_training(dict(coarse=self.coarse, fine=self.fine), lr, adam_b1, adam_b2, adam_eps, ema_decay)
+
+    def _loss(self, renderer: Renderer, background: Tensor, batch: Tensor, **draws):
+        return compute_losses(
+            renderer, background, batch, self.loss_weights, density_penalty=self.density_penalty,
+            density_penalty_batch_size=self.density_penalty_batch_size, **draws)
+
+    def _grad_step(self, batch: Tensor, **draws) -> Dict[str, Tensor]:
+        return grad_step(self, lambda: self._loss(self.renderer, self.background, batch, **draws))
+
+    def step(
+        self,
+        batch,
+        generator: Optional[torch.Generator] = None,
+        u_coarse: Optional[Tensor] = None,
+        u_fine: Optional[Tensor] = None,
+        density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    ) -> Dict[str, Tensor]:
+        """One in-place training step with the caller's draws; returns the
+        logging dict of 0-dim tensors (on the device: read them late).
+
+        :param batch: ``[N, 3, 3]`` rows of (origin, direction, colour).
+        :param generator: draws whatever is not given explicitly.
+        """
+        return self._grad_step(self._place(batch), u_coarse=u_coarse, u_fine=u_fine,
+                               density_draws=density_draws, generator=generator)
+
+    def step_auto(self, base_seed: int, batch) -> Dict[str, Tensor]:
+        """Hot-loop step: pass the SAME ``base_seed`` every call.  The
+        step's draws come from a generator seeded with ``(base_seed, 0,
+        train step)`` (the JAX loop folds ``state.step`` into its key), so
+        they continue across a resume: both checkpoints keep the step."""
+        self._generator.manual_seed(fold_seed(base_seed, TRAIN_TAG, self.step_count))
+        return self._grad_step(self._place(batch), generator=self._generator)
+
+    def step_auto_many(self, base_seed: int, batches: Sequence) -> Dict[str, Tensor]:
+        """K hot-loop steps (a plain loop, where the JAX loop scans), bit
+        for bit K :meth:`step_auto` calls.  Returns the LAST step's dict.
+
+        :param batches: ``[k, N, 3, 3]`` stacked ray batches.
+        """
+        values = None
+        for batch in batches:
+            values = self.step_auto(base_seed, batch)
+        if values is None:
+            raise ValueError("step_auto_many needs at least one batch")
+        return values
+
+    def eval_losses(
+        self,
+        batch,
+        generator: Optional[torch.Generator] = None,
+        u_coarse: Optional[Tensor] = None,
+        u_fine: Optional[Tensor] = None,
+        density_draws: Optional[Tuple[Tensor, Tensor]] = None,
+    ) -> Dict[str, Tensor]:
+        """The loss dict without a gradient step (test-set monitoring), on
+        :attr:`eval_params`: with EMA on, the weights that are
+        checkpointed and rendered."""
+        models, background = self._eval_models()
+        renderer = dataclasses.replace(self.renderer, coarse=models["coarse"], fine=models["fine"])
+        with torch.no_grad():
+            _, values = self._loss(renderer, background, self._place(batch), u_coarse=u_coarse,
+                                   u_fine=u_fine, density_draws=density_draws, generator=generator)
+        return values
+
+    def save(self, path: str) -> None:
+        """Write the params pickle both packages render (atomic): the eval
+        parameters (the EMA average when enabled) and ``train_host_step``,
+        the train state's step, so a pickle resume continues the seeds."""
+        self._save_pickle(path, train_host_step=np.int64(self.step_count))
+
+    def load(self, path: str) -> None:
+        """Load both models and the background from a params pickle written
+        by either package, and the step from its ``train_host_step`` (the
+        reference's pickles lack it: the step stays)."""
+        payload = self._load_pickle(path)
+        if "train_host_step" in payload:
+            self.step_count = int(payload["train_host_step"])
+
+
+class OccupancyTrainLoop(_Trainer):
     """Training loop for the occupancy-grid fast path (single field model).
 
     The occupancy grid state is carried beside the optimizer state and
@@ -257,6 +615,8 @@ class OccupancyTrainLoop:
         (:func:`cosine_decay_schedule`).
     :param device: where to train (default: where the model lies).
     """
+
+    LOOP = "occupancy"
 
     def __init__(
         self,
@@ -286,15 +646,7 @@ class OccupancyTrainLoop:
         mesh: Any = None,
         device: Union[None, str, torch.device] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item="data parallelism"))
-        if isinstance(model, NeRFModel) and model.compute_dtype == "bfloat16":
-            # Its forward is the fused MLP kernel over packed (detached)
-            # weights: a backward through it would leave every gradient None.
-            raise NotImplementedError(
-                "training a bfloat16 vanilla model is not ported: its forward is the fused "
-                "MLP kernel, which has no backward (ROADMAP.md, Queue 1: vanilla training); train it in float32"
-            )
+        _refuse_mesh(mesh)
         bbox_min_t = tuple(np.asarray(bbox_min, dtype=np.float32).tolist())
         bbox_max_t = tuple(np.asarray(bbox_max, dtype=np.float32).tolist())
         self.device = torch.device(device) if device is not None else next(model.parameters()).device
@@ -322,52 +674,9 @@ class OccupancyTrainLoop:
         self.grid_refresh_samples = grid_refresh_samples
         self.grid_freeze_after = grid_freeze_after
 
-        self.background = nn.Parameter(torch.tensor([-1.0, -1.0, -1.0], device=self.device))
-        self.params = dict(fine=dict(self.model.named_parameters()), background=self.background)
-        self._schedule = lr if callable(lr) else constant_schedule(float(lr))
-        self.optimizer = torch.optim.Adam(
-            self._leaves(), lr=self._schedule(0), betas=(adam_b1, adam_b2), eps=adam_eps,
-            foreach=True,
-        )
-        # Optimizer steps taken by this loop (drives the lr schedule), and
-        # the train-state step (drives step_auto's seeds; restored by load).
-        self._opt_count = 0
-        self.step_count = 0
-        self._host_step = 0
-
-        self.ema_decay = ema_decay
-        self._ema_model: Optional[FieldModel] = None
-        self._ema_background: Optional[Tensor] = None
-        if ema_decay is not None:
-            self._seed_ema()
+        self._host_step = 0  # host steps (the refresh cadence, the pooled switch)
+        self._init_training(dict(fine=self.model), lr, adam_b1, adam_b2, adam_eps, ema_decay)
         self.grid_state = self.grid.init(self.device)
-        self._generator = torch.Generator(device=self.device)
-
-    # -- parameters -------------------------------------------------------
-
-    def _leaves(self) -> list:
-        return [*self.model.parameters(), self.background]
-
-    def _seed_ema(self) -> None:
-        """An independent copy of the parameters to seed the average."""
-        self._ema_model = copy.deepcopy(self.model).requires_grad_(False)
-        self._ema_background = self.background.detach().clone()
-
-    def _ema_step(self) -> None:
-        """``ema <- decay * ema + (1 - decay) * params``, in place."""
-        ema = [*self._ema_model.parameters(), self._ema_background]
-        with torch.no_grad():
-            torch._foreach_mul_(ema, self.ema_decay)
-            torch._foreach_add_(ema, [p.detach() for p in self._leaves()], alpha=1.0 - self.ema_decay)
-
-    @property
-    def eval_params(self) -> Dict[str, Any]:
-        """What rendering and checkpoints use: the Polyak average when
-        ``ema_decay`` is set, the raw train parameters otherwise
-        (``fine`` as a state dict)."""
-        if self.ema_decay is not None and self._ema_model is not None:
-            return dict(fine=self._ema_model.state_dict(), background=self._ema_background)
-        return dict(fine=self.model.state_dict(), background=self.background.detach())
 
     # -- steps ------------------------------------------------------------
 
@@ -415,24 +724,9 @@ class OccupancyTrainLoop:
         return self._auto_per_ray
 
     def _grad_step(self, batch: Tensor, budget: Optional[int] = None, **draws) -> Dict[str, Tensor]:
-        """THE gradient step: loss and gradients (pooled with a pool of
-        ``budget`` samples), the norm metrics, the Adam update, the
-        optional EMA."""
-        self.optimizer.zero_grad(set_to_none=True)
-        total, values = self._loss(self.renderer, self.background, batch, budget, **draws)
-        total.backward()
-        leaves = self._leaves()
-        values = {k: v.detach() for k, v in values.items()}
-        values["grad_norm"] = tree_norm(p.grad for p in leaves)
-        values["param_norm"] = tree_norm(leaves)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self._schedule(self._opt_count)
-        self.optimizer.step()
-        self._opt_count += 1
-        self.step_count += 1
-        if self.ema_decay is not None:
-            self._ema_step()
-        return values
+        """:func:`grad_step` on the dense loss, or the pooled one with a
+        pool of ``budget`` samples."""
+        return grad_step(self, lambda: self._loss(self.renderer, self.background, batch, budget, **draws))
 
     def _refresh_grid(self, generator=None, ids=None, jitter=None) -> None:
         self.grid_state = self.grid.update(
@@ -446,11 +740,6 @@ class OccupancyTrainLoop:
         return self._host_step % self.update_interval == 0 and (
             self.grid_freeze_after is None or self._host_step < self.grid_freeze_after
         )
-
-    def _place(self, batch) -> Tensor:
-        if not isinstance(batch, Tensor):
-            batch = torch.from_numpy(np.asarray(batch, dtype=np.float32))
-        return batch.to(self.device, non_blocking=True)
 
     def step(
         self,
@@ -541,10 +830,8 @@ class OccupancyTrainLoop:
         """The loss dict without a gradient step (test-set monitoring), on
         :attr:`eval_params`: with EMA on, the weights that are
         checkpointed and rendered."""
-        renderer, background = self.renderer, self.background
-        if self.ema_decay is not None and self._ema_model is not None:
-            renderer = dataclasses.replace(self.renderer, model=self._ema_model)
-            background = self._ema_background
+        models, background = self._eval_models()
+        renderer = dataclasses.replace(self.renderer, model=models["fine"])
         with torch.no_grad():
             _, values = self._loss(
                 renderer, background, self._place(batch), u=u, density_draws=density_draws,
@@ -559,31 +846,18 @@ class OccupancyTrainLoop:
         parameters (the EMA average when enabled) as flax trees, the
         occupancy grid's densities and resolution, and the loop's step
         counter (so a resume keeps its refresh phase and its seeds)."""
-        from .checkpoint import checkpoint_to_flax, save_params_pickle
-
-        payload = dict(
-            self.eval_params,
+        self._save_pickle(
+            path,
             occupancy_densities=self.grid_state.densities,
             occupancy_resolution=np.int32(self.grid.resolution),
             occupancy_host_step=np.int64(self._host_step),
         )
-        save_params_pickle(path, checkpoint_to_flax(payload))
 
     def load(self, path: str) -> None:
         """Load parameters, grid and counters from a params pickle written
         by either package.  Adam's moments are not in it: the optimizer
         keeps whatever state it has (a fresh loop's is empty)."""
-        from .checkpoint import checkpoint_from_flax, load_params_pickle
-
-        payload = load_params_pickle(path)
-        ckpt = checkpoint_from_flax(payload, **self.model.flax_layout())
-        self.model.load_state_dict(ckpt["fine"])
-        with torch.no_grad():
-            self.background.copy_(
-                torch.as_tensor(np.asarray(payload["background"], dtype=np.float32))
-            )
-        if self._ema_model is not None:
-            self._seed_ema()  # a params pickle has one tree: seed the average from it
+        payload = self._load_pickle(path)
         if "occupancy_densities" in payload:
             # state_from_checkpoint marks the trained grid past warmup: a
             # step-0 state would re-enter the all-occupied window.
@@ -597,8 +871,27 @@ class OccupancyTrainLoop:
         # The auto budget is measured again on the loaded grid.
         self._auto_per_ray, self._auto_resolved_at = None, 0
 
-    def save_full(self, path: str) -> None:
-        raise NotImplementedError(f"full-state checkpoints (save_full) {NOT_PORTED.format(item='full-state checkpoints')}")
+    def _full_state(self) -> Dict[str, Any]:
+        """The shared state, the host step, the grid with its own step, and
+        the auto budget as it stood (a record: :meth:`load_full` resets it)."""
+        return dict(
+            super()._full_state(),
+            host_step=self._host_step,
+            grid=dict(densities=self.grid_state.densities, step=int(self.grid_state.step),
+                      resolution=self.grid.resolution),
+            auto_budget=dict(per_ray=self._auto_per_ray, resolved_at=self._auto_resolved_at),
+        )
 
-    def load_full(self, path: str) -> None:
-        raise NotImplementedError(f"full-state checkpoints (load_full) {NOT_PORTED.format(item='full-state checkpoints')}")
+    def load_full(self, path: str) -> Dict[str, Any]:
+        """Restore a state written by :meth:`save_full`: everything but the
+        auto budget, which is measured again on the loaded grid, as
+        :meth:`load` does, at the first pooled step."""
+        state = super().load_full(path)
+        grid = state["grid"]
+        if int(grid["resolution"]) != self.grid.resolution:
+            raise ValueError(f"{path} holds a {int(grid['resolution'])}^3 grid; this loop's is "
+                             f"{self.grid.resolution}^3")
+        self.grid_state = OccupancyGridState(densities=grid["densities"].to(self.device), step=int(grid["step"]))
+        self._host_step = int(state["host_step"])
+        self._auto_per_ray, self._auto_resolved_at = None, 0
+        return state

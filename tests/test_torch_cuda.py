@@ -899,3 +899,67 @@ def test_baked_lookup_refuses_what_its_kernel_does_not_take(cuda):
     launches = kbaked.counter.launches
     assert kbaked.launch_lookup(table.detach(), x[:0], 5, 1, *BAKED_BOX).shape == (0, 16)
     assert kbaked.counter.launches == launches  # no points, no launch
+
+
+@pytest.mark.parametrize("kind", ["f32", "ngp", "bf16"])
+def test_hierarchy_step_kernel_route_matches_plain_route(cuda, kind, monkeypatch):
+    """One hierarchy train step (TrainLoop's loss and its backward) by the
+    kernel route (the composite pair for each pass, K = 16 and the long-ray
+    path at K = 48; in NGP the encode and table-gradient kernels for each
+    model) against the plain route on the card, from the same weights,
+    batch and uniforms: the loss within 1e-5; in f32 and NGP each gradient
+    within 1e-4 (tables by L2 norm, the rest of each tensor's max); all
+    gradients together within 1e-2 by L2 norm (in bf16 the only check: its
+    scalar biases' gradients are cancelling sums)."""
+    from learn_nerf_tpu_torch import render, train
+    from learn_nerf_tpu_torch.models import InstantNGPModel, NeRFModel
+    from learn_nerf_tpu_torch.models.base import reset_parameters_like_flax
+
+    bbox = dict(bbox_min=(-1.0, -1.0, -1.0), bbox_max=(1.0, 1.0, 1.0))
+    torch.manual_seed(0)
+    if kind == "ngp":
+        models = [InstantNGPModel(table_sizes=[2**12] * levels, grid_sizes=[4 * 2**i for i in range(levels)],
+                                  **bbox) for levels in (2, 4)]
+    else:
+        models = [NeRFModel(input_layers=2, mid_layers=2, hidden_dim=64, color_layer_dim=32,
+                            compute_dtype="bfloat16" if kind == "bf16" else "float32") for _ in range(2)]
+    for model in models:
+        reset_parameters_like_flax(model)
+    loop = train.TrainLoop(*models, lr=1e-3, coarse_ts=16, fine_ts=32, device=cuda, **bbox)
+    rng = np.random.RandomState(1)
+    origins = rng.randn(512, 3)
+    origins = 2.5 * origins / np.linalg.norm(origins, axis=-1, keepdims=True)
+    dirs = rng.uniform(-0.8, 0.8, (512, 3)) - origins
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    batch = t(np.stack([origins, dirs, rng.uniform(-1, 1, (512, 3))], axis=1).astype(np.float32)).to(cuda)
+    draws = dict(u_coarse=t(rng.rand(512, 16).astype(np.float32)).to(cuda),
+                 u_fine=t(rng.rand(512, 32).astype(np.float32)).to(cuda))
+
+    leaves = [(f"{m}.{n}", p) for m, model in loop._models.items() for n, p in model.named_parameters()]
+    leaves.append(("background", loop.background))
+
+    def step():
+        loop.optimizer.zero_grad(set_to_none=True)
+        total, _ = loop._loss(loop.renderer, loop.background, batch, **draws)
+        total.backward()
+        return total.item(), {name: p.grad.clone() for name, p in leaves}
+
+    counters = (kc.counter, kc.backward_counter, ke.counter, kb.counter)
+    before = [c.launches for c in counters]
+    loss, got = step()
+    torch.cuda.synchronize()
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    assert launched == ([2, 2, 2, 2] if kind == "ngp" else [2, 2, 0, 0])
+    monkeypatch.setattr(ke, "_encode_on_card", hashgrid.hash_grid_encode_reference)
+    monkeypatch.setattr(render, "render_composite", kc.render_composite_reference)
+    ref_loss, want = step()
+    assert abs(loss - ref_loss) <= 1e-5 * abs(ref_loss)
+    for k in got:
+        if kind == "bf16":
+            continue
+        if "table" in k:
+            assert ((got[k] - want[k]).norm() / want[k].norm()).item() <= 1e-4, k
+        else:
+            assert ((got[k] - want[k]).abs().max() / want[k].abs().max()).item() <= 1e-4, k
+    flat_got, flat_want = (torch.cat([g[k].flatten() for k in g]) for g in (got, want))
+    assert ((flat_got - flat_want).norm() / flat_want.norm()).item() <= 1e-2

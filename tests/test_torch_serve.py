@@ -251,6 +251,9 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.scripts.baked_ablations\n"
         "import learn_nerf_tpu_torch.scripts.exp_gather\n"
         "import learn_nerf_tpu_torch.scripts.hashgrid_ablations\n"
+        "import learn_nerf_tpu_torch.checkpoint\n"
+        "import learn_nerf_tpu_torch.convert.blender\n"
+        "import learn_nerf_tpu_torch.convert.llff\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
@@ -271,7 +274,7 @@ def test_profile_view_times_renders_on_cpu(scene):
     # No card: the device fields are not measured; the host ops are.
     assert result["device_ms"] is None and result["idle_share"] is None
     assert result["kernels_launched"] is None and result["port_kernels"] is None
-    assert result["memsets"] is None
+    assert result["memsets"] is None and result["gemm_ms"] is None
     assert 0 < len(result["host_top"]) <= 5 and result["host_top"][0]["calls"] > 0
 
 

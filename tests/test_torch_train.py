@@ -338,7 +338,7 @@ def test_ema_after_three_steps():
         torch.testing.assert_close(ema["fine"][k], expected[k], rtol=1e-6, atol=1e-8)
         assert not torch.equal(ema["fine"][k], loop.model.state_dict()[k])
     torch.testing.assert_close(ema["background"], expected_bg, rtol=1e-6, atol=1e-8)
-    assert all(not p.requires_grad for p in loop._ema_model.parameters())
+    assert all(not p.requires_grad for p in loop._ema_models["fine"].parameters())
     # eval_losses evaluates the average, not the raw parameters.
     batch = ray_batch(9)
     u = torch.rand(RAYS, CANDIDATES, generator=torch.Generator().manual_seed(0))
@@ -423,14 +423,13 @@ def test_jax_checkpoint_loads_in_port_loop(tmp_path, tree):
 
 
 def test_step_auto_resume_is_deterministic(tmp_path):
-    """6 steps equal 3 steps, save, load, 3 steps, bit for bit: the seeds
-    are a function of the checkpointed counters.  The params pickle holds
-    no Adam moments (full-state checkpoints are not ported), so the test
-    carries the optimizer's state across by hand."""
+    """6 steps equal 3 steps, save_full, load_full, 3 steps, bit for bit:
+    the seeds are a function of the checkpointed counters, and the full
+    state carries Adam's moments, the grid and the average."""
     def make():
         torch.manual_seed(0)
         return port_loop(update_interval=2, update_cells=500, grid_warmup_updates=1,
-                         density_penalty=0.01)
+                         density_penalty=0.01, ema_decay=0.9)
 
     batches = [ray_batch(s) for s in range(6)]
     a = make()
@@ -439,19 +438,19 @@ def test_step_auto_resume_is_deterministic(tmp_path):
     c = make()
     for batch in batches[:3]:
         c.step_auto(42, batch)
-    path = str(tmp_path / "ckpt.pkl")
-    c.save(path)
+    path = str(tmp_path / "state.pt")
+    c.save_full(path)
     d = make()
-    d.load(path)
-    assert d._host_step == d.step_count == 3
-    d.optimizer.load_state_dict(c.optimizer.state_dict())
-    d._opt_count = c._opt_count
+    d.load_full(path)
+    assert d._host_step == d.step_count == d._opt_count == 3 and d.grid_state.step == c.grid_state.step
     for batch in batches[3:]:
         d_values = d.step_auto(42, batch)
     for pa, pd in zip(a.model.parameters(), d.model.parameters()):
         assert torch.equal(pa, pd)
     assert torch.equal(a.background, d.background)
     assert torch.equal(a.grid_state.densities, d.grid_state.densities)
+    for k, v in a.eval_params["fine"].items():
+        assert torch.equal(v, d.eval_params["fine"][k])
     assert {k: float(v) for k, v in a_values.items()} == {k: float(v) for k, v in d_values.items()}
     # A different base seed draws differently.
     e = make()
@@ -473,20 +472,6 @@ def test_fold_seed_is_a_pure_function_of_its_arguments():
 def test_unported_loop_options_raise(kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
         port_loop(**kwargs)
-
-
-def test_unported_loops_and_checkpoints_raise():
-    with pytest.raises(NotImplementedError, match="Queue 1: vanilla training"):
-        train.TrainLoop()
-    loop = port_loop()
-    with pytest.raises(NotImplementedError, match="Queue 1: full-state checkpoints"):
-        loop.save_full("x")
-    with pytest.raises(NotImplementedError, match="Queue 1: full-state checkpoints"):
-        loop.load_full("x")
-    # A bf16 vanilla model's forward is the fused kernel over detached
-    # weights: training it would leave every gradient None.
-    with pytest.raises(NotImplementedError, match="no backward"):
-        train.OccupancyTrainLoop(NeRFModel(compute_dtype="bfloat16"), lr=1e-3, **LOOP)
 
 
 def test_tree_norm_and_loss_weights():

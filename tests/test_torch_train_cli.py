@@ -133,13 +133,10 @@ def test_create_model_returns_the_ngp_adam_settings(scene):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--instant_ngp"], "without --occupancy"),
     (["--instant_ngp", "--occupancy", "--ref_nerf"], "--ref_nerf"),
-    (["--instant_ngp", "--occupancy", "--full_state_path", "s.msgpack"], "--full_state_path"),
     (["--instant_ngp", "--occupancy", "--coordinator_address", "localhost:1"], "--coordinator_address"),
     (["--instant_ngp", "--occupancy", "--num_processes", "2"], "--num_processes"),
     (["--instant_ngp", "--occupancy", "--profile_dir", "p"], "--profile_dir"),
-    (["--occupancy", "--bf16"], "--bf16"),
     (["--instant_ngp", "--occupancy", "--occ_span_pool_factor", "4"], "--occ_span_pool_factor"),
 ])
 def test_unported_flags_exit_naming_the_roadmap(scene, flags, match):
