@@ -88,6 +88,15 @@ nonzero):
    tile's points, beside ``grid_sample``, and beside the card's own rate
    for the random runs of rows that its points read, over the table's bytes
    (``csrc/ablations/probes.cu``);
+   the Ref-NeRF hybrid's kernels of the encoding's gradient in the points
+   (hashgrid_dx) and of its backward in the cotangent and the tables, in
+   smooth mode at the fine schedule along rays (the occupancy step's
+   131,072 points, and the hierarchy's 262,144 x 6 and 786,432 x 16
+   levels), near the bbox's faces and at the edges of their thread grids,
+   with a check that the bounds catch a wrong axis of a corner weight's
+   gradient, a missing smoothstep derivative and a flipped corner sign,
+   timed beside the plain versions and eager autograd of the plain
+   encode;
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -128,12 +137,20 @@ nonzero):
    (``--baked 384 --baked_pack 4``: its shortfall against the live score
    bounded, its frames' PSNR against the live frames printed), and both
    served (the pooled one with ``--occ_budget_per_ray auto``); steps/s and
-   rays/s over the last 64 and 48 steps;
+   rays/s over the last 64 and 48 steps; then the Ref-NeRF hybrid, ``train_nerf
+   --instant_ngp --ref_nerf --occupancy`` at the same width for 96 steps
+   (the loss falls, its normal_mse printed; the encode, table-gradient,
+   hashgrid_dx, its backward and composite kernels launched on every step,
+   the encode and hashgrid_dx kernels once more a grid refresh, no plain
+   version), scored by ``eval_psnr`` and served;
 7. the coarse/fine hierarchy through ``train_nerf`` without
    ``--occupancy`` on the same dataset, at the vanilla model's full width
    (5 + 4 layers of 256, a 128-wide colour branch, batch 4096, 64 coarse
    and 128 fine samples) in f32 (96 steps, cosine lr) and with ``--bf16``
-   (16 steps), and with ``--instant_ngp`` at the JAX widths (96 steps):
+   (16 steps), with ``--instant_ngp`` at the JAX widths (96 steps), and
+   both Ref-NeRF models (``--instant_ngp --ref_nerf`` and ``--ref_nerf``, 16
+   steps each, the hybrid's dx pair twice a step; the vanilla one served
+   after):
    the loss falls, the composite pair, forward and backward, launched at
    4096 x 64 and 4096 x 192 on every step, in NGP the encode and
    table-gradient kernels twice a step, no plain version called; each run
@@ -142,8 +159,9 @@ nonzero):
    state: the step counter and the lr continue, and every resumed step's
    losses equal the uninterrupted run's within RESUME_BOUND.  Before the
    serve phase, one full-width step of each of these models by the kernel
-   route against the plain route on the card (loss and gradients), and in
-   phase 2 both hash-grid kernels at the NGP hierarchy's two passes;
+   route against the plain route on the card (loss and gradients, and each
+   pass's normal_mse in the Ref-NeRF models), and in phase 2 the hash-grid
+   kernels at the NGP hierarchy's two passes;
 8. the JAX package's Blender stand-in quality gate through the port: the
    capture written here (``write_blender_capture``, the cube of the repo's
    synthetic scene from 40 train and 7 test orbit views at 64x64),
@@ -165,8 +183,9 @@ scene and view size: median latency, one profiled render's device time,
 idle share, top kernels and the port's own kernels' share; and one such
 line for the train step from ``scripts.profile_train``, and two (the dense
 and the pooled step on ``bench_pooled``'s frozen grid) from
-``scripts.profile_train --pooled``, and one for each hierarchy model's step
-(``scripts.profile_train --hierarchy``).
+``scripts.profile_train --pooled``, one for the Ref-NeRF hybrid's occupancy
+step, and one for each hierarchy model's step (``scripts.profile_train
+--hierarchy``).
 
     python3 chip_smoke.py --gate_seeds 0 1 2 3 4
 
@@ -280,6 +299,29 @@ BACKWARD_BOUND = 4e-6
 # there (2.2e-6 in the coarse pass); the bound is about three times that.
 HIERARCHY_BACKWARD_BOUND = 1e-5
 BACKWARD_EDGE_POINTS = (1, 31, 32, 33)
+# The encoding's gradient in the points (hashgrid_dx) and its backward in
+# the cotangent and the tables, in smooth mode (the Ref-NeRF hybrid forces
+# it) at the fine schedule with unit-scale tables and cotangents, along
+# rays: the occupancy step's 131,072 points (`ms`) and the hierarchy's two
+# passes (HIERARCHY_PASSES); near the bbox's faces (on them, where JAX's
+# clip gives half the slope, within an ulp of them and past them); at the
+# edges of the kernels' thread grids (256 threads a block: a point a
+# thread in the forward, a (point, level pair) a thread in the backward).
+# Errors relative to each tensor's largest value (each level's gradient
+# on its own).  Over two runs an H100 measured 0.8e-7 to 1.8e-7 on
+# thousands of points and 7.3e-7 on a single point (relative to its own
+# largest component, where the 128 corner terms cancel) in the forward,
+# which sums in the plain version's order but rounds the products apart;
+# and up to 1.7e-6 in the backward, whose table gradients are f32 atomics
+# (1.3e-6 and 1.7e-6 in the hierarchy's passes, 5.8e-7 between two runs of
+# the kernel).  The bounds are about three times the worst.  A wrong axis of a corner weight's
+# gradient, a missing smoothstep derivative and a flipped corner sign must
+# move the plain version by at least SCAN_MARGIN times them (measured
+# 0.53 to 1.9).
+DX_BOUND = 2e-6
+DX_BACKWARD_BOUND = 5e-6
+DX_EDGE_POINTS = (1, 31, 32, 33, 255, 256, 257, TRAIN_POINTS - 37)
+DX_FAULTS = ("a wrong axis of the weight gradient", "no smoothstep derivative", "a flipped corner sign")
 # Variants of scripts/hashgrid_ablations.py: the table-gradient kernel in the
 # layout it had before the ray-ordered one, and the encode kernel in the
 # ray-ordered layout (measured, not kept).
@@ -349,7 +391,10 @@ HIERARCHY_RUNS = {
     "hierarchy f32": (["--lr", "5e-4", "--lr_schedule", "cosine"], 96),
     "hierarchy ngp": (["--instant_ngp", "--lr", "1e-2"], 96),
     "hierarchy bf16": (["--bf16", "--lr", "5e-4"], 16),
+    "hierarchy ref-nerf ngp": (["--instant_ngp", "--ref_nerf", "--lr", "1e-2"], 16),
+    "hierarchy ref-nerf": (["--ref_nerf", "--lr", "5e-4"], 16),
 }
+REF_NERF_RUNS = ("hierarchy ref-nerf ngp", "hierarchy ref-nerf")
 # One step by the kernel route against the plain route on the card (the
 # composite pair, and in NGP the hash-grid kernels, against their plain
 # versions): the loss, relative, and the gradients by the measures each
@@ -365,10 +410,18 @@ HIERARCHY_RUNS = {
 # max, and 1.0e-4 over all bf16 gradients together (4.0e-3 on its worst
 # tensor by max); the losses within 1.1e-7.  The bounds are about three
 # times that.
+# The Ref-NeRF models are held by all gradients together by L2 norm and by
+# each pass's normal_mse term, relative: an H100 measured 6.9e-6 and 4.5e-6
+# by L2 (the hybrid and the vanilla model; the hybrid's worst table 4.5e-3
+# on its own, as in NGP), and the normal_mse terms within 1.1e-6 and
+# 4.4e-7, a few ulps of a mean over 786,432 samples.  The bounds are about
+# three times the L2 errors, and 5e-6 for normal_mse.
 HIERARCHY_LOSS_BOUND = 1e-5
 HIERARCHY_GRAD_BOUNDS = {"hierarchy f32": {"others max": 1e-4},
                          "hierarchy ngp": {"tables L2": 4e-3, "others max": 1e-4},
-                         "hierarchy bf16": {"all L2": 3e-4}}
+                         "hierarchy bf16": {"all L2": 3e-4},
+                         "hierarchy ref-nerf ngp": {"all L2": 2e-5, "normal_mse": 5e-6},
+                         "hierarchy ref-nerf": {"all L2": 1.5e-5, "normal_mse": 5e-6}}
 # The f32 run stopped after step RESUME_AT + 1 with its full state saved at
 # RESUME_AT, then resumed from it: every resumed step's coarse and fine
 # losses against the uninterrupted run's (absolute).
@@ -1143,6 +1196,173 @@ def check_backward_kernel(device, rng, parent):
     return [entry]
 
 
+def weight_gradients_with(fault):
+    """``ops.hashgrid.corner_weight_gradients`` with one of DX_FAULTS."""
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    def faulty(x, grid_size, bbox_min, bbox_max, smooth):
+        coords, _ = hg.corner_weights_and_coords(x, grid_size, bbox_min, bbox_max, smooth)
+        lo = torch.as_tensor(bbox_min, dtype=torch.float32, device=x.device)
+        span = torch.as_tensor(bbox_max, dtype=torch.float32, device=x.device) - lo
+        raw = (x - lo) / span
+        scale = float(grid_size - 2) if smooth else float(grid_size - 1)
+        findex = (0.5 if smooth else 0.0) + scale * torch.clamp(raw, 0.0, 1.0)
+        c = findex - torch.clamp(torch.floor(findex), max=float(grid_size - 2))
+        slope = (((raw > 0) & (raw < 1)).float() + 0.5 * ((raw == 0) | (raw == 1)).float()) * scale / span
+        if smooth and fault != "no smoothstep derivative":
+            slope = slope * 6.0 * c * (1.0 - c)
+        cf = c * c * (3.0 - 2.0 * c) if smooth else c
+        offs = torch.tensor(hg.CORNERS, dtype=torch.bool, device=x.device)
+        wpa = torch.where(offs, cf[..., None, :], 1.0 - cf[..., None, :])
+        dwpa = torch.where(offs, slope[..., None, :], -slope[..., None, :])
+        grads = torch.stack([dwpa[..., 0] * wpa[..., 1] * wpa[..., 2], wpa[..., 0] * dwpa[..., 1] * wpa[..., 2],
+                             wpa[..., 0] * wpa[..., 1] * dwpa[..., 2]], dim=-1)
+        if fault == "a wrong axis of the weight gradient":
+            grads = grads[..., [1, 2, 0]]
+        elif fault == "a flipped corner sign":
+            grads = torch.cat([-grads[..., :1, :], grads[..., 1:, :]], dim=-2)
+        return coords, grads
+
+    return faulty
+
+
+def face_points(rng, n, lo=-0.7, hi=0.7):
+    """``n`` points in the bbox with one coordinate each on a face, within
+    an ulp of one or just past one (a quarter each), the rest inside."""
+    pts = rng.uniform(lo, hi, (n, 3)).astype(np.float32)
+    axis = rng.randint(0, 3, n)
+    face = np.where(rng.rand(n) < 0.5, np.float32(lo), np.float32(hi))
+    kind = rng.randint(0, 4, n)
+    inward = np.where(face == np.float32(lo), 1.0, -1.0).astype(np.float32)
+    value = np.where(kind == 0, face, np.where(kind == 1, np.nextafter(face, face + inward),
+                                               np.where(kind == 2, face - inward * np.float32(1e-3), pts[np.arange(n), axis])))
+    pts[np.arange(n), axis] = value.astype(np.float32)
+    return pts
+
+
+def check_dx_kernels(device, rng):
+    """hashgrid_dx and its backward against their plain versions (the JAX
+    package's derivative, ops/hashgrid.py) in smooth mode at the occupancy
+    step's and the hierarchy's shapes along rays, near the bbox's faces and
+    at the thread grids' edges; timed beside the plain versions and eager
+    autograd of the plain encode (first and second derivative)."""
+    from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
+    from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.ops import hashgrid as hg
+
+    def on_card(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(device)
+
+    bbox_min, bbox_max = (-0.7,) * 3, (0.7,) * 3
+    grids, sizes = fine_schedule(FINE_LEVELS)
+    tables = [on_card(rng.uniform(-1, 1, (hg.dense_level_rows(g, s), 2))) for g, s in zip(grids, sizes)]
+
+    def case(points, levels=FINE_LEVELS):
+        n = len(points)
+        x, g, h = on_card(points), on_card(rng.uniform(-1, 1, (n, 2 * levels))), on_card(rng.uniform(-1, 1, (n, 3)))
+        config = (grids[:levels], sizes[:levels], bbox_min, bbox_max, True)
+        return tables[:levels], x, g, h, ke.encode_args(tables[:levels], x.device, *config), config
+
+    def rel(a, b):
+        return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+    def plain(tb, x, g, h, config):
+        return (hg.hash_grid_encode_dx_reference(tb, x, g, *config),
+                hg.hash_grid_encode_dx_backward_reference(tb, x, g, h, *config))
+
+    def errors(tb, x, g, h, args, config, reference=None):
+        dx, (gg, gt) = kd.launch_dx(args, x, g), kd.launch_dx_backward(args, x, g, h)
+        torch.cuda.synchronize()
+        require(dx.shape == x.shape and gg.shape == g.shape and all(torch.isfinite(t).all().item()
+                                                                     for t in (dx, gg, *gt)),
+                "hashgrid_dx or its backward: wrong shapes or values that are not finite")
+        ref_dx, (ref_gg, ref_gt) = reference or plain(tb, x, g, h, config)
+        return rel(dx, ref_dx), max(rel(gg, ref_gg), *relative_errors(gt, ref_gt))
+
+    step = case(ray_points(rng, TRAIN_RAYS, TRAIN_SAMPLES, 0.02, -0.7, 0.4))
+    tb, x, g, h, args, config = step
+    reference = plain(tb, x, g, h, config)
+    errs = {f"step, {TRAIN_POINTS} points along rays": errors(*step, reference=reference)}
+    errs["near the bbox faces"] = errors(*case(face_points(rng, TRAIN_POINTS)))
+    for n in DX_EDGE_POINTS:
+        errs[f"{n} points"] = errors(*case(rng.uniform(-0.75, 0.75, (n, 3))))
+    _, second = kd.launch_dx_backward(args, x, g, h)
+    _, third = kd.launch_dx_backward(args, x, g, h)
+    errs["the backward twice"] = (0.0, max(relative_errors(second, third)))
+    del second, third
+    moves = {}
+    for fault in DX_FAULTS:
+        right = hg.corner_weight_gradients
+        hg.corner_weight_gradients = weight_gradients_with(fault)
+        try:
+            wrong_dx, (wrong_gg, wrong_gt) = plain(tb, x, g, h, config)
+        finally:
+            hg.corner_weight_gradients = right
+        ref_dx, (ref_gg, ref_gt) = reference
+        moves[fault] = (rel(wrong_dx, ref_dx), max(rel(wrong_gg, ref_gg), *relative_errors(wrong_gt, ref_gt)))
+        del wrong_dx, wrong_gg, wrong_gt
+
+    # Eager autograd of the plain encode: its first derivative in the
+    # points, and that derivative's own in the cotangent and the tables.
+    xr, gr = x.detach().requires_grad_(), g.detach().requires_grad_()
+    tr = [t.detach().requires_grad_() for t in tb]
+
+    def autograd_dx(create_graph=False):
+        out = hg.hash_grid_encode_reference(tr, xr, *config)
+        return torch.autograd.grad(out, xr, gr, create_graph=create_graph)[0]
+
+    def autograd_dx_backward():
+        return torch.autograd.grad(autograd_dx(create_graph=True), [gr, *tr], h)
+
+    dx_out, (gg_out, gt_out) = kd.launch_dx(args, x, g), kd.launch_dx_backward(args, x, g, h)
+    forward = dict(
+        name="hashgrid_dx", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_dx.cu",
+        replaces="learn_nerf_tpu/ops/hashgrid.py:135 under jax.vjp at learn_nerf_tpu/models/ref_nerf.py:71-74 (XLA)",
+        max_abs_err=max(e[0] for e in errs.values()), ms=graph_ms(lambda: kd.launch_dx(args, x, g), 20),
+        plain_ms=cuda_ms(lambda: hg.hash_grid_encode_dx_reference(tb, x, g, *config), 3),
+        library_ms=cuda_ms(autograd_dx, 3), hierarchy={},
+    )
+    forward["bound_ms"], forward["bound_by"] = bound(nbytes(x, g, dx_out, *tb))
+    backward = dict(
+        name="hashgrid_dx_backward", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_dx.cu",
+        replaces="the VJP of hashgrid_dx's XLA ops under jax.grad (learn_nerf_tpu/models/ref_nerf.py:71-74, "
+                 "normal_mse)",
+        max_abs_err=max(e[1] for e in errs.values()),
+        ms=graph_ms(lambda: kd.launch_dx_backward(args, x, g, h), 20),
+        plain_ms=cuda_ms(lambda: hg.hash_grid_encode_dx_backward_reference(tb, x, g, h, *config), 3),
+        library_ms=cuda_ms(autograd_dx_backward, 3), hierarchy={},
+    )
+    backward["bound_ms"], backward["bound_by"] = bound(nbytes(x, g, h, *tb, gg_out, *gt_out))
+    del xr, gr, tr, reference, dx_out, gg_out, gt_out
+    for label, levels, samples, spacing in HIERARCHY_PASSES:
+        tb, xs, gs, hs, a, cfg = case(ray_points(rng, TRAIN_RAYS, samples, spacing, -0.7, 0.4), levels)
+        err = errors(tb, xs, gs, hs, a, cfg)
+        dx_out, (gg_out, gt_out) = kd.launch_dx(a, xs, gs), kd.launch_dx_backward(a, xs, gs, hs)
+        forward["hierarchy"][label] = dict(ms=graph_ms(lambda: kd.launch_dx(a, xs, gs), 10),
+                                           bound_ms=bound(nbytes(xs, gs, dx_out, *tb))[0], max_abs_err=err[0])
+        backward["hierarchy"][label] = dict(ms=graph_ms(lambda: kd.launch_dx_backward(a, xs, gs, hs), 10),
+                                            bound_ms=bound(nbytes(xs, gs, hs, *tb, gg_out, *gt_out))[0],
+                                            max_abs_err=err[1])
+        del xs, gs, hs, a, dx_out, gg_out, gt_out
+    for k in (forward, backward):
+        k["max_abs_err"] = max(k["max_abs_err"], *(v["max_abs_err"] for v in k["hierarchy"].values()))
+    for k, bound_, i in ((forward, DX_BOUND, 0), (backward, DX_BACKWARD_BOUND, 1)):
+        print(f"{k['name']} (smooth, {FINE_LEVELS} levels): max err relative to each tensor's largest value "
+              + ", ".join(f"{name} {e[i]:.3e}" for name, e in errs.items())
+              + "; the hierarchy's passes " + ", ".join(f"{name} {v['max_abs_err']:.3e}"
+                                                        for name, v in k["hierarchy"].items())
+              + f" (bound {bound_:g}); the faults move the plain version by "
+              + ", ".join(f"{fault} {m[i]:.3e}" for fault, m in moves.items())
+              + f"; kernel {k['ms']:.4f} ms at {TRAIN_POINTS} points along rays (bound {k['bound_ms']:.4f} ms), "
+              + ", ".join(f"{name} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms)" for name, v in k["hierarchy"].items())
+              + f"; plain {k['plain_ms']:.4f} ms; eager autograd of the plain encode {k['library_ms']:.4f} ms",
+              flush=True)
+        require(k["max_abs_err"] <= bound_, f"{k['name']} disagrees with its plain version")
+        require(min(m[i] for m in moves.values()) >= SCAN_MARGIN * bound_,
+                f"{k['name']}'s bound {bound_:g} would not catch one of {DX_FAULTS}: {moves}")
+    return [forward, backward]
+
+
 def composite_closed_form(densities, dt, rgbs, background, mask, cotangents,
                           forward_shift=False, reverse_shift=False):
     """Outputs and the densities' gradient by the kernels' formulas in plain
@@ -1872,18 +2092,20 @@ def plain_routes():
     plain route, for ``check_train_step``."""
     from learn_nerf_tpu_torch import render
     from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.ops import hashgrid as hg
 
     from learn_nerf_tpu_torch import occ_render
 
-    saved = ke._encode_on_card, render.render_composite, occ_render.render_composite_pooled
-    ke._encode_on_card, render.render_composite, occ_render.render_composite_pooled = (
-        hg.hash_grid_encode_reference, kc.render_composite_reference, kc.render_composite_pooled_reference)
+    saved = ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled
+    ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled = (
+        hg.hash_grid_encode_reference, hg.hash_grid_encode_dx_reference, kc.render_composite_reference,
+        kc.render_composite_pooled_reference)
     try:
         yield
     finally:
-        ke._encode_on_card, render.render_composite, occ_render.render_composite_pooled = saved
+        ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled = saved
 
 
 def check_train_step(root, device, rng):
@@ -2048,12 +2270,14 @@ def kernel_counters():
     from learn_nerf_tpu_torch.kernels import fused_render as fr
     from learn_nerf_tpu_torch.kernels import hashgrid as kh
     from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+    from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.kernels import table_gather as tg
 
     return dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
                 hashgrid_corners=kh.counter, hashgrid_encode=ke.counter,
-                hashgrid_backward=kb.counter, composite=kc.counter,
+                hashgrid_backward=kb.counter, hashgrid_dx=kd.counter, hashgrid_dx_backward=kd.backward_counter,
+                composite=kc.counter,
                 composite_backward=kc.backward_counter, composite_pooled=kc.pooled_counter,
                 composite_pooled_backward=kc.pooled_backward_counter, baked_lookup=kbaked.counter)
 
@@ -2253,6 +2477,56 @@ def train_phase(root, profile):
     return {**counts, "trained ngp occupancy": served, "trained ngp pooled": served_pooled}
 
 
+def print_normal_mse(name, records):
+    """Print a run's fine ``normal_mse``: the mean of its first sixth of
+    steps and of its last, as train_run reads its loss.  It is printed and
+    not held to fall: with the JAX package's weight (3e-4) it rises while
+    the density sharpens, in the JAX package too (PERF.md, section 6)."""
+    normal = [float(v["fine_normal_mse"]) for v, _ in records]
+    head = max(len(normal) // 6, 1)
+    first, last = float(np.mean(normal[:head])), float(np.mean(normal[-head:]))
+    print(f"{name}: fine normal_mse, mean of the first {head} steps {first:.5f}, of the last {head} {last:.5f}",
+          flush=True)
+    require(np.isfinite(normal).all(), f"{name}: a normal_mse that is not finite")
+
+
+def ref_nerf_phase(root, profile):
+    """The Ref-NeRF hybrid through ``train_nerf --instant_ngp --ref_nerf
+    --occupancy`` at bench_occupancy's width on the ball (TRAIN_STEPS
+    steps: the loss falls, normal_mse is printed; the encode, table-gradient,
+    hashgrid_dx, its backward and composite kernels launched on every
+    step, the encode and hashgrid_dx kernels once more a grid refresh, no
+    plain version), scored by ``eval_psnr`` on the held-out views and
+    served.  Returns ``{run: {kernel: (launches, plain calls)}}``."""
+    from learn_nerf_tpu_torch.scripts import profile_train
+
+    mode = ["--instant_ngp", "--ref_nerf", "--occupancy"]
+    flags = [*mode, "--seed", str(SEED), "--lr", "1e-2", "--batch_size", str(TRAIN_RAYS),
+             "--occ_warmup", str(TRAIN_WARMUP)]
+    name = "train ref-nerf ngp"
+    counts, records, _, loop = train_run(root, name, flags, "trained_refnerf.pkl")
+    refreshes = TRAIN_STEPS // 16
+    require(loop.grid_state.step == refreshes, f"{name}: {loop.grid_state.step} grid updates")
+    del loop
+    want = dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
+                hashgrid_dx=TRAIN_STEPS + refreshes, hashgrid_dx_backward=TRAIN_STEPS, composite=TRAIN_STEPS,
+                composite_backward=TRAIN_STEPS, composite_pooled=0)
+    require(all(counts[k][0] == v for k, v in want.items()), f"the {name} run's launches {counts} are not {want}")
+    print_normal_mse(name, records)
+    mean, scores, ssims = evaluate(root, "trained_refnerf.pkl", mode=mode)
+    print(f"eval_psnr {' '.join(mode)} on the {name} run ({TRAIN_STEPS} steps), {HELDOUT_VIEWS} held-out views: "
+          f"mean_psnr={mean:.3f} ({[round(float(v), 3) for v in scores]}), "
+          f"ssim {[round(float(v), 4) for v in ssims]}", flush=True)
+    served, _ = serve_mode(root, "trained ref-nerf ngp occupancy", mode, bf16=False,
+                           checkpoint="trained_refnerf.pkl", requests=1)
+    if profile:
+        args = profile_train.argparser().parse_args([*flags, str(root / "train")])
+        print("profile:", json.dumps({"mode": "ref-nerf ngp occupancy train step", **profile_train.profile_args(args)}),
+              flush=True)
+        torch.cuda.empty_cache()
+    return {name: counts, "trained ref-nerf ngp occupancy": served}
+
+
 def hierarchy_step_check(root, device, rng):
     """One full-width hierarchy step of each HIERARCHY_RUNS model (the
     flags' own loop, ``train_nerf.make_loop``): loss and gradients by the
@@ -2280,19 +2554,22 @@ def hierarchy_step_check(root, device, rng):
 
         def step():
             loop.optimizer.zero_grad(set_to_none=True)
-            total, _ = loop._loss(loop.renderer, loop.background, batch, u_coarse=u_coarse, u_fine=u_fine)
+            total, values = loop._loss(loop.renderer, loop.background, batch, u_coarse=u_coarse, u_fine=u_fine)
             total.backward()
-            return total.item(), {k: p.grad.detach().clone() for k, p in leaves}
+            normal = {k: float(v.detach()) for k, v in values.items() if k.endswith("normal_mse")}
+            return total.item(), {k: p.grad.detach().clone() for k, p in leaves}, normal
 
         for c in counters.values():
             c.reset()
-        loss, got = step()
+        loss, got, normal = step()
         launched = {k: c.launches for k, c in counters.items() if c.launches}
         ngp = "--instant_ngp" in flags
         want = dict(composite=2, composite_backward=2, **(dict(hashgrid_encode=2, hashgrid_backward=2) if ngp else {}))
+        if ngp and "--ref_nerf" in flags:
+            want.update(hashgrid_dx=2, hashgrid_dx_backward=2)
         require(launched == want, f"{name}: the kernel route's step launched {launched}, not {want}")
         with plain_routes():
-            ref_loss, want_grads = step()
+            ref_loss, want_grads, ref_normal = step()
         require({k: c.launches for k, c in counters.items() if c.launches} == launched,
                 f"{name}: the plain route launched a kernel")
         loss_err = abs(loss - ref_loss) / abs(ref_loss)
@@ -2301,7 +2578,8 @@ def hierarchy_step_check(root, device, rng):
                   for k in got if "table" not in k}
         flat_got, flat_want = (torch.cat([g[k].flatten() for k in got]) for g in (got, want_grads))
         errs = {"tables L2": max(tables.values(), default=0.0), "others max": max(others.values()),
-                "all L2": ((flat_got - flat_want).norm() / flat_want.norm()).item()}
+                "all L2": ((flat_got - flat_want).norm() / flat_want.norm()).item(),
+                "normal_mse": max((abs(normal[k] - v) / abs(v) for k, v in ref_normal.items()), default=0.0)}
         worst = max(others, key=others.get)
         worst_table = max(tables, key=tables.get) if tables else None
         missing = [k for k in got if got[k].abs().max() == 0]
@@ -2310,8 +2588,10 @@ def hierarchy_step_check(root, device, rng):
               f"(relative {loss_err:.2e}, bound {HIERARCHY_LOSS_BOUND:g}); gradients: table gradients by L2, "
               f"relative, worst {worst_table} {errs['tables L2']:.2e}; other gradients relative to each tensor's "
               f"max, worst {worst} {errs['others max']:.2e}, background {others['background']:.2e}; all "
-              f"gradients together by L2, relative, {errs['all L2']:.2e} (bounds {bounds}); gradients that are "
-              f"zero: {missing}", flush=True)
+              f"gradients together by L2, relative, {errs['all L2']:.2e}; normal_mse terms "
+              + ", ".join(f"{k} {normal[k]:.7f} vs {v:.7f}" for k, v in ref_normal.items())
+              + f" (relative, worst {errs['normal_mse']:.2e}; bounds {bounds}); gradients that are zero: {missing}",
+              flush=True)
         require(np.isfinite(loss) and loss_err <= HIERARCHY_LOSS_BOUND, f"{name}: the step's loss disagrees")
         require(all(errs[k] <= v for k, v in bounds.items()) and not missing, f"{name}: the step's gradients disagree")
         del loop, leaves, got, want_grads
@@ -2337,11 +2617,15 @@ def hierarchy_phase(root, profile):
                                                          steps=steps)
         del loop
         ngp = "--instant_ngp" in flags
+        dx = ngp and "--ref_nerf" in flags
         want = dict(composite=2 * steps, composite_backward=2 * steps, composite_pooled=0,
-                    hashgrid_encode=2 * steps if ngp else 0, hashgrid_backward=2 * steps if ngp else 0)
+                    hashgrid_encode=2 * steps if ngp else 0, hashgrid_backward=2 * steps if ngp else 0,
+                    hashgrid_dx=2 * steps if dx else 0, hashgrid_dx_backward=2 * steps if dx else 0)
         require(all(counts[name][k][0] == v for k, v in want.items()),
                 f"the {name} run's launches {counts[name]} are not {want}")
-        mode = [f for f in flags if f in ("--instant_ngp", "--bf16")]
+        if name in REF_NERF_RUNS:
+            print_normal_mse(name, records[name])
+        mode = [f for f in flags if f in ("--instant_ngp", "--bf16", "--ref_nerf")]
         mean, scores, ssims = evaluate(root, checkpoint, mode=mode)
         print(f"eval_psnr {' '.join(mode)} on the {name} run ({steps} steps), {HELDOUT_VIEWS} held-out views: "
               f"mean_psnr={mean:.3f} ({[round(float(v), 3) for v in scores]}), "
@@ -2751,6 +3035,7 @@ def main():
         return 2
     if args.gate_seeds is not None:
         return gate_seeds(args.gate_seeds)
+    started = time.perf_counter()
 
     from learn_nerf_tpu_torch.kernels import build
     from learn_nerf_tpu_torch.scripts.common import default_device
@@ -2809,6 +3094,8 @@ def main():
     torch.cuda.empty_cache()
     kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])
     torch.cuda.empty_cache()
+    kernels += check_dx_kernels(device, np.random.RandomState(SEED + 15))
+    torch.cuda.empty_cache()
     kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6), baked_parts["composite_parent"])
     kernels += check_pooled_composite_kernels(device, np.random.RandomState(SEED + 9), baked_parts["composite_parent"],
                                               baked_parts["probes"])
@@ -2835,7 +3122,10 @@ def main():
         if args.profile:
             profile_modes(root)
         served.update(train_phase(root, args.profile))
+        served.update(ref_nerf_phase(root, args.profile))
         served.update(hierarchy_phase(root, args.profile))
+        served["hierarchy ref-nerf served"], _ = serve_mode(
+            root, "hierarchy ref-nerf", ["--ref_nerf"], bf16=False, checkpoint="hierarchy_ref-nerf.pkl", requests=1)
         gate, served["quality gate"] = quality_gate(root, [SEED])
         require(gate[SEED][0] >= GATE_FLOOR, f"the quality gate scored {gate[SEED][0]:.3f} dB, under its floor "
                 f"{GATE_FLOOR:g} dB")
@@ -2870,6 +3160,11 @@ def main():
         lookups = counts["baked_lookup"][0]
         require(lookups == baked_tiles * REQUESTS,
                 f"{name} serving launched baked_lookup {lookups} times, not once a tile ({baked_tiles * REQUESTS})")
+    for name in ("trained ref-nerf ngp occupancy", "train ref-nerf ngp"):
+        require(served[name]["hashgrid_dx"][0] > 0 and served[name]["hashgrid_encode"][0] > 0,
+                f"{name} never launched hashgrid_dx or hashgrid_encode: {served[name]}")
+    require(served["hierarchy ref-nerf served"]["composite"][0] == 2 * tiles,
+            "Ref-NeRF hierarchy serving did not composite twice a tile on the card")
     require(served["ngp baked pooled"]["composite_pooled"][0] > 0
             and served["ngp baked occupancy"]["composite"][0] > 0, "a baked mode did not composite on the card")
     for k in kernels:
@@ -2879,6 +3174,7 @@ def main():
                "library_ms", "card_rate_ms", "share_of_bound", "tflops", "shapes"]
     for k in kernels:
         k.setdefault("share_of_bound", k["bound_ms"] / k["ms"])
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s in all, the kernels' build included", flush=True)
     print(card)
     print(json.dumps({"kernels": [{key: k[key] for key in ordered if key in k} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

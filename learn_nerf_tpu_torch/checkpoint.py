@@ -5,7 +5,12 @@ full train state.
 The pickle holds a plain dict ``{"coarse": tree, "fine": tree,
 "background": [3]}`` of NumPy arrays, where each tree is flax's
 ``{"Dense_i": {"kernel": [in, out], "bias": [out]}}``, plus, for an
-Instant-NGP model, ``{"HashGridEncoding_0": {"table_i": [rows, F]}}``;
+Instant-NGP model or the Ref-NeRF hybrid (whose layers carry the same
+names), ``{"HashGridEncoding_0": {"table_i": [rows, F]}}``.  A vanilla
+Ref-NeRF tree has no density and skip layers of its own: its ``Dense_i``
+are the input layers, the mid layers (the first over the skip concat)
+and the directional block's two (``ref_nerf=True``, which
+``RefNeRFModel.flax_layout()`` passes);
 occupancy runs add ``occupancy_densities`` (flat ``[r^3]``),
 ``occupancy_resolution`` and, from the train loop, ``occupancy_host_step``.  A checkpoint written by either package loads in
 the other: the model trees convert by kind (:func:`model_params_from_flax`
@@ -38,9 +43,16 @@ Tensor = torch.Tensor
 MODEL_KEYS = ("coarse", "fine")
 
 
-def dense_names(input_layers: int = 5, mid_layers: int = 4) -> List[str]:
+def dense_names(input_layers: int = 5, mid_layers: int = 4, ref_nerf: bool = False) -> List[str]:
     """Torch submodule name of each flax ``Dense_i``, in order (the layout of
-    :class:`~.models.vanilla.NeRFModel`)."""
+    :class:`~.models.vanilla.NeRFModel`, or with ``ref_nerf`` of
+    :class:`~.models.ref_nerf.RefNeRFModel`)."""
+    if ref_nerf:
+        return (
+            [f"input_layers.{i}" for i in range(input_layers)]
+            + [f"mid_layers.{i}" for i in range(mid_layers)]
+            + ["color", "rgb"]
+        )
     return (
         [f"input_layers.{i}" for i in range(input_layers)]
         + ["skip"]
@@ -64,15 +76,17 @@ def _dense_to_flax(state: Dict[str, Tensor], name: str) -> Dict[str, np.ndarray]
 
 
 def params_from_flax(
-    tree: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4
+    tree: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, ref_nerf: bool = False
 ) -> Dict[str, Tensor]:
-    """Flax ``Dense_i`` tree -> ``NeRFModel`` state dict (f32 tensors).
-    Flax's ``kernel`` is ``[in, out]``; torch's ``weight`` is ``[out, in]``."""
-    names = dense_names(input_layers, mid_layers)
+    """Flax ``Dense_i`` tree -> ``NeRFModel`` (or, with ``ref_nerf``,
+    ``RefNeRFModel``) state dict (f32 tensors).  Flax's ``kernel`` is
+    ``[in, out]``; torch's ``weight`` is ``[out, in]``."""
+    names = dense_names(input_layers, mid_layers, ref_nerf)
     if len(tree) != len(names):
         raise ValueError(
             f"tree has {len(tree)} Dense layers; {input_layers} input + "
             f"{mid_layers} mid layers need {len(names)}"
+            + (" in a Ref-NeRF model" if ref_nerf else "")
         )
     state: Dict[str, Tensor] = {}
     for i, name in enumerate(names):
@@ -81,12 +95,12 @@ def params_from_flax(
 
 
 def params_to_flax(
-    state: Dict[str, Tensor], input_layers: int = 5, mid_layers: int = 4
+    state: Dict[str, Tensor], input_layers: int = 5, mid_layers: int = 4, ref_nerf: bool = False
 ) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: NumPy ``Dense_i`` tree."""
     return {
         f"Dense_{i}": _dense_to_flax(state, name)
-        for i, name in enumerate(dense_names(input_layers, mid_layers))
+        for i, name in enumerate(dense_names(input_layers, mid_layers, ref_nerf))
     }
 
 
@@ -137,38 +151,42 @@ def ngp_params_to_flax(state: Dict[str, Tensor]) -> Dict[str, Any]:
 
 
 def model_params_from_flax(
-    tree: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1
+    tree: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1,
+    ref_nerf: bool = False,
 ) -> Dict[str, Tensor]:
-    """One model tree -> state dict, by the tree's kind (NGP or vanilla)."""
+    """One model tree -> state dict, by the tree's kind (NGP or the hybrid,
+    vanilla or, with ``ref_nerf``, vanilla Ref-NeRF)."""
     if is_ngp_tree(tree):
         return ngp_params_from_flax(tree, density_layers)
-    return params_from_flax(tree, input_layers, mid_layers)
+    return params_from_flax(tree, input_layers, mid_layers, ref_nerf)
 
 
 def model_params_to_flax(
-    state: Dict[str, Tensor], input_layers: int = 5, mid_layers: int = 4
+    state: Dict[str, Tensor], input_layers: int = 5, mid_layers: int = 4, ref_nerf: bool = False
 ) -> Dict[str, Any]:
     """Inverse of :func:`model_params_from_flax`, by the state's kind."""
     if "encoding.table_0" in state:
         return ngp_params_to_flax(state)
-    return params_to_flax(state, input_layers, mid_layers)
+    return params_to_flax(state, input_layers, mid_layers, ref_nerf)
 
 
 def checkpoint_from_flax(
-    params: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1
+    params: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1,
+    ref_nerf: bool = False,
 ) -> Dict[str, Any]:
     """Pickle-contract dict -> the same dict with state dicts for
     ``coarse``/``fine`` (by kind; the layer counts are a model's
     ``flax_layout()``); ``background`` and the occupancy keys pass through."""
     return {
-        k: model_params_from_flax(v, input_layers, mid_layers, density_layers)
+        k: model_params_from_flax(v, input_layers, mid_layers, density_layers, ref_nerf)
         if k in MODEL_KEYS else v
         for k, v in params.items()
     }
 
 
 def checkpoint_to_flax(
-    ckpt: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1
+    ckpt: Dict[str, Any], input_layers: int = 5, mid_layers: int = 4, density_layers: int = 1,
+    ref_nerf: bool = False,
 ) -> Dict[str, Any]:
     """Inverse of :func:`checkpoint_from_flax`; other values become NumPy.
     Takes any model's ``flax_layout()`` (an NGP state names its own layers,
@@ -176,7 +194,7 @@ def checkpoint_to_flax(
     out = {}
     for k, v in ckpt.items():
         if k in MODEL_KEYS:
-            out[k] = model_params_to_flax(v, input_layers, mid_layers)
+            out[k] = model_params_to_flax(v, input_layers, mid_layers, ref_nerf)
         elif isinstance(v, Tensor):
             out[k] = v.detach().cpu().numpy()
         else:

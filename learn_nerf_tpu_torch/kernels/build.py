@@ -143,6 +143,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_hashgrid_encode.restype = i32
     lib.nerf_hashgrid_backward.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
     lib.nerf_hashgrid_backward.restype = i32
+    lib.nerf_hashgrid_dx.argtypes = [ptr, ptr, i64, ptr, ptr, ptr]
+    lib.nerf_hashgrid_dx.restype = i32
+    lib.nerf_hashgrid_dx_backward.argtypes = [ptr, ptr, ptr, i64, ptr, ptr, ptr, ptr]
+    lib.nerf_hashgrid_dx_backward.restype = i32
     lib.nerf_composite_forward.argtypes = [ptr] * 6 + [i32] * 4 + [ptr] * 5
     lib.nerf_composite_forward.restype = i32
     lib.nerf_composite_backward.argtypes = [ptr] * 10 + [i32] * 4 + [ptr] * 8

@@ -283,7 +283,7 @@ def hashgrid_encode(
 
     On a CUDA tensor the result is differentiable in the tables (through
     :class:`HashGridEncode`) and not in the points: points that require
-    grad raise.  With no table requiring grad (serving, the occupancy
+    grad raise (the gradient in the points is :mod:`.hashgrid_dx`'s).  With no table requiring grad (serving, the occupancy
     grid's refresh) the kernel is launched directly and nothing is saved.
     """
     x = x.float().contiguous()
@@ -297,9 +297,10 @@ def _encode_on_card(tables, x, grid_sizes, table_sizes, bbox_min, bbox_max, smoo
     if torch.is_grad_enabled():
         if x.requires_grad:
             raise NotImplementedError(
-                "the encode kernel has no gradient in the points (Ref-NeRF's normals "
-                "need d/dx and, in smooth mode, its double backward: ROADMAP.md, "
-                "Queue 1: Ref-NeRF); detach the points, or encode on the CPU"
+                "the encode kernel has no gradient in the points: Ref-NeRF's normals take "
+                "it as the encoding's VJP in the points, ops.hashgrid.hash_grid_encode_dx "
+                "(the hashgrid_dx kernels, differentiable in the cotangent and the tables); "
+                "detach the points, or encode on the CPU"
             )
         if any(t.requires_grad for t in tables):
             config = (

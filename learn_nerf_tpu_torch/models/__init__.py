@@ -5,7 +5,8 @@ aux)`` over any number of leading dims.
 """
 
 from .base import FieldModel
-from .instant_ngp import InstantNGPModel
+from .instant_ngp import InstantNGPModel, InstantNGPRefNeRFModel
+from .ref_nerf import RefNeRFModel
 from .vanilla import NeRFModel
 
-__all__ = ["FieldModel", "InstantNGPModel", "NeRFModel"]
+__all__ = ["FieldModel", "InstantNGPModel", "InstantNGPRefNeRFModel", "NeRFModel", "RefNeRFModel"]

@@ -1,5 +1,6 @@
-"""Instant NGP model (Mueller et al., arXiv:2201.05989), port of
-``learn_nerf_tpu.models.instant_ngp`` (``InstantNGPModel``).
+"""Instant NGP models (Mueller et al., arXiv:2201.05989), port of
+``learn_nerf_tpu.models.instant_ngp`` (``InstantNGPModel`` and the
+Ref-NeRF hybrid ``InstantNGPRefNeRFModel``).
 
 A multiresolution hash-grid encoding (:mod:`..ops.hashgrid`) feeds small
 64-wide MLPs: ``exp`` density from output channel 0, and a color branch
@@ -18,8 +19,9 @@ import torch
 from torch import nn
 
 from ..ops.encoding import sinusoidal_features
-from ..ops.hashgrid import dense_level_rows, hash_grid_encode
+from ..ops.hashgrid import dense_level_rows, hash_grid_encode, hash_grid_encode_dx
 from .base import FieldModel, flax_dense
+from .ref_nerf import RefNeRFBase, density_row_vjp, relu_vjp
 
 Tensor = torch.Tensor
 
@@ -63,6 +65,15 @@ class HashGridEncoding(nn.Module):
     def forward(self, x: Tensor) -> Tensor:
         return hash_grid_encode(
             self.tables(), x.float(), self.grid_sizes, self.table_sizes,
+            self.bbox_min, self.bbox_max, smooth=self.smooth,
+        )
+
+    def vjp_points(self, x: Tensor, cotangent: Tensor) -> Tensor:
+        """The encoding's VJP in the points ``x [N, 3]`` for the cotangent
+        ``[N, L * F]``: ``[N, 3]``, differentiable in the cotangent and the
+        tables (:func:`~..ops.hashgrid.hash_grid_encode_dx`)."""
+        return hash_grid_encode_dx(
+            self.tables(), x.float(), cotangent, self.grid_sizes, self.table_sizes,
             self.bbox_min, self.bbox_max, smooth=self.smooth,
         )
 
@@ -135,3 +146,73 @@ class InstantNGPModel(FieldModel):
             out = torch.relu(self._dense(layer, out))
         color = torch.tanh(self._dense(self.rgb, out).float())
         return density, color, {}
+
+
+class InstantNGPRefNeRFModel(RefNeRFBase):
+    """The hash-grid trunk under the Ref-NeRF head.  Smooth mode is forced,
+    so the density gradient is continuous.  The spatial block is the
+    encoding, ``density_layers`` of ``hidden_dim`` and ``density_out`` (its
+    ``density_dim`` channels are the Ref-NeRF head's); the directional block
+    ``color_layers`` of ``hidden_dim`` and ``rgb`` over the head's
+    ``density_dim + sh_degree^2 + 1`` inputs.  Submodule names are
+    :class:`InstantNGPModel`'s, so the flax tree is too
+    (``HashGridEncoding_0/table_i``, ``Dense_0..``).  f32 only.
+
+    The normal's VJP runs the transposed density layers and then the
+    encoding's VJP in the points: on the card the ``hashgrid_dx`` kernel,
+    and in training its backward kernel (:mod:`..kernels.hashgrid_dx`)."""
+
+    def __init__(
+        self,
+        table_sizes: Sequence[int],
+        grid_sizes: Sequence[int],
+        bbox_min: Tuple[float, float, float],
+        bbox_max: Tuple[float, float, float],
+        sh_degree: int = 4,
+        table_feature_dim: int = 2,
+        hidden_dim: int = 64,
+        density_dim: int = 16,
+        density_layers: int = 1,
+        color_layers: int = 2,
+    ):
+        super().__init__(sh_degree)
+        self.encoding = HashGridEncoding(
+            table_sizes, grid_sizes, bbox_min, bbox_max, table_feature_dim, smooth=True
+        )
+        enc_dim = len(grid_sizes) * table_feature_dim
+        self.density_layers = nn.ModuleList(
+            nn.Linear(enc_dim if i == 0 else hidden_dim, hidden_dim) for i in range(density_layers)
+        )
+        self.density_out = nn.Linear(hidden_dim if density_layers else enc_dim, density_dim)
+        color_in = density_dim + sh_degree**2 + 1
+        self.color_layers = nn.ModuleList(
+            nn.Linear(color_in if i == 0 else hidden_dim, hidden_dim) for i in range(color_layers)
+        )
+        self.rgb = nn.Linear(hidden_dim if color_layers else color_in, 3)
+
+    def dense_layers(self) -> List[nn.Linear]:
+        """The layers in flax's ``Dense_i`` order."""
+        return [*self.density_layers, self.density_out, *self.color_layers, self.rgb]
+
+    def flax_layout(self) -> Dict[str, int]:
+        """Layer counts the checkpoint bridge needs for this model."""
+        return dict(density_layers=len(self.density_layers))
+
+    def spatial_block(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        out = self.encoding(x)
+        pres = []
+        for layer in self.density_layers:
+            pres.append(layer(out))
+            out = torch.relu(pres[-1])
+        out = self.density_out(out)
+        # The VJP at -e0: down the density layers to the encoding, then the
+        # encoding's VJP in the points.
+        cot = density_row_vjp(self.density_out, x.shape[0])
+        for layer, pre in zip(reversed(self.density_layers), reversed(pres)):
+            cot = relu_vjp(cot, pre) @ layer.weight
+        return out, self.encoding.vjp_points(x, cot.contiguous())
+
+    def directional_block(self, x: Tensor) -> Tensor:
+        for layer in self.color_layers:
+            x = torch.relu(layer(x))
+        return self.rgb(x)

@@ -26,7 +26,7 @@ from ..baked import (
     check_bakeable,
 )
 from ..data.dataset import ModelMetadata
-from ..models import FieldModel, InstantNGPModel, NeRFModel
+from ..models import FieldModel, InstantNGPModel, InstantNGPRefNeRFModel, NeRFModel, RefNeRFModel
 from ..models.base import reset_parameters_like_flax
 from ..occ_render import OccupancyRenderer
 
@@ -196,7 +196,6 @@ def check_ported(args: argparse.Namespace) -> None:
     """Refuse, with ``SystemExit``, every flag whose path is not ported, and
     ``--baked`` without ``--occupancy`` (as the JAX package does)."""
     refused = [
-        (getattr(args, "ref_nerf", False), "--ref_nerf (Ref-NeRF)"),
         (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
         (getattr(args, "occ_span_pool_factor", 8) != 8,
          "--occ_span_pool_factor (the span path's supergrid)"),
@@ -207,7 +206,8 @@ def check_ported(args: argparse.Namespace) -> None:
         if is_set:
             raise SystemExit(
                 f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
-                "package serves the vanilla NeRF and Instant-NGP, with the "
+                "package serves the vanilla NeRF, Instant-NGP and both Ref-NeRF "
+                "models (--ref_nerf, with or without --instant_ngp), with the "
                 "hierarchy, fixed-K occupancy and pooled inference and baked "
                 "Instant-NGP serving (--baked under --occupancy), and trains the "
                 "hierarchy and the occupancy path, fixed-K or pooled (see ROADMAP.md)"
@@ -318,22 +318,28 @@ def create_model(
     rows, lattices ``2^(4 + i//2)``, over the metadata's bbox; ``--bf16``
     runs their MLPs in bf16.  Otherwise the vanilla pair, where ``--bf16``
     serves through the fused route (the train loops select the
-    flax-rounded one).  Callers refuse unported model flags first
-    (:func:`check_ported`).
+    flax-rounded one).  ``--ref_nerf`` puts the Ref-NeRF head (SH degree 4)
+    on either trunk, in f32 whatever ``--bf16`` says (its analytic normals
+    need f32 gradients, as in the JAX package): with ``--instant_ngp`` the
+    hybrid (smooth hash grids), else ``RefNeRFModel``.  Callers refuse
+    unported model flags first (:func:`check_ported`).
     """
     compute_dtype = "bfloat16" if getattr(args, "bf16", False) else "float32"
+    ref_nerf = getattr(args, "ref_nerf", False)
     if getattr(args, "instant_ngp", False):
         bbox = dict(bbox_min=tuple(metadata.bbox_min), bbox_max=tuple(metadata.bbox_max))
-        coarse, fine = (
-            InstantNGPModel(
-                table_sizes=[2**18] * levels,
-                grid_sizes=[2 ** (4 + i // 2) for i in range(levels)],
-                compute_dtype=compute_dtype,
-                **bbox,
-            )
-            for levels in (6, 16)
-        )
+
+        def ngp(levels):
+            schedule = dict(table_sizes=[2**18] * levels, grid_sizes=[2 ** (4 + i // 2) for i in range(levels)])
+            if ref_nerf:
+                return InstantNGPRefNeRFModel(sh_degree=4, **schedule, **bbox)
+            return InstantNGPModel(compute_dtype=compute_dtype, **schedule, **bbox)
+
+        coarse, fine = ngp(6), ngp(16)
         train_kwargs = dict(adam_eps=1e-15, adam_b1=0.9, adam_b2=0.99)
+    elif ref_nerf:
+        coarse, fine = RefNeRFModel(sh_degree=4), RefNeRFModel(sh_degree=4)
+        train_kwargs = dict()
     else:
         coarse, fine = NeRFModel(compute_dtype=compute_dtype), NeRFModel(compute_dtype=compute_dtype)
         train_kwargs = dict()

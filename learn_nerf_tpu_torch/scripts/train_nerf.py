@@ -1,6 +1,7 @@
 """Train a NeRF model on a scene: the coarse/fine hierarchy (vanilla, or
-Instant-NGP with ``--instant_ngp``; ``--bf16`` runs the MLPs in bf16), or
-one field model with occupancy-grid sampling (``--occupancy``).
+Instant-NGP with ``--instant_ngp``; ``--bf16`` runs the MLPs in bf16;
+``--ref_nerf`` puts the Ref-NeRF head on either, in f32), or one field
+model with occupancy-grid sampling (``--occupancy``).
 
 The CLI of ``learn_nerf_tpu.scripts.train_nerf``: the same flags and
 defaults, auto-resume from ``--save_path`` (or from ``--full_state_path``
@@ -10,7 +11,9 @@ that both packages render.  Runs on the CUDA card, and raises without one
 unless given ``--device cpu`` (a flag of this port only).  On the card
 every step runs the composite kernels (once a pass of the hierarchy), and
 with ``--instant_ngp`` the hash-grid encode kernel and its table-gradient
-kernel (once a model).
+kernel (once a model); with ``--instant_ngp --ref_nerf`` also the kernel of
+the encoding's gradient in the points and its backward kernel (once a
+model: the normal and its loss).
 
 Pooled training, the JAX package's flagship recipe, runs as there:
 ``--occ_train_budget auto`` (or a number of samples a ray) from step
@@ -26,7 +29,7 @@ saved run consumed (the JAX CLI starts its batch stream again), so it
 continues the uninterrupted run step for step; with ``--lr_schedule
 cosine`` the restored optimizer count carries the schedule on.
 
-Not ported yet, refused with ``SystemExit`` (see ROADMAP.md): ``--ref_nerf``,
+Not ported yet, refused with ``SystemExit`` (see ROADMAP.md):
 ``--coordinator_address``/``--num_processes`` (several processes) and
 ``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
 steps per log line; a last chunk of fewer than k batches is dropped unless

@@ -29,7 +29,11 @@ model (through :class:`~.kernels.hashgrid_encode.HashGridEncode`).  The
 occupancy step runs the same kernels once (a pooled step runs the
 composite pair in the pool's layout).  A bf16 vanilla model trains on its
 flax-rounded route (:meth:`~.models.vanilla.NeRFModel.set_bf16_route`, which
-the loops select), whose products are plain ``torch`` matmuls.
+the loops select), whose products are plain ``torch`` matmuls.  The Ref-NeRF
+models (``models.ref_nerf``, no subclasses of ``NeRFModel``, always f32)
+train through the same losses with their aux terms; the hybrid's step also
+runs the kernel of the encoding's gradient in the points and its backward
+once a model (:mod:`.kernels.hashgrid_dx`).
 
 Pooled training (``pool_budget_per_ray``, the JAX package's flagship
 ``--occ_train_budget auto``): from ``pool_start_step`` on, each step packs

@@ -52,6 +52,12 @@ and the cells' faces, every pack bit-equal to pack 1; and at r = 2, 3 and
 384 (the served table) and 1, 31, 32, 33, 999 and 2^16 points bit-equal to
 the kernel it replaced (one thread a point, built from csrc/ablations); the
 baked model on the card against the CPU (1e-5); the wrapper's refusals.
+The Ref-NeRF kernels: hashgrid_dx and its backward within chip_smoke.py's
+bounds (2e-6, 5e-6 of each tensor's largest value) at F = 1 to 4, plain and
+smooth mode, points on a face of the bbox and the edges of their thread
+grids; through HashGridDx against autograd of the plain points-VJP; both
+Ref-NeRF models on the card against the CPU (1e-4: the card's f32 matmuls
+and the CPU's sum in other orders).
 """
 
 import contextlib
@@ -467,6 +473,88 @@ def test_encode_function_trains_tables_on_the_card(cuda):
         hashgrid.hash_grid_encode(params, x.clone().requires_grad_(), grids, sizes, lo, hi)
     with torch.no_grad():  # serving: a direct launch, nothing saved
         assert hashgrid.hash_grid_encode(params, x, grids, sizes, lo, hi).grad_fn is None
+    # The gradient in the points that the refusal names: hashgrid_dx, held
+    # to its plain version (the JAX package's derivative) on the card.
+    dx = hashgrid.hash_grid_encode_dx(params, x, g, grids, sizes, lo, hi)
+    want = hashgrid.hash_grid_encode_dx_reference(params, x, g, grids, sizes, lo, hi)
+    assert max(_relative_errors([dx], [want])) <= DX_BOUND
+
+
+# hashgrid_dx and its backward against their plain versions: relative to
+# each tensor's largest value, the bounds chip_smoke.py holds them to.
+DX_BOUND, DX_BACKWARD_BOUND = 2e-6, 5e-6
+
+
+@pytest.mark.parametrize("features", [1, 2, 3, 4])
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 257, 5000])
+def test_hashgrid_dx_kernels_match_plain_versions(cuda, features, smooth, n):
+    from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
+
+    tables, x, g, grids, sizes = _levels(cuda, 40 + n, features, n)
+    h = t(np.random.RandomState(n).uniform(-1, 1, (n, 3)).astype(np.float32)).to(cuda)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    x[: n // 4, 0] = -1.0  # on a face: half the slope, as in JAX
+    args = ke.encode_args(tables, x.device, grids, sizes, lo, hi, smooth)
+    launches = (kd.counter.launches, kd.backward_counter.launches)
+    dx = kd.launch_dx(args, x, g)
+    grad_g, grad_tables = kd.launch_dx_backward(args, x, g, h)
+    torch.cuda.synchronize()
+    assert (kd.counter.launches, kd.backward_counter.launches) == (launches[0] + 1, launches[1] + 1)
+    want = hashgrid.hash_grid_encode_dx_reference(tables, x, g, grids, sizes, lo, hi, smooth)
+    want_g, want_tables = hashgrid.hash_grid_encode_dx_backward_reference(tables, x, g, h, grids, sizes, lo, hi, smooth)
+    assert max(_relative_errors([dx], [want])) <= DX_BOUND
+    assert max(_relative_errors([grad_g, *grad_tables], [want_g, *want_tables])) <= DX_BACKWARD_BOUND
+
+
+def test_hashgrid_dx_function_trains_on_the_card(cuda):
+    """Through HashGridDx: the cotangent and every table get the plain
+    route's gradient (autograd of the plain points-VJP); points that
+    require grad raise; with grad off the launch is direct."""
+    from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
+
+    tables, x, g, grids, sizes = _levels(cuda, 8, 2, 4000)
+    lo, hi = (-1.0,) * 3, (1.0,) * 3
+    params = [torch.nn.Parameter(tb) for tb in tables]
+    cot = g.clone().requires_grad_()
+    h = t(np.random.RandomState(9).uniform(-1, 1, (4000, 3)).astype(np.float32)).to(cuda)
+    out = hashgrid.hash_grid_encode_dx(params, x, cot, grids, sizes, lo, hi, smooth=True)
+    assert out.grad_fn is not None
+    out.backward(h)
+    got = [cot.grad.clone()] + [p.grad.clone() for p in params]
+    leaves = [g.clone().requires_grad_()] + [tb.clone().requires_grad_() for tb in tables]
+    ref = hashgrid.hash_grid_encode_dx_reference(leaves[1:], x, leaves[0], grids, sizes, lo, hi, True)
+    assert max(_relative_errors(got, torch.autograd.grad(ref, leaves, h))) <= DX_BACKWARD_BOUND
+    with pytest.raises(NotImplementedError, match="points"):
+        hashgrid.hash_grid_encode_dx(params, x.clone().requires_grad_(), cot, grids, sizes, lo, hi)
+    with torch.no_grad():
+        assert hashgrid.hash_grid_encode_dx(params, x, cot, grids, sizes, lo, hi).grad_fn is None
+    assert kd.counter.plain_calls == kd.backward_counter.plain_calls == 0
+
+
+def test_ref_nerf_models_on_the_card_match_the_cpu(cuda):
+    """Both Ref-NeRF models' outputs and aux on the card (the hybrid through
+    the encode and hashgrid_dx kernels) against the CPU, and their
+    aux-weighted loss's gradients, by L2 norm."""
+    from learn_nerf_tpu_torch.models import InstantNGPRefNeRFModel, RefNeRFModel
+
+    torch.manual_seed(0)
+    models = [RefNeRFModel(input_layers=2, mid_layers=2, hidden_dim=64, color_layer_dim=32),
+              InstantNGPRefNeRFModel([2**12] * 6, [4, 8, 16, 16, 32, 64], (-1.0,) * 3, (1.0,) * 3, hidden_dim=32)]
+    x, d = points_and_dirs(3, 3000, scale=1.0)
+    for model in models:
+        outs, grads = [], []
+        for device in ("cpu", cuda):
+            m = model.to(device)
+            m.zero_grad()
+            density, rgb, aux = m(t(x).to(device), t(d).to(device))
+            loss = (rgb**2).mean() + density.mean() + 3e-4 * aux["normal_mse"].mean() + 0.1 * aux["neg_normal"].mean()
+            loss.backward()
+            outs.append([v.detach().cpu() for v in (density, rgb, aux["normal_mse"], aux["neg_normal"])])
+            grads.append(torch.cat([p.grad.detach().cpu().flatten() for p in m.parameters()]))
+        for a, b in zip(*outs):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        assert ((grads[1] - grads[0]).norm() / grads[0].norm()).item() <= 1e-4
 
 
 def test_hashgrid_backward_against_finite_differences(cuda):

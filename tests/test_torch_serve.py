@@ -1,10 +1,10 @@
 """The port's HTTP render service and render CLI (learn_nerf_tpu_torch.
 scripts), following tests/test_serve.py: endpoints against a live server
 on a loopback port, determinism against a direct RenderSession with the
-same seed, request validation, the occupancy bf16 route, the flags that
-must still refuse (Ref-NeRF, the span and block-word levers, baking without
-``--occupancy``), flag parity with the JAX CLI, an import without jax, and the
-render profiler."""
+same seed, request validation, the occupancy bf16 route, both Ref-NeRF
+models served at the JAX widths, the flags that must still refuse (the span
+and block-word levers, baking without ``--occupancy``), flag parity with the
+JAX CLI, an import without jax, and the render profiler."""
 
 import io
 import json
@@ -188,8 +188,8 @@ def test_render_cli_writes_views_side_by_side(scene, tmp_path):
 @pytest.mark.parametrize(
     "flags",
     [
-        ["--instant_ngp", "--ref_nerf"],
-        ["--ref_nerf"],
+        ["--instant_ngp", "--ref_nerf", "--baked", "64"],
+        ["--ref_nerf", "--occupancy", "--occ_span_candidates", "64"],
         ["--baked", "64"],
         ["--instant_ngp", "--baked", "64"],
         ["--occupancy", "--occ_budget_per_ray", "auto", "--occ_span_candidates", "64"],
@@ -205,6 +205,56 @@ def test_unported_flags_refuse_with_system_exit(scene, flags):
     match = "--baked requires --occupancy" if "--baked" in flags else "not ported"
     with pytest.raises(SystemExit, match=match):
         serve_nerf.make_server(args)
+
+
+@pytest.mark.parametrize("flags", [["--instant_ngp", "--ref_nerf", "--occupancy"], ["--ref_nerf"]],
+                         ids=["hybrid occupancy", "vanilla hierarchy"])
+def test_ref_nerf_serves_at_the_jax_widths(scene, tmp_path, flags):
+    """Formerly refused: both Ref-NeRF models now parse, build at the JAX
+    CLI's widths (the hybrid's 6 + 16 smooth levels of 2^18 rows, the
+    vanilla 5 + 4 layers of 256) from a checkpoint in the pickle contract,
+    and serve a PNG on the CPU, equal to a direct session's render of the
+    same view and seed."""
+    from learn_nerf_tpu_torch.checkpoint import checkpoint_to_flax
+    from learn_nerf_tpu_torch.data.dataset import ModelMetadata
+    from learn_nerf_tpu_torch.models import InstantNGPRefNeRFModel, RefNeRFModel
+    from learn_nerf_tpu_torch.scripts.common import create_model
+
+    scene_dir, _ = scene
+    args = serve_nerf.argparser().parse_args(_argv(scene_dir, "unused", *flags))
+    torch.manual_seed(0)
+    coarse, fine, _ = create_model(args, ModelMetadata.from_json(f"{scene_dir}/metadata.json"))
+    ckpt = dict(coarse=coarse.state_dict(), fine=fine.state_dict(), background=np.array([0.3, -0.2, 0.9], np.float32))
+    if "--occupancy" in flags:
+        ckpt.update(occupancy_densities=np.ones(8**3, np.float32), occupancy_resolution=8)
+    pkl = str(tmp_path / "refnerf.pkl")
+    save_params_pickle(pkl, checkpoint_to_flax(ckpt, **fine.flax_layout()))
+
+    server = serve_nerf.make_server(serve_nerf.argparser().parse_args(_argv(scene_dir, pkl, "--port", "0", *flags)))
+    model = server.session.fine
+    if "--instant_ngp" in flags:
+        assert isinstance(model, InstantNGPRefNeRFModel) and model.encoding.smooth
+        assert len(model.encoding.grid_sizes) == 16 and model.encoding.table_0.shape[1] == 2
+    else:
+        assert isinstance(model, RefNeRFModel) and model.mid_layers[0].weight.shape == (256, 316)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    try:
+        body = open(f"{scene_dir}/0000.json", "rb").read()
+        req = urllib.request.Request(f"http://{host}:{port}/render", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200 and resp.headers.get("Content-Type") == "image/png"
+            served = np.asarray(Image.open(io.BytesIO(resp.read())))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    session = render_nerf.RenderSession(render_nerf.argparser().parse_args(_argv(scene_dir, pkl, *flags)))
+    view = CameraView.from_json(f"{scene_dir}/0000.json")
+    direct = session.render_view(view, width=16, height=16)
+    assert served.shape == (16, 16, 3)
+    np.testing.assert_array_equal(served, direct)
 
 
 def test_visible_multi_gpu_mesh_refuses(scene, monkeypatch):
@@ -254,6 +304,9 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.checkpoint\n"
         "import learn_nerf_tpu_torch.convert.blender\n"
         "import learn_nerf_tpu_torch.convert.llff\n"
+        "import learn_nerf_tpu_torch.ops.sh\n"
+        "import learn_nerf_tpu_torch.models.ref_nerf\n"
+        "import learn_nerf_tpu_torch.kernels.hashgrid_dx\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
