@@ -95,8 +95,11 @@ nonzero):
    levels), near the bbox's faces and at the edges of their thread grids,
    with a check that the bounds catch a wrong axis of a corner weight's
    gradient, a missing smoothstep derivative and a flipped corner sign,
-   timed beside the plain versions and eager autograd of the plain
-   encode;
+   at every case bit for bit equal (dx, grad_g) to the pair as first
+   designed (``csrc/ablations/hashgrid_dx_parent.cu``, built on its own)
+   and its table gradients within the backward's bound of that pair's,
+   timed beside that pair (turns A B B A), the plain versions and eager
+   autograd of the plain encode;
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -305,22 +308,31 @@ BACKWARD_EDGE_POINTS = (1, 31, 32, 33)
 # rays: the occupancy step's 131,072 points (`ms`) and the hierarchy's two
 # passes (HIERARCHY_PASSES); near the bbox's faces (on them, where JAX's
 # clip gives half the slope, within an ulp of them and past them); at the
-# edges of the kernels' thread grids (256 threads a block: a point a
-# thread in the forward, a (point, level pair) a thread in the backward).
-# Errors relative to each tensor's largest value (each level's gradient
-# on its own).  Over two runs an H100 measured 0.8e-7 to 1.8e-7 on
+# edges of the kernels' thread grids (DX_EDGE_POINTS, by levels: the
+# forward's blocks of floor(256 / items) whole points, 32 at the 16 levels
+# that hash, and of 256 points, a thread each, at the 6 dense levels of the
+# coarse model; the backward's tiles of 32 points).  Every case is also
+# held to the pair as first designed (DX_PARENT, csrc/ablations/
+# hashgrid_dx_parent.cu): dx and grad_g bit for bit (both sum in its
+# order), the table gradients within DX_BACKWARD_BOUND; both kernels are
+# timed beside it in turns A B B A (`parent_ms`).  Errors relative to each
+# tensor's largest value (each level's gradient on its own).  Over two
+# runs an H100 measured 0.8e-7 to 1.8e-7 on
 # thousands of points and 7.3e-7 on a single point (relative to its own
 # largest component, where the 128 corner terms cancel) in the forward,
 # which sums in the plain version's order but rounds the products apart;
-# and up to 1.7e-6 in the backward, whose table gradients are f32 atomics
-# (1.3e-6 and 1.7e-6 in the hierarchy's passes, 5.8e-7 between two runs of
-# the kernel).  The bounds are about three times the worst.  A wrong axis of a corner weight's
+# and up to 2.0e-6 in the backward, whose table gradients are f32 atomics
+# (1.2e-6 and 2.0e-6 in the hierarchy's passes, 3.5e-7 between two runs of
+# the kernel, 1.8e-6 from the first design's).  The bounds are two and a
+# half to three times the worst.  A wrong axis of a corner weight's
 # gradient, a missing smoothstep derivative and a flipped corner sign must
 # move the plain version by at least SCAN_MARGIN times them (measured
 # 0.53 to 1.9).
 DX_BOUND = 2e-6
 DX_BACKWARD_BOUND = 5e-6
-DX_EDGE_POINTS = (1, 31, 32, 33, 255, 256, 257, TRAIN_POINTS - 37)
+DX_EDGE_POINTS = {FINE_LEVELS: (1, 31, 32, 33, 63, 64, 65, 255, 256, 257, TRAIN_POINTS - 37),
+                  COARSE_LEVELS: (1, 33, 255, 256, 257)}
+DX_PARENT = "dx parent"
 DX_FAULTS = ("a wrong axis of the weight gradient", "no smoothstep derivative", "a flipped corner sign")
 # Variants of scripts/hashgrid_ablations.py: the table-gradient kernel in the
 # layout it had before the ray-ordered one, and the encode kernel in the
@@ -1240,12 +1252,14 @@ def face_points(rng, n, lo=-0.7, hi=0.7):
     return pts
 
 
-def check_dx_kernels(device, rng):
+def check_dx_kernels(device, rng, parent):
     """hashgrid_dx and its backward against their plain versions (the JAX
     package's derivative, ops/hashgrid.py) in smooth mode at the occupancy
     step's and the hierarchy's shapes along rays, near the bbox's faces and
-    at the thread grids' edges; timed beside the plain versions and eager
-    autograd of the plain encode (first and second derivative)."""
+    at the thread grids' edges, and against the pair as first designed
+    (``parent``: its forward and backward entry points); timed beside that
+    pair (turns A B B A), the plain versions and eager autograd of the plain
+    encode (first and second derivative)."""
     from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
     from learn_nerf_tpu_torch.ops import hashgrid as hg
@@ -1270,22 +1284,36 @@ def check_dx_kernels(device, rng):
         return (hg.hash_grid_encode_dx_reference(tb, x, g, *config),
                 hg.hash_grid_encode_dx_backward_reference(tb, x, g, h, *config))
 
-    def errors(tb, x, g, h, args, config, reference=None):
+    unequal, parent_errs = [], {}
+
+    def errors(name, tb, x, g, h, args, config, reference=None):
         dx, (gg, gt) = kd.launch_dx(args, x, g), kd.launch_dx_backward(args, x, g, h)
+        was_dx, (was_gg, was_gt) = kd.run_dx(parent[0], args, x, g), kd.run_dx_backward(parent[1], args, x, g, h)
         torch.cuda.synchronize()
         require(dx.shape == x.shape and gg.shape == g.shape and all(torch.isfinite(t).all().item()
                                                                      for t in (dx, gg, *gt)),
                 "hashgrid_dx or its backward: wrong shapes or values that are not finite")
+        if not (torch.equal(dx, was_dx) and torch.equal(gg, was_gg)):
+            unequal.append(name)
+        parent_errs[name] = max(relative_errors(gt, was_gt))
         ref_dx, (ref_gg, ref_gt) = reference or plain(tb, x, g, h, config)
         return rel(dx, ref_dx), max(rel(gg, ref_gg), *relative_errors(gt, ref_gt))
+
+    def in_turns(own, replaced):
+        """(own ms, replaced ms) by graph replay in turns A B B A."""
+        times = [graph_ms(fn, 20) for fn in (own, replaced, replaced, own)]
+        return (times[0] + times[3]) / 2, (times[1] + times[2]) / 2
 
     step = case(ray_points(rng, TRAIN_RAYS, TRAIN_SAMPLES, 0.02, -0.7, 0.4))
     tb, x, g, h, args, config = step
     reference = plain(tb, x, g, h, config)
-    errs = {f"step, {TRAIN_POINTS} points along rays": errors(*step, reference=reference)}
-    errs["near the bbox faces"] = errors(*case(face_points(rng, TRAIN_POINTS)))
-    for n in DX_EDGE_POINTS:
-        errs[f"{n} points"] = errors(*case(rng.uniform(-0.75, 0.75, (n, 3))))
+    name = f"step, {TRAIN_POINTS} points along rays"
+    errs = {name: errors(name, *step, reference=reference)}
+    errs["near the bbox faces"] = errors("near the bbox faces", *case(face_points(rng, TRAIN_POINTS)))
+    for levels, counts in DX_EDGE_POINTS.items():
+        for n in counts:
+            name = f"{n} points, {levels} levels"
+            errs[name] = errors(name, *case(rng.uniform(-0.75, 0.75, (n, 3)), levels))
     _, second = kd.launch_dx_backward(args, x, g, h)
     _, third = kd.launch_dx_backward(args, x, g, h)
     errs["the backward twice"] = (0.0, max(relative_errors(second, third)))
@@ -1315,10 +1343,13 @@ def check_dx_kernels(device, rng):
         return torch.autograd.grad(autograd_dx(create_graph=True), [gr, *tr], h)
 
     dx_out, (gg_out, gt_out) = kd.launch_dx(args, x, g), kd.launch_dx_backward(args, x, g, h)
+    forward_ms = in_turns(lambda: kd.launch_dx(args, x, g), lambda: kd.run_dx(parent[0], args, x, g))
+    backward_ms = in_turns(lambda: kd.launch_dx_backward(args, x, g, h),
+                           lambda: kd.run_dx_backward(parent[1], args, x, g, h))
     forward = dict(
         name="hashgrid_dx", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_dx.cu",
         replaces="learn_nerf_tpu/ops/hashgrid.py:135 under jax.vjp at learn_nerf_tpu/models/ref_nerf.py:71-74 (XLA)",
-        max_abs_err=max(e[0] for e in errs.values()), ms=graph_ms(lambda: kd.launch_dx(args, x, g), 20),
+        max_abs_err=max(e[0] for e in errs.values()), ms=forward_ms[0], parent_ms=forward_ms[1],
         plain_ms=cuda_ms(lambda: hg.hash_grid_encode_dx_reference(tb, x, g, *config), 3),
         library_ms=cuda_ms(autograd_dx, 3), hierarchy={},
     )
@@ -1327,8 +1358,7 @@ def check_dx_kernels(device, rng):
         name="hashgrid_dx_backward", route="cuda", source="learn_nerf_tpu_torch/csrc/hashgrid_dx.cu",
         replaces="the VJP of hashgrid_dx's XLA ops under jax.grad (learn_nerf_tpu/models/ref_nerf.py:71-74, "
                  "normal_mse)",
-        max_abs_err=max(e[1] for e in errs.values()),
-        ms=graph_ms(lambda: kd.launch_dx_backward(args, x, g, h), 20),
+        max_abs_err=max(e[1] for e in errs.values()), ms=backward_ms[0], parent_ms=backward_ms[1],
         plain_ms=cuda_ms(lambda: hg.hash_grid_encode_dx_backward_reference(tb, x, g, h, *config), 3),
         library_ms=cuda_ms(autograd_dx_backward, 3), hierarchy={},
     )
@@ -1336,11 +1366,14 @@ def check_dx_kernels(device, rng):
     del xr, gr, tr, reference, dx_out, gg_out, gt_out
     for label, levels, samples, spacing in HIERARCHY_PASSES:
         tb, xs, gs, hs, a, cfg = case(ray_points(rng, TRAIN_RAYS, samples, spacing, -0.7, 0.4), levels)
-        err = errors(tb, xs, gs, hs, a, cfg)
+        err = errors(label, tb, xs, gs, hs, a, cfg)
         dx_out, (gg_out, gt_out) = kd.launch_dx(a, xs, gs), kd.launch_dx_backward(a, xs, gs, hs)
-        forward["hierarchy"][label] = dict(ms=graph_ms(lambda: kd.launch_dx(a, xs, gs), 10),
-                                           bound_ms=bound(nbytes(xs, gs, dx_out, *tb))[0], max_abs_err=err[0])
-        backward["hierarchy"][label] = dict(ms=graph_ms(lambda: kd.launch_dx_backward(a, xs, gs, hs), 10),
+        ms = in_turns(lambda: kd.launch_dx(a, xs, gs), lambda: kd.run_dx(parent[0], a, xs, gs))
+        forward["hierarchy"][label] = dict(ms=ms[0], parent_ms=ms[1], bound_ms=bound(nbytes(xs, gs, dx_out, *tb))[0],
+                                           max_abs_err=err[0])
+        ms = in_turns(lambda: kd.launch_dx_backward(a, xs, gs, hs),
+                      lambda: kd.run_dx_backward(parent[1], a, xs, gs, hs))
+        backward["hierarchy"][label] = dict(ms=ms[0], parent_ms=ms[1],
                                             bound_ms=bound(nbytes(xs, gs, hs, *tb, gg_out, *gt_out))[0],
                                             max_abs_err=err[1])
         del xs, gs, hs, a, dx_out, gg_out, gt_out
@@ -1353,13 +1386,22 @@ def check_dx_kernels(device, rng):
                                                         for name, v in k["hierarchy"].items())
               + f" (bound {bound_:g}); the faults move the plain version by "
               + ", ".join(f"{fault} {m[i]:.3e}" for fault, m in moves.items())
-              + f"; kernel {k['ms']:.4f} ms at {TRAIN_POINTS} points along rays (bound {k['bound_ms']:.4f} ms), "
-              + ", ".join(f"{name} {v['ms']:.4f} ms (bound {v['bound_ms']:.4f} ms)" for name, v in k["hierarchy"].items())
+              + f"; kernel {k['ms']:.4f} ms at {TRAIN_POINTS} points along rays (the first design "
+              + f"{k['parent_ms']:.4f} ms, turns A B B A; bound {k['bound_ms']:.4f} ms), "
+              + ", ".join(f"{name} {v['ms']:.4f} ms (first design {v['parent_ms']:.4f} ms; bound {v['bound_ms']:.4f} ms)"
+                          for name, v in k["hierarchy"].items())
               + f"; plain {k['plain_ms']:.4f} ms; eager autograd of the plain encode {k['library_ms']:.4f} ms",
               flush=True)
         require(k["max_abs_err"] <= bound_, f"{k['name']} disagrees with its plain version")
         require(min(m[i] for m in moves.values()) >= SCAN_MARGIN * bound_,
                 f"{k['name']}'s bound {bound_:g} would not catch one of {DX_FAULTS}: {moves}")
+    print(f"hashgrid_dx pair against the first design at {len(parent_errs)} cases: dx and grad_g bit-equal "
+          f"{not unequal} {unequal}; table gradients max err {max(parent_errs.values()):.3e} "
+          f"(bound {DX_BACKWARD_BOUND:g})", flush=True)
+    require(not unequal, f"hashgrid_dx or its backward's grad_g differs from the first design at {unequal}")
+    require(max(parent_errs.values()) <= DX_BACKWARD_BOUND,
+            f"the dx backward's table gradients differ from the first design's beyond {DX_BACKWARD_BOUND:g}: "
+            f"{parent_errs}")
     return [forward, backward]
 
 
@@ -3058,12 +3100,12 @@ def main():
 
     # Two measured variants of the hash-grid kernels, the baked lookup's
     # replaced kernel, the composite source before the pool layout's
-    # kernels and the probes build (from csrc/ablations) while the MLP
-    # kernels are checked.
+    # kernels, the dx pair as first designed and the probes build (from
+    # csrc/ablations) while the MLP kernels are checked.
     from learn_nerf_tpu_torch.scripts import composite_ablations
     from learn_nerf_tpu_torch.scripts.baked_ablations import build_libraries
-    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import (NEIGHBOUR_SLICE, VARIANTS, build_gather_libraries,
-                                                                  build_probes)
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import (NEIGHBOUR_SLICE, VARIANTS, build_dx_libraries,
+                                                                  build_gather_libraries, build_probes)
     from learn_nerf_tpu_torch.scripts.mlp_ablations import build_variants
 
     variant, baked_parts = {}, {}
@@ -3076,6 +3118,7 @@ def main():
         threading.Thread(target=lambda: baked_parts.update(composite_parent=composite_ablations.build_libraries(
             ["parent"], composite_ablations.POOLED_VARIANTS)["parent"])),
         threading.Thread(target=lambda: baked_parts.update(gather=build_gather_libraries(list(gathers), gathers))),
+        threading.Thread(target=lambda: baked_parts.update(dx_parent=build_dx_libraries([DX_PARENT])[DX_PARENT])),
     ]
     for thread in threads:
         thread.start()
@@ -3085,8 +3128,8 @@ def main():
         thread.join()
     require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,
             "the hash-grid kernels' measured variants did not build")
-    require(len(baked_parts) == 4,
-            "the replaced baked-lookup, composite or gather kernels, the gather fault or the probes did not build")
+    require(len(baked_parts) == 5, "the replaced baked-lookup, composite, gather or dx kernels, the gather fault "
+            "or the probes did not build")
     kernels.append(check_table_gather(device, np.random.RandomState(SEED + 13), baked_parts["gather"],
                                       baked_parts["probes"]))
     torch.cuda.empty_cache()
@@ -3094,7 +3137,7 @@ def main():
     torch.cuda.empty_cache()
     kernels += check_backward_kernel(device, np.random.RandomState(SEED + 5), variant[PARENT_LAYOUT])
     torch.cuda.empty_cache()
-    kernels += check_dx_kernels(device, np.random.RandomState(SEED + 15))
+    kernels += check_dx_kernels(device, np.random.RandomState(SEED + 15), baked_parts["dx_parent"])
     torch.cuda.empty_cache()
     kernels += check_composite_kernels(device, np.random.RandomState(SEED + 6), baked_parts["composite_parent"])
     kernels += check_pooled_composite_kernels(device, np.random.RandomState(SEED + 9), baked_parts["composite_parent"],

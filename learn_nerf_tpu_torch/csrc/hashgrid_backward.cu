@@ -23,22 +23,16 @@
 //   consecutive points, one warp per work item (up to two levels that share
 //   a cell), one lane per point; x and the tile's slab of g are read as
 //   whole lines into shared memory;
-// - pair atomics: corners c and c + 4 differ in x alone, and where their
-//   rows are the two rows of one aligned pair (always for even x in a dense
-//   level of even row count, and for even x in a hashed level of a
-//   power-of-two table: the forward's pair loads) both rows take ONE vector
-//   atomic of 2F floats (red.global.add.v4.f32 at F = 2, new with sm_90):
-//   6 atomics a point and level on average in place of 8.  For that, every
-//   level's buffer starts at an even row of the flat buffer, which is
-//   aligned to 16 bytes (the wrapper pads; the entry point below lays the
-//   levels out the same way);
-// - run combining: the callers feed points along rays, so the lanes of a
-//   warp that fall in one cell form runs of consecutive lanes.  Each lane
-//   compares its cell with its neighbour's; where a warp has at least
-//   kCombineMinMerged lanes that continue a run, it sums w_c * g over each
-//   run (a segmented reduction by shuffles) and only the run's first lane
-//   adds to the tables.  Warps without runs (the fine hashed levels, unrelated
-//   points) pay three shuffles and a vote;
+// - the tail is table_atomics.cuh's, shared with hashgrid_dx.cu's backward:
+//   pair atomics (where corners c and c + 4 take the two rows of one
+//   aligned pair, ONE vector atomic of 2F floats: 6 atomics a point and
+//   level on average in place of 8; for that, every level's buffer starts
+//   at an even row of the flat buffer, which is aligned to 16 bytes: the
+//   wrapper pads, and the entry point below lays the levels out the same
+//   way), and run combining (the callers feed points along rays, so the
+//   lanes of a warp that fall in one cell form runs; where a warp has at
+//   least kCombineMinMerged lanes that continue a run, it sums each run by
+//   shuffles and only the run's first lane adds to the tables);
 // - a row alone takes one vector atomic per 2 floats (F = 2), or one per
 //   row at F = 4.
 // Sums are f32 atomics in an order that changes from run to run: two runs
@@ -54,54 +48,18 @@
 // coarsest levels' gradients summed in shared memory by a persistent grid
 // (kSharedCoarse), which lost.
 #include "encode_args.cuh"
+#include "table_atomics.cuh"
 
 namespace nerf {
 
 constexpr bool kPairAtomics = true;
 constexpr bool kCombineRuns = true;
-// Lanes of a warp that must continue a run before the warp combines: the
-// reduction costs 5 shuffles per value, an eighth of the atomics it then
-// has to save to be worth it.
-constexpr int kCombineMinMerged = 8;
 // Ablation switch (off as built): the leading dense levels of at most
 // kSharedFloats floats sum in shared memory, flushed once per block.
 constexpr bool kSharedCoarse = false;
 constexpr int kSharedLevels = 2;
 constexpr int kSharedFloats = 8192;
 constexpr int kSharedBlocksPerSm = 2;
-
-// grad[row, :] += v[:]: one vector atomic per row at F = 4, per pair of
-// floats at F = 2, else one scalar atomic per float.
-template <int F>
-__device__ __forceinline__ void add_row(float* __restrict__ grad, unsigned int row,
-                                        const float (&v)[F]) {
-  float* dst = grad + static_cast<unsigned long long>(row) * F;
-  if constexpr (F == 4 && kPairAtomics) {
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (F % 2 == 0) {
-#pragma unroll
-    for (int f = 0; f < F; f += 2) {
-      atomicAdd(reinterpret_cast<float2*>(dst + f), make_float2(v[f], v[f + 1]));
-    }
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(dst + f, v[f]);
-  }
-}
-
-// grad[2 * pair, :] += lo[:] and grad[2 * pair + 1, :] += hi[:] as one
-// vector atomic of 2F floats (F = 1, 2; the buffer starts at an even row
-// of a 16-byte aligned buffer).
-template <int F>
-__device__ __forceinline__ void add_row_pair(float* __restrict__ grad, unsigned int pair,
-                                             const float (&lo)[F], const float (&hi)[F]) {
-  float* dst = grad + static_cast<unsigned long long>(pair) * (2 * F);
-  if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(lo[0], lo[1], hi[0], hi[1]));
-  } else {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(lo[0], hi[0]));
-  }
-}
 
 // Scalar atomics into a level's sums in shared memory (kSharedCoarse).
 template <int F>
@@ -117,7 +75,6 @@ template <int F, int K>
 __device__ __forceinline__ void backward_item(bool active, const float (&x)[3],
                                               const EncodeArgs& a, int l0, const float* gp,
                                               float* const (&shared)[kSharedLevels]) {
-  const unsigned int lane = threadIdx.x & 31u;
   float g[K * F];
 #pragma unroll
   for (int i = 0; i < K * F; ++i) g[i] = active ? gp[i] : 0.0f;
@@ -136,38 +93,7 @@ __device__ __forceinline__ void backward_item(bool active, const float (&x)[3],
   }
 
   bool adds = active;
-  if constexpr (kCombineRuns) {
-    // Does this lane continue its neighbour's run (the same cell)?  Active
-    // lanes are a prefix of the warp, so an active lane's neighbour is one.
-    constexpr unsigned int kAll = 0xffffffffu;
-    // (Every lane runs all three shuffles: no short circuit between them.)
-    const unsigned int left0 = __shfl_up_sync(kAll, cell.base[0], 1);
-    const unsigned int left1 = __shfl_up_sync(kAll, cell.base[1], 1);
-    const unsigned int left2 = __shfl_up_sync(kAll, cell.base[2], 1);
-    const bool same = active && lane > 0 && left0 == cell.base[0] && left1 == cell.base[1] &&
-                      left2 == cell.base[2];
-    const unsigned int heads = __ballot_sync(kAll, !same);
-    if (32 - __popc(heads) >= kCombineMinMerged) {
-      // The run of this lane ends before the next head above it.
-      const unsigned int above = lane == 31 ? 0u : heads & ~((2u << lane) - 1u);
-      const unsigned int end = above ? static_cast<unsigned int>(__ffs(above)) - 2u : 31u;
-      // After the step of distance d, a lane holds the sum over itself and
-      // the next 2d - 1 lanes of its run: its first lane ends with all.
-#pragma unroll
-      for (unsigned int d = 1; d < 32; d *= 2) {
-        const bool take = lane + d <= end;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-#pragma unroll
-          for (int i = 0; i < K * F; ++i) {
-            const float other = __shfl_down_sync(kAll, v[c][i], d);
-            if (take) v[c][i] = __fadd_rn(v[c][i], other);
-          }
-        }
-      }
-      adds = active && !same;
-    }
-  }
+  if constexpr (kCombineRuns) adds = combine_runs<K * F>(active, cell, v);
   if (!adds) return;
 
 #pragma unroll
@@ -185,30 +111,7 @@ __device__ __forceinline__ void backward_item(bool active, const float (&x)[3],
         continue;
       }
     }
-    const bool paired = kPairAtomics && F <= 2 && a.paired[l0 + k] != 0;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const unsigned int r0 = rows[c], r1 = rows[c + 4];
-      float first[F], second[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) first[f] = v[c][k * F + f], second[f] = v[c + 4][k * F + f];
-      if constexpr (F <= 2) {
-        // r0 ^ r1 == 1: the two rows of one aligned pair (two corners that
-        // hash to ONE row, in a table that is no power of two, are not).
-        if (paired && (r0 ^ r1) == 1u) {
-          float lo[F], hi[F];
-#pragma unroll
-          for (int f = 0; f < F; ++f) {
-            lo[f] = (r0 & 1u) ? second[f] : first[f];
-            hi[f] = (r0 & 1u) ? first[f] : second[f];
-          }
-          add_row_pair<F>(grad, r0 >> 1, lo, hi);
-          continue;
-        }
-      }
-      add_row<F>(grad, r0, first);
-      add_row<F>(grad, r1, second);
-    }
+    add_corners<F, K * F, kPairAtomics>(grad, rows, v, k, a.paired[l0 + k] != 0);
   }
 }
 

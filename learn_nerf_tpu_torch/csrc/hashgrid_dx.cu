@@ -35,28 +35,58 @@
 //
 // What bounds them on an H100: as the encode, row reads from L2 (8 random
 // rows a point and level), and for the backward also the atomics of the
-// table gradient (8 a point and level), as hashgrid_backward.  This first
-// design is the simple one:
-// - hashgrid_dx: one thread a point, over all levels in order (the sum
-//   over levels stays in registers, in the plain version's order, with no
-//   atomics and no second pass); a work item of two levels of one run
-//   (encode_args.cuh) computes its cell once and issues its 16 row loads
-//   before the first multiply-add;
-// - the backward: one thread a (point, work item), as the encode kernel,
-//   its grad_g columns written by that thread alone, one atomic a corner
-//   row (a vector atomic of F floats at F = 2 and 4) into the
-//   table-gradient kernel's padded flat buffer.
-// The pair loads, pair atomics and run combining of the encode and
-// table-gradient kernels are left for a later redesign.
+// table gradient (8 a point and level), as hashgrid_backward.  Each kernel
+// takes the layout and the levers of the kernel it resembles:
+// - hashgrid_dx: the encode kernel's (hashgrid_encode.cu).  One thread a
+//   (point, work item), a point's items on consecutive threads, a block of
+//   floor(256 / items) whole points; each thread reads its 8 rows a level
+//   with gather.cuh's load_corners (without the encode's pair loads:
+//   kPairLoads) and its K * F columns of g as one vector (a float4 at K =
+//   F = 2, so a warp reads g in whole lines), and writes its per-level
+//   terms (3 floats a level) to shared memory.  After one barrier a thread a (point, axis) sums the terms over
+//   levels 0..L-1 in order from 0.0f: the sum of a thread a point over all
+//   levels (the first design, csrc/ablations/hashgrid_dx_parent.cu), bit
+//   for bit.  The table-gradient kernel's warp-per-item layout was 3-9 %
+//   slower for the encode, which reads the same rows, and is not taken.
+//   A schedule of dense levels alone (the hierarchy's coarse model) keeps
+//   the first design's thread a point over all levels, g read as vectors:
+//   its tables are small and neighbouring samples share rows, which
+//   the lanes of one instruction read together where a warp holds 32
+//   points of one level; the encode's grid lost there (PERF.md, section 6);
+// - the backward: the table-gradient kernel's (encode_args.cuh: a block
+//   tile of kTilePoints consecutive points, a warp a work item, a lane a
+//   point).  x, h and the tile's slab of g are staged in shared memory
+//   from whole lines; a lane reads its item's columns of g from the slab
+//   and writes its columns of grad_g in their place, and the slab goes out
+//   in whole lines.  Rows are read as in the forward, and one read of a
+//   row serves both grad_g and the table gradient; a_c * g goes through
+//   table_atomics.cuh's tail (run combining, pair atomics) into
+//   hashgrid_backward's padded flat buffer.  grad_g is summed as in the
+//   first design, bit for bit; the table gradients are f32 atomics, whose
+//   order changes from run to run.
+// scripts/hashgrid_ablations.py times the first design and this one with
+// pair loads, without combining, without pair atomics, at 3 blocks a SM
+// and with the encode's grid for every schedule.
 #include <cstdint>
 
 #include "encode_args.cuh"
 #include "gather.cuh"
+#include "table_atomics.cuh"
 
 namespace nerf {
 namespace {
 
+// The encode's pair loads (gather.cuh's load_corners) are off: they made
+// the forward 3-8 % slower at every shape on an H100 and moved the backward
+// by -1 to +3 % (PERF.md, section 6); scripts/hashgrid_ablations.py times
+// them ("dx pair loads").
+constexpr bool kPairLoads = false;
+constexpr bool kPairAtomics = true;
+constexpr bool kCombineRuns = true;
 constexpr int kDxThreads = 256;
+// Shared floats of the forward's level terms: (3 * levels) | 1 a point, at
+// most floor(256 / items) points, and levels <= 2 * items.
+constexpr int kDxTermFloats = 7 * kDxThreads;
 
 // d cf_a / d x_a for each axis a, as JAX differentiates cell_of's steps.
 __device__ __forceinline__ void cell_slopes(const float (&x)[3], int g, const Bbox& box, bool smooth,
@@ -108,60 +138,118 @@ __device__ __forceinline__ Cell corner_rows(const float (&x)[3], const EncodeArg
   return cell;
 }
 
-// dx += the K levels from l0 on (gp: the point's row of g).
+// The terms dx_l of the K levels from l0 on (3 floats a level, each summed
+// over corners 0..7 from 0.0f; gp: the point's row of g at column l0 * F).
 template <int F, int K>
-__device__ __forceinline__ void dx_item(const float (&x)[3], const EncodeArgs& a, int l0,
-                                        const float* __restrict__ gp, float (&dx)[3]) {
+__device__ __forceinline__ void dx_terms(const float (&x)[3], const EncodeArgs& a, int l0,
+                                         const float* __restrict__ gp, float (&terms)[K][3]) {
   unsigned int rows[8];
   float slope[3];
   const Cell cell = corner_rows(x, a, l0, rows, slope);
   Row<F> v[K][8];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) v[k][c] = load_row<F>(a.table[l0 + k], rows[c]);
-  }
+  for (int k = 0; k < K; ++k) load_corners<F>(a.table[l0 + k], rows, kPairLoads && a.paired[l0 + k] != 0, v[k]);
+  float gk[K * F];
+  load_floats<K * F>(gp, gk);
   float grad[8][3];
 #pragma unroll
   for (int c = 0; c < 8; ++c) weight_gradient(cell, slope, c, grad[c]);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    float gk[F];
 #pragma unroll
-    for (int f = 0; f < F; ++f) gk[f] = __ldg(gp + (l0 + k) * F + f);
-    float term[3] = {0.0f, 0.0f, 0.0f};
+    for (int ax = 0; ax < 3; ++ax) terms[k][ax] = 0.0f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      float dot = __fmul_rn(v[k][c].v[0], gk[0]);
+      float dot = __fmul_rn(v[k][c].v[0], gk[k * F]);
 #pragma unroll
-      for (int f = 1; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(v[k][c].v[f], gk[f]));
+      for (int f = 1; f < F; ++f) dot = __fadd_rn(dot, __fmul_rn(v[k][c].v[f], gk[k * F + f]));
 #pragma unroll
-      for (int ax = 0; ax < 3; ++ax) term[ax] = __fadd_rn(term[ax], __fmul_rn(grad[c][ax], dot));
+      for (int ax = 0; ax < 3; ++ax) terms[k][ax] = __fadd_rn(terms[k][ax], __fmul_rn(grad[c][ax], dot));
     }
+  }
+}
+
+// One (point, item) thread's terms into its slots of the block's shared
+// memory (slot: the point's row at level l0).
+template <int F, int K>
+__device__ __forceinline__ void dx_item(const float (&x)[3], const EncodeArgs& a, int l0,
+                                        const float* __restrict__ gp, float* slot) {
+  float terms[K][3];
+  dx_terms<F, K>(x, a, l0, gp, terms);
 #pragma unroll
-    for (int ax = 0; ax < 3; ++ax) dx[ax] = __fadd_rn(dx[ax], term[ax]);
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) slot[3 * k + ax] = terms[k][ax];
   }
 }
 
 template <int F>
 __global__ void __launch_bounds__(kDxThreads)
-    hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ g, unsigned int n,
+    hashgrid_dx_kernel(const float* __restrict__ x, const float* __restrict__ g, long long n,
                        const __grid_constant__ EncodeArgs a, float* __restrict__ out) {
-  const unsigned int p = blockIdx.x * kDxThreads + threadIdx.x;
+  __shared__ float terms[kDxTermFloats];  // [points, stride]: level l's 3 terms at 3 * l
+  const int items = a.items, points = kDxThreads / items, stride = (3 * a.levels) | 1;
+  const long long base = static_cast<long long>(blockIdx.x) * points;
+  const int count = static_cast<int>(n - base < points ? n - base : points);
+  const int local = threadIdx.x / items;
+  if (local < count) {  // the last block's threads past n only meet the barrier
+    const int item = threadIdx.x - local * items;
+    const float* xp = x + 3 * (base + local);
+    const float point[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
+    const int l0 = a.item_level[item];
+    const float* gp = g + (base + local) * (a.levels * F) + l0 * F;
+    float* slot = terms + local * stride + 3 * l0;
+    if (a.item_levels[item] == kLevelsPerItem) {
+      dx_item<F, kLevelsPerItem>(point, a, l0, gp, slot);
+    } else {
+      dx_item<F, 1>(point, a, l0, gp, slot);
+    }
+  }
+  __syncthreads();
+  // dx[p, ax]: the levels' terms in level order from 0.0f.
+  for (int i = threadIdx.x; i < 3 * count; i += blockDim.x) {
+    const int q = i / 3;
+    const float* t = terms + q * stride + (i - 3 * q);
+    float sum = 0.0f;
+    for (int l = 0; l < a.levels; ++l) sum = __fadd_rn(sum, t[3 * l]);
+    out[3 * base + i] = sum;
+  }
+}
+
+// dx += the terms of the K levels from l0 on, in level order.
+template <int F, int K>
+__device__ __forceinline__ void dx_add(const float (&x)[3], const EncodeArgs& a, int l0,
+                                       const float* __restrict__ gp, float (&dx)[3]) {
+  float terms[K][3];
+  dx_terms<F, K>(x, a, l0, gp, terms);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) dx[ax] = __fadd_rn(dx[ax], terms[k][ax]);
+  }
+}
+
+// The first design's layout, for schedules of dense levels alone (see
+// launch_dx): a thread a point over all levels in order, dx in registers.
+template <int F>
+__global__ void __launch_bounds__(kDxThreads)
+    hashgrid_dx_points_kernel(const float* __restrict__ x, const float* __restrict__ g, long long n,
+                              const __grid_constant__ EncodeArgs a, float* __restrict__ out) {
+  const long long p = static_cast<long long>(blockIdx.x) * kDxThreads + threadIdx.x;
   if (p >= n) return;
-  const float* xp = x + 3ull * p;
+  const float* xp = x + 3 * p;
   const float point[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
-  const float* gp = g + static_cast<unsigned long long>(p) * (a.levels * F);
+  const float* gp = g + p * (a.levels * F);
   float dx[3] = {0.0f, 0.0f, 0.0f};
   for (int item = 0; item < a.items; ++item) {
     const int l0 = a.item_level[item];
     if (a.item_levels[item] == kLevelsPerItem) {
-      dx_item<F, kLevelsPerItem>(point, a, l0, gp, dx);
+      dx_add<F, kLevelsPerItem>(point, a, l0, gp + l0 * F, dx);
     } else {
-      dx_item<F, 1>(point, a, l0, gp, dx);
+      dx_add<F, 1>(point, a, l0, gp + l0 * F, dx);
     }
   }
-  float* dst = out + 3ull * p;
+  float* dst = out + 3 * p;
   dst[0] = dx[0], dst[1] = dx[1], dst[2] = dx[2];
 }
 
@@ -170,35 +258,20 @@ struct LevelGrads {
   float* level[kMaxLevels];
 };
 
-// grad[row, :] += v[:]: one vector atomic of F floats at F = 2 and 4 (the
-// buffer is 16-byte aligned and every level starts at an even row), else
-// one scalar atomic a float.
-template <int F>
-__device__ __forceinline__ void add_row(float* __restrict__ grad, unsigned int row, const float (&v)[F]) {
-  float* dst = grad + static_cast<unsigned long long>(row) * F;
-  if constexpr (F == 4) {
-    atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (F == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
-  } else {
-#pragma unroll
-    for (int f = 0; f < F; ++f) atomicAdd(dst + f, v[f]);
-  }
-}
-
+// One lane's point in the K levels from l0 on.  `active` is false for the
+// lanes past the tile's last point: they take part in the shuffles and add
+// nothing.  slab is the point's row of the staged tile at column l0 * F: g
+// on the way in, grad_g on the way out.
 template <int F, int K>
-__device__ __forceinline__ void dx_backward_item(const float (&x)[3], const float (&h)[3],
+__device__ __forceinline__ void dx_backward_item(bool active, const float (&x)[3], const float (&h)[3],
                                                  const EncodeArgs& a, const LevelGrads& grads, int l0,
-                                                 const float* __restrict__ gp, float* __restrict__ gg) {
+                                                 float* slab) {
   unsigned int rows[8];
   float slope[3];
   const Cell cell = corner_rows(x, a, l0, rows, slope);
   Row<F> v[K][8];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) v[k][c] = load_row<F>(a.table[l0 + k], rows[c]);
-  }
+  for (int k = 0; k < K; ++k) load_corners<F>(a.table[l0 + k], rows, kPairLoads && a.paired[l0 + k] != 0, v[k]);
   float w[8];  // a_c = grad(w_c) . h
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -206,7 +279,9 @@ __device__ __forceinline__ void dx_backward_item(const float (&x)[3], const floa
     weight_gradient(cell, slope, c, grad);
     w[c] = __fadd_rn(__fadd_rn(__fmul_rn(grad[0], h[0]), __fmul_rn(grad[1], h[1])), __fmul_rn(grad[2], h[2]));
   }
-  float out[K * F];
+  float gk[K * F];
+#pragma unroll
+  for (int i = 0; i < K * F; ++i) gk[i] = active ? slab[i] : 0.0f;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
 #pragma unroll
@@ -214,72 +289,117 @@ __device__ __forceinline__ void dx_backward_item(const float (&x)[3], const floa
       float acc = __fmul_rn(w[0], v[k][0].v[f]);
 #pragma unroll
       for (int c = 1; c < 8; ++c) acc = __fadd_rn(acc, __fmul_rn(w[c], v[k][c].v[f]));
-      out[k * F + f] = acc;
+      if (active) slab[k * F + f] = acc;
     }
   }
-  store_floats<K * F>(gg + l0 * F, out);
+  float t[8][K * F];  // t[c][k * F + f] = a_c * g[k * F + f]
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int i = 0; i < K * F; ++i) t[c][i] = __fmul_rn(w[c], gk[i]);
+  }
+  bool adds = active;
+  if constexpr (kCombineRuns) adds = combine_runs<K * F>(active, cell, t);
+  if (!adds) return;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    float gk[F];
-#pragma unroll
-    for (int f = 0; f < F; ++f) gk[f] = __ldg(gp + (l0 + k) * F + f);
-    float* grad = grads.level[l0 + k];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      float row[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f) row[f] = __fmul_rn(w[c], gk[f]);
-      add_row<F>(grad, rows[c], row);
-    }
+    add_corners<F, K * F, kPairAtomics>(grads.level[l0 + k], rows, t, k, a.paired[l0 + k] != 0);
   }
 }
 
 template <int F>
-__global__ void __launch_bounds__(kDxThreads)
+__global__ void __launch_bounds__(kTileThreads)
     hashgrid_dx_backward_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                                const float* __restrict__ h, unsigned int total,
+                                const float* __restrict__ h, long long n, long long tiles,
                                 const __grid_constant__ EncodeArgs a,
                                 const __grid_constant__ LevelGrads grads, float* __restrict__ grad_g) {
-  const unsigned int t = blockIdx.x * kDxThreads + threadIdx.x;
-  if (t >= total) return;
-  const unsigned int items = static_cast<unsigned int>(a.items);
-  const unsigned int p = t / items;
-  const int item = static_cast<int>(t - p * items);
-  const float* xp = x + 3ull * p;
-  const float point[3] = {__ldg(xp), __ldg(xp + 1), __ldg(xp + 2)};
-  const float* hp = h + 3ull * p;
-  const float cot[3] = {__ldg(hp), __ldg(hp + 1), __ldg(hp + 2)};
-  const unsigned long long row = static_cast<unsigned long long>(p) * (a.levels * F);
-  const int l0 = a.item_level[item];
-  if (a.item_levels[item] == kLevelsPerItem) {
-    dx_backward_item<F, kLevelsPerItem>(point, cot, a, grads, l0, g + row, grad_g + row);
-  } else {
-    dx_backward_item<F, 1>(point, cot, a, grads, l0, g + row, grad_g + row);
+  extern __shared__ __align__(16) float smem[];
+  const int width = a.levels * F, stride = tile_stride(width);
+  float* xs = smem;                     // [kTilePoints, 3]
+  float* hs = smem + 3 * kTilePoints;   // [kTilePoints, 3]
+  float* tile = hs + 3 * kTilePoints;   // [kTilePoints, stride]: g in, grad_g out
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int units = a.items * kTileChunks;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * kTilePoints;
+    const int count = static_cast<int>(n - base < kTilePoints ? n - base : kTilePoints);
+    for (int i = threadIdx.x; i < 3 * count; i += blockDim.x) {
+      xs[i] = __ldg(x + 3 * base + i);
+      hs[i] = __ldg(h + 3 * base + i);
+    }
+    // The tile's slabs of g and grad_g are contiguous: count * width floats.
+    const float* src = g + base * width;
+    for (int e = threadIdx.x; e < count * width; e += blockDim.x) {
+      const int row = e / width;
+      tile[row * stride + (e - row * width)] = __ldg(src + e);
+    }
+    __syncthreads();
+    for (int u = warp; u < units; u += warps) {  // the same for all lanes of a warp
+      const int chunk = kTileChunks == 1 ? 0 : u / a.items;
+      const int item = u - chunk * a.items;
+      const int p = 32 * chunk + lane;
+      const bool active = p < count;
+      const float point[3] = {active ? xs[3 * p] : 0.0f, active ? xs[3 * p + 1] : 0.0f,
+                              active ? xs[3 * p + 2] : 0.0f};
+      const float cot[3] = {active ? hs[3 * p] : 0.0f, active ? hs[3 * p + 1] : 0.0f,
+                            active ? hs[3 * p + 2] : 0.0f};
+      const int l0 = a.item_level[item];
+      float* slab = tile + p * stride + l0 * F;
+      if (a.item_levels[item] == kLevelsPerItem) {
+        dx_backward_item<F, kLevelsPerItem>(active, point, cot, a, grads, l0, slab);
+      } else {
+        dx_backward_item<F, 1>(active, point, cot, a, grads, l0, slab);
+      }
+    }
+    __syncthreads();
+    float* dst = grad_g + base * width;
+    for (int e = threadIdx.x; e < count * width; e += blockDim.x) {
+      const int row = e / width;
+      dst[e] = tile[row * stride + (e - row * width)];
+    }
+    __syncthreads();  // the next tile overwrites xs, hs and the slab
   }
+}
+
+// Does every level index its table densely?  Then the tables are small
+// and neighbouring samples share rows, which lanes of one instruction read
+// together where a warp holds 32 points of one level: the first design's
+// thread a point is faster there (the hierarchy's coarse pass, PERF.md
+// section 6), the encode's grid wherever a level hashes.
+bool dense_only(const EncodeArgs& a) {
+  for (int l = 0; l < a.levels; ++l) {
+    if (a.hashed[l]) return false;
+  }
+  return true;
 }
 
 template <int F>
 cudaError_t launch_dx(const float* x, const float* g, long long n, const EncodeArgs& a, float* out,
                       cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((n + kDxThreads - 1) / kDxThreads);
-  hashgrid_dx_kernel<F><<<blocks, kDxThreads, 0, stream>>>(x, g, static_cast<unsigned int>(n), a, out);
+  if (dense_only(a)) {
+    const unsigned int blocks = static_cast<unsigned int>((n + kDxThreads - 1) / kDxThreads);
+    hashgrid_dx_points_kernel<F><<<blocks, kDxThreads, 0, stream>>>(x, g, n, a, out);
+    return cudaGetLastError();
+  }
+  const int points = kDxThreads / a.items;
+  const unsigned int blocks = static_cast<unsigned int>((n + points - 1) / points);
+  hashgrid_dx_kernel<F><<<blocks, points * a.items, 0, stream>>>(x, g, n, a, out);
   return cudaGetLastError();
 }
 
 template <int F>
 cudaError_t launch_dx_backward(const float* x, const float* g, const float* h, long long n,
-                               const EncodeArgs& a, const LevelGrads& grads, float* grad_g,
-                               cudaStream_t stream) {
-  const long long total = n * a.items;
-  const unsigned int blocks = static_cast<unsigned int>((total + kDxThreads - 1) / kDxThreads);
-  hashgrid_dx_backward_kernel<F><<<blocks, kDxThreads, 0, stream>>>(
-      x, g, h, static_cast<unsigned int>(total), a, grads, grad_g);
+                               long long tiles, const EncodeArgs& a, const LevelGrads& grads,
+                               float* grad_g, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (3 * kTilePoints + tile_floats(a.levels * F));
+  hashgrid_dx_backward_kernel<F><<<static_cast<unsigned int>(tiles), tile_block_threads(a.items), smem,
+                                   stream>>>(x, g, h, n, tiles, a, grads, grad_g);
   return cudaGetLastError();
 }
 
 bool valid_args(const EncodeArgs& a) {
   return a.levels >= 1 && a.levels <= kMaxLevels && a.items >= 1 && a.items <= a.levels &&
-         a.features >= 1 && a.features <= 4;
+         a.levels <= 2 * a.items && a.features >= 1 && a.features <= 4;
 }
 
 }  // namespace
@@ -311,13 +431,14 @@ extern "C" int nerf_hashgrid_dx(const float* x, const float* g, long long n, con
 // as nerf_hashgrid_backward's (level l from an even row on; rows of odd
 // count padded by one).  Launches on the given stream, does not
 // synchronise, returns the cudaError_t of the launch.  The caller checks
-// shapes and n * items < 2^31.
+// shapes and that the tiles of kTilePoints points number under 2^31.
 extern "C" int nerf_hashgrid_dx_backward(const float* x, const float* g, const float* h, long long n,
                                          const nerf::EncodeArgs* args, float* grad_g, float* grad,
                                          void* stream) {
   using namespace nerf;
   const EncodeArgs& a = *args;
-  if (!valid_args(a) || n * a.items >= (1ll << 31) || reinterpret_cast<uintptr_t>(grad) % 16 != 0) {
+  const long long tiles = (n + kTilePoints - 1) / kTilePoints;
+  if (!valid_args(a) || n < 0 || tiles >= (1ll << 31) || reinterpret_cast<uintptr_t>(grad) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
@@ -330,9 +451,9 @@ extern "C" int nerf_hashgrid_dx_backward(const float* x, const float* g, const f
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (a.features) {
-    case 1: return static_cast<int>(launch_dx_backward<1>(x, g, h, n, a, grads, grad_g, s));
-    case 2: return static_cast<int>(launch_dx_backward<2>(x, g, h, n, a, grads, grad_g, s));
-    case 3: return static_cast<int>(launch_dx_backward<3>(x, g, h, n, a, grads, grad_g, s));
-    default: return static_cast<int>(launch_dx_backward<4>(x, g, h, n, a, grads, grad_g, s));
+    case 1: return static_cast<int>(launch_dx_backward<1>(x, g, h, n, tiles, a, grads, grad_g, s));
+    case 2: return static_cast<int>(launch_dx_backward<2>(x, g, h, n, tiles, a, grads, grad_g, s));
+    case 3: return static_cast<int>(launch_dx_backward<3>(x, g, h, n, tiles, a, grads, grad_g, s));
+    default: return static_cast<int>(launch_dx_backward<4>(x, g, h, n, tiles, a, grads, grad_g, s));
   }
 }

@@ -28,7 +28,8 @@
 // - corners c and c + 4 differ in x alone, so their rows are neighbours in
 //   a dense level, and in a hashed level of a power-of-two table when x is
 //   even (x ^ 1 flips bit 0 of the hash): where both lie in one aligned
-//   pair of rows, one load of 2F floats reads both (F = 1, 2).  That cuts
+//   pair of rows, one load of 2F floats reads both (F = 1, 2; gather.cuh's
+//   load_corners, which hashgrid_dx.cu shares).  That cuts
 //   a quarter of the row loads and a third of the kernel's time on an
 //   H100 (PERF.md, section 6);
 // - rows are read through the read-only path (rows that share a sector
@@ -50,36 +51,6 @@
 namespace nerf {
 
 constexpr int kEncodeThreads = 256;
-
-// The rows of a cell's 8 corners.  Where a level's tables hold whole
-// aligned pairs of rows (and F <= 2), corner c's pair is read as one row
-// of 2F floats, and corner c + 4 takes its row from the same load when it
-// lies in that pair.
-template <int F>
-__device__ __forceinline__ void load_corners(const float* __restrict__ table,
-                                             const unsigned int (&rows)[8], bool paired,
-                                             Row<F> (&v)[8]) {
-  if constexpr (F <= 2) {
-    if (paired) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const unsigned int r0 = rows[c], r1 = rows[c + 4];
-        const Row<2 * F> pair = load_row<2 * F>(table, r0 >> 1);
-#pragma unroll
-        for (int f = 0; f < F; ++f) v[c].v[f] = (r0 & 1) ? pair.v[F + f] : pair.v[f];
-        if ((r0 >> 1) == (r1 >> 1)) {
-#pragma unroll
-          for (int f = 0; f < F; ++f) v[c + 4].v[f] = (r1 & 1) ? pair.v[F + f] : pair.v[f];
-        } else {
-          v[c + 4] = load_row<F>(table, r1);
-        }
-      }
-      return;
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = load_row<F>(table, rows[c]);
-}
 
 template <int F, int K>
 __device__ __forceinline__ void encode_item(const float (&x)[3], const EncodeArgs& a, int l0,

@@ -9,10 +9,13 @@ differentiates that gradient once more, into the tables and the MLP.  Both
 are XLA ops there; here they are two kernels of ``csrc/hashgrid_dx.cu``:
 
 * ``hashgrid_dx_kernel``: points ``x [N, 3]`` and the encoding's cotangent
-  ``g [N, L * F]`` give ``dx [N, 3]``, the encoding's VJP in the points;
+  ``g [N, L * F]`` give ``dx [N, 3]``, the encoding's VJP in the points
+  (on the encode kernel's thread grid where a level hashes, a thread a
+  point where none does);
 * ``hashgrid_dx_backward_kernel``: that function's VJP for a cotangent
   ``h [N, 3]``, in ``g`` (``[N, L * F]``) and in every table (one padded
-  flat buffer, laid out as :mod:`.hashgrid_backward`'s), in one launch.
+  flat buffer, laid out as :mod:`.hashgrid_backward`'s), in one launch (the
+  table-gradient kernel's layout, run combining and pair atomics).
 
 :class:`HashGridDx` joins them for autograd: its forward launches the first
 kernel, its backward the second.  It is differentiable in ``g`` and the
@@ -45,6 +48,11 @@ Tensor = torch.Tensor
 counter = build.LaunchCounter()
 backward_counter = build.LaunchCounter()
 
+# Points of the backward kernel's block tile (csrc/encode_args.cuh
+# kTilePoints): it takes fewer than 2^31 tiles.
+TILE_POINTS = 32
+
+
 def _check_cotangent(t: Tensor, n: int, width: int, device: torch.device, what: str) -> None:
     if t.dtype != torch.float32 or t.shape != (n, width) or not t.is_contiguous() or t.device != device:
         raise ValueError(
@@ -53,24 +61,53 @@ def _check_cotangent(t: Tensor, n: int, width: int, device: torch.device, what: 
         )
 
 
+def run_dx(entry, args: EncodeArgs, x: Tensor, g: Tensor) -> Tensor:
+    """``dx [N, 3]`` by the C entry point ``entry`` (the built library's
+    ``nerf_hashgrid_dx``, or a measured variant's, such as
+    ``nerf_hashgrid_dx_parent``) on operands that passed
+    :func:`launch_dx`'s checks; counts nothing."""
+    n, device = x.shape[0], x.device
+    out = torch.empty((n, 3), dtype=torch.float32, device=device)
+    if n == 0:
+        return out
+    with build.launch_context(device):
+        err = entry(x.data_ptr(), g.data_ptr(), n, ctypes.byref(args), out.data_ptr(), build.current_stream(device))
+    build.check_launch(build.library(), err, "hashgrid_dx")
+    return out
+
+
+def run_dx_backward(entry, args: EncodeArgs, x: Tensor, g: Tensor, h: Tensor) -> Tuple[Tensor, List[Tensor]]:
+    """``(grad_g, per-level table gradients)`` by the C entry point
+    ``entry`` (``nerf_hashgrid_dx_backward`` or a variant's) on operands
+    that passed :func:`launch_dx_backward`'s checks; counts nothing."""
+    n, device = x.shape[0], x.device
+    levels, features = args.levels, args.features
+    rows = [dense_level_rows(args.grid[level], args.size[level]) for level in range(levels)]
+    flat = torch.zeros((level_offsets(args)[-1], features), dtype=torch.float32, device=device)
+    grads = list(flat.split([piece for r in rows for piece in (r, r % 2)])[::2])
+    grad_g = torch.empty((n, levels * features), dtype=torch.float32, device=device)
+    if n == 0:
+        return grad_g, grads
+    with build.launch_context(device):
+        err = entry(
+            x.data_ptr(), g.data_ptr(), h.data_ptr(), n, ctypes.byref(args), grad_g.data_ptr(),
+            flat.data_ptr(), build.current_stream(device),
+        )
+    build.check_launch(build.library(), err, "hashgrid_dx_backward")
+    return grad_g, grads
+
+
 def launch_dx(args: EncodeArgs, x: Tensor, g: Tensor) -> Tensor:
     """Launch ``hashgrid_dx_kernel`` on the current stream with a packed
     argument: ``x [N, 3]``, ``g [N, L * F]`` -> ``dx [N, 3]``."""
     check_points(x)
-    n, device = x.shape[0], x.device
-    _check_cotangent(g, n, args.levels * args.features, device, "cotangent g")
+    n = x.shape[0]
+    _check_cotangent(g, n, args.levels * args.features, x.device, "cotangent g")
     if n >= 2**31:
-        raise ValueError(f"{n} points exceed the kernel's 2^31 threads")
-    out = torch.empty((n, 3), dtype=torch.float32, device=device)
-    if n == 0:
-        return out
-    lib = build.library()
-    with build.launch_context(device):
-        err = lib.nerf_hashgrid_dx(
-            x.data_ptr(), g.data_ptr(), n, ctypes.byref(args), out.data_ptr(), build.current_stream(device),
-        )
-    build.check_launch(lib, err, "hashgrid_dx")
-    counter.launches += 1
+        raise ValueError(f"{n} points: the kernel takes fewer than 2^31")
+    out = run_dx(build.library().nerf_hashgrid_dx, args, x, g)
+    if n:
+        counter.launches += 1
     return out
 
 
@@ -82,26 +119,15 @@ def launch_dx_backward(args: EncodeArgs, x: Tensor, g: Tensor, h: Tensor) -> Tup
     """
     check_points(x)
     n, device = x.shape[0], x.device
-    levels, features = args.levels, args.features
-    _check_cotangent(g, n, levels * features, device, "cotangent g")
+    _check_cotangent(g, n, args.levels * args.features, device, "cotangent g")
     _check_cotangent(h, n, 3, device, "cotangent h")
-    if n * args.items >= 2**31:
-        raise ValueError(f"{n} points x {args.items} work items exceed the kernel's 2^31 threads")
-    rows = [dense_level_rows(args.grid[level], args.size[level]) for level in range(levels)]
-    flat = torch.zeros((level_offsets(args)[-1], features), dtype=torch.float32, device=device)
-    grads = list(flat.split([piece for r in rows for piece in (r, r % 2)])[::2])
-    grad_g = torch.empty((n, levels * features), dtype=torch.float32, device=device)
-    if n == 0:
-        return grad_g, grads
-    lib = build.library()
-    with build.launch_context(device):
-        err = lib.nerf_hashgrid_dx_backward(
-            x.data_ptr(), g.data_ptr(), h.data_ptr(), n, ctypes.byref(args), grad_g.data_ptr(),
-            flat.data_ptr(), build.current_stream(device),
-        )
-    build.check_launch(lib, err, "hashgrid_dx_backward")
-    backward_counter.launches += 1
-    return grad_g, grads
+    tiles = -(-n // TILE_POINTS)
+    if tiles >= 2**31:
+        raise ValueError(f"{n} points make {tiles} tiles of {TILE_POINTS}, past the kernel's 2^31")
+    out = run_dx_backward(build.library().nerf_hashgrid_dx_backward, args, x, g, h)
+    if n:
+        backward_counter.launches += 1
+    return out
 
 
 # The launches behind every call on the card; a CPU test swaps in the

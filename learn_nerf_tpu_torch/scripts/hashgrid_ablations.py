@@ -39,7 +39,8 @@ kernel on its ray-ordered layout with pair atomics and run combining):
   ``tile 64``, ``128 threads``, ``64 threads``, ``single-level items`` and
   ``128 threads, single-level items``;
 * ``no pair loads``: the encode kernel reads each corner's row alone,
-  never a pair of neighbouring rows as one vector;
+  never a pair of neighbouring rows as one vector (the edit is in
+  ``gather.cuh``'s ``load_corners``, which the dx pair shares);
 * ``single-level items``: one work item per level, so level pairs compute
   their corners twice (the argument is packed with items of one level);
 * ``gather four per thread``: table_gather takes four consecutive indices
@@ -85,6 +86,31 @@ route that holds it (L2, the whole table in a block, slices on clusters of
 2-16), in turns (L2 first and last): the measurement behind the wrapper's
 threshold.
 
+The hash-grid points-VJP pair (``csrc/hashgrid_dx.cu``) has variants of its
+own, each built from that one source alone and timed by CUDA-graph replay
+(the backward with its memset) at the Ref-NeRF hybrid's three shapes in
+smooth mode, points along rays: the occupancy step's 131,072 x 16 levels,
+the hierarchy's coarse 262,144 x 6 and fine 786,432 x 16, and at the
+step's points with 6 levels and the coarse pass's with 16; the forward and
+the backward's ``grad_g`` held bit for bit to the kernels as built, the
+table gradients by their largest difference relative to each level's
+largest gradient:
+
+* ``dx parent``: the pair as first designed
+  (``csrc/ablations/hashgrid_dx_parent.cu``: a thread a point over all
+  levels in the forward, a thread a (point, item) with one atomic a row in
+  the backward);
+* ``dx pair loads``: both kernels read a pair of neighbouring rows as one
+  vector where corners c and c + 4 share it, as the encode does (as built:
+  each corner's row alone);
+* ``dx backward without combining``: no run combining in the backward;
+* ``dx backward without pair atomics``: one atomic a row in the backward
+  (with combining);
+* ``dx forward on the encode's grid everywhere``: no thread a point for a
+  schedule of dense levels alone (the coarse pass);
+* ``dx backward at 3 blocks a SM``: the backward compiled for three blocks
+  of 256 threads a SM (at most 85 registers a thread).
+
 Then the card's own rate for the access patterns that bound the kernels
 (``csrc/ablations/probes.cu``): as many random 8-byte row reads as
 the encode makes at 2^20 points x 16 levels over buffers of the tables'
@@ -98,11 +124,20 @@ L2-resident table (a 128 KiB slice a block on clusters of 16, a 32 KiB
 table in one block a SM).  And what the points
 themselves allow: the 32-byte sectors that the encode's loads touch per
 point once the lanes of one instruction merge, a warp holding 32
-consecutive points of a level or 4 (as built), and the atomics the
+consecutive points of a level or the 32 // items of the encode's layout
+(4 at 16 levels), and the atomics the
 table-gradient kernel makes per point with pair atomics and combining.
 
 The table-gradient kernel is timed by CUDA-graph replay (its memset
 included): its wrapper's host work is as long as the kernel.
+
+With the probes, the same counts in smooth mode at the dx pair's shapes,
+and the least time the card's measured rates give each dx kernel
+for them (``card_rate_ms``: the forward's sectors in its layout, the
+encode's grid or 32 points of a level a warp where no level hashes, over
+the rate of random sector reads; the backward's sectors with 32 points
+a warp over that rate plus its atomics after pair atomics and combining over
+the mean rate of random vector atomics of 2 and 4 floats).
 
 Prints one JSON line per variant and turn, one per probe and turn, then
 the card's name and power limit.  Everything builds into
@@ -124,6 +159,7 @@ import torch
 from ..kernels import build
 from ..kernels import hashgrid as kh
 from ..kernels import hashgrid_backward as kb
+from ..kernels import hashgrid_dx as kd
 from ..kernels import hashgrid_encode as ke
 from ..kernels import table_gather as tg
 from ..ops.hashgrid import dense_level_rows
@@ -277,6 +313,7 @@ NEIGHBOUR_SLICE = CLUSTER + [(GATHER, "  if (rank >= ranks) return load_row<C>(t
 
 
 BACKWARD, ENCODE, LAYOUT = "hashgrid_backward.cu", "hashgrid_encode.cu", "encode_args.cuh"
+CORNERS, ATOMICS, DX = "gather.cuh", "table_atomics.cuh", "hashgrid_dx.cu"
 NO_COMBINING = (BACKWARD, "constexpr bool kCombineRuns = true;", "constexpr bool kCombineRuns = false;")
 MIN_MERGED = "constexpr int kCombineMinMerged = 8;"
 SHARED_OFF, SHARED_ON = "constexpr bool kSharedCoarse = false;", "constexpr bool kSharedCoarse = true;"
@@ -289,8 +326,8 @@ VARIANTS = {
     "layout alone": [(BACKWARD, "constexpr bool kPairAtomics = true;", "constexpr bool kPairAtomics = false;"),
                      NO_COMBINING],
     "layout + pair atomics": [NO_COMBINING],
-    "combine always": [(BACKWARD, MIN_MERGED, "constexpr int kCombineMinMerged = 1;")],
-    "combine from 16": [(BACKWARD, MIN_MERGED, "constexpr int kCombineMinMerged = 16;")],
+    "combine always": [(ATOMICS, MIN_MERGED, "constexpr int kCombineMinMerged = 1;")],
+    "combine from 16": [(ATOMICS, MIN_MERGED, "constexpr int kCombineMinMerged = 16;")],
     "backward shared coarse levels": [(BACKWARD, SHARED_OFF, SHARED_ON)],
     "tile 64": [(LAYOUT, TILE_32, "constexpr int kTilePoints = 64;")],
     "128 threads": [(LAYOUT, THREADS_256, THREADS_128)],
@@ -308,7 +345,7 @@ VARIANTS = {
     "encode tiles, 64 threads": [TILES, (LAYOUT, THREADS_256, "constexpr int kTileThreads = 64;")],
     "encode tiles, single-level items": [TILES],
     "encode tiles, 128 threads, single-level items": [TILES, (LAYOUT, THREADS_256, THREADS_128)],
-    "no pair loads": [(ENCODE, "    if (paired) {", "    if (false) {")],
+    "no pair loads": [(CORNERS, "    if (paired) {", "    if (false) {")],
     "single-level items": [],
     "gather four per thread": gather_layout(CONSECUTIVE.format(k=4, vec="int4", zw="q.z, q.w"), QUAD_GRID),
     "gather two per thread": gather_layout(
@@ -336,6 +373,14 @@ VARIANTS = {
     "gather cluster 8": CLUSTER + resident("int kMaxRanks = 16", "int kMaxRanks = 8"),
     "gather interleaved slices": CLUSTER + [(GATHER, CONTIGUOUS_FILL, INTERLEAVED_FILL),
                                             (GATHER, CONTIGUOUS_ROW, INTERLEAVED_ROW)],
+    "dx parent": [(DX, None, "ablations/hashgrid_dx_parent.cu")],
+    "dx pair loads": [(DX, "constexpr bool kPairLoads = false;", "constexpr bool kPairLoads = true;")],
+    "dx backward without combining": [(DX, "constexpr bool kCombineRuns = true;",
+                                       "constexpr bool kCombineRuns = false;")],
+    "dx backward without pair atomics": [(DX, "constexpr bool kPairAtomics = true;",
+                                          "constexpr bool kPairAtomics = false;")],
+    "dx forward on the encode's grid everywhere": [(DX, "  if (dense_only(a)) {", "  if (false) {")],
+    "dx backward at 3 blocks a SM": [(DX, "__launch_bounds__(kTileThreads)", "__launch_bounds__(kTileThreads, 3)")],
 }
 # 999,424 indices (pallas_gather's 122 tiles of 8192) on each route's
 # shape: name -> (rows, C, the route of the built kernel and its variants,
@@ -485,6 +530,114 @@ def build_gather_libraries(names, variants=VARIANTS):
     return libs
 
 
+def build_dx_libraries(names, variants=VARIANTS):
+    """Compile each dx variant's ``hashgrid_dx.cu`` alone into its own
+    library, all at once; ``{name: (forward entry, backward entry)}`` (the
+    parent's entry points carry ``_parent`` in their names), for
+    ``kernels.hashgrid_dx.run_dx`` and ``run_dx_backward``."""
+    root = build.BUILD_DIR / "ablations" / "dx"
+    procs = {}
+    for name in names:
+        out = root / name.replace(" ", "_")
+        variant_sources(out, name, variants[name])
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out / "libdx.so"), str(out / DX)]
+        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    entries = {}
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name!r} does not build:\n{log[-4000:]}")
+        (out / "build.log").write_text(log)
+        lib = ctypes.CDLL(str(out / "libdx.so"))
+        suffix = "_parent" if hasattr(lib, "nerf_hashgrid_dx_parent") else ""
+        forward, backward = getattr(lib, "nerf_hashgrid_dx" + suffix), getattr(lib, "nerf_hashgrid_dx_backward" + suffix)
+        forward.argtypes, forward.restype = [p, p, i64, p, p, p], ctypes.c_int
+        backward.argtypes, backward.restype = [p, p, p, i64, p, p, p, p], ctypes.c_int
+        entries[name] = (forward, backward)
+    return entries
+
+
+# The Ref-NeRF hybrid's shapes for the dx pair, points along rays in smooth
+# mode: (label, levels, rays, samples a ray, spacing); then the step's
+# points at the coarse model's levels and the coarse pass's at the fine
+# model's, on either side of the forward's choice between its two layouts.
+DX_SHAPES = (("step 131,072 x 16", 16, STEP_RAYS, STEP_SAMPLES, 0.02),
+             ("coarse 262,144 x 6", 6, STEP_RAYS, 64, 0.03),
+             ("fine 786,432 x 16", 16, STEP_RAYS, 192, 0.01),
+             ("step points x 6", 6, STEP_RAYS, STEP_SAMPLES, 0.02),
+             ("coarse points x 16", 16, STEP_RAYS, 64, 0.03))
+
+
+def dx_cases(rng, device):
+    """``{label: (tables, x, g, h, args, (grids, sizes, bbox))}`` at
+    DX_SHAPES: unit-scale tables, cotangents and points along rays."""
+    on_card = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
+    grids, sizes = [2 ** (4 + i // 2) for i in range(16)], [1 << 18] * 16
+    tables = [on_card(rng.uniform(-1, 1, (dense_level_rows(g, t), 2))) for g, t in zip(grids, sizes)]
+    bbox = (-0.7,) * 3, (0.7,) * 3
+    cases = {}
+    for label, levels, rays, samples, spacing in DX_SHAPES:
+        x = on_card(ray_points(rng, rays, samples, spacing, -0.7, 0.4))
+        g, h = on_card(rng.uniform(-1, 1, (len(x), 2 * levels))), on_card(rng.uniform(-1, 1, (len(x), 3)))
+        args = ke.encode_args(tables[:levels], x.device, grids[:levels], sizes[:levels], *bbox, True)
+        cases[label] = (tables[:levels], x, g, h, args, (grids[:levels], sizes[:levels], bbox))
+    return cases
+
+
+def run_dx_variants(names, entries, device, turns):
+    """One JSON line per dx variant and turn: forward and backward ms at
+    DX_SHAPES (graph replay; the backward with its memset); on turn 0
+    whether its dx and grad_g equal the kernels as built's, and its table
+    gradients' largest difference from theirs relative to each level's
+    largest gradient."""
+    lib = build.library()
+    entries = {"as built": (lib.nerf_hashgrid_dx, lib.nerf_hashgrid_dx_backward), **entries}
+    cases = dx_cases(np.random.RandomState(2), device)
+
+    def rel(got, want):
+        return max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(got, want))
+
+    built = {label: (kd.run_dx(entries["as built"][0], a, x, g), kd.run_dx_backward(entries["as built"][1], a, x, g, h))
+             for label, (_, x, g, h, a, _) in cases.items()}
+    for turn in range(turns):
+        for name in names:
+            forward, backward = entries[name]
+            result = dict(variant=name, turn=turn)
+            for label, (_, x, g, h, a, _) in cases.items():
+                result[f"{label} forward ms"] = graph_ms(lambda: kd.run_dx(forward, a, x, g), 20)
+                result[f"{label} backward ms"] = graph_ms(lambda: kd.run_dx_backward(backward, a, x, g, h), 20)
+            if turn == 0:
+                equal, table_diff = True, 0.0
+                for label, (_, x, g, h, a, _) in cases.items():
+                    dx, (grad_g, grads) = kd.run_dx(forward, a, x, g), kd.run_dx_backward(backward, a, x, g, h)
+                    want_dx, (want_g, want_grads) = built[label]
+                    equal = equal and torch.equal(dx, want_dx) and torch.equal(grad_g, want_g)
+                    table_diff = max(table_diff, rel(grads, want_grads))
+                result.update(equals_as_built=equal, tables_max_rel_diff=table_diff)
+            print(json.dumps(result), flush=True)
+    return cases
+
+
+def dx_card_rates(cases, rates):
+    """One JSON line per DX_SHAPES shape: request_counts in smooth mode and
+    the least ms the card's measured rates give each dx kernel for them."""
+    sector_rate = rates["random sector reads"]
+    atomic_rate = (rates["random vector atomics v2"] + rates["random vector atomics v4"]) / 2
+    for label, (_, x, _, _, _, (grids, sizes, bbox)) in cases.items():
+        counts = request_counts(x, grids, sizes, bbox, smooth=True)
+        # The forward's layout: a thread a point (32 points of one level a
+        # warp) where no level hashes, else the encode's grid.
+        dense = all(g**3 <= t for g, t in zip(grids, sizes))
+        n, layout = len(x), 32 if dense else 32 // len(ke.work_items(grids, sizes))
+        forward_ms = counts[f"sectors_per_point_{layout}_lanes"] * n / sector_rate / 1e6
+        sectors_ms = counts["sectors_per_point_32_lanes"] * n / sector_rate / 1e6
+        atomics_ms = counts["combined_atomics_per_point"] * n / atomic_rate / 1e6
+        print(json.dumps(dict(dx_shape=label, smooth=True, **counts, forward_card_rate_ms=forward_ms,
+                              backward_card_rate_ms=sectors_ms + atomics_ms, backward_sectors_ms=sectors_ms,
+                              backward_atomics_ms=atomics_ms)), flush=True)
+
+
 class ClusterRoute(NamedTuple):
     """How the cluster kernel holds a table: ``cluster`` blocks of
     ``slice_rows`` rows each (a power of two)."""
@@ -611,7 +764,8 @@ def run_gathers(names, libs, device, turns):
 
 def run_probes(lib, tables, turns):
     """Time the probes over buffers of the tables' sizes; one JSON line per
-    probe and turn, with the requests it made and their rate."""
+    probe and turn, with the requests it made and their rate.  Returns each
+    access probe's mean rate over the turns (G requests/s)."""
     device = tables[0].device
     buffers = [torch.zeros_like(t) for t in tables]
     args = ProbeArgs()
@@ -637,49 +791,56 @@ def run_probes(lib, tables, turns):
         "random vector atomics v4": (lambda: launch(lib.nerf_probe_atomics, atomic_threads, 4),
                                      atomic_threads * 16),
     }
+    rates = {name: 0.0 for name in probes}
     for turn in range(turns):
         for name, (call, requests) in probes.items():
             ms = cuda_ms(call)
+            rates[name] += requests / ms / 1e6 / turns
             print(json.dumps(dict(probe=name, turn=turn, ms=ms, requests=requests,
                                   giga_requests_per_s=requests / ms / 1e6)), flush=True)
-        rates = shared_probes(lib, device)
-        for cluster, r in rates["reads"].items():
+        shared = shared_probes(lib, device)
+        for cluster, r in shared["reads"].items():
             where = "own shared memory" if cluster == 1 else f"shared memory of a cluster of {cluster}"
             print(json.dumps(dict(probe=f"random 8-byte reads, {where}", turn=turn, **r)), flush=True)
-        for name, r in rates["fills"].items():
+        for name, r in shared["fills"].items():
             print(json.dumps(dict(probe=f"shared-memory fill from L2, {name}", turn=turn, **r)), flush=True)
+    return rates
 
 
-def request_counts(points, grids, sizes, bbox):
+def request_counts(points, grids, sizes, bbox, smooth=False):
     """What these points ask of the card, per point: the encode's loads
     (pair loads at F = 2) and the 32-byte sectors they touch once the lanes
     of one instruction merge, with 32 consecutive points of a level in a
-    warp and with 4; and the table-gradient kernel's atomics, one per
-    corner row, with pair atomics, and with run combining on top (warps of
-    32 consecutive points with at least 8 lanes that continue a run)."""
-    idx, _ = kh.hashgrid_corners_cuda(points, grids, sizes, *bbox, False)
+    warp and with the 32 // items of the encode's layout; and the
+    table-gradient kernel's atomics, one per corner row, with pair atomics,
+    and with run combining on top (warps of 32 consecutive points with at
+    least 8 lanes that continue a run)."""
+    idx, _ = kh.hashgrid_corners_cuda(points, grids, sizes, *bbox, smooth)
     n = len(points)
     point = torch.arange(n, device=points.device)[:, None]
-    loads = merged_32 = merged_4 = paired = combined = 0
+    widths = (32, 32 // len(ke.work_items(grids, sizes)))
+    loads = paired = combined = 0
+    merged = dict.fromkeys(widths, 0)
     for rows in idx:  # [n, 8] rows of one level
         first, second = rows[:, :4].long(), rows[:, 4:].long()
         alone = (first >> 1) != (second >> 1)  # corner c + 4 lies outside corner c's pair of rows
         sectors = torch.cat([first >> 2, torch.where(alone, second >> 2, -1)], dim=1)
         loads += int((sectors >= 0).sum())
-        for lanes in (32, 4):
+        for lanes in widths:
             keys = ((point // lanes) << 32 | sectors)[sectors >= 0]
-            count = int(torch.unique(keys).numel())
-            merged_32, merged_4 = (merged_32 + count, merged_4) if lanes == 32 else (merged_32, merged_4 + count)
+            merged[lanes] += int(torch.unique(keys).numel())
         atomics = 8 - ((first ^ second) == 1).sum(dim=1)  # of one lane
         same = torch.zeros(n, dtype=torch.bool, device=points.device)
         same[1:] = (rows[1:] == rows[:-1]).all(dim=1)  # the same cell as the point before
         same[::32] = False
-        combines = same.view(-1, 32).sum(dim=1, keepdim=True) >= 8
-        adding = ~(same.view(-1, 32) & combines).view(-1)
+        whole = n - n % 32  # the warps the combining count covers
+        combines = same[:whole].view(-1, 32).sum(dim=1, keepdim=True) >= 8
+        adding = torch.ones(n, dtype=torch.bool, device=points.device)
+        adding[:whole] = ~(same[:whole].view(-1, 32) & combines).view(-1)
         paired, combined = paired + int(atomics.sum()), combined + int(atomics[adding].sum())
-    return dict(loads_per_point=loads / n, sectors_per_point_32_lanes=merged_32 / n,
-                sectors_per_point_4_lanes=merged_4 / n, row_atomics_per_point=8 * len(idx),
-                pair_atomics_per_point=paired / n, combined_atomics_per_point=combined / n)
+    return dict(loads_per_point=loads / n, **{f"sectors_per_point_{k}_lanes": v / n for k, v in merged.items()},
+                row_atomics_per_point=8 * len(idx), pair_atomics_per_point=paired / n,
+                combined_atomics_per_point=combined / n)
 
 
 def ray_points(rng, rays, samples, spacing, lo, hi):
@@ -706,15 +867,19 @@ def main(argv=None):
     device = torch.device("cuda")
     names = ["as built", *[v for v in args.variants or VARIANTS if v != "as built"]]
     gathers = [name for name in names if name.startswith("gather")]
-    names = [name for name in names if name not in gathers]
-    if args.variants and names == ["as built"] and gathers:
-        names = []  # only gather variants named: the hash-grid kernels are not timed
+    dxs = [name for name in names if name.startswith("dx")]
+    names = [name for name in names if name not in gathers and name not in dxs]
+    if args.variants and names == ["as built"] and (gathers or dxs):
+        names = []  # only gather or dx variants named: the encode and table-gradient kernels are not timed
     build.library()  # the as-built kernels' checks run against the library they launch
     with ThreadPoolExecutor() as pool:
-        gather_libs = pool.submit(build_gather_libraries, [*gathers, *{CLUSTER_VARIANT} - {*gathers}])  # the sweep's
+        gather_libs = (pool.submit(build_gather_libraries, [*gathers, *{CLUSTER_VARIANT} - {*gathers}])  # the sweep's
+                       if gathers or names else None)
+        dx_entries = pool.submit(build_dx_libraries, dxs) if dxs else None
         probes = None if args.no_probes else pool.submit(build_probes)
         libs = build_variants(names, VARIANTS)
-        gather_libs, probes = gather_libs.result(), probes and probes.result()
+        gather_libs, dx_entries = gather_libs and gather_libs.result(), dx_entries and dx_entries.result()
+        probes = probes and probes.result()
 
     rng = np.random.RandomState(0)
     on_card = lambda a: torch.from_numpy(a.astype(np.float32)).to(device)
@@ -766,12 +931,16 @@ def main(argv=None):
     finally:
         build._library, ke.LEVELS_PER_ITEM = built, per_item
         ke._args_cache.clear()
-    run_gathers(["as built", *gathers], gather_libs, device, args.turns)
+    if gather_libs is not None:
+        run_gathers(["as built", *gathers], gather_libs, device, args.turns)
+    cases = run_dx_variants(["as built", *dxs], dx_entries, device, args.turns) if dxs else None
     if probes is not None:
-        run_probes(probes, tables, args.turns)
+        rates = run_probes(probes, tables, args.turns)
         for name, points in (("2^20 random points", x), ("2^20 points along rays", rays),
                              ("a step's random points", step_x), ("a step's points along rays", step_rays)):
             print(json.dumps(dict(points=name, **request_counts(points, grids, sizes, bbox))), flush=True)
+        if cases is not None:
+            dx_card_rates(cases, rates)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip().splitlines()[0])

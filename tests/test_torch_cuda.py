@@ -55,7 +55,13 @@ baked model on the card against the CPU (1e-5); the wrapper's refusals.
 The Ref-NeRF kernels: hashgrid_dx and its backward within chip_smoke.py's
 bounds (2e-6, 5e-6 of each tensor's largest value) at F = 1 to 4, plain and
 smooth mode, points on a face of the bbox and the edges of their thread
-grids; through HashGridDx against autograd of the plain points-VJP; both
+grids; dx and grad_g bit-equal to the pair as first designed
+(csrc/ablations/hashgrid_dx_parent.cu, built on its own) at F = 1 to 4,
+plain and smooth mode, on both sides of the forward's blocks (51, 32 or 85
+whole points where a level hashes, 256 points a thread each where none
+does) and the backward's tiles of 32, and its table gradients
+within 5e-6 of that pair's; through HashGridDx against autograd of the
+plain points-VJP; both
 Ref-NeRF models on the card against the CPU (1e-4: the card's f32 matmuls
 and the CPU's sum in other orders).
 """
@@ -505,6 +511,51 @@ def test_hashgrid_dx_kernels_match_plain_versions(cuda, features, smooth, n):
     want_g, want_tables = hashgrid.hash_grid_encode_dx_backward_reference(tables, x, g, h, grids, sizes, lo, hi, smooth)
     assert max(_relative_errors([dx], [want])) <= DX_BOUND
     assert max(_relative_errors([grad_g, *grad_tables], [want_g, *want_tables])) <= DX_BACKWARD_BOUND
+
+
+@pytest.fixture(scope="module")
+def dx_parent():
+    """The dx pair as first designed (csrc/ablations/hashgrid_dx_parent.cu,
+    built on its own): its forward and backward entry points."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import build_dx_libraries
+
+    return build_dx_libraries(["dx parent"])["dx parent"]
+
+
+@pytest.mark.parametrize("features", [1, 2, 3, 4])
+@pytest.mark.parametrize("smooth", [False, True])
+@pytest.mark.parametrize("levels,size,n", [(6, 2**12, 1), (6, 2**12, 51), (6, 2**12, 52), (6, 2**12, 5000),
+                                          (16, 2**18, 33), (16, 2**18, 4097), (5, 2**12, 86), (6, 2**18, 257)])
+def test_hashgrid_dx_kernels_equal_the_first_design(cuda, dx_parent, features, smooth, levels, size, n):
+    # dx and grad_g sum in the first design's order: bit for bit; the table
+    # gradients are f32 atomics in another order.  Schedules with a hashed
+    # level take the forward's grid: _levels' 6 levels make 5 work items
+    # (51 points a block), the fine schedule's 16 make 8 (32), its first 5
+    # at 2^12 rows make 3 (85), one of a single level; the coarse model's 6
+    # dense levels take a thread a point (blocks of 256).
+    from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
+
+    rng = np.random.RandomState(levels * n + features)
+    if levels == 6 and size == 2**12:
+        tables, x, g, grids, sizes = _levels(cuda, n + features, features, n)
+        lo, hi = (-1.0,) * 3, (1.0,) * 3
+    else:
+        grids, sizes = FINE_GRIDS[:levels], [size] * levels
+        tables = [t(rng.uniform(-1, 1, (hashgrid.dense_level_rows(g_, s), features)).astype(np.float32)).to(cuda)
+                  for g_, s in zip(grids, sizes)]
+        x = t(_ray_points(rng, -(-n // 32), 32, 2e-2)[:n]).to(cuda)
+        g = t(rng.uniform(-1, 1, (n, levels * features)).astype(np.float32)).to(cuda)
+        lo, hi = (-0.7,) * 3, (0.7,) * 3
+    h = t(rng.uniform(-1, 1, (n, 3)).astype(np.float32)).to(cuda)
+    args = ke.encode_args(tables, x.device, grids, sizes, lo, hi, smooth)
+    dx, (grad_g, grad_tables) = kd.launch_dx(args, x, g), kd.launch_dx_backward(args, x, g, h)
+    was_dx = kd.run_dx(dx_parent[0], args, x, g)
+    was_g, was_tables = kd.run_dx_backward(dx_parent[1], args, x, g, h)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, was_dx) and torch.equal(grad_g, was_g)
+    assert max(_relative_errors(grad_tables, was_tables)) <= DX_BACKWARD_BOUND
 
 
 def test_hashgrid_dx_function_trains_on_the_card(cuda):

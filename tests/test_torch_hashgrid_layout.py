@@ -19,7 +19,13 @@ brute-force walk over (block, warp, lane) that follows the kernels' loops:
 * pair atomics: which corner pairs take one vector atomic, and that the
   gradient they leave equals one add per row, also where two corners hash
   to one row;
-* the flat gradient buffer's padded level offsets.
+* the flat gradient buffer's padded level offsets;
+* hashgrid_dx.cu's forward: its block map (whole points a block, every
+  (point, work item) once) and its level terms in shared memory (distinct
+  slots in bounds, summed per point in level order, so equal bit for bit to
+  a sequential sum over the levels); its backward: the tile layout above
+  with x, h and one slab that a lane reads g from and writes grad_g to, and
+  run combining with per-lane weights a_c before pair atomics.
 
 The constants of the model are read from the sources, so a change there is
 a change here.
@@ -34,6 +40,7 @@ import torch
 from learn_nerf_tpu_torch.kernels import build
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
 from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
+from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
 from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
 
 from .torch_helpers import t
@@ -44,13 +51,32 @@ def _constant(file, name):
     return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
 
 
+DX_THREADS = 256  # hashgrid_dx.cu's kDxThreads
+
+
 def test_the_sources_hold_the_layout_the_model_assumes():
-    assert _constant("encode_args.cuh", "kTilePoints") == 32
+    assert _constant("encode_args.cuh", "kTilePoints") == 32 == kd.TILE_POINTS
     assert _constant("encode_args.cuh", "kTileThreads") == 256
     assert _constant("encode_args.cuh", "kLevelsPerItem") == ke.LEVELS_PER_ITEM
-    assert _constant("hashgrid_backward.cu", "kCombineMinMerged") == 8
+    assert _constant("table_atomics.cuh", "kCombineMinMerged") == 8
     text = (build.CSRC_DIR / "encode_args.cuh").read_text()
     assert "return width | 1;" in text and "kTilePoints * (3 + tile_stride(width))" in text
+    # hashgrid_dx.cu: the forward's blocks of whole points and its level
+    # terms in shared memory; the backward on the tile layout above, x and h
+    # staged before the slab it reads g from and writes grad_g to.
+    assert _constant("hashgrid_dx.cu", "kDxThreads") == DX_THREADS
+    dx = (build.CSRC_DIR / "hashgrid_dx.cu").read_text()
+    assert "constexpr int kDxTermFloats = 7 * kDxThreads;" in dx
+    assert "points = kDxThreads / items, stride = (3 * a.levels) | 1;" in dx
+    assert "terms + local * stride + 3 * l0" in dx and "slot[3 * k + ax] = terms[k][ax]" in dx
+    assert "terms + q * stride + (i - 3 * q)" in dx and "sum = __fadd_rn(sum, t[3 * l])" in dx
+    assert "<<<blocks, points * a.items, 0, stream>>>" in dx
+    # ... and a thread a point where no level hashes (the coarse model).
+    assert "if (a.hashed[l]) return false;" in dx and "  if (dense_only(a)) {" in dx
+    assert "hashgrid_dx_points_kernel<F><<<blocks, kDxThreads, 0, stream>>>" in dx
+    assert "tile_block_threads(a.items), smem" in dx
+    assert "sizeof(float) * (3 * kTilePoints + tile_floats(a.levels * F))" in dx
+    assert "float* tile = hs + 3 * kTilePoints;" in dx and "float* slab = tile + p * stride + l0 * F;" in dx
 
 
 # --- the model: closed forms -------------------------------------------------
@@ -320,3 +346,167 @@ def test_level_offsets_start_every_level_at_an_even_row(features):
     fine_args = ke.pack_args([torch.zeros((min(g**3, 2**18), 2)) for g in fine], fine, [2**18] * 16,
                              (-1.0,) * 3, (1.0,) * 3, False)
     assert kb.level_offsets(fine_args)[-1] == sum(min(g**3, 2**18) for g in fine)
+
+
+# --- hashgrid_dx's forward: blocks of whole points, level terms in shared memory
+
+
+def schedule(run_lengths):
+    """Grid and table sizes of levels in runs of these lengths (equal grid
+    and size inside a run), and the work items the wrapper cuts them into."""
+    grids = [2 ** (3 + r) for r, length in enumerate(run_lengths) for _ in range(length)]
+    sizes = [2**18] * len(grids)
+    return grids, sizes, ke.work_items(grids, sizes)
+
+
+# Level schedules of 1-8 work items; odd runs give items of one level.
+SCHEDULES = [[1], [2], [3], [1, 1], [2, 1, 2], [1, 3, 2], [3, 3, 1], [5, 5, 1], [2] * 8, [1, 2, 3, 4, 5]]
+
+
+def dx_walk(n, items):
+    """Every (block, thread) -> (point, item) of hashgrid_dx_kernel's grid:
+    blocks of floor(256 / items) points, a point's items on consecutive
+    threads; threads past the last point only meet the barrier."""
+    points = DX_THREADS // items
+    taken = {}
+    for block in range(-(-n // points)):
+        base = block * points
+        count = min(points, n - base)
+        for thread in range(points * items):
+            local = thread // items
+            if local < count:
+                taken[(block, thread)] = (base + local, thread - local * items)
+    return taken, points
+
+
+@pytest.mark.parametrize("runs", SCHEDULES, ids=str)
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 255, 256, 257])
+def test_dx_block_map_takes_every_point_and_item_once_in_whole_points(n, runs):
+    _, _, items = schedule(runs)
+    taken, points = dx_walk(n, len(items))
+    assert sorted(taken.values()) == [(p, i) for p in range(n) for i in range(len(items))]
+    blocks = {}
+    for (block, _), (point, _) in taken.items():
+        blocks.setdefault(point, set()).add(block)
+    assert all(len(b) == 1 for b in blocks.values())  # a point's items share a block
+    assert len(items) <= points * len(items) <= DX_THREADS
+
+
+def dx_slots(items, levels, count):
+    """The forward's shared floats: what each (point, item) thread writes
+    (slot -> (point, level, axis)) and, in order, what each (point, axis)
+    summing thread reads."""
+    stride = (3 * levels) | 1
+    written = {}
+    for local in range(count):
+        for first, k_levels in items:
+            for k in range(k_levels):
+                for ax in range(3):
+                    slot = local * stride + 3 * first + 3 * k + ax
+                    assert slot not in written
+                    written[slot] = (local, first + k, ax)
+    reads = {}
+    for i in range(3 * count):
+        q, ax = divmod(i, 3)
+        reads[(q, ax)] = [q * stride + ax + 3 * level for level in range(levels)]
+    return written, reads
+
+
+@pytest.mark.parametrize("runs", SCHEDULES + [[2] * 16, [1] * 32, [2] * 3 + [1] * 26], ids=str)
+def test_dx_level_terms_are_distinct_in_bounds_and_summed_in_level_order(runs):
+    grids, _, items = schedule(runs)
+    levels, points = len(grids), DX_THREADS // len(items)
+    written, reads = dx_slots(items, levels, points)
+    assert max(written) < 7 * DX_THREADS  # kDxTermFloats
+    for (q, ax), slots in reads.items():
+        assert [written[s] for s in slots] == [(q, level, ax) for level in range(levels)]
+    assert sorted(s for slots in reads.values() for s in slots) == sorted(written)
+    # The sum each (point, axis) thread forms equals, bit for bit, the sum of
+    # one thread a point over its items in order (the first design's).
+    rng = np.random.RandomState(levels)
+    shared = np.zeros(7 * DX_THREADS, np.float32)
+    terms = (rng.standard_normal((points, levels, 3)) * 10.0 ** rng.randint(-6, 6, (points, levels, 3))).astype(
+        np.float32)
+    for slot, (q, level, ax) in written.items():
+        shared[slot] = terms[q, level, ax]
+    for (q, ax), slots in reads.items():
+        got = np.float32(0.0)
+        for s in slots:
+            got = np.float32(got + shared[s])
+        want = np.float32(0.0)
+        for first, k_levels in items:
+            for k in range(k_levels):
+                want = np.float32(want + terms[q, first + k, ax])
+        assert got.tobytes() == want.tobytes()
+
+
+def test_dx_level_terms_fit_for_every_schedule_the_kernel_takes():
+    # levels <= 2 * items <= 64 and items <= levels <= 32 (valid_args).
+    for items in range(1, 33):
+        for levels in range(items, min(2 * items, 32) + 1):
+            assert (DX_THREADS // items) * ((3 * levels) | 1) <= 7 * DX_THREADS
+
+
+# --- hashgrid_dx's backward: the staged tile and the table gradient ---------
+
+
+@pytest.mark.parametrize("levels,features", [(16, 2), (6, 2), (5, 1), (12, 4), (32, 4)])
+def test_dx_backward_tile_is_distinct_in_bounds_and_each_lane_owns_its_columns(levels, features):
+    width = levels * features
+    stride = tile_stride(width)
+    floats = 3 * 32 + 32 * (3 + stride)  # 3 * kTilePoints + tile_floats(width)
+    assert floats * 4 <= 48 * 1024
+    xs = [3 * p + a for p in range(32) for a in range(3)]
+    hs = [3 * 32 + 3 * p + a for p in range(32) for a in range(3)]
+    slab = [6 * 32 + p * stride + c for p in range(32) for c in range(width)]
+    offsets = xs + hs + slab
+    assert len(set(offsets)) == len(offsets) and max(offsets) < floats
+    # Each (point, item) lane reads g from and writes grad_g to its item's
+    # columns alone: the items' columns tile the point's row once.
+    grids = [2 ** (4 + i // 2) for i in range(levels)]
+    items = ke.work_items(grids, [2**18] * levels)
+    columns = sorted(c for first, k in items for c in range(first * features, (first + k) * features))
+    assert columns == list(range(width))
+
+
+def dx_backward_warp(cells, rows, active, a, g, paired, table_rows, features, min_merged=8):
+    """One warp of the dx backward in one level: per-lane corner weights
+    ``a [32, 8]`` times the lane's cotangent ``g [32, F]``, summed over runs
+    by the vote and shuffles, then the pair atomics of the run heads.
+    Returns the gradient [table_rows, F]."""
+    terms = a[:, :, None] * g[:, None, :]  # [32, 8, F]: a_c * g
+    summed = np.empty_like(terms)
+    adds = None
+    for c in range(8):
+        for f in range(features):
+            adds, summed[:, c, f] = combine_runs(cells, active, terms[:, c, f], min_merged)
+    grad = np.zeros((table_rows, features))
+    for lane in np.flatnonzero(adds):
+        got, _ = scatter_with_pairs(rows[lane], summed[lane], paired, table_rows, features)
+        grad += got
+    return grad
+
+
+@pytest.mark.parametrize("features", [1, 2])
+@pytest.mark.parametrize("grid,size,spacing", [(16, 2**18, 1e-3), (64, 2**18, 4e-3), (128, 1000, 5e-3),
+                                               (64, 12, 2e-2), (5, 4096, 1e-2)])
+def test_dx_backward_combined_adds_equal_one_add_per_point_and_corner(grid, size, spacing, features):
+    # Points along a ray (runs of equal cells), a part-full last warp, and
+    # tables so small that corners of one point hash to one row.
+    rng = np.random.RandomState(grid + features)
+    origin, direction = rng.uniform(-0.5, 0.5, 3), rng.standard_normal(3)
+    pts = (origin + spacing * direction / np.linalg.norm(direction) * np.arange(64)[:, None]).astype(np.float32)
+    idx, _ = khash.hashgrid_corners_reference(t(pts), [grid], [size], (-1.0,) * 3, (1.0,) * 3, False)
+    rows = idx[0].numpy()
+    table_rows = min(grid**3, size)
+    cells = np.floor((pts + 1.0) / 2.0 * (grid - 1)).astype(int)  # equal cells <=> equal rows here
+    for warp, count in ((0, 32), (1, 20)):
+        lanes = slice(32 * warp, 32 * warp + 32)
+        active = np.arange(32) < count
+        a = rng.randint(-9, 9, (32, 8)).astype(np.float64) * active[:, None]
+        g = rng.randint(-9, 9, (32, features)).astype(np.float64) * active[:, None]
+        got = dx_backward_warp(cells[lanes], rows[lanes], active, a, g, table_rows % 2 == 0, table_rows, features)
+        want = np.zeros((table_rows, features))
+        for lane in np.flatnonzero(active):
+            np.add.at(want, rows[lanes][lane], a[lane][:, None] * g[lane][None, :])
+        np.testing.assert_array_equal(got, want)
