@@ -111,20 +111,38 @@ nonzero):
    and gradients on the card (kernel route) against the plain route on the
    CPU, with no table left without its gradient, dense and pooled (at the
    batch's auto budget), and the pooled step at a budget that holds every
-   survivor against the dense step on the card;
+   survivor against the dense step on the card; the selection levers'
+   frames the same way (NGP pooled with ``--occ_span_candidates 64``, and
+   with ``--occ_block_gather 4 --occ_span_block_gather 4`` too, NGP
+   fixed-K with ``--occ_block_gather 1``, vanilla ``--bf16 --occupancy``
+   with ``--occ_block_gather 2``, baked pooled with span 64) and their
+   invariants on the card, on the scene's 128^3 grid and on frame_matrix's
+   shell grid over one tile of 8192 rays (``check_lever_invariants``: block
+   words and span block words at stride 1 equal to the per-cell paths, at
+   stride 4 only adding, and no span skipping an occupied cell by a
+   brute-force check against the full-resolution grid, which must catch a
+   span of one probe);
 4. the port's ``serve_nerf`` in a thread, vanilla with ``--bf16`` in
    hierarchy and occupancy mode, and NGP in f32 (the CLI default) in
    hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
    --occ_t_eps 1e-2``), baked pooled (the same with ``--baked 384
    --baked_pack 4``, serve_nerf's own example) and baked fixed-K
-   (``--baked 384``): three ``POST /render`` requests each at 256x256,
-   each answered 200 with a PNG of that shape, with latencies;
+   (``--baked 384``), and with the selection levers: the JAX package's
+   north-star frame (``bench_frame``'s configuration: baked 384^3 pack 4,
+   ``--occ_candidates 96 --occ_span_candidates 64``, pooled auto, eps
+   1e-2, serving the bake of the baked pooled mode), the live NGP lever
+   stack (pooled, span 64, block words 4 in both) and vanilla ``--bf16
+   --occupancy --occ_block_gather 2``: three ``POST /render`` requests
+   each at 256x256, each answered 200 with a PNG of that shape, with
+   latencies;
 5. every kernel of each mode launched during its serve phase (fused_mlp,
    fused_render, the encode kernel in the three live NGP modes, the
    composite kernel in both hierarchy modes, twice a tile, and in fixed-K
    NGP, its pool layout in pooled NGP, the baked lookup once a tile in
    the baked modes, whose encode kernel ran in the bake and never while
-   serving), and no plain version called there or in the set-up;
+   serving, none at all in the north-star mode, which bakes nothing; the
+   pool layout in both lever modes, fused_render with block words), and no
+   plain version called there or in the set-up;
 6. a posed dataset of its own (views of the ball the occupancy grid
    models, coloured by position) and the port's ``train_nerf --instant_ngp
    --occupancy`` on it at full width (16 levels of 2^18 rows, 192 -> 32
@@ -145,7 +163,15 @@ nonzero):
    (the loss falls, its normal_mse printed; the encode, table-gradient,
    hashgrid_dx, its backward and composite kernels launched on every step,
    the encode and hashgrid_dx kernels once more a grid refresh, no plain
-   version), scored by ``eval_psnr`` and served;
+   version), scored by ``eval_psnr`` and served; the dense checkpoint
+   through the render-family CLIs with the levers (``lever_phase``, its
+   weights over the scene's ball grid, which the levers cull):
+   ``eval_psnr`` pooled with span 64, and with block words 4 too, within
+   the pooled run's bound of the plain pooled score, ``render_new_dataset``
+   (two RGBD views), ``marching_cubes --resolution 128`` (its sweep by the
+   encode kernel against the plain encode on the card) and
+   ``render_nerf_spin`` (4 frames), each launching the encode kernel and
+   no plain version;
 7. the coarse/fine hierarchy through ``train_nerf`` without
    ``--occupancy`` on the same dataset, at the vanilla model's full width
    (5 + 4 layers of 256, a 128-wide colour branch, batch 4096, 64 coarse
@@ -180,15 +206,17 @@ exits nonzero before printing any result.
     python3 chip_smoke.py --profile
 
 adds, after phase 5, one JSON line per render mode and numerics mode
-(vanilla hierarchy and occupancy, ``--bf16`` and f32; the three NGP modes
-and the two baked modes in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
+(vanilla hierarchy and occupancy, ``--bf16`` and f32; the three NGP modes,
+the two baked modes and the two lever modes in f32) from ``learn_nerf_tpu_torch.scripts.profile_render`` on the same
 scene and view size: median latency, one profiled render's device time,
 idle share, top kernels and the port's own kernels' share; and one such
 line for the train step from ``scripts.profile_train``, and two (the dense
 and the pooled step on ``bench_pooled``'s frozen grid) from
 ``scripts.profile_train --pooled``, one for the Ref-NeRF hybrid's occupancy
 step, and one for each hierarchy model's step (``scripts.profile_train
---hierarchy``).
+--hierarchy``); and, last, ``scripts/frame_matrix.py`` at 800x800 (every
+lever configuration in turns, and the one-tile selection rows), its JSON
+line.
 
     python3 chip_smoke.py --gate_seeds 0 1 2 3 4
 
@@ -493,6 +521,45 @@ BAKED_MODES = {
                          str(BAKED_PACK)],
     "ngp baked occupancy": [*NGP_MODES["ngp occupancy"], "--baked", str(BAKE_RESOLUTION)],
 }
+# The occupancy renderer's selection levers (two-phase span selection, block
+# words), each frame path they change held to its plain route as the modes
+# above are (phase 3), and served (phase 4): bench_frame's configuration,
+# the JAX package's north-star frame (baked 384^3 bf16 at pack 4, 96
+# candidates, span 64, pooled auto, eps 1e-2), serving the bake that "ngp
+# baked pooled" made, and the live lever stack.
+SPAN_FLAGS = ["--occ_span_candidates", "64"]
+BLOCK_FLAGS = ["--occ_block_gather", "4", "--occ_span_block_gather", "4"]
+LEVER_FRAME_MODES = {
+    "ngp pooled span": [*NGP_MODES["ngp pooled"], *SPAN_FLAGS],
+    "ngp pooled span block words": [*NGP_MODES["ngp pooled"], *SPAN_FLAGS, *BLOCK_FLAGS],
+    "ngp occupancy block words 1": [*NGP_MODES["ngp occupancy"], "--occ_block_gather", "1"],
+    "ngp baked pooled span": [*BAKED_MODES["ngp baked pooled"], *SPAN_FLAGS],
+}
+VANILLA_LEVER_MODES = {"occupancy block words": ["--occupancy", "--occ_block_gather", "2"]}
+NORTH_STAR = "ngp baked north-star"
+LEVER_SERVE_MODES = {
+    NORTH_STAR: ["--instant_ngp", "--occupancy", "--baked", str(BAKE_RESOLUTION), "--baked_pack", str(BAKED_PACK),
+                 "--occ_candidates", "96", *SPAN_FLAGS, "--occ_budget_per_ray", "auto", "--occ_t_eps", "1e-2"],
+    "ngp live levers": [*NGP_MODES["ngp pooled"], *SPAN_FLAGS, *BLOCK_FLAGS],
+}
+# The lever invariants (check_lever_invariants) over one tile of rays: the
+# span's brute-force check samples each ray at LEVER_CHECK_SAMPLES points of
+# its bbox range against the full-resolution grid, and must catch a span of
+# UNDERSIZED_PROBES probes (under the minimum, which the renderer refuses).
+# The one-bin pad and the supergrid's dilation leave a wide margin: a few
+# probes still cover the shell's crossings, one probe (the range's
+# midpoint, inside the shell) does not.
+LEVER_TILE = 8192
+LEVER_CHECK_SAMPLES = 2048
+UNDERSIZED_PROBES = 1
+# eval_psnr on the dense trained checkpoint, pooled, with the levers against
+# the plain pooled score: the pooled run's bound.
+LEVER_RUNS = {"span 64": SPAN_FLAGS, "span 64, block words 4": [*SPAN_FLAGS, *BLOCK_FLAGS]}
+LEVER_PSNR_SHORTFALL = POOLED_PSNR_SHORTFALL
+# marching_cubes on the trained checkpoint: the sweep's occupancy volume by
+# the encode kernel against the plain encode on the card.
+MESH_RESOLUTION = 128
+MESH_BOUND = 1e-5
 
 
 def require(ok, message):
@@ -2519,6 +2586,141 @@ def train_phase(root, profile):
     return {**counts, "trained ngp occupancy": served, "trained ngp pooled": served_pooled}
 
 
+def counted(name, call):
+    """``call()`` with every kernel count set to 0 before it; returns its
+    result and ``{kernel: (launches, plain calls)}``, and fails if a plain
+    version ran."""
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    result = call()
+    counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+    require(all(plain == 0 for _, plain in counts.values()), f"{name} called a plain version: {counts}")
+    return result, counts
+
+
+def lever_phase(root, device):
+    """The dense trained checkpoint through the render-family CLIs with the
+    selection levers, its weights over the scene's ball grid:
+    ``eval_psnr`` pooled with span 64 and with span 64 and block words 4
+    against the plain pooled score (shortfall at most
+    LEVER_PSNR_SHORTFALL), ``render_new_dataset`` (two RGBD views, pooled,
+    span 64) and ``render_nerf_spin`` (4 frames); and
+    ``marching_cubes --resolution 128`` on the checkpoint itself (its
+    sweep by the encode kernel against the plain encode on the card,
+    within MESH_BOUND).  Returns ``{run: {kernel: (launches,
+    plain calls)}}``."""
+    from learn_nerf_tpu_torch.data.camera import CameraView
+    from learn_nerf_tpu_torch.data.dataset import ModelMetadata
+    from learn_nerf_tpu_torch.scripts import marching_cubes, render_nerf, render_nerf_spin, render_new_dataset
+
+    from learn_nerf_tpu_torch.checkpoint import load_params_pickle, save_params_pickle
+
+    # After 96 steps the trained grid still holds its initial value, decayed
+    # (every cell occupied), where the levers select what the plain route
+    # selects. The lever runs take the trained weights over the grid of the
+    # ball the views show (write_scene's), where the levers change the
+    # selection.
+    params = load_params_pickle(str(root / "trained.pkl"))
+    grid = np.asarray(params["occupancy_densities"])
+    params.update(occupancy_densities=load_params_pickle(str(root / "ngp.pkl"))["occupancy_densities"],
+                  occupancy_resolution=128)
+    save_params_pickle(str(root / "trained_ball.pkl"), params)
+    print(f"lever runs: the trained weights over the scene's ball grid (its own grid: {float((grid > 0.01).mean()):.4f} "
+          f"of the cells occupied, from {grid.min():.6g} to {grid.max():.6g})", flush=True)
+    pooled = ["--instant_ngp", "--occupancy", "--occ_budget_per_ray", "auto"]
+    plain_psnr, plain_scores, _ = evaluate(root, "trained_ball.pkl", mode=pooled)
+    counts = {}
+    for label, flags in LEVER_RUNS.items():
+        (mean, scores, _), counts[f"eval_psnr {label}"] = counted(
+            label, lambda: evaluate(root, "trained_ball.pkl", flags, mode=pooled))
+        print(f"eval_psnr {' '.join(pooled + flags)} on the dense run over the ball grid: mean_psnr={mean:.3f} "
+              f"({[round(float(v), 3) for v in scores]}) beside the plain pooled {plain_psnr:.3f} "
+              f"({[round(float(v), 3) for v in plain_scores]}); shortfall {plain_psnr - mean:.4f} dB (bound "
+              f"{LEVER_PSNR_SHORTFALL:g} dB)", flush=True)
+        require(plain_psnr - mean <= LEVER_PSNR_SHORTFALL, f"eval_psnr with {label} fell short of the plain pooled score")
+
+    out = root / "distilled"
+    argv = [*pooled, *SPAN_FLAGS, "--seed", str(SEED), "--batch_size", "8192", "--num_images", "2", "--size",
+            str(SIDE // 2), "--model_path", str(root / "trained_ball.pkl"), str(root / "heldout" / "metadata.json"),
+            str(out)]
+    _, counts["render_new_dataset"] = counted("render_new_dataset", lambda: quiet(render_new_dataset.main, argv))
+    from PIL import Image
+
+    depths = []
+    for i in range(2):
+        rgb = np.asarray(Image.open(out / f"{i:05}.png"))
+        depths.append(np.asarray(Image.open(out / f"{i:05}_depth.png")))
+        require(rgb.shape == (SIDE // 2, SIDE // 2, 3) and depths[-1].shape == (SIDE // 2, SIDE // 2)
+                and depths[-1].dtype == np.uint16 and (out / f"{i:05}.json").exists(),
+                f"render_new_dataset view {i}: {rgb.shape}, {depths[-1].shape} {depths[-1].dtype}")
+    require((out / "metadata.json").read_text() == (root / "heldout" / "metadata.json").read_text(),
+            "render_new_dataset did not copy metadata.json")
+    # View 0 again through the CLI's session (the same seed, so the same
+    # draws): its depth is finite and is what the CLI wrote.
+    args = render_new_dataset.argparser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        session = render_nerf.RenderSession(args, include_depth_outputs=True)
+    view = CameraView.from_json(str(out / "00000.json"))
+    frame = session.render_arrays(view, SIDE // 2, SIDE // 2)
+    depth = render_new_dataset.depth_image(view, frame["alphas"], frame["coords"], args.max_depth)
+    del session
+    opaque = [float((d < 0xFFFF).mean()) for d in depths]
+    print(f"render_new_dataset, 2 views of {SIDE // 2}x{SIDE // 2} ({' '.join(pooled + SPAN_FLAGS)}): opaque "
+          f"share of the depth images {[round(v, 4) for v in opaque]}, alpha of view 0 in "
+          f"[{frame['alphas'].min():.4f}, {frame['alphas'].max():.4f}]; (launches, plain calls) "
+          f"{counts['render_new_dataset']}", flush=True)
+    require(np.isfinite(depth).all() and np.isfinite(frame["coords"]).all()
+            and np.array_equal((depth.reshape(SIDE // 2, SIDE // 2) * 0xFFFF).astype(np.uint16), depths[0]),
+            "render_new_dataset's depth is not finite or not the frame's")
+
+    metadata = str(root / "heldout" / "metadata.json")
+    args = marching_cubes.argparser().parse_args(
+        ["--instant_ngp", "--model_path", str(root / "trained.pkl"), metadata, "unused.obj"])
+    meta = ModelMetadata.from_json(metadata)
+    fine = marching_cubes.load_fine(args, meta, device)
+    coords = marching_cubes.grid_coordinates(meta.bbox_min, meta.bbox_max, MESH_RESOLUTION).reshape(-1, 3)
+    volume, _ = counted("the marching_cubes sweep", lambda: marching_cubes.occupancy_volume(fine, coords, 8192, device))
+    with plain_routes():
+        plain = marching_cubes.occupancy_volume(fine, coords, 8192, device)
+    err = float(np.abs(volume - plain).max())
+    del fine
+    obj = root / "ball.obj"
+    threshold = round(float(volume.min() + volume.max()) / 2, 3)  # a surface between the extremes
+    log, counts["marching_cubes"] = counted("marching_cubes", lambda: quiet(marching_cubes.main, [
+        "--instant_ngp", "--resolution", str(MESH_RESOLUTION), "--threshold", str(threshold),
+        "--model_path", str(root / "trained.pkl"), metadata, str(obj)]))
+    print(f"marching_cubes --resolution {MESH_RESOLUTION}: the sweep's {coords.shape[0]} occupancies by the encode "
+          f"kernel against the plain encode on the card: max abs err {err:.3e} (bound {MESH_BOUND:g}), occupancy "
+          f"mean {volume.mean():.4f}, threshold {threshold}; {log.strip().splitlines()[-1]}; (launches, plain calls) "
+          f"{counts['marching_cubes']}", flush=True)
+    require(err <= MESH_BOUND, "the marching_cubes sweep disagrees with the plain route")
+
+    spin = root / "spin.png"
+    _, counts["render_nerf_spin"] = counted("render_nerf_spin", lambda: quiet(render_nerf_spin.main, [
+        *pooled, *SPAN_FLAGS, "--seed", str(SEED), "--batch_size", "8192", "--width", str(SIDE // 2), "--height",
+        str(SIDE // 2), "--frames", "4", "--model_path", str(root / "trained_ball.pkl"), metadata,
+        str(root / "heldout" / "0000.json"), str(spin)]))
+    reel = np.asarray(Image.open(spin))
+    print(f"render_nerf_spin, 4 frames: reel {reel.shape}; (launches, plain calls) {counts['render_nerf_spin']}",
+          flush=True)
+    require(reel.shape == (SIDE // 2, 4 * SIDE // 2, 3) and reel.std() > 0, f"render_nerf_spin's reel is {reel.shape}")
+    for run, c in counts.items():
+        require(c["hashgrid_encode"][0] > 0, f"{run} never launched hashgrid_encode: {c}")
+    for run in ("render_new_dataset", "render_nerf_spin", *(f"eval_psnr {label}" for label in LEVER_RUNS)):
+        require(counts[run]["composite_pooled"][0] > 0, f"{run} did not composite in the pool layout: {counts[run]}")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def quiet(main, argv):
+    """``main(argv)`` with its standard output captured; returns the text."""
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        main(argv)
+    return log.getvalue()
+
+
 def print_normal_mse(name, records):
     """Print a run's fine ``normal_mse``: the mean of its first sixth of
     steps and of its last, as train_run reads its loss.  It is printed and
@@ -2892,23 +3094,6 @@ def write_scene(root, rng):
     return views
 
 
-@contextlib.contextmanager
-def baked_on_cpu(field):
-    """Inside, with ``field`` given, ``render_nerf``'s sessions take a CPU
-    copy of ``field`` as their bake in place of baking their own."""
-    from learn_nerf_tpu_torch.scripts import render_nerf
-
-    if field is None:
-        yield
-        return
-    bake = render_nerf.apply_baking
-    render_nerf.apply_baking = lambda args, fine: copy.deepcopy(field).cpu()
-    try:
-        yield
-    finally:
-        render_nerf.apply_baking = bake
-
-
 def check_frames(root, views, device, rng, modes, bf16):
     """The kernel route (card) against the plain route (CPU) on a 16x16
     view through each mode's frame renderer, with the same uniforms (and,
@@ -2925,7 +3110,7 @@ def check_frames(root, views, device, rng, modes, bf16):
         card = render_nerf.RenderSession(args, device=device)
         # A baked mode's CPU session serves the card's bake (a CPU bake of
         # 384^3 vertices through 16 hash-grid levels would take minutes).
-        with baked_on_cpu(card.field if "--baked" in mode else None):
+        with serving_bake(copy.deepcopy(card.field).cpu() if "--baked" in mode else None):
             sessions = [card, render_nerf.RenderSession(args, device=torch.device("cpu"))]
         r = sessions[0].renderer
         occupancy = "--occupancy" in mode
@@ -2967,6 +3152,112 @@ def check_frames(root, views, device, rng, modes, bf16):
         require(outs[0].std().item() > 1e-3, f"{name} frame is flat")
 
 
+def lever_renderer(grid, **levers):
+    """An occupancy renderer of the main path's selection (192 candidates,
+    32 samples) on ``grid``, with ``levers``; selection only (no model)."""
+    from learn_nerf_tpu_torch.occ_render import OccupancyRenderer
+
+    return OccupancyRenderer(model=None, grid=grid, bbox_min=grid.bbox_min, bbox_max=grid.bbox_max, candidates=192,
+                             samples=32, **levers)
+
+
+def span_misses(renderer, grid, state, rays, samples=LEVER_CHECK_SAMPLES, chunk=1024):
+    """The brute-force check of a span: each ray's bbox range sampled at
+    ``samples`` midpoints against the full-resolution grid; returns the
+    number of rays in the bbox with an occupied sample that the ray's span
+    (with ``hit``) does not contain, and the number with any occupied
+    sample."""
+    from learn_nerf_tpu_torch.ops.geometry import ray_bbox_range
+
+    lo = torch.tensor(grid.bbox_min, device=rays.device)
+    hi = torch.tensor(grid.bbox_max, device=rays.device)
+    missed = crossing = 0
+    frac = (torch.arange(samples, device=rays.device, dtype=torch.float32) + 0.5) / samples
+    for part in rays.split(chunk):
+        o, d = part[:, 0], part[:, 1]
+        t_min, t_max, mask = ray_bbox_range(o, d, lo, hi, renderer.min_t_range)
+        t_lo, t_hi, hit = renderer._occupied_span(o, d, t_min, t_max, state)
+        ts = t_min[:, None] + (t_max - t_min)[:, None] * frac[None, :]
+        occ = grid.occupied(state, o[:, None, :] + d[:, None, :] * ts[..., None]) & mask[:, None]
+        # Slack of one f32 step at the bbox's scale around the span's ends.
+        outside = (ts < t_lo[:, None] - 1e-5) | (ts > t_hi[:, None] + 1e-5) | ~hit[:, None]
+        missed += int((occ & outside).any(dim=1).sum())
+        crossing += int(occ.any(dim=1).sum())
+    return missed, crossing
+
+
+def check_lever_invariants(root, device, rng):
+    """The selection levers' invariants on the card, on the scene's 128^3
+    grid (the ball) and on frame_matrix's shell grid, over one tile of
+    LEVER_TILE rays of a frame, with the transmittance prune off: block
+    words at stride 1 select exactly what the per-cell gather selects, span
+    block words at stride 1 give the per-cell span exactly, at stride 4
+    both only add (occupancy a superset, spans that contain the per-cell
+    spans), and no span skips an occupied cell on a ray through it (the
+    brute-force check of ``span_misses``, which a span of
+    UNDERSIZED_PROBES probes must fail on the shell).  Each failure is
+    fatal."""
+    from learn_nerf_tpu_torch import occ_render
+    from learn_nerf_tpu_torch.acceleration import OccupancyGrid
+    from learn_nerf_tpu_torch.checkpoint import load_params_pickle
+    from learn_nerf_tpu_torch.data.camera import CameraView
+    from learn_nerf_tpu_torch.ops.geometry import ray_bbox_range
+    from learn_nerf_tpu_torch.scripts import frame_matrix
+
+    def one_tile(view, side):
+        rays = torch.from_numpy(view.bare_rays(side, side)).to(device)
+        return rays[:: rays.shape[0] // LEVER_TILE][:LEVER_TILE].contiguous()
+
+    ball = OccupancyGrid(bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3, resolution=128)
+    shell = OccupancyGrid(resolution=128, **frame_matrix.BBOX)
+    # The ball is thick enough that a few probes still find it; the thin
+    # shell is where an undersized probe count must show.
+    cases = {
+        "the scene's ball": (ball, ball.state_from_checkpoint(load_params_pickle(str(root / "ngp.pkl")), device),
+                             one_tile(CameraView.from_json(str(root / "0000.json")), SIDE), False),
+        "the shell grid": (shell, frame_matrix.shell_grid_state(shell, device), one_tile(frame_matrix.frame_view(), 800),
+                           True),
+    }
+    with torch.inference_mode():
+        for name, (grid, state, rays, catch) in cases.items():
+            u = torch.from_numpy(rng.rand(rays.shape[0], 192).astype(np.float32)).to(device)
+            select = {k: lever_renderer(grid, block_gather_stride=k)._select_candidates(rays, state, 0.0, u=u)
+                      for k in (0, 1, 4)}
+            same = all(torch.equal(a, b) for a, b in zip(select[0], select[1]))
+            occ0, occ4 = select[0][1], select[4][1]
+            lo, hi = torch.tensor(grid.bbox_min, device=device), torch.tensor(grid.bbox_max, device=device)
+            t_min, t_max, _ = ray_bbox_range(rays[:, 0], rays[:, 1], lo, hi, 1e-3)
+            spans = {k: lever_renderer(grid, span_candidates=64, span_block_gather=k)._occupied_span(
+                rays[:, 0], rays[:, 1], t_min, t_max, state) for k in (0, 1, 4)}
+            span_same = all(torch.equal(a, b) for a, b in zip(spans[0], spans[1]))
+            (lo0, hi0, hit0), (lo4, hi4, hit4) = spans[0], spans[4]
+            widens = bool((hit4 | ~hit0).all() and (lo4 <= lo0)[hit0].all() and (hi4 >= hi0)[hit0].all())
+            misses = {label: span_misses(lever_renderer(grid, span_candidates=64, **levers), grid, state, rays)
+                      for label, levers in (("per-cell", {}), ("block words 4", dict(span_block_gather=4)))}
+            needed = occ_render.min_span_candidates(128, 8, grid.bbox_min, grid.bbox_max)
+            original = occ_render.min_span_candidates
+            occ_render.min_span_candidates = lambda *args: 0  # let an undersized count through
+            try:
+                undersized = span_misses(lever_renderer(grid, span_candidates=UNDERSIZED_PROBES), grid, state, rays)
+            finally:
+                occ_render.min_span_candidates = original
+            extra = float((occ4 & ~occ0).float().sum() / occ0.sum().clamp(min=1))
+            print(f"lever invariants on {name}, {rays.shape[0]} rays: block words 1 select as the cells "
+                  f"{same}, span block words 1 span as the cells {span_same}; block words 4: occupancy a superset "
+                  f"{bool((occ4 | ~occ0).all())} (+{extra:.4f} of the occupied candidates), spans contain the "
+                  f"cells' {widens}; rays with an occupied sample outside the span (of rays crossing an occupied "
+                  f"cell, {LEVER_CHECK_SAMPLES} samples a ray): span 64 {misses['per-cell']}, span block words 4 "
+                  f"{misses['block words 4']}, {UNDERSIZED_PROBES} probes (under the {needed} needed) "
+                  f"{undersized}", flush=True)
+            require(same, f"{name}: block words at stride 1 do not select as the per-cell gather")
+            require(span_same, f"{name}: span block words at stride 1 do not give the per-cell span")
+            require(bool((occ4 | ~occ0).all()), f"{name}: block words at stride 4 dropped an occupied candidate")
+            require(widens, f"{name}: span block words at stride 4 narrowed a span")
+            require(all(m == 0 and c > 0 for m, c in misses.values()), f"{name}: a span skipped an occupied cell")
+            require(undersized[0] > 0 or not catch,
+                    f"{name}: the brute-force check did not catch {UNDERSIZED_PROBES} probes")
+
+
 def png_size(body):
     require(body[:8] == b"\x89PNG\r\n\x1a\n", "response is not a PNG")
     width, height = struct.unpack(">II", body[16:24])
@@ -2993,7 +3284,7 @@ def profile_modes(root):
 
     view = CameraView.from_json(str(root / "0000.json"))
     runs = [(name, mode, bf16) for name, mode in VANILLA_MODES.items() for bf16 in (True, False)]
-    runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES}.items()]
+    runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES, **LEVER_SERVE_MODES}.items()]
     for name, mode, bf16 in runs:
         argv = mode_flags(root, mode, bf16) + [str(root / "metadata.json")]
         session = render_nerf.RenderSession(render_nerf.argparser().parse_args(argv))
@@ -3004,18 +3295,39 @@ def profile_modes(root):
         torch.cuda.empty_cache()
 
 
-def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS):
+@contextlib.contextmanager
+def serving_bake(field):
+    """Inside, with ``field`` given, ``render_nerf``'s sessions serve
+    ``field`` as their bake in place of baking their own."""
+    from learn_nerf_tpu_torch.scripts import render_nerf
+
+    if field is None:
+        yield
+        return
+    bake = render_nerf.apply_baking
+    render_nerf.apply_baking = lambda args, fine: field
+    try:
+        yield
+    finally:
+        render_nerf.apply_baking = bake
+
+
+def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS, bake=None, keep=None):
     """Serve, send the requests, return ``{kernel: (launches, plain
     calls)}`` of the serve phase and of the server's set-up (the bake in a
-    baked mode)."""
+    baked mode).  With ``bake``, a baked mode serves that field and bakes
+    nothing; with ``keep`` (a dict), ``keep["field"]`` is the field served."""
     from learn_nerf_tpu_torch.scripts import serve_nerf
 
     counters = kernel_counters()
     argv = mode_flags(root, mode, bf16, checkpoint) + ["--port", "0", str(root / "metadata.json")]
     for c in counters.values():
         c.reset()
-    server = serve_nerf.make_server(serve_nerf.argparser().parse_args(argv))
+    with serving_bake(bake):
+        server = serve_nerf.make_server(serve_nerf.argparser().parse_args(argv))
     setup = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+    if keep is not None:
+        keep["field"] = server.session.field
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address[:2]
@@ -3152,19 +3464,30 @@ def main():
         check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
         check_frames(root, views, device, np.random.RandomState(SEED + 12), BAKED_MODES, bf16=False)
         torch.cuda.empty_cache()
+        check_frames(root, views, device, np.random.RandomState(SEED + 16), LEVER_FRAME_MODES, bf16=False)
+        check_frames(root, views, device, np.random.RandomState(SEED + 17), VANILLA_LEVER_MODES, bf16=True)
+        torch.cuda.empty_cache()
+        check_lever_invariants(root, device, np.random.RandomState(SEED + 18))
+        torch.cuda.empty_cache()
         write_train_scene(root / "train", np.random.RandomState(SEED + 7))
         check_train_step(root, device, np.random.RandomState(SEED + 8))
         torch.cuda.empty_cache()
         hierarchy_step_check(root, device, np.random.RandomState(SEED + 14))
-        served, setups = {}, {}
-        runs = [(name, mode, True) for name, mode in VANILLA_MODES.items()]
-        runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES}.items()]
+        served, setups, bake = {}, {}, {}
+        runs = [(name, mode, True) for name, mode in {**VANILLA_MODES, **VANILLA_LEVER_MODES}.items()]
+        runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES, **LEVER_SERVE_MODES}.items()]
         for name, mode, bf16 in runs:
-            served[name], setups[name] = serve_mode(root, name, mode, bf16)
+            # The north-star mode serves the bake of "ngp baked pooled" (384^3,
+            # pack 4, the same checkpoint): no second bake.
+            served[name], setups[name] = serve_mode(root, name, mode, bf16, bake=bake.get("field") if name == NORTH_STAR
+                                                    else None, keep=bake if name == "ngp baked pooled" else None)
             torch.cuda.empty_cache()
+        bake.clear()
+        torch.cuda.empty_cache()
         if args.profile:
             profile_modes(root)
         served.update(train_phase(root, args.profile))
+        served.update(lever_phase(root, device))
         served.update(ref_nerf_phase(root, args.profile))
         served.update(hierarchy_phase(root, args.profile))
         served["hierarchy ref-nerf served"], _ = serve_mode(
@@ -3210,6 +3533,25 @@ def main():
             "Ref-NeRF hierarchy serving did not composite twice a tile on the card")
     require(served["ngp baked pooled"]["composite_pooled"][0] > 0
             and served["ngp baked occupancy"]["composite"][0] > 0, "a baked mode did not composite on the card")
+    # The lever modes: the north-star frame serves the bake "ngp baked
+    # pooled" made (no encode in its set-up or while serving, the baked
+    # lookup once a tile), the live levers encode; both composite in the
+    # pool layout; vanilla block words run the fused render kernel.
+    north, north_setup = served[NORTH_STAR], setups[NORTH_STAR]
+    require(north_setup["hashgrid_encode"][0] == 0 and north["hashgrid_encode"][0] == 0
+            and north["baked_lookup"][0] == baked_tiles * REQUESTS,
+            f"{NORTH_STAR}: baked again or did not look up once a tile: {north_setup}, {north}")
+    require(served["ngp live levers"]["hashgrid_encode"][0] > 0, "ngp live levers never launched hashgrid_encode")
+    for name in LEVER_SERVE_MODES:
+        require(served[name]["composite_pooled"][0] > 0 and served[name]["composite"][0] == 0,
+                f"{name} serving did not composite in the pool layout: {served[name]}")
+    for name in VANILLA_LEVER_MODES:
+        require(served[name]["fused_render"][0] > 0, f"{name} serving never launched fused_render")
+    if args.profile:
+        from learn_nerf_tpu_torch.scripts import frame_matrix
+
+        torch.cuda.empty_cache()
+        frame_matrix.main(["--size", "800"])  # its rows, then its JSON line
     for k in kernels:
         k["launches"] = sum(counts[k["name"]][0] for counts in served.values())
     ordered = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "ms_rays",

@@ -8,6 +8,11 @@ stratified candidates; :func:`compact_occupied_strided` then keeps K
 occupied candidates per ray, evenly strided over the occupied span, so the
 field model runs on ``[N, K]`` points.  Static shapes throughout.  The
 pooled inference path sizes its sample pool with the budget buckets below.
+
+The inference levers' tables are built here too: the max-pooled supergrid
+of two-phase span selection (:func:`superpool_densities`,
+:func:`dilate_supercells`) and the packed block words
+(:func:`pack_block_table`, :meth:`OccupancyGrid.block_indices`).
 """
 
 from dataclasses import dataclass
@@ -15,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 Tensor = torch.Tensor
 
@@ -63,12 +69,30 @@ class OccupancyGrid:
         r = self.resolution
         return cell[..., 0] + r * (cell[..., 1] + r * cell[..., 2])
 
+    def block_indices(self, x: Tensor) -> Tuple[Tensor, Tensor]:
+        """(flat block-word index, bit index) per point for the packed
+        occupancy table (:func:`pack_block_table`); the quantization of
+        :meth:`cell_indices`."""
+        cell = self._cell_coords(x)
+        dx, dy, dz = BLOCK_DIMS
+        r = self.resolution
+        nbx, nby = r // dx, r // dy
+        widx = cell[..., 0] // dx + nbx * (cell[..., 1] // dy + nby * (cell[..., 2] // dz))
+        bit = cell[..., 0] % dx + dx * (cell[..., 1] % dy) + dx * dy * (cell[..., 2] % dz)
+        return widx, bit
+
+    def occupied_from_bits(self, state: OccupancyGridState, bits: Tensor) -> Tensor:
+        """The warmup rule on per-cell threshold tests (``d > threshold``,
+        or a block word's bit): all true while ``state.step <
+        warmup_updates``.  Its single definition; every occupancy consumer
+        routes through here."""
+        warm = torch.tensor(state.step < self.warmup_updates, device=bits.device)
+        return bits | warm
+
     def occupied_from_densities(self, state: OccupancyGridState, d: Tensor) -> Tensor:
         """Occupancy test on already-gathered cell densities: all true while
-        ``state.step < warmup_updates``, a threshold test afterwards.  The
-        single definition of the rule."""
-        warm = torch.tensor(state.step < self.warmup_updates, device=d.device)
-        return (d > self.threshold) | warm
+        ``state.step < warmup_updates``, a threshold test afterwards."""
+        return self.occupied_from_bits(state, d > self.threshold)
 
     def occupied(self, state: OccupancyGridState, x: Tensor) -> Tensor:
         """Boolean occupancy per point."""
@@ -169,6 +193,70 @@ class OccupancyGrid:
             densities = state.densities * decay
             densities.scatter_reduce_(0, ids, density, reduce="amax", include_self=True)
         return OccupancyGridState(densities=densities, step=state.step + 1)
+
+
+def superpool_densities(densities: Tensor, resolution: int, factor: int) -> Tensor:
+    """Max-pool the flat ``[resolution^3]`` cell densities by ``factor``.
+
+    A supercell's value is the max over its ``factor^3`` children, so a
+    threshold test on the pooled grid is conservative.  The flat index
+    follows :meth:`OccupancyGrid.cell_indices` at the pooled resolution.
+    """
+    r, f = resolution, factor
+    rs = r // f
+    cube = densities.reshape(rs, f, rs, f, rs, f)  # [z, y, x] blocks
+    return cube.amax(dim=(1, 3, 5)).reshape(-1)
+
+
+#: Cells per packed occupancy word, (x, y, z): 4*4*2 = 32 cells, one
+#: 32-bit word.  A table row is the word and the block's max density.
+BLOCK_DIMS = (4, 4, 2)
+
+
+def pack_block_table(densities: Tensor, resolution: int, threshold: float) -> Tensor:
+    """Pack flat ``[r^3]`` cell densities into a ``[r^3/32, 2]`` float32
+    table: column 0 the block's 32 occupancy bits (``d > threshold``) as
+    the bit pattern of a uint32, column 1 the block's max density.
+
+    Block flat index ``bx + (r/4)*(by + (r/4)*bz)``, bit index ``x%4 +
+    4*(y%4) + 16*(z%2)``: :meth:`OccupancyGrid.block_indices` computes
+    both.  Many words are NaN or denormal bit patterns as floats, so the
+    words are built in int64, stored as int32 bits and viewed as float32;
+    readers view the rows as int32 again before any bit logic
+    (:func:`~.occ_render._bracketed_block_words`), and no word ever passes
+    through float arithmetic or a cast.
+    """
+    r = resolution
+    dx, dy, dz = BLOCK_DIMS
+    if r % dx or r % dy or r % dz:
+        raise ValueError(
+            f"occupancy grid resolution {r} is not divisible by the "
+            f"block dims {BLOCK_DIMS} (block-word selection needs it)"
+        )
+    # Flat layout x-fastest -> the [z, y, x] cube (as superpool_densities).
+    cube = densities.reshape(r // dz, dz, r // dy, dy, r // dx, dx)
+    bits = (cube > threshold).to(torch.int64)
+    device = densities.device
+    zi = torch.arange(dz, dtype=torch.int64, device=device)
+    yi = torch.arange(dy, dtype=torch.int64, device=device)
+    xi = torch.arange(dx, dtype=torch.int64, device=device)
+    weight = 1 << (xi[None, None, :] + dx * yi[None, :, None] + dx * dy * zi[:, None, None])  # [dz, dy, dx]
+    words = (bits * weight[:, None, :, None, :]).sum(dim=(1, 3, 5)) & 0xFFFFFFFF  # [bz, by, bx]
+    # The uint32 value as the int32 of the same bits (two's complement).
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+    dmax = cube.amax(dim=(1, 3, 5)).contiguous().view(torch.int32)
+    table = torch.stack([words.reshape(-1), dmax.reshape(-1)], dim=-1)
+    return table.view(torch.float32)  # [nblocks, 2]; flatten order bx-fastest
+
+
+def dilate_supercells(sup: Tensor, rs: int) -> Tensor:
+    """Max-dilate flat ``[rs^3]`` supercell densities by one cell (3^3,
+    ``-inf`` beyond the grid), so that a span probe in a supercell next to
+    an occupied one still tests positive (the conservativeness argument of
+    :meth:`~.occ_render.OccupancyRenderer._occupied_span`).  The flat
+    layout of :func:`superpool_densities`."""
+    cube = sup.reshape(1, 1, rs, rs, rs)
+    return F.max_pool3d(cube, kernel_size=3, stride=1, padding=1).reshape(-1)
 
 
 #: Quantized per-ray pool budgets for "auto" modes: resolved budgets snap

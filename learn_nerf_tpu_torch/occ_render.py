@@ -1,5 +1,5 @@
 """Occupancy-grid accelerated renderer (port of ``learn_nerf_tpu.occ_render``:
-the fixed-K path and the pooled inference path).
+the fixed-K path, the pooled inference path and the selection levers).
 
 1. stratify C cheap candidate ts per ray over the bbox range,
 2. occupancy-test every candidate against the grid,
@@ -14,6 +14,16 @@ The pooled path (:meth:`OccupancyRenderer.render_rays_pooled`, the CLIs'
 not on the ``N * K`` worst case; :class:`OccupancyFrameSession` sizes the
 pool from measured demand.
 
+Three inference levers of the selection, all off by default as in the JAX
+package: two-phase span selection (``span_candidates``: probe a max-pooled,
+dilated supergrid to bound each ray's occupied span, then place the C
+candidates inside it), block-word occupancy gathers
+(``block_gather_stride``: one packed row of a 4x4x2 block's 32 occupancy
+bits answers every candidate that falls in the block) and the same words
+for the span probes (``span_block_gather``).  They are plain tensor code;
+:meth:`OccupancyRenderer.selection_tables` builds their tables once a
+frame.
+
 Both paths (:meth:`OccupancyRenderer.render_rays` and
 :meth:`OccupancyRenderer.render_rays_pooled`, which training
 differentiates) run step 4's scan, weights and blends (colour, coords, aux)
@@ -24,22 +34,27 @@ On the fixed-K frame path a ``bfloat16`` :class:`~.models.vanilla.NeRFModel`
 runs step 4's per-sample chain (points -> MLP -> scan -> composite) as one
 fused kernel (:mod:`.kernels.fused_render`), as
 ``tools/pallas_recipe/fused_render.fused_render_occupancy`` does.
-
-Not ported yet: the two-phase span and the block-word gathers (ROADMAP.md,
-Queue 1: the span and the block-word gathers); asking for them raises.
 """
 
+import dataclasses
+import functools
+import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .acceleration import (
+    BLOCK_DIMS,
     OccupancyGrid,
     OccupancyGridState,
     auto_budget_from_demand,
     compact_occupied_strided,
+    dilate_supercells,
     next_budget_bucket,
+    pack_block_table,
+    superpool_densities,
 )
 from .kernels.composite import render_composite_pooled
 from .kernels.fused_render import fused_render
@@ -51,10 +66,58 @@ from .render import composite_samples, pad_rays_to_tiles
 
 Tensor = torch.Tensor
 
-NOT_PORTED = (
-    "is not ported yet; the two-phase span and the block-word gathers are "
-    "left of ROADMAP.md, Queue 1: the span and the block-word gathers"
-)
+
+@functools.lru_cache(maxsize=None)
+def _bracket_columns(n_cand: int, stride: int, device: torch.device) -> Tuple[Tensor, Tensor, Tensor]:
+    """The probe columns of :func:`_bracketed_block_words` and each
+    column's two bracketing probes, built on the host once per shape and
+    device."""
+    probe_sel = np.arange(0, n_cand, stride)
+    n_probe = probe_sel.shape[0]
+    j0 = np.minimum(np.arange(n_cand) // stride, n_probe - 1)
+    j1 = np.minimum(j0 + 1, n_probe - 1)
+    return tuple(torch.as_tensor(a, dtype=torch.int64, device=device) for a in (probe_sel, j0, j1))
+
+
+def _bracketed_block_words(
+    widx_c: Tensor, bit_c: Tensor, table: Tensor, stride: int
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Answer per-column block-word lookups from strided probe gathers.
+
+    Gathers one packed row (:func:`~.acceleration.pack_block_table`) per
+    ``stride`` columns and answers every column from whichever bracketing
+    probe's word has its block index.  The rows are read as int32, so no
+    word passes through float arithmetic.
+
+    :param widx_c: ``[N, C]`` flat block-word index per column.
+    :param bit_c: ``[N, C]`` bit index within the word.
+    :param table: ``[nblocks, 2]`` packed table.
+    :return: ``(bit, dmax, matched)``, each ``[N, C]``: the column's
+        occupancy bit (valid where ``matched``), the answering probe's
+        block-max density, and whether either bracketing probe shares the
+        column's block (callers count unmatched columns occupied).
+    """
+    probe_sel, j0, j1 = _bracket_columns(widx_c.shape[1], stride, widx_c.device)
+    widx_p = widx_c[:, probe_sel]
+    rows = table.view(torch.int32)[widx_p]  # [N, P, 2]: the gather
+    words_p = rows[..., 0]
+    dmax_p = rows[..., 1].view(torch.float32)
+    m0 = widx_c == widx_p[:, j0]
+    m1 = widx_c == widx_p[:, j1]
+    words_c = torch.where(m0, words_p[:, j0], words_p[:, j1])
+    dmax = torch.where(m0, dmax_p[:, j0], dmax_p[:, j1])
+    bit = ((words_c >> bit_c.to(torch.int32)) & 1).to(torch.bool)
+    return bit, dmax, m0 | m1
+
+
+def min_span_candidates(resolution: int, span_pool_factor: int, bbox_min, bbox_max) -> int:
+    """Minimum span probe count for conservative two-phase selection: the
+    probe spacing at most half the shortest supercell side over the
+    bbox's diagonal chord; ``ceil(2*sqrt(3)*rs)`` for a cubic bbox."""
+    rs = resolution // span_pool_factor
+    span = np.asarray(bbox_max, np.float64) - np.asarray(bbox_min, np.float64)
+    diag = float(np.linalg.norm(span))
+    return math.ceil(2.0 * diag * rs / float(span.min()))
 
 
 @dataclass(frozen=True, eq=False)
@@ -66,15 +129,31 @@ class OccupancyRenderer:
     candidates: int = 192
     samples: int = 32
     min_t_range: float = 1e-3
-    # Inference levers of the JAX renderer, not ported yet: any nonzero
-    # value raises.
+    # Two-phase span selection (0 = off): `span_candidates` midpoints of
+    # equal bins are tested against the supergrid (the grid max-pooled by
+    # `span_pool_factor`, then dilated by one supercell) to bound each
+    # ray's occupied span, padded by one bin; the C candidates are placed
+    # inside it.  Needs span_candidates >= min_span_candidates(...) (64
+    # at 128 / 8 on a cube).
     span_candidates: int = 0
+    span_pool_factor: int = 8
+    # Block-word occupancy gathers (0 = off): one packed row (a 4x4x2
+    # block's 32 occupancy bits and its max density) is gathered at every
+    # k-th candidate and answers each candidate whose block matches a
+    # bracketing probe; an unmatched candidate counts occupied.  The
+    # transmittance prune sees the block's max density.  With the prune
+    # off, stride 1 selects exactly what the per-cell gather selects.
     block_gather_stride: int = 0
+    # The same words for the span probes (0 = off; needs span_candidates
+    # > 0): a mismatched probe counts occupied, which only widens a span.
+    # Falls back to per-cell probes when the supergrid does not tile into
+    # 4x4x2 blocks.  Stride 1 gives the per-cell span exactly.
     span_block_gather: int = 0
 
     def __post_init__(self):
-        # The renderer bbox drives ray t-ranges; the grid's drives cell
-        # quantization.  They must agree or culling silently misplaces cells.
+        # The renderer bbox drives ray t-ranges and span probes; the grid's
+        # drives cell quantization.  They must agree or culling silently
+        # misplaces cells.
         if tuple(map(float, self.bbox_min)) != tuple(map(float, self.grid.bbox_min)) or tuple(
             map(float, self.bbox_max)
         ) != tuple(map(float, self.grid.bbox_max)):
@@ -83,14 +162,30 @@ class OccupancyRenderer:
                 f"must equal its grid's bbox "
                 f"{self.grid.bbox_min}..{self.grid.bbox_max}"
             )
-        for name in ("span_candidates", "block_gather_stride", "span_block_gather"):
-            if getattr(self, name):
-                raise NotImplementedError(f"OccupancyRenderer {name} {NOT_PORTED}")
 
     @property
     def fused(self) -> bool:
         """Whether the frame path runs the fused render kernel."""
         return isinstance(self.model, NeRFModel) and self.model.compute_dtype == "bfloat16"
+
+    def selection_tables(self, grid_state: OccupancyGridState) -> Dict[str, Tensor]:
+        """The frame-invariant tables of the levers that are on: ``block``
+        (the packed grid), ``span_sup`` (the dilated supergrid) and
+        ``span_block`` (the supergrid packed).  Empty with every lever
+        off; each consumer builds its table itself when its key is
+        absent."""
+        tables: Dict[str, Tensor] = {}
+        densities = grid_state.densities.detach()
+        r = self.grid.resolution
+        if self.block_gather_stride > 0:
+            tables["block"] = pack_block_table(densities, r, self.grid.threshold)
+        if self.span_candidates > 0 and r % self.span_pool_factor == 0:
+            rs = r // self.span_pool_factor
+            sup = superpool_densities(densities, r, self.span_pool_factor)
+            tables["span_sup"] = dilate_supercells(sup, rs)
+            if self.span_block_gather > 0 and all(rs % d == 0 for d in BLOCK_DIMS):
+                tables["span_block"] = pack_block_table(tables["span_sup"], rs, self.grid.threshold)
+        return tables
 
     def _select_candidates(
         self,
@@ -99,21 +194,32 @@ class OccupancyRenderer:
         transmittance_eps: float = 0.0,
         u: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        tables: Optional[Dict[str, Tensor]] = None,
     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        """Stratified candidates, occupancy test (incl. warmup), optional
-        grid-transmittance prune, bbox mask.
+        """Stratified candidates (inside the occupied span with
+        ``span_candidates``), occupancy test (incl. warmup; block words
+        with ``block_gather_stride``), optional grid-transmittance prune,
+        bbox mask.
 
         :param u: optional ``[N, candidates]`` uniforms for the draw.
+        :param tables: optional :meth:`selection_tables` (frame callers
+            build them once, outside their tile loop).
         :return: ``(cand_ts [N,C], occ [N,C] bool, dt [N,1], mask [N])``.
         """
         bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=rays.device)
         bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=rays.device)
         origins, dirs = rays[:, 0], rays[:, 1]
         t_min, t_max, mask = ray_bbox_range(origins, dirs, bbox_min, bbox_max, self.min_t_range)
+        if self.span_candidates > 0:
+            t_min, t_max, span_hit = self._occupied_span(origins, dirs, t_min, t_max, grid_state, tables)
+            mask = mask & span_hit
         cand_ts = stratified_ts(t_min, t_max, self.candidates, u=u, generator=generator)
         cand_pts = origins[:, None, :] + dirs[:, None, :] * cand_ts[..., None]
-        d_grid = grid_state.densities.detach()[self.grid.cell_indices(cand_pts)]
-        occ = self.grid.occupied_from_densities(grid_state, d_grid)
+        if self.block_gather_stride > 0:
+            occ, d_grid = self._block_word_occupancy(cand_pts, grid_state, (tables or {}).get("block"))
+        else:
+            d_grid = grid_state.densities.detach()[self.grid.cell_indices(cand_pts)]
+            occ = self.grid.occupied_from_densities(grid_state, d_grid)
         dt = (t_max - t_min)[:, None] / self.candidates  # [N, 1]
         if transmittance_eps > 0.0:
             # Exclusive scan of the grid's own EMA densities: a small eps
@@ -124,6 +230,109 @@ class OccupancyRenderer:
         occ = occ & mask[:, None]
         return cand_ts, occ, dt, mask
 
+    def _block_word_occupancy(
+        self, cand_pts: Tensor, grid_state: OccupancyGridState, table: Optional[Tensor] = None
+    ) -> Tuple[Tensor, Tensor]:
+        """Candidate occupancy and prune densities from packed block words:
+        ``ceil(C/k)`` row gathers a ray in place of C.
+
+        :param cand_pts: ``[N, C, 3]`` candidate points.
+        :return: ``(occ [N, C] bool, d_grid [N, C])``; ``d_grid`` is the
+            block's max density, 0 where unoccupied.
+        """
+        if table is None:
+            table = pack_block_table(grid_state.densities.detach(), self.grid.resolution, self.grid.threshold)
+        widx_c, bit_c = self.grid.block_indices(cand_pts)  # [N, C] each
+        bit, d_c, matched = _bracketed_block_words(widx_c, bit_c, table, self.block_gather_stride)
+        # Unmatched counts occupied, with the nearest probe's block max
+        # standing in for the prune density.
+        occ = self.grid.occupied_from_bits(grid_state, torch.where(matched, bit, True))
+        return occ, torch.where(occ, d_c, 0.0)
+
+    def _occupied_span(
+        self,
+        origins: Tensor,
+        dirs: Tensor,
+        t_min: Tensor,
+        t_max: Tensor,
+        grid_state: OccupancyGridState,
+        tables: Optional[Dict[str, Tensor]] = None,
+    ) -> Tuple[Tensor, Tensor, Tensor]:
+        """Phase 1 of two-phase selection: tighten ``[t_min, t_max]`` to the
+        occupied span of the max-pooled supergrid.
+
+        Conservative, for corner-grazing chords and anisotropic bboxes
+        too: with ``s`` the shortest supercell side, the probe spacing ``w
+        <= s/2`` (the probe count check below) puts a probe within ``s/4``
+        of every chord's midpoint along each axis; the supergrid's one-cell
+        dilation makes that probe test positive; so the first and last
+        detected probes lie within ``3w/2`` of every chord's ends, and the
+        one-bin pad covers them.  In warmup every probe passes and the span
+        is the whole range.
+
+        :return: ``(t_lo [N], t_hi [N], hit [N] bool)``; rays with no
+            occupied supercell keep their range, with ``hit`` false.
+        """
+        factor = self.span_pool_factor
+        if self.grid.resolution % factor:
+            raise ValueError(
+                f"span_pool_factor {factor} must divide the occupancy grid "
+                f"resolution {self.grid.resolution}"
+            )
+        rs = self.grid.resolution // factor
+        span = np.asarray(self.bbox_max, np.float64) - np.asarray(self.bbox_min, np.float64)
+        needed = min_span_candidates(self.grid.resolution, factor, self.bbox_min, self.bbox_max)
+        if self.span_candidates < needed:
+            raise ValueError(
+                f"occ_span_candidates={self.span_candidates} is too few "
+                f"probes for a {rs}^3 supergrid (occupancy grid "
+                f"{self.grid.resolution}, span_pool_factor {factor}, "
+                f"bbox span {tuple(span.tolist())}): "
+                f"need >= {needed} to guarantee no occupied supercell is "
+                f"skipped. Raise --occ_span_candidates or raise "
+                f"--occ_span_pool_factor."
+            )
+        n_coarse = self.span_candidates
+        tables = tables or {}
+        sup = tables.get("span_sup")
+        if sup is None:
+            sup = superpool_densities(grid_state.densities.detach(), self.grid.resolution, factor)
+            sup = dilate_supercells(sup, rs)
+
+        # Midpoints of n_coarse equal bins.
+        i = (torch.arange(n_coarse, dtype=torch.float32, device=origins.device) + 0.5) / n_coarse
+        ts = t_min[:, None] + (t_max - t_min)[:, None] * i[None, :]  # [N, Cc]
+        pts = origins[:, None, :] + dirs[:, None, :] * ts[..., None]
+
+        # The supergrid's flat index is cell_indices' at the pooled
+        # resolution: one convention with superpool_densities.
+        supergrid = dataclasses.replace(self.grid, resolution=rs)
+        if self.span_block_gather > 0 and all(rs % d == 0 for d in BLOCK_DIMS):
+            table = tables.get("span_block")
+            if table is None:
+                table = pack_block_table(sup, rs, self.grid.threshold)
+            widx, bitidx = supergrid.block_indices(pts)
+            bit, _, matched = _bracketed_block_words(widx, bitidx, table, self.span_block_gather)
+            occ = self.grid.occupied_from_bits(grid_state, torch.where(matched, bit, True))
+        else:
+            occ = self.grid.occupied_from_densities(grid_state, sup[supergrid.cell_indices(pts)])
+
+        # argmax returns the first maximal index: the first occupied bin,
+        # and on the flipped row the last.
+        hit = occ.any(dim=1)
+        occ_i = occ.to(torch.uint8)
+        first = occ_i.argmax(dim=1)
+        last = n_coarse - 1 - occ_i.flip(1).argmax(dim=1)
+        w = (t_max - t_min) / n_coarse
+        pad = w  # one bin: exactly enough after the dilation (docstring)
+        t_lo = t_min + first.to(torch.float32) * w - pad
+        t_hi = t_min + (last.to(torch.float32) + 1.0) * w + pad
+        t_lo = torch.maximum(t_lo, t_min)
+        t_hi = torch.minimum(t_hi, t_max)
+        t_lo = torch.where(hit, t_lo, t_min)
+        t_hi = torch.where(hit, t_hi, t_max)
+        return t_lo, t_hi, hit
+
     def _select_samples(
         self,
         rays: Tensor,
@@ -131,6 +340,7 @@ class OccupancyRenderer:
         transmittance_eps: float,
         u: Optional[Tensor],
         generator: Optional[torch.Generator],
+        tables: Optional[Dict[str, Tensor]] = None,
     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
         """Candidates -> K strided occupied samples per ray.
 
@@ -139,7 +349,7 @@ class OccupancyRenderer:
                  candidate bin width times ``c/K`` on strided rays).
         """
         cand_ts, occ, dt0, mask = self._select_candidates(
-            rays, grid_state, transmittance_eps, u=u, generator=generator
+            rays, grid_state, transmittance_eps, u=u, generator=generator, tables=tables
         )
         sel_ts, sel_mask, delta_scale = compact_occupied_strided(cand_ts, occ, self.samples)
         points = rays[:, None, 0, :] + rays[:, None, 1, :] * sel_ts[..., None]
@@ -153,19 +363,21 @@ class OccupancyRenderer:
         transmittance_eps: float = 0.0,
         u: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        tables: Optional[Dict[str, Tensor]] = None,
     ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
         """Render rays with occupancy-culled sampling (fixed ``[N, K]``).
 
         :param rays: ``[N, 2, 3]`` (origin, direction).
         :param u: optional ``[N, candidates]`` uniforms for the candidate
             draw; drawn from ``generator`` when absent.
+        :param tables: optional :meth:`selection_tables`.
         :return: ``(out, aux_means)``; out keys: ``outputs [N,3]``,
                  ``densities [N,K]``, ``alphas [N,1]``, ``coords [N,3]``,
                  ``weights [N,K+1]``, ``ts [N,K]``, ``sample_mask [N,K]``,
                  ``rgbs [N,K,3]``.
         """
         points, sel_ts, sel_mask, dt, mask = self._select_samples(
-            rays, grid_state, transmittance_eps, u, generator
+            rays, grid_state, transmittance_eps, u, generator, tables
         )
         density, rgbs, aux = self.model(points, rays[:, None, 1, :].expand(points.shape))
         densities = density[..., 0] * sel_mask  # padding slots contribute 0
@@ -196,12 +408,14 @@ class OccupancyRenderer:
         transmittance_eps: float = 0.0,
         u: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        tables: Optional[Dict[str, Tensor]] = None,
     ) -> Dict[str, Tensor]:
         """:meth:`render_rays`'s ``outputs`` and ``alphas``, with the
         per-sample chain in the fused render kernel (bf16 vanilla model
-        only); selection stays plain tensor code."""
+        only); selection stays plain tensor code.  The kernel blends no
+        ``coords``: frames that need them take :meth:`render_rays`."""
         points, _, sel_mask, dt, mask = self._select_samples(
-            rays, grid_state, transmittance_eps, u, generator
+            rays, grid_state, transmittance_eps, u, generator, tables
         )
         deltas = torch.where(sel_mask, dt, 0.0)  # padding slots contribute 0
         out = fused_render(self.model.packed(), points, rays[:, 1], deltas)
@@ -217,12 +431,13 @@ class OccupancyRenderer:
         grid_state: OccupancyGridState,
         transmittance_eps: float = 0.0,
         generator: Optional[torch.Generator] = None,
+        tables: Optional[Dict[str, Tensor]] = None,
     ) -> Tensor:
         """Mean per-ray survivor count a pooled pass would see: exactly
         :meth:`render_rays_pooled`'s candidate selection, without the field
         model (sizes the ``"auto"`` pool budgets from a real batch)."""
         _, occ, _, _ = self._select_candidates(
-            rays, grid_state, transmittance_eps, generator=generator
+            rays, grid_state, transmittance_eps, generator=generator, tables=tables
         )
         c = occ.to(torch.float32).sum(dim=1)
         return torch.clamp(c, max=float(self.samples)).mean()
@@ -236,6 +451,7 @@ class OccupancyRenderer:
         transmittance_eps: float = 0.0,
         u: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        tables: Optional[Dict[str, Tensor]] = None,
     ) -> Dict[str, Tensor]:
         """Inference fast path: pooled compaction + approximate early ray
         termination.
@@ -258,6 +474,7 @@ class OccupancyRenderer:
         :param rays: ``[N, 2, 3]`` (origin, direction).
         :param budget: total pooled samples for the tile.
         :param u: optional ``[N, candidates]`` uniforms for the draw.
+        :param tables: optional :meth:`selection_tables`.
         :return: dict with ``outputs [N,3]``, ``alphas [N,1]``, ``coords
                  [N,3]``, ``aux`` (scalar means), and the 0-dim counters
                  ``selected`` (survivors the selection produced) and
@@ -268,7 +485,7 @@ class OccupancyRenderer:
         origins, dirs = rays[:, 0], rays[:, 1]
         n = origins.shape[0]
         cand_ts, occ, dt, mask = self._select_candidates(
-            rays, grid_state, transmittance_eps, u=u, generator=generator
+            rays, grid_state, transmittance_eps, u=u, generator=generator, tables=tables
         )
         sel_ts, sel_mask, delta_scale = compact_occupied_strided(cand_ts, occ, self.samples)
 
@@ -375,6 +592,7 @@ class OccupancyFrameSession:
         tile_size: int = 8192,
         transmittance_eps: float = 0.0,
         budget_cfg: Union[None, str, float] = None,
+        include_depth_outputs: bool = False,
     ):
         self.renderer = renderer
         self.background = background
@@ -382,6 +600,7 @@ class OccupancyFrameSession:
         self.budget_cfg = budget_cfg
         self._tile_size = tile_size
         self._eps = transmittance_eps
+        self._depth = include_depth_outputs
         self._escalated_floor = 0
         self._announced_budget = None
         # The last pooled frame's budget per ray and sample counters.
@@ -391,8 +610,10 @@ class OccupancyFrameSession:
         )
 
     def render(self, rays: Tensor, generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
-        """Render one frame's rays; returns the output dict (pooled frames
-        add the ``selected``/``dropped`` counters)."""
+        """Render one frame's rays; returns the output dict
+        (:func:`render_frame_occupancy`'s: pooled frames add the
+        ``selected``/``dropped`` counters, ``include_depth_outputs`` the
+        ``alphas`` and ``coords``)."""
         budget = self.budget_cfg
         if budget == "auto":
             budget = resolve_auto_budget(
@@ -413,6 +634,7 @@ class OccupancyFrameSession:
                 budget_per_ray=budget,
                 transmittance_eps=self._eps,
                 generator=generator,
+                include_depth_outputs=self._depth,
             )
             if budget is None:
                 return out
@@ -448,21 +670,27 @@ def render_frame_occupancy(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[Tensor] = None,
     budget_per_ray: Optional[float] = None,
+    include_depth_outputs: bool = False,
 ) -> Dict[str, Tensor]:
     """Render a whole frame through the occupancy fast path, tile by tile.
 
-    With ``budget_per_ray`` set, each tile runs
+    The lever tables (:meth:`OccupancyRenderer.selection_tables`) are built
+    once, before the tile loop.  With ``budget_per_ray`` set, each tile runs
     :meth:`OccupancyRenderer.render_rays_pooled` with a pool of
     ``int(tile_size * budget_per_ray)`` samples, and tiles interleave the
     frame's rays (tile g takes rays g, g+G, g+2G, ...) so each sees the
     frame's mix of empty and dense rays; otherwise tiles are in raster
     order and run the fixed-K path (``renderer.fused`` selects the fused
-    render kernel).
+    render kernel, except with ``include_depth_outputs``: the kernel blends
+    no ``coords``, so those frames take :meth:`OccupancyRenderer.render_rays`,
+    the MLP kernel's route).
 
     :param rays: ``[M, 2, 3]`` rays in raster order.
     :param uniforms: optional ``[num_tiles, tile_size, candidates]``
         candidate uniforms, in each tile's own ray order; tiles draw from
         ``generator`` in order when absent.
+    :param include_depth_outputs: also return ``alphas [M, 1]`` and
+        ``coords [M, 3]`` (dataset distillation's depth).
     :return: dict with ``outputs [M, 3]``; the pooled path adds the 0-dim
         ``selected``/``dropped`` counters summed over tiles (a nonzero
         ``dropped`` means the budget was undersized for this frame).
@@ -474,30 +702,32 @@ def render_frame_occupancy(
         rays_t = rays_p.reshape(tile_size, num_tiles, 2, 3).transpose(0, 1)
     else:
         rays_t = rays_p.reshape(num_tiles, tile_size, 2, 3)
-    tiles, selected, dropped = [], [], []
+    keys = ("outputs", "alphas", "coords") if include_depth_outputs else ("outputs",)
+    tables = renderer.selection_tables(grid_state)
+    tiles = {k: [] for k in keys}
+    selected, dropped = [], []
     for i in range(num_tiles):
         tile = rays_t[i].contiguous()
         u = uniforms[i] if uniforms is not None else None
+        common = dict(u=u, generator=generator, tables=tables)
         if pooled:
             out = renderer.render_rays_pooled(
-                tile, background, grid_state, int(tile_size * budget_per_ray),
-                transmittance_eps, u=u, generator=generator,
+                tile, background, grid_state, int(tile_size * budget_per_ray), transmittance_eps, **common
             )
             selected.append(out["selected"])
             dropped.append(out["dropped"])
-        elif renderer.fused:
-            out = renderer.render_rays_fused(
-                tile, background, grid_state, transmittance_eps, u=u, generator=generator
-            )
+        elif renderer.fused and not include_depth_outputs:
+            out = renderer.render_rays_fused(tile, background, grid_state, transmittance_eps, **common)
         else:
-            out, _ = renderer.render_rays(
-                tile, background, grid_state, transmittance_eps, u=u, generator=generator
-            )
-        tiles.append(out["outputs"])
-    outputs = torch.stack(tiles)  # [G, S, 3]
-    if pooled:  # undo the interleave: [G, S, 3] -> [S, G, 3], raster order
-        outputs = outputs.transpose(0, 1)
-    result = dict(outputs=outputs.reshape(-1, 3)[:m])
+            out, _ = renderer.render_rays(tile, background, grid_state, transmittance_eps, **common)
+        for k in keys:
+            tiles[k].append(out[k])
+    result = {}
+    for k, parts in tiles.items():
+        v = torch.stack(parts)  # [G, S, C]
+        if pooled:  # undo the interleave: [G, S, C] -> [S, G, C], raster order
+            v = v.transpose(0, 1)
+        result[k] = v.reshape(-1, v.shape[-1])[:m]
     if pooled:
         result.update(selected=torch.stack(selected).sum(), dropped=torch.stack(dropped).sum())
     return result

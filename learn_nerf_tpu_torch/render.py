@@ -166,17 +166,21 @@ def render_frame(
     tile_size: int = 4096,
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[Sequence[Tuple[Tensor, Tensor]]] = None,
+    include_depth_outputs: bool = False,
 ) -> Dict[str, Tensor]:
     """Render all rays of a frame, tile by tile.
 
     :param rays: ``[M, 2, 3]`` rays in raster order.
     :param uniforms: optional per-tile ``(u_coarse, u_fine)``; tiles draw
         from ``generator`` in order when absent.
+    :param include_depth_outputs: also return the fine pass's ``alphas
+        [M, 1]`` and ``coords [M, 3]`` (dataset distillation's depth).
     :return: dict with ``outputs [M, 3]``.
     """
     m = rays.shape[0]
     rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max)
-    tiles = []
+    keys = ("outputs", "alphas", "coords") if include_depth_outputs else ("outputs",)
+    tiles = {k: [] for k in keys}
     for i in range(num_tiles):
         u_c, u_f = uniforms[i] if uniforms is not None else (None, None)
         fine = renderer.render_rays(
@@ -186,5 +190,6 @@ def render_frame(
             u_coarse=u_c,
             u_fine=u_f,
         )["fine"]
-        tiles.append(fine["outputs"])
-    return dict(outputs=torch.cat(tiles)[:m])
+        for k in keys:
+            tiles[k].append(fine[k])
+    return {k: torch.cat(parts)[:m] for k, parts in tiles.items()}

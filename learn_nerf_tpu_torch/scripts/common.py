@@ -1,6 +1,6 @@
 """Shared CLI helpers: flag groups, device, model factory and renderers.
 
-The flag groups carry the same names and defaults as
+The flag groups carry the same names, defaults and help as
 ``learn_nerf_tpu.scripts.common``, so a command line written for the JAX
 package means the same here.  Flags of paths that are not ported yet are
 accepted by the parser and refused by :func:`check_ported` with
@@ -132,26 +132,49 @@ def add_occupancy_args(parser: argparse.ArgumentParser) -> None:
         "--occ_span_candidates",
         type=int,
         default=0,
-        help="two-phase span selection (not ported yet)",
+        help="inference only (pooled path): two-phase selection — test "
+        "this many coarse midpoints against a conservative max-pooled "
+        "supergrid to bound the occupied span, then place all "
+        "--occ_candidates inside it (fewer grid gathers per ray at finer "
+        "effective resolution; 64 is a good value for a 128 grid)",
     )
     parser.add_argument(
         "--occ_span_pool_factor",
         type=int,
         default=8,
-        help="supergrid pooling factor for --occ_span_candidates (not ported yet: "
-        "only the default is accepted)",
+        help="supergrid pooling factor for --occ_span_candidates (must "
+        "divide the occupancy grid resolution; raising it coarsens the "
+        "span probe so fewer span candidates are needed: required "
+        "candidates = 2*sqrt(3)*grid/factor)",
     )
     parser.add_argument(
         "--occ_block_gather",
         type=int,
         default=0,
-        help="packed block-word occupancy gathers (not ported yet)",
+        help="inference only: gather ONE packed row (a 4x4x2 block's 32 "
+        "occupancy bits + its max density) per this-many candidates and "
+        "answer each candidate from the bracketing probes' words — "
+        "gathers are count-bound, so stride k cuts selection gathers "
+        "~k-fold; block-mismatch candidates conservatively count "
+        "occupied (geometry is never dropped).  1 = bit-identical to "
+        "per-cell gathers when the transmittance prune is off (with "
+        "--occ_t_eps > 0 the prune sees the block-max density, so it "
+        "can cut later candidates earlier); 2-4 trades a small "
+        "occupied-overcount for speed (0 = off).  LIVE-path lever only: "
+        "with --baked the packed grid already removed the gather "
+        "bottleneck and block words measured SLOWER on-chip "
+        "(docs/DESIGN.md section 3, 2026-08-19)",
     )
     parser.add_argument(
         "--occ_span_block_gather",
         type=int,
         default=0,
-        help="block-word span probes (not ported yet)",
+        help="inference only: the same packed block-word trick for the "
+        "phase-1 span probes (requires --occ_span_candidates > 0 and a "
+        "supergrid divisible by 4x4x2); a mismatched probe counts "
+        "occupied, which only widens the span — phase 2 re-tests every "
+        "candidate at full resolution, so geometry is never dropped "
+        "(0 = off, 1 = bit-identical to per-cell span probes)",
     )
 
 
@@ -193,25 +216,8 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Refuse, with ``SystemExit``, every flag whose path is not ported, and
-    ``--baked`` without ``--occupancy`` (as the JAX package does)."""
-    refused = [
-        (getattr(args, "occ_span_candidates", 0), "--occ_span_candidates (two-phase span)"),
-        (getattr(args, "occ_span_pool_factor", 8) != 8,
-         "--occ_span_pool_factor (the span path's supergrid)"),
-        (getattr(args, "occ_block_gather", 0), "--occ_block_gather (block-word gathers)"),
-        (getattr(args, "occ_span_block_gather", 0), "--occ_span_block_gather (block-word span)"),
-    ]
-    for is_set, flag in refused:
-        if is_set:
-            raise SystemExit(
-                f"{flag} is not ported to learn_nerf_tpu_torch yet; this "
-                "package serves the vanilla NeRF, Instant-NGP and both Ref-NeRF "
-                "models (--ref_nerf, with or without --instant_ngp), with the "
-                "hierarchy, fixed-K occupancy and pooled inference and baked "
-                "Instant-NGP serving (--baked under --occupancy), and trains the "
-                "hierarchy and the occupancy path, fixed-K or pooled (see ROADMAP.md)"
-            )
+    """Refuse, with ``SystemExit``, ``--baked`` without ``--occupancy`` (as
+    the JAX package does) and a visible mesh of several cards."""
     require_occupancy_for_baking(args)
     if torch.cuda.device_count() > 1:
         raise SystemExit(
@@ -370,6 +376,7 @@ def build_occupancy_renderer(
         candidates=args.occ_candidates,
         samples=args.occ_samples,
         span_candidates=getattr(args, "occ_span_candidates", 0),
+        span_pool_factor=getattr(args, "occ_span_pool_factor", 8),
         block_gather_stride=getattr(args, "occ_block_gather", 0),
         span_block_gather=getattr(args, "occ_span_block_gather", 0),
         **bbox,

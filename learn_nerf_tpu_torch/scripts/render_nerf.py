@@ -13,7 +13,7 @@ baked-lookup kernel.
 """
 
 import argparse
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -72,10 +72,14 @@ class RenderSession:
     The device is ``device`` when given, else the one ``args.device``
     names (the card by default, which raises when there is none).  The
     occupancy path serves the checkpoint's fine model or, with
-    ``--baked``, its bake.
+    ``--baked``, its bake, with the selection levers the flags set.
+    ``include_depth_outputs`` adds ``alphas`` and ``coords`` to what
+    :meth:`render_arrays` returns (dataset distillation).
     """
 
-    def __init__(self, args: argparse.Namespace, device: Optional[torch.device] = None):
+    def __init__(
+        self, args: argparse.Namespace, device: Optional[torch.device] = None, include_depth_outputs: bool = False
+    ):
         check_ported(args)
         self.device = device if device is not None else resolve_device(args.device)
         print("loading metadata...")
@@ -111,8 +115,9 @@ class RenderSession:
                 tile_size=args.batch_size,
                 transmittance_eps=getattr(args, "occ_t_eps", 0.0),
                 budget_cfg=getattr(args, "occ_budget_per_ray", None),
+                include_depth_outputs=include_depth_outputs,
             )
-            self._render = lambda rays: self.frames.render(rays, self.generator)["outputs"]
+            self._render = lambda rays: self.frames.render(rays, self.generator)
         else:
             self.renderer = Renderer(
                 coarse=self.coarse,
@@ -128,16 +133,23 @@ class RenderSession:
                 self.background,
                 tile_size=args.batch_size,
                 generator=self.generator,
-            )["outputs"]
+                include_depth_outputs=include_depth_outputs,
+            )
+
+    def render_arrays(self, view: CameraView, width: int, height: int) -> Dict[str, np.ndarray]:
+        """One view's frame outputs on the host, ``[width * height, C]``
+        each: ``outputs``, and ``alphas`` and ``coords`` with
+        ``include_depth_outputs``."""
+        rays = torch.from_numpy(view.bare_rays(width, height)).to(self.device)
+        with torch.inference_mode():
+            out = self._render(rays)
+        return {k: out[k].cpu().numpy() for k in ("outputs", "alphas", "coords") if k in out}
 
     def render_view(self, view: CameraView, width=None, height=None) -> np.ndarray:
         """Render one view, optionally at an explicit resolution."""
         width = width if width is not None else self.args.width
         height = height if height is not None else self.args.height
-        rays = torch.from_numpy(view.bare_rays(width, height)).to(self.device)
-        with torch.inference_mode():
-            colors = self._render(rays)
-        image = to_u8_image(colors, height, width)
+        image = to_u8_image(self.render_arrays(view, width, height)["outputs"], height, width)
         self.images.append(image)
         return image
 

@@ -148,6 +148,18 @@ def check_train_ported(args: argparse.Namespace) -> None:
                 f"{what} is not ported to learn_nerf_tpu_torch yet; this package trains "
                 "on one card in one process (see ROADMAP.md, Queue 1)"
             )
+    # The occupancy renderer's selection levers, off their defaults.
+    levers = [flag for flag, is_set in (
+        ("--occ_span_candidates", args.occ_span_candidates), ("--occ_span_pool_factor", args.occ_span_pool_factor != 8),
+        ("--occ_block_gather", args.occ_block_gather), ("--occ_span_block_gather", args.occ_span_block_gather),
+    ) if is_set]
+    if levers:
+        # The JAX CLI parses these and its train loop ignores them; this
+        # package accepts nothing it would ignore.
+        raise SystemExit(
+            f"{', '.join(levers)}: inference levers of render_nerf, serve_nerf, eval_psnr and "
+            "render_new_dataset; training does not read them (see ROADMAP.md, Queue 3)"
+        )
     check_ported(args)
 
 

@@ -281,6 +281,9 @@ def test_fused_route_matches_pallas_fused_render_occupancy(occupancy_setup):
 
 
 def test_occupancy_frame_session_renders_and_refuses_unported_levers(occupancy_setup):
+    """The frame session renders, with each selection lever too (which
+    were refused until they were ported), and a bbox that is not the
+    grid's still refuses."""
     s = occupancy_setup
     renderer = s["renderers"]["float32"]
     session = occ_render.OccupancyFrameSession(renderer, t(s["bg"]), s["state"], tile_size=64)
@@ -289,11 +292,16 @@ def test_occupancy_frame_session_renders_and_refuses_unported_levers(occupancy_s
     assert set(out) == {"outputs"} and out["outputs"].shape == (96, 3)
     assert torch.isfinite(out["outputs"]).all()
     for lever in ("span_candidates", "block_gather_stride", "span_block_gather"):
-        with pytest.raises(NotImplementedError, match="Queue 1: the span and the block-word gathers"):
-            occ_render.OccupancyRenderer(
-                model=renderer.model, grid=renderer.grid, bbox_min=renderer.bbox_min,
-                bbox_max=renderer.bbox_max, **{lever: 64},
-            )
+        with_lever = occ_render.OccupancyRenderer(
+            model=renderer.model, grid=renderer.grid, bbox_min=renderer.bbox_min, bbox_max=renderer.bbox_max,
+            candidates=renderer.candidates, samples=renderer.samples, **{lever: 64},
+        )
+        session = occ_render.OccupancyFrameSession(with_lever, t(s["bg"]), s["state"], tile_size=64)
+        with torch.no_grad():
+            lever_out = session.render(t(s["rays"]), torch.Generator().manual_seed(0))["outputs"]
+        assert lever_out.shape == (96, 3) and torch.isfinite(lever_out).all()
+        if lever == "span_block_gather":  # without span_candidates it changes nothing
+            assert torch.equal(lever_out, out["outputs"])
     with pytest.raises(ValueError, match="must equal its grid"):
         occ_render.OccupancyRenderer(
             model=renderer.model, grid=renderer.grid, bbox_min=(-2, -1, -1), bbox_max=(1, 1, 1)

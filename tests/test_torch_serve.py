@@ -2,9 +2,9 @@
 scripts), following tests/test_serve.py: endpoints against a live server
 on a loopback port, determinism against a direct RenderSession with the
 same seed, request validation, the occupancy bf16 route, both Ref-NeRF
-models served at the JAX widths, the flags that must still refuse (the span
-and block-word levers, baking without ``--occupancy``), flag parity with the
-JAX CLI, an import without jax, and the render profiler."""
+models served at the JAX widths, the span and block-word levers served,
+the flags that must still refuse (baking without ``--occupancy``), flag
+parity with the JAX CLI, an import without jax, and the render profiler."""
 
 import io
 import json
@@ -189,22 +189,69 @@ def test_render_cli_writes_views_side_by_side(scene, tmp_path):
     "flags",
     [
         ["--instant_ngp", "--ref_nerf", "--baked", "64"],
-        ["--ref_nerf", "--occupancy", "--occ_span_candidates", "64"],
         ["--baked", "64"],
         ["--instant_ngp", "--baked", "64"],
-        ["--occupancy", "--occ_budget_per_ray", "auto", "--occ_span_candidates", "64"],
-        ["--occupancy", "--occ_span_candidates", "64"],
-        ["--occupancy", "--occ_block_gather", "2"],
-        ["--occupancy", "--occ_span_block_gather", "1"],
     ],
 )
 def test_unported_flags_refuse_with_system_exit(scene, flags):
     scene_dir, pkl = scene
     args = serve_nerf.argparser().parse_args(_argv(scene_dir, pkl, *flags))
     # Baking is ported, but only under --occupancy (as in the JAX CLI).
-    match = "--baked requires --occupancy" if "--baked" in flags else "not ported"
-    with pytest.raises(SystemExit, match=match):
+    with pytest.raises(SystemExit, match="--baked requires --occupancy"):
         serve_nerf.make_server(args)
+
+
+LEVER_FLAGS = {
+    "ref-nerf span": ["--ref_nerf", "--occupancy", "--occ_span_candidates", "64"],
+    "pooled span": ["--occupancy", "--occ_budget_per_ray", "auto", "--occ_span_candidates", "64"],
+    "span": ["--occupancy", "--occ_span_candidates", "64"],
+    "block words": ["--occupancy", "--occ_block_gather", "2"],
+    "span block words": ["--occupancy", "--occ_span_candidates", "8", "--occ_span_block_gather", "1"],
+}
+
+
+@pytest.mark.parametrize("lever", list(LEVER_FLAGS))
+def test_inference_levers_serve(scene, tmp_path, lever):
+    """The span and block-word levers (refused until they were ported) reach
+    the server's renderer and serve a PNG equal to a direct session's
+    render of the same view and seed (the Ref-NeRF case from a Ref-NeRF
+    checkpoint at the JAX widths)."""
+    scene_dir, pkl = scene
+    flags = LEVER_FLAGS[lever]
+    if "--ref_nerf" in flags:
+        from learn_nerf_tpu_torch.checkpoint import checkpoint_to_flax
+        from learn_nerf_tpu_torch.data.dataset import ModelMetadata
+        from learn_nerf_tpu_torch.scripts.common import create_model
+
+        args = serve_nerf.argparser().parse_args(_argv(scene_dir, "unused", *flags))
+        torch.manual_seed(1)
+        coarse, fine, _ = create_model(args, ModelMetadata.from_json(f"{scene_dir}/metadata.json"))
+        ckpt = dict(coarse=coarse.state_dict(), fine=fine.state_dict(), background=np.zeros(3, np.float32),
+                    occupancy_densities=(np.random.RandomState(1).rand(8**3) < 0.5).astype(np.float32),
+                    occupancy_resolution=8)
+        pkl = str(tmp_path / "refnerf.pkl")
+        save_params_pickle(pkl, checkpoint_to_flax(ckpt, **fine.flax_layout()))
+    argv = _argv(scene_dir, pkl, *flags)
+    server = serve_nerf.make_server(serve_nerf.argparser().parse_args([*argv[:-1], "--port", "0", argv[-1]]))
+    renderer = server.session.renderer
+    args = serve_nerf.argparser().parse_args(argv)
+    assert (renderer.span_candidates, renderer.span_pool_factor, renderer.block_gather_stride,
+            renderer.span_block_gather) == (args.occ_span_candidates, args.occ_span_pool_factor,
+                                            args.occ_block_gather, args.occ_span_block_gather)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    host, port = server.server_address[:2]
+    try:
+        status, ctype, png = _post(f"http://{host}:{port}/render", open(f"{scene_dir}/0000.json", "rb").read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=10)
+    assert not thread.is_alive() and status == 200 and ctype == "image/png"
+    served = np.asarray(Image.open(io.BytesIO(png)))
+    direct = render_nerf.RenderSession(args).render_view(CameraView.from_json(f"{scene_dir}/0000.json"))
+    assert served.shape == (16, 16, 3)
+    np.testing.assert_array_equal(served, direct)
 
 
 @pytest.mark.parametrize("flags", [["--instant_ngp", "--ref_nerf", "--occupancy"], ["--ref_nerf"]],
@@ -307,6 +354,16 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.ops.sh\n"
         "import learn_nerf_tpu_torch.models.ref_nerf\n"
         "import learn_nerf_tpu_torch.kernels.hashgrid_dx\n"
+        "import learn_nerf_tpu_torch.acceleration\n"
+        "import learn_nerf_tpu_torch.occ_render\n"
+        "import learn_nerf_tpu_torch.render\n"
+        "import learn_nerf_tpu_torch.mesh\n"
+        "import learn_nerf_tpu_torch.scripts.render_nerf_spin\n"
+        "import learn_nerf_tpu_torch.scripts.render_nerf_pan\n"
+        "import learn_nerf_tpu_torch.scripts.render_nerf_interactive\n"
+        "import learn_nerf_tpu_torch.scripts.render_new_dataset\n"
+        "import learn_nerf_tpu_torch.scripts.marching_cubes\n"
+        "import learn_nerf_tpu_torch.scripts.frame_matrix\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )

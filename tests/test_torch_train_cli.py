@@ -134,17 +134,34 @@ def test_create_model_returns_the_ngp_adam_settings(scene):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--instant_ngp", "--occupancy", "--ref_nerf", "--occ_span_candidates", "64"], "--occ_span_candidates"),
     (["--instant_ngp", "--occupancy", "--coordinator_address", "localhost:1"], "--coordinator_address"),
     (["--instant_ngp", "--occupancy", "--num_processes", "2"], "--num_processes"),
     (["--instant_ngp", "--occupancy", "--profile_dir", "p"], "--profile_dir"),
-    (["--instant_ngp", "--occupancy", "--occ_span_pool_factor", "4"], "--occ_span_pool_factor"),
 ])
 def test_unported_flags_exit_naming_the_roadmap(scene, flags, match):
     with pytest.raises(SystemExit) as info:
         train_nerf.main([*flags, "--device", "cpu", scene])
     assert match in str(info.value) and "ROADMAP.md" in str(info.value)
     assert "not ported" in str(info.value)
+
+
+@pytest.mark.parametrize("flags,match", [
+    (["--instant_ngp", "--occupancy", "--ref_nerf", "--occ_span_candidates", "64"], "--occ_span_candidates"),
+    (["--instant_ngp", "--occupancy", "--occ_span_pool_factor", "4"], "--occ_span_pool_factor"),
+    (["--occupancy", "--occ_block_gather", "2"], "--occ_block_gather"),
+    (["--occupancy", "--occ_span_candidates", "64", "--occ_span_block_gather", "4"],
+     "--occ_span_candidates, --occ_span_block_gather"),
+])
+def test_inference_levers_exit_as_inference_only(scene, tmp_path, flags, match):
+    """The JAX CLI parses the selection levers and its train loop ignores
+    them; the port's exits naming them as the render CLIs' levers, before
+    it reads the dataset or writes a checkpoint."""
+    save = tmp_path / "never.pkl"
+    with pytest.raises(SystemExit) as info:
+        train_nerf.main([*flags, "--device", "cpu", "--save_path", str(save), scene])
+    message = str(info.value)
+    assert message.startswith(match + ":") and "inference levers of render_nerf, serve_nerf, eval_psnr" in message
+    assert "render_new_dataset" in message and not save.exists()
 
 
 REF_NERF_RUNS = {
