@@ -14,8 +14,9 @@ with the block-word levers.  The baked fields are built once and shared
 between rows of one bake (resolution, pack).
 
 On the card every configuration is timed in one process, in turns A B ...
-B A (``--turns``): each turn renders one warm-up frame, ``--reps`` timed
-frames (host clock around a synchronised render) and one frame under
+B A (``--turns``; 6 by default, as host-timed frames move by tens of per
+cent): each turn renders one warm-up frame, ``--reps`` timed frames (host
+clock around a synchronised render) and one frame under
 ``torch.profiler``.  Each row prints its median seconds a frame, device
 ms, idle share, kernel count, auto budget and ``dropped`` (which must be
 0), and the ``selection`` rows the device time of one 8192-ray tile's
@@ -48,6 +49,8 @@ from .common import resolve_device
 from .profile_render import profile_call
 
 BBOX = dict(bbox_min=(-1.0, -1.0, -1.0), bbox_max=(1.0, 1.0, 1.0))
+#: The NumPy seed of the weights: the workload is fixed, as bench.py's is.
+SEED = 0
 
 #: The JAX package's north-star frame (``bench.bench_frame``).
 BASE = dict(bake=384, pack=4, candidates=96, samples=32, span_candidates=64, block_gather=0,
@@ -82,14 +85,12 @@ def argparser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--size", type=int, default=800, help="frame side in pixels")
     parser.add_argument("--reps", type=int, default=3, help="timed frames a configuration a turn")
-    parser.add_argument("--turns", type=int, default=2, help="passes over the configurations, alternating order")
+    parser.add_argument("--turns", type=int, default=6, help="passes over the configurations, alternating order")
     parser.add_argument("--tile", type=int, default=8192, help="rays a tile")
     parser.add_argument("--eps", type=float, default=1e-2, help="--occ_t_eps")
-    parser.add_argument("--seed", type=int, default=0, help="NumPy seed of the weights")
     parser.add_argument("--configs", default=",".join(CONFIGS), help="comma-separated subset of CONFIGS")
     parser.add_argument("--bake_override", type=int, default=0,
                         help="bake every baked configuration at this resolution (0: their own)")
-    parser.add_argument("--no_selection", action="store_true", help="skip the one-tile selection rows")
     parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     return parser
 
@@ -115,12 +116,12 @@ def frame_view() -> CameraView:
                       y_axis=(0.0, 1.0, 0.0), x_fov=0.69, y_fov=0.69)
 
 
-def seeded_ngp(seed: int, device: torch.device) -> InstantNGPModel:
+def seeded_ngp(device: torch.device) -> InstantNGPModel:
     """The 16-level Instant-NGP of the JAX widths (2^18 rows a level) over
-    the workload's bbox, with flax's initial scales drawn from a NumPy
-    seed: tables uniform in +-1e-4, lecun-normal kernels, zero biases."""
+    the workload's bbox, with flax's initial scales drawn from the NumPy
+    seed SEED: tables uniform in +-1e-4, lecun-normal kernels, zero biases."""
     model = InstantNGPModel(table_sizes=[2**18] * 16, grid_sizes=[2 ** (4 + i // 2) for i in range(16)], **BBOX)
-    rng = np.random.RandomState(seed)
+    rng = np.random.RandomState(SEED)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.startswith("encoding."):
@@ -214,7 +215,7 @@ def main(argv=None) -> dict:
     if unknown:
         raise SystemExit(f"unknown configurations {sorted(unknown)}; choose from {list(CONFIGS)}")
     card = card_line() if device.type == "cuda" else None
-    model = seeded_ngp(args.seed, device)
+    model = seeded_ngp(device)
     grid = OccupancyGrid(resolution=128, **BBOX)
     grid_state = shell_grid_state(grid, device)
     rays = torch.from_numpy(frame_view().bare_rays(args.size, args.size)).to(device)
@@ -253,7 +254,7 @@ def main(argv=None) -> dict:
         if row["dropped"] or not all(r["finite"] for r in turns):
             raise RuntimeError(f"{name}: dropped {row['dropped']} samples or rendered values that are not finite")
     selection = None
-    if not args.no_selection and device.type == "cuda":
+    if device.type == "cuda":
         selection = time_selection(model, grid, grid_state, rays, args.tile, args.eps, device)
         for name, ms in selection.items():
             print(f"selection of one {args.tile}-ray tile, {name}: {ms:.4f} ms", flush=True)
