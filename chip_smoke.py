@@ -192,7 +192,25 @@ nonzero):
    route against the plain route on the card (loss and gradients, and each
    pass's normal_mse in the Ref-NeRF models), and in phase 2 the hash-grid
    kernels at the NGP hierarchy's two passes;
-8. the JAX package's Blender stand-in quality gate through the port: the
+8. data parallelism (``parallel_phase``): two ranks sharing the card over
+   gloo (``init_distributed`` with the JAX CLI's flags, CUDA tensors), each
+   training 4096 rays of every global batch at bench_occupancy's width
+   (16 dense, then auto-pooled steps through ``step_auto``) against one
+   process on the 8192-ray global batch with the same seeds: each step's
+   loss within DP_LOSS_BOUND, parameters and grids bit-equal across the
+   ranks, one auto bucket, every rank launching the train kernels on every
+   step, their step times and the gloo all-reduce's printed beside one
+   process's; ``train_nerf`` as a one-rank NCCL group launched with
+   torchrun's environment and ``--profile_dir`` (the group is NCCL, the
+   loss falls, rank 0 writes the checkpoint, the trace names
+   hashgrid_encode, the NCCL all-reduce of the gradients timed); frames
+   (vanilla ``--bf16`` hierarchy and occupancy: fused_mlp and
+   fused_render; NGP hierarchy and pooled) over the device list [cuda:0,
+   cuda:0], and over every card when there are several, against the
+   one-device frame within MESH_FRAME_BOUND; ``check_bbox`` (the rays that
+   miss the bbox see the background) and ``cv_nerf`` (2 folds of 16 NGP
+   hierarchy steps) on the train scene;
+9. the JAX package's Blender stand-in quality gate through the port: the
    capture written here (``write_blender_capture``, the cube of the repo's
    synthetic scene from 40 train and 7 test orbit views at 64x64),
    converted by ``learn_nerf_tpu_torch.convert.blender``, trained with the
@@ -224,7 +242,7 @@ line.
 
     python3 chip_smoke.py --gate_seeds 0 1 2 3 4
 
-runs phase 8 alone at each seed and prints ``{"quality_gate": {seed: [mean
+runs phase 9 alone at each seed and prints ``{"quality_gate": {seed: [mean
 PSNR, mean SSIM]}}`` (the five seeds that set GATE_FLOOR).
 """
 
@@ -575,6 +593,27 @@ GATE_LEVER_MODES = {"fixed-K": ("--occupancy",), "pooled": ("--occupancy", "--oc
 # the encode kernel against the plain encode on the card.
 MESH_RESOLUTION = 128
 MESH_BOUND = 1e-5
+# The data-parallel phase (parallel_phase).  (a) DP_RANKS ranks share the
+# one card over gloo (NCCL refuses two ranks on one card), each training
+# TRAIN_RAYS rays of every global batch at bench_occupancy's width, DP_STEPS
+# steps through step_auto, dense and then pooled (auto) from
+# DP_POOL_START on, against one process on the global batch with the same
+# seeds.  The ranks' steps and the one process's differ where
+# hashgrid_backward's atomics and the all-reduce sum in other orders, and
+# Adam (eps 1e-15) carries that on: each step's loss, relative, within
+# DP_LOSS_BOUND (an H100 measured up to 2.2e-7 over the 16 steps; the bound
+# is about four times that).  (b) train_nerf as a one-rank NCCL group, launched with
+# torchrun's environment, with --profile_dir.  (c) frames over the device
+# list [cuda:0, cuda:0] (and over every card when there are several)
+# against the one-device frame, within MESH_FRAME_BOUND.  (d) check_bbox
+# and cv_nerf (CV_FOLDS folds of CV_STEPS steps) on the train scene.
+DP_RANKS, DP_STEPS, DP_POOL_START, DP_SEED = 2, 16, 8, SEED + 19
+DP_LOSS_BOUND = 8e-7
+MESH_FRAME_BOUND = 1e-5
+MESH_FRAME_MODES = {"vanilla hierarchy --bf16": ([], True), "vanilla occupancy --bf16": (["--occupancy"], True),
+                    "ngp hierarchy": (NGP_MODES["ngp hierarchy"], False),
+                    "ngp pooled": (NGP_MODES["ngp pooled"], False)}
+CV_FOLDS, CV_STEPS = 2, 16
 
 
 def require(ok, message):
@@ -2928,6 +2967,293 @@ def hierarchy_phase(root, profile):
     return counts
 
 
+def dp_flags(root):
+    """The data-parallel phase's train flags: bench_occupancy's width, auto
+    pooling from DP_POOL_START."""
+    return ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--lr", "1e-2", "--batch_size", str(TRAIN_RAYS),
+            "--occ_warmup", str(TRAIN_WARMUP), "--occ_train_budget", "auto", "--occ_train_budget_start",
+            str(DP_POOL_START), str(root / "train")]
+
+
+def dp_batches(root, world):
+    """DP_STEPS global batches of ``world * TRAIN_RAYS`` rays of the train
+    scene, drawn from DP_SEED: the same in every process."""
+    from learn_nerf_tpu_torch.data.dataset import load_dataset
+
+    rays = np.concatenate([view.rays() for view in load_dataset(str(root / "train")).views])
+    rng = np.random.RandomState(DP_SEED)
+    return [rays[rng.choice(rays.shape[0], world * TRAIN_RAYS, replace=False)] for _ in range(DP_STEPS)]
+
+
+def dp_train(root, device, mesh, batches):
+    """The phase's loop (train_nerf's, on ``device`` over ``mesh``) through
+    ``batches``, each timed to its end; returns the loop, the steps' logged
+    values (on the host) and their ms."""
+    from learn_nerf_tpu_torch.data.dataset import ModelMetadata
+    from learn_nerf_tpu_torch.scripts import train_nerf
+
+    args = train_nerf.build_parser().parse_args(dp_flags(root))
+    torch.manual_seed(SEED)
+    loop = train_nerf.make_loop(args, ModelMetadata.from_json(str(root / "train" / "metadata.json")), args.lr,
+                                device, mesh)
+    values, ms = [], []
+    for batch in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = loop.step_auto(DP_SEED, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        values.append({k: float(v) for k, v in step.items()})
+    return loop, values, ms
+
+
+def state_digest(loop):
+    """sha256 of the loop's parameters and grid, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in [*loop._leaves(), loop.grid_state.densities]:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_rank(rank, world, port, root, out):
+    """One rank of the data-parallel phase's part (a), in its own process:
+    joins the group over gloo on the shared card, trains its rows of the
+    global batches, times the gradient all-reduce, and writes its losses,
+    step times, state digest and kernel counts to ``out`` (JSON)."""
+    from learn_nerf_tpu_torch.parallel.mesh import all_reduce_mean_, default_mesh, init_distributed
+
+    root = Path(root)
+    require(init_distributed(f"localhost:{port}", world, rank, device_type="cuda", backend="gloo"),
+            "the rank did not join the group")
+    mesh = default_mesh()
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    batches = [b[rank * TRAIN_RAYS:(rank + 1) * TRAIN_RAYS] for b in dp_batches(root, world)]
+    loop, values, ms = dp_train(root, mesh.devices[0], mesh, batches)
+    counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+    grads = [p.grad for p in loop._leaves()]
+    reduce_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_mean_(grads, mesh)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    Path(out).write_text(json.dumps(dict(
+        device=str(mesh.devices[0]), backend=torch.distributed.get_backend(), values=values, ms=ms,
+        reduce_ms=reduce_ms, gradient_floats=sum(g.numel() for g in grads), digest=state_digest(loop),
+        bucket=loop._auto_per_ray, counts=counts)))
+    torch.distributed.destroy_process_group()
+
+
+def nccl_rank(root, out):
+    """The data-parallel phase's part (b), in a process launched with
+    torchrun's environment: ``train_nerf`` with ``--profile_dir`` as a
+    one-rank NCCL group; then the all-reduce of its gradients timed with
+    CUDA events.  Writes the log, the backend, the kernel counts and the
+    all-reduce ms to ``out`` (JSON)."""
+    from learn_nerf_tpu_torch.parallel.mesh import all_reduce_mean_
+    from learn_nerf_tpu_torch.scripts import train_nerf
+
+    root = Path(root)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.reset()
+    argv = [*dp_flags(root)[:-1], "--steps", str(DP_STEPS), "--save_path", str(root / "nccl.pkl"),
+            "--profile_dir", str(root / "nccl_trace"), str(root / "train")]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        loop = train_nerf.main(argv)
+    counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
+    grads = [p.grad for p in loop._leaves()]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    all_reduce_mean_(grads, loop._dp)
+    start.record()
+    for _ in range(20):
+        all_reduce_mean_(grads, loop._dp)
+    end.record()
+    torch.cuda.synchronize()
+    Path(out).write_text(json.dumps(dict(
+        log=log.getvalue(), backend=torch.distributed.get_backend(), world=torch.distributed.get_world_size(),
+        counts=counts, reduce_ms=start.elapsed_time(end) / 20, gradient_floats=sum(g.numel() for g in grads))))
+    torch.distributed.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_processes(name, commands, env, timeout=600):
+    """Start every command at once (from the checkout's root), wait for all;
+    fails unless each exits 0."""
+    here = str(Path(__file__).resolve().parent)
+    procs = [subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in commands]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        require(p.returncode == 0, f"{name}: a process exited {p.returncode}:\n{out[-4000:]}")
+
+
+def parallel_phase(root, device):
+    """Data parallelism on the card (see DP_RANKS and the lines before it):
+    (a) DP_RANKS ranks sharing the card over gloo against one process on
+    the global batch (losses within DP_LOSS_BOUND; parameters and grids
+    bit-equal across the ranks; the train kernels launched on every step of
+    every rank, the pool layout's from DP_POOL_START on); (b) ``train_nerf``
+    as a one-rank NCCL group with ``--profile_dir`` (the loss falls, the
+    checkpoint is written, the trace names hashgrid_encode); (c) frames
+    over a device list against the one-device frame; (d) ``check_bbox`` and
+    ``cv_nerf`` on the train scene.  Returns ``{run: {kernel: (launches,
+    plain calls)}}``."""
+    import os
+
+    from learn_nerf_tpu_torch.checkpoint import load_params_pickle
+    from learn_nerf_tpu_torch.data.camera import CameraView
+    from learn_nerf_tpu_torch.parallel.mesh import LAUNCHER_ENV, Mesh, default_mesh
+    from learn_nerf_tpu_torch.scripts import check_bbox, cv_nerf, render_nerf
+
+    counts = {}
+    env = {k: v for k, v in os.environ.items() if k not in (*LAUNCHER_ENV, "LOCAL_RANK", "MASTER_PORT")}
+    env["CUDA_VISIBLE_DEVICES"] = "0"  # the ranks share one card
+    # (a) the ranks, then the one process on the global batches.
+    port = free_port()
+    outs = [root / f"dp_rank{r}.json" for r in range(DP_RANKS)]
+    t0 = time.perf_counter()
+    run_processes("the data-parallel ranks", [
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_rank({r}, {DP_RANKS}, {port}, {str(root)!r}, "
+                               f"{str(outs[r])!r})"] for r in range(DP_RANKS)], env)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads(out.read_text()) for out in outs]
+    loop, ref, ref_ms = dp_train(root, device, None, dp_batches(root, DP_RANKS))
+    ref_digest, ref_bucket = state_digest(loop), loop._auto_per_ray
+    del loop
+    torch.cuda.empty_cache()
+    gaps = [abs(r["fine"] - w["fine"]) / w["fine"] for r, w in zip(ranks[0]["values"], ref)]
+    refreshes = -(-DP_STEPS // 16)
+    want = dict(hashgrid_encode=DP_STEPS + refreshes, hashgrid_backward=DP_STEPS, composite=DP_POOL_START,
+                composite_backward=DP_POOL_START, composite_pooled=DP_STEPS - DP_POOL_START,
+                composite_pooled_backward=DP_STEPS - DP_POOL_START)
+
+    def median(xs):
+        return float(np.median(xs))
+
+    dense, pooled = slice(2, DP_POOL_START), slice(DP_POOL_START + 2, DP_STEPS)
+    print(f"data parallel (a): {DP_RANKS} ranks sharing {ranks[0]['device']} over {ranks[0]['backend']}, "
+          f"{TRAIN_RAYS} rays a rank, {DP_STEPS} steps ({ranks_s:.1f} s with the processes' start): step ms median "
+          f"dense {[round(median(r['ms'][dense]), 3) for r in ranks]}, pooled "
+          f"{[round(median(r['ms'][pooled]), 3) for r in ranks]}; one process on {DP_RANKS * TRAIN_RAYS} rays: "
+          f"dense {median(ref_ms[dense]):.3f}, pooled {median(ref_ms[pooled]):.3f}; gloo all-reduce of the "
+          f"{ranks[0]['gradient_floats']}-float gradient {[round(median(r['reduce_ms']), 3) for r in ranks]} ms; "
+          f"auto bucket {[r['bucket'] for r in ranks]} (one process {ref_bucket}); fine loss relative gap to one "
+          f"process max {max(gaps):.3e} (bound {DP_LOSS_BOUND:g}), by step {[float(f'{g:.2e}') for g in gaps]}; "
+          f"digests equal across ranks {ranks[0]['digest'] == ranks[1]['digest']} (one process's "
+          f"{'equal' if ref_digest == ranks[0]['digest'] else 'differs'}); (launches, plain calls) "
+          f"{ranks[0]['counts']}", flush=True)
+    require(all(r["backend"] == "gloo" for r in ranks) and len({r["digest"] for r in ranks}) == 1,
+            "the ranks' parameters or grids differ")
+    require(all(r["values"] == ranks[0]["values"] for r in ranks), "the ranks logged different values")
+    require(all(r["bucket"] == ref_bucket for r in ranks), "the ranks' auto bucket is not one process's")
+    require(all(v.get("fine_pool_dropped", 0) == 0 for r in ranks for v in r["values"]), "a rank dropped samples")
+    require(max(gaps) <= DP_LOSS_BOUND, "the ranks' losses left one process's")
+    for r, rank in enumerate(ranks):
+        got = {k: tuple(v) for k, v in rank["counts"].items()}
+        require(all(got[k][0] == v for k, v in want.items()) and all(p == 0 for _, p in got.values()),
+                f"rank {r}'s launches {got} are not {want}, or it called a plain version")
+        counts[f"data parallel rank {r}"] = got
+
+    # (b) train_nerf as a one-rank NCCL group, as torchrun launches it.
+    out = root / "nccl.json"
+    nccl_env = dict(env, MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE="1", RANK="0",
+                    LOCAL_RANK="0")
+    run_processes("train_nerf in a one-rank NCCL group", [
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.nccl_rank({str(root)!r}, {str(out)!r})"]], nccl_env)
+    nccl = json.loads(out.read_text())
+    fine = [float(v) for v in re.findall(r"^step \d+: fine=(\S+)", nccl["log"], re.M)]
+    traces = sorted((root / "nccl_trace").glob("*.json"))
+    named = any("hashgrid_encode" in trace.read_text() for trace in traces)
+    got = {k: tuple(v) for k, v in nccl["counts"].items()}
+    head = DP_STEPS // 4
+    print(f"data parallel (b): train_nerf, {[line for line in nccl['log'].splitlines() if line.startswith('process')]}"
+          f", {len(fine)} steps, fine loss mean of the first {head} {np.mean(fine[:head]):.5f}, of the last {head} "
+          f"{np.mean(fine[-head:]):.5f}; NCCL all-reduce of the {nccl['gradient_floats']}-float gradient "
+          f"{nccl['reduce_ms']:.4f} ms (CUDA events, 20 calls); traces {[t.name for t in traces]} name "
+          f"hashgrid_encode: {named}; (launches, plain calls) {got}", flush=True)
+    require(nccl["backend"] == "nccl" and nccl["world"] == 1, f"the group is {nccl['backend']} of {nccl['world']}")
+    require(len(fine) == DP_STEPS and np.mean(fine[-head:]) < np.mean(fine[:head]), "the NCCL run's loss did not fall")
+    require(int(load_params_pickle(str(root / "nccl.pkl"))["occupancy_host_step"]) == DP_STEPS,
+            "rank 0 did not write the NCCL run's checkpoint")
+    require(named, "the NCCL run's profiler trace does not name hashgrid_encode")
+    require(all(got[k][0] == v for k, v in want.items()) and all(p == 0 for _, p in got.values()),
+            f"the NCCL run's launches {got} are not {want}")
+    counts["data parallel nccl train_nerf"] = got
+
+    # (c) frames over a device list on the card.
+    view = CameraView.from_json(str(root / "0000.json"))
+    meshes = {"[cuda:0, cuda:0]": Mesh(devices=(torch.device("cuda", 0),) * 2)}
+    if torch.cuda.device_count() > 1:
+        meshes["every card"] = default_mesh()
+    for name, (mode, bf16) in MESH_FRAME_MODES.items():
+        args = render_nerf.argparser().parse_args(mode_flags(root, mode, bf16) + [str(root / "metadata.json")])
+        with contextlib.redirect_stdout(io.StringIO()):
+            one = render_nerf.RenderSession(args, device=torch.device("cuda", 0)).render_arrays(view, SIDE, SIDE)
+        for label, mesh in meshes.items():
+            with contextlib.redirect_stdout(io.StringIO()):
+                session = render_nerf.RenderSession(args, mesh=mesh)
+                frame, counts[f"mesh frame {name} {label}"] = counted(
+                    name, lambda: session.render_arrays(view, SIDE, SIDE))
+            err = float(np.abs(frame["outputs"] - one["outputs"]).max())
+            print(f"data parallel (c): {name} frame over {label}: max abs err against one device {err:.3e} (bound "
+                  f"{MESH_FRAME_BOUND:g}); (launches, plain calls) {counts[f'mesh frame {name} {label}']}",
+                  flush=True)
+            require(np.isfinite(frame["outputs"]).all() and err <= MESH_FRAME_BOUND,
+                    f"the {name} frame over {label} left the one-device frame")
+            del session
+        torch.cuda.empty_cache()
+    for label in meshes:
+        c = {name: counts[f"mesh frame {name} {label}"] for name in MESH_FRAME_MODES}
+        require(c["vanilla hierarchy --bf16"]["fused_mlp"][0] > 0
+                and c["vanilla occupancy --bf16"]["fused_render"][0] > 0
+                and c["ngp hierarchy"]["hashgrid_encode"][0] > 0 and c["ngp pooled"]["composite_pooled"][0] > 0,
+                f"a frame over {label} did not launch its kernels: {c}")
+
+    # (d) the last CLIs on the card.
+    log, counts["check_bbox"] = counted("check_bbox", lambda: quiet(check_bbox.main, [str(root / "train")]))
+    colours = {k: json.loads(v) for k, v in re.findall(r"^(\w+) color (\[.*\])$", log, re.M)}
+    background = 128 / 127.5 - 1.0
+    print(f"data parallel (d): check_bbox on the train scene: {colours} (the background is {background:.6f})",
+          flush=True)
+    require(sorted(colours) == ["max", "mean", "min"]
+            and all(abs(c - background) < 1e-6 for v in colours.values() for c in v),
+            "check_bbox: rays that miss the bbox see more than the background")
+    argv = ["--instant_ngp", "--seed", str(SEED), "--lr", "1e-2", "--batch_size", str(TRAIN_RAYS),
+            "--coarse_samples", str(COARSE_SAMPLES), "--fine_samples", str(FINE_SAMPLES), "--folds", str(CV_FOLDS),
+            "--train_iters", str(CV_STEPS), str(root / "train")]
+    with contextlib.redirect_stdout(io.StringIO()):
+        results, counts["cv_nerf"] = counted("cv_nerf", lambda: cv_nerf.main(argv))
+    print(f"data parallel (d): cv_nerf, {CV_FOLDS} folds of {CV_STEPS} steps: held-out losses "
+          f"{[(round(loss, 5), Path(name).name) for loss, name in results]}; (launches, plain calls) "
+          f"{counts['cv_nerf']}", flush=True)
+    require(len(results) == TRAIN_VIEWS and all(np.isfinite(loss) for loss, _ in results),
+            f"cv_nerf held out {len(results)} views")
+    require(counts["cv_nerf"]["hashgrid_encode"][0] > 0 and counts["cv_nerf"]["composite"][0] > 0,
+            f"cv_nerf did not launch the hierarchy's kernels: {counts['cv_nerf']}")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def cube_color(origins, dirs, half=0.5):
     """Colour rays by the face of the cube ``[-half, half]^3`` they first hit
     (black where they miss): the cube of the repo's synthetic test scene."""
@@ -3530,6 +3856,7 @@ def main():
         served.update(lever_phase(root, device, dense_psnr))
         served.update(ref_nerf_phase(root, args.profile))
         served.update(hierarchy_phase(root, args.profile))
+        served.update(parallel_phase(root, device))
         served["hierarchy ref-nerf served"], _ = serve_mode(
             root, "hierarchy ref-nerf", ["--ref_nerf"], bf16=False, checkpoint="hierarchy_ref-nerf.pkl", requests=1)
         gate, served["quality gate"] = quality_gate(root, [SEED])

@@ -8,12 +8,12 @@ encoding (forward and table gradients) and compositing (forward and
 backward), is hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first
 use and bound through ``ctypes`` (``kernels/``).
 
-Ported so far: serving of the vanilla NeRF and of Instant-NGP, in every
-render mode of the CLI but the span and block-word levers: the coarse/fine
-hierarchy, the occupancy-grid fixed-K frame path, and pooled inference
-(``--occ_budget_per_ray``); and training on the occupancy-grid path
-(``scripts.train_nerf --occupancy``, :class:`~.train.OccupancyTrainLoop`),
-which writes the checkpoints both packages render.
+Everything the JAX package does is ported: serving and training of the
+vanilla NeRF, Instant-NGP and both Ref-NeRF models (the coarse/fine
+hierarchy, the occupancy-grid fixed-K and pooled paths, the selection
+levers, baking), data parallelism over cards (``parallel.mesh``), the
+render-family, dataset and utility CLIs, and the checkpoints both packages
+render.
 """
 
 __version__ = "0.1.0"

@@ -74,10 +74,17 @@ class NeRFDataset:
         num_shards: int = 32,
     ) -> Iterator[np.ndarray]:
         """Shuffled ``[N, 3, 3]`` ray batches (see
-        :class:`~.shuffle.ShuffledDataset`; ``dir_path`` holds its cache)."""
+        :class:`~.shuffle.ShuffledDataset`; ``dir_path`` holds its cache).
+        In an initialized process group each rank reads its own rays (the
+        group's rank and size, as the JAX package takes
+        ``jax.process_index()`` and ``jax.process_count()``), so the global
+        batch is ``size * batch_size`` rays."""
+        import torch.distributed as dist
+
         from .shuffle import ShuffledDataset
 
-        with ShuffledDataset(dir_path, self, seed, num_shards=num_shards) as sd:
+        process = dict(process_id=dist.get_rank(), process_count=dist.get_world_size()) if dist.is_initialized() else {}
+        with ShuffledDataset(dir_path, self, seed, num_shards=num_shards, **process) as sd:
             yield from sd.iterate_batches(batch_size, repeat=repeat)
 
 

@@ -34,13 +34,18 @@ On the fixed-K frame path a ``bfloat16`` :class:`~.models.vanilla.NeRFModel`
 runs step 4's per-sample chain (points -> MLP -> scan -> composite) as one
 fused kernel (:mod:`.kernels.fused_render`), as
 ``tools/pallas_recipe/fused_render.fused_render_occupancy`` does.
+
+With ``mesh=`` a frame spreads its tiles over several devices, each with
+its replica of the field, the background, the grid and its tables
+(:func:`occupancy_replicas`; :class:`OccupancyFrameSession` makes them
+once), as the JAX package's ``shard_map`` over the data axis does.
 """
 
 import dataclasses
 import functools
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -61,8 +66,9 @@ from .kernels.fused_render import fused_render
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .ops.geometry import ray_bbox_range
-from .ops.sampling import stratified_ts
-from .render import composite_samples, pad_rays_to_tiles
+from .ops.sampling import stratified_ts, uniform
+from .parallel.mesh import Mesh, replicate
+from .render import composite_samples, pad_rays_to_tiles, tile_devices
 
 Tensor = torch.Tensor
 
@@ -432,12 +438,15 @@ class OccupancyRenderer:
         transmittance_eps: float = 0.0,
         generator: Optional[torch.Generator] = None,
         tables: Optional[Dict[str, Tensor]] = None,
+        u: Optional[Tensor] = None,
     ) -> Tensor:
         """Mean per-ray survivor count a pooled pass would see: exactly
         :meth:`render_rays_pooled`'s candidate selection, without the field
-        model (sizes the ``"auto"`` pool budgets from a real batch)."""
+        model (sizes the ``"auto"`` pool budgets from a real batch).
+
+        :param u: optional ``[N, candidates]`` uniforms for the draw."""
         _, occ, _, _ = self._select_candidates(
-            rays, grid_state, transmittance_eps, generator=generator, tables=tables
+            rays, grid_state, transmittance_eps, u=u, generator=generator, tables=tables
         )
         c = occ.to(torch.float32).sum(dim=1)
         return torch.clamp(c, max=float(self.samples)).mean()
@@ -593,11 +602,16 @@ class OccupancyFrameSession:
         transmittance_eps: float = 0.0,
         budget_cfg: Union[None, str, float] = None,
         include_depth_outputs: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
         self.renderer = renderer
         self.background = background
         self.grid_state = grid_state
         self.budget_cfg = budget_cfg
+        # Frames over a mesh: each device's replica of the field, the
+        # background, the grid and its tables, made once per session.
+        self._mesh = mesh
+        self._replicas = occupancy_replicas(renderer, background, grid_state, mesh) if mesh is not None else None
         self._tile_size = tile_size
         self._eps = transmittance_eps
         self._depth = include_depth_outputs
@@ -635,6 +649,8 @@ class OccupancyFrameSession:
                 transmittance_eps=self._eps,
                 generator=generator,
                 include_depth_outputs=self._depth,
+                mesh=self._mesh,
+                replicas=self._replicas,
             )
             if budget is None:
                 return out
@@ -660,6 +676,16 @@ class OccupancyFrameSession:
             return out
 
 
+def occupancy_replicas(
+    renderer: OccupancyRenderer, background: Tensor, grid_state: OccupancyGridState, mesh: Mesh
+) -> List[Tuple[OccupancyRenderer, Tensor, OccupancyGridState, Dict[str, Tensor]]]:
+    """Each mesh device's ``(renderer, background, grid_state, tables)``:
+    a replica of the field (live or baked), the background, the grid and
+    its selection tables (:meth:`OccupancyRenderer.selection_tables`)."""
+    return [(r, bg, gs, r.selection_tables(gs))
+            for r, bg, gs in replicate((renderer, background, grid_state), mesh.devices)]
+
+
 def render_frame_occupancy(
     renderer: OccupancyRenderer,
     rays: Tensor,
@@ -671,6 +697,8 @@ def render_frame_occupancy(
     uniforms: Optional[Tensor] = None,
     budget_per_ray: Optional[float] = None,
     include_depth_outputs: bool = False,
+    mesh: Optional[Mesh] = None,
+    replicas=None,
 ) -> Dict[str, Tensor]:
     """Render a whole frame through the occupancy fast path, tile by tile.
 
@@ -691,43 +719,58 @@ def render_frame_occupancy(
         ``generator`` in order when absent.
     :param include_depth_outputs: also return ``alphas [M, 1]`` and
         ``coords [M, 3]`` (dataset distillation's depth).
+    :param mesh: spread the tiles over ``mesh.devices`` as
+        :func:`~.render.render_frame` does, each device with its replica of
+        the field, the background, the grid and its tables; the outputs
+        and counters gather once, on the first device.
+    :param replicas: :func:`occupancy_replicas` of the mesh, made once by
+        the caller; made for this frame when absent.
     :return: dict with ``outputs [M, 3]``; the pooled path adds the 0-dim
         ``selected``/``dropped`` counters summed over tiles (a nonzero
         ``dropped`` means the budget was undersized for this frame).
     """
     m = rays.shape[0]
-    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max)
+    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max, len(mesh.devices) if mesh else 1)
     pooled = budget_per_ray is not None
     if pooled:
         rays_t = rays_p.reshape(tile_size, num_tiles, 2, 3).transpose(0, 1)
     else:
         rays_t = rays_p.reshape(num_tiles, tile_size, 2, 3)
     keys = ("outputs", "alphas", "coords") if include_depth_outputs else ("outputs",)
-    tables = renderer.selection_tables(grid_state)
+    if mesh is None:
+        replicas = [(renderer, background, grid_state, renderer.selection_tables(grid_state))]
+    elif replicas is None:
+        replicas = occupancy_replicas(renderer, background, grid_state, mesh)
     tiles = {k: [] for k in keys}
     selected, dropped = [], []
-    for i in range(num_tiles):
+    for i, d in enumerate(tile_devices(num_tiles, mesh)):
+        tile_renderer, tile_background, tile_grid, tables = replicas[d]
         tile = rays_t[i].contiguous()
         u = uniforms[i] if uniforms is not None else None
-        common = dict(u=u, generator=generator, tables=tables)
+        if mesh is not None:
+            if generator is not None and u is None:
+                u = uniform((tile_size, renderer.candidates), generator.device, generator)
+            tile, u = (None if v is None else v.to(mesh.devices[d]) for v in (tile, u))
+        common = dict(u=u, generator=generator if mesh is None else None, tables=tables)
         if pooled:
-            out = renderer.render_rays_pooled(
-                tile, background, grid_state, int(tile_size * budget_per_ray), transmittance_eps, **common
+            out = tile_renderer.render_rays_pooled(
+                tile, tile_background, tile_grid, int(tile_size * budget_per_ray), transmittance_eps, **common
             )
             selected.append(out["selected"])
             dropped.append(out["dropped"])
-        elif renderer.fused and not include_depth_outputs:
-            out = renderer.render_rays_fused(tile, background, grid_state, transmittance_eps, **common)
+        elif tile_renderer.fused and not include_depth_outputs:
+            out = tile_renderer.render_rays_fused(tile, tile_background, tile_grid, transmittance_eps, **common)
         else:
-            out, _ = renderer.render_rays(tile, background, grid_state, transmittance_eps, **common)
+            out, _ = tile_renderer.render_rays(tile, tile_background, tile_grid, transmittance_eps, **common)
         for k in keys:
             tiles[k].append(out[k])
     result = {}
     for k, parts in tiles.items():
-        v = torch.stack(parts)  # [G, S, C]
+        v = torch.stack([p.to(rays.device) for p in parts])  # [G, S, C]
         if pooled:  # undo the interleave: [G, S, C] -> [S, G, C], raster order
             v = v.transpose(0, 1)
         result[k] = v.reshape(-1, v.shape[-1])[:m]
     if pooled:
-        result.update(selected=torch.stack(selected).sum(), dropped=torch.stack(dropped).sum())
+        result.update(selected=torch.stack([s.to(rays.device) for s in selected]).sum(),
+                      dropped=torch.stack([s.to(rays.device) for s in dropped]).sum())
     return result

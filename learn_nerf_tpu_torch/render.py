@@ -8,15 +8,16 @@ from a ``torch.Generator`` or are passed in as uniforms.
 """
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .kernels.composite import render_composite
 from .models.base import FieldModel
 from .ops.geometry import ray_bbox_range
-from .ops.sampling import inverse_cdf_ts, merge_sorted, stratified_ts
+from .ops.sampling import inverse_cdf_ts, merge_sorted, stratified_ts, uniform
 from .ops.volume import bin_deltas
+from .parallel.mesh import Mesh, replicate
 
 Tensor = torch.Tensor
 
@@ -140,8 +141,9 @@ class Renderer:
         return dict(coarse=coarse_out, fine=fine_out, coarse_aux=coarse_aux, fine_aux=fine_aux)
 
 
-def pad_rays_to_tiles(rays: Tensor, tile_size: int, bbox_max) -> Tuple[Tensor, int]:
-    """Pad ``[M, 2, 3]`` rays up to a whole number of tiles.
+def pad_rays_to_tiles(rays: Tensor, tile_size: int, bbox_max, n_dev: int = 1) -> Tuple[Tensor, int]:
+    """Pad ``[M, 2, 3]`` rays up to a whole number of tiles (a multiple of
+    ``n_dev``, the mesh's devices, when the tiles are spread over them).
 
     The one tile/pad layout of every whole-frame renderer.  Pad rays
     provably miss the bbox: they start at ``bbox_max + 1`` and point
@@ -150,13 +152,23 @@ def pad_rays_to_tiles(rays: Tensor, tile_size: int, bbox_max) -> Tuple[Tensor, i
     :return: ``(rays_padded [num_tiles * tile_size, 2, 3], num_tiles)``.
     """
     m = rays.shape[0]
-    num_tiles = -(-m // tile_size)
+    num_tiles = -(-m // (n_dev * tile_size)) * n_dev
     padded = num_tiles * tile_size
     if padded > m:
         far_corner = torch.tensor(bbox_max, dtype=torch.float32, device=rays.device) + 1.0
         pad_ray = torch.stack([far_corner, torch.ones_like(far_corner)])
         rays = torch.cat([rays, pad_ray.expand(padded - m, 2, 3)], dim=0)
     return rays, num_tiles
+
+
+def tile_devices(num_tiles: int, mesh: Optional[Mesh]) -> List[int]:
+    """The mesh device of each tile: device d renders the contiguous block
+    of tiles ``d * T / n .. (d + 1) * T / n`` (the JAX package's
+    ``shard_map`` over the data axis); all 0 without a mesh."""
+    if mesh is None:
+        return [0] * num_tiles
+    per_device = num_tiles // len(mesh.devices)
+    return [i // per_device for i in range(num_tiles)]
 
 
 def render_frame(
@@ -167,6 +179,8 @@ def render_frame(
     generator: Optional[torch.Generator] = None,
     uniforms: Optional[Sequence[Tuple[Tensor, Tensor]]] = None,
     include_depth_outputs: bool = False,
+    mesh: Optional[Mesh] = None,
+    replicas: Optional[Sequence[Tuple[Renderer, Tensor]]] = None,
 ) -> Dict[str, Tensor]:
     """Render all rays of a frame, tile by tile.
 
@@ -175,21 +189,56 @@ def render_frame(
         from ``generator`` in order when absent.
     :param include_depth_outputs: also return the fine pass's ``alphas
         [M, 1]`` and ``coords [M, 3]`` (dataset distillation's depth).
+    :param mesh: spread the tiles over ``mesh.devices``
+        (:func:`tile_devices`), each device with its replica of the models
+        and the background; the tiles' draws come from ``generator`` in
+        tile order as without a mesh, and the outputs gather once, on the
+        first device.
+    :param replicas: the ``(renderer, background)`` of each mesh device,
+        made once by the caller (:func:`~.parallel.mesh.replicate`); made
+        for this frame when absent.
     :return: dict with ``outputs [M, 3]``.
     """
     m = rays.shape[0]
-    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max)
+    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max, len(mesh.devices) if mesh else 1)
+    if mesh is None:
+        replicas = [(renderer, background)]
+    elif replicas is None:
+        replicas = replicate((renderer, background), mesh.devices)
     keys = ("outputs", "alphas", "coords") if include_depth_outputs else ("outputs",)
     tiles = {k: [] for k in keys}
-    for i in range(num_tiles):
+    for i, d in enumerate(tile_devices(num_tiles, mesh)):
+        tile_renderer, tile_background = replicas[d]
+        tile = rays_p[i * tile_size : (i + 1) * tile_size]
         u_c, u_f = uniforms[i] if uniforms is not None else (None, None)
-        fine = renderer.render_rays(
-            rays_p[i * tile_size : (i + 1) * tile_size],
-            background,
-            generator=generator,
+        if mesh is not None:
+            if generator is not None and uniforms is None:
+                u_c = uniform((tile_size, renderer.coarse_ts), generator.device, generator)
+                u_f = uniform((tile_size, renderer.fine_ts), generator.device, generator)
+            tile, u_c, u_f = (None if v is None else v.to(mesh.devices[d]) for v in (tile, u_c, u_f))
+        fine = tile_renderer.render_rays(
+            tile,
+            tile_background,
+            generator=generator if mesh is None else None,
             u_coarse=u_c,
             u_fine=u_f,
         )["fine"]
         for k in keys:
             tiles[k].append(fine[k])
-    return {k: torch.cat(parts)[:m] for k, parts in tiles.items()}
+    return {k: torch.cat([v.to(rays.device) for v in parts])[:m] for k, parts in tiles.items()}
+
+
+def render_frame_sharded(
+    renderer: Renderer,
+    rays: Tensor,
+    background: Tensor,
+    mesh: Mesh,
+    tile_size: int = 4096,
+    generator: Optional[torch.Generator] = None,
+) -> Tensor:
+    """Colours-only :func:`render_frame` over a mesh.
+
+    :param rays: ``[M, 2, 3]`` rays in raster order.
+    :return: ``[M, 3]`` colours.
+    """
+    return render_frame(renderer, rays, background, tile_size=tile_size, generator=generator, mesh=mesh)["outputs"]

@@ -2,9 +2,7 @@
 
 The flag groups carry the same names, defaults and help as
 ``learn_nerf_tpu.scripts.common``, so a command line written for the JAX
-package means the same here.  Flags of paths that are not ported yet are
-accepted by the parser and refused by :func:`check_ported` with
-``SystemExit``, never ignored.
+package means the same here.
 """
 
 import argparse
@@ -29,6 +27,7 @@ from ..data.dataset import ModelMetadata
 from ..models import FieldModel, InstantNGPModel, InstantNGPRefNeRFModel, NeRFModel, RefNeRFModel
 from ..models.base import reset_parameters_like_flax
 from ..occ_render import OccupancyRenderer
+from ..parallel.mesh import Mesh, default_mesh
 
 
 def add_model_args(parser: argparse.ArgumentParser) -> None:
@@ -215,17 +214,6 @@ def add_baked_args(parser: argparse.ArgumentParser) -> None:
     )
 
 
-def check_ported(args: argparse.Namespace) -> None:
-    """Refuse, with ``SystemExit``, ``--baked`` without ``--occupancy`` (as
-    the JAX package does) and a visible mesh of several cards."""
-    require_occupancy_for_baking(args)
-    if torch.cuda.device_count() > 1:
-        raise SystemExit(
-            "multi-GPU frame sharding is not ported yet; expose one card "
-            "(CUDA_VISIBLE_DEVICES=0)"
-        )
-
-
 def require_occupancy_for_baking(args: argparse.Namespace) -> None:
     if getattr(args, "baked", None) is not None and not getattr(args, "occupancy", False):
         raise SystemExit("--baked requires --occupancy")
@@ -311,6 +299,16 @@ def resolve_device(name: str) -> torch.device:
     return default_device() if name == "cuda" else torch.device(name)
 
 
+def frame_mesh(name: str) -> Optional[Mesh]:
+    """Where ``--device`` puts a frame's tiles: a mesh of every visible card
+    when there are several (the JAX render CLIs' default), else None (one
+    card, or the CPU)."""
+    if name != "cuda":
+        return None
+    default_device()  # raises without a card, turns TF32 off
+    return default_mesh() if torch.cuda.device_count() > 1 else None
+
+
 def create_model(
     args: argparse.Namespace, metadata: ModelMetadata
 ) -> Tuple[FieldModel, FieldModel, Dict[str, Any]]:
@@ -328,7 +326,7 @@ def create_model(
     on either trunk, in f32 whatever ``--bf16`` says (its analytic normals
     need f32 gradients, as in the JAX package): with ``--instant_ngp`` the
     hybrid (smooth hash grids), else ``RefNeRFModel``.  Callers refuse
-    unported model flags first (:func:`check_ported`).
+    ``--baked`` without ``--occupancy`` first (:func:`require_occupancy_for_baking`).
     """
     compute_dtype = "bfloat16" if getattr(args, "bf16", False) else "float32"
     ref_nerf = getattr(args, "ref_nerf", False)

@@ -3,7 +3,8 @@
 
 The fine model's occupancy ``1 - exp(-density)`` on a lattice over the
 bbox, swept in tiles of ``--batch_size`` points on the CUDA card (unless
-given ``--device cpu``): Instant-NGP's lookups through the encode kernel, a
+given ``--device cpu``; over every visible card when there are several):
+Instant-NGP's lookups through the encode kernel, a
 ``--bf16`` vanilla model's MLP through the fused MLP kernel.  Surfaced at
 ``--threshold`` (:func:`~..mesh.marching_tetrahedra`), x and z swapped,
 rescaled to world units and centred, written as OBJ, or STL for an
@@ -11,6 +12,7 @@ rescaled to world units and centred, written as OBJ, or STL for an
 """
 
 import argparse
+from typing import Optional
 
 import numpy as np
 import torch
@@ -19,7 +21,9 @@ from ..checkpoint import checkpoint_from_flax, load_params_pickle
 from ..data.dataset import ModelMetadata
 from ..mesh import marching_tetrahedra, write_obj, write_stl
 from ..models.base import FieldModel
-from .common import add_device_arg, add_model_args, check_ported, create_model, resolve_device
+from ..parallel.mesh import Mesh, replicate
+from ..render import tile_devices
+from .common import add_device_arg, add_model_args, create_model, frame_mesh, resolve_device
 
 
 def argparser() -> argparse.ArgumentParser:
@@ -49,22 +53,30 @@ def load_fine(args: argparse.Namespace, metadata: ModelMetadata, device: torch.d
     return fine.to(device).eval()
 
 
-def occupancy_volume(fine: FieldModel, coords: np.ndarray, batch_size: int, device: torch.device) -> np.ndarray:
+def occupancy_volume(fine: FieldModel, coords: np.ndarray, batch_size: int, device: torch.device,
+                     mesh: Optional[Mesh] = None) -> np.ndarray:
     """``1 - exp(-density)`` of ``fine`` at ``[n, 3]`` points (zero view
-    directions), in tiles of ``batch_size`` points; ``[n]`` on the host."""
-    pts = torch.from_numpy(coords).to(device)
+    directions), in tiles of ``batch_size`` points; ``[n]`` on the host.
+    With ``mesh`` the tiles spread over its devices as a frame's do
+    (:func:`~..render.tile_devices`), each with a replica of ``fine``."""
+    n = coords.shape[0]
+    n_dev = len(mesh.devices) if mesh is not None else 1
+    num_tiles = -(-n // (n_dev * batch_size)) * n_dev
+    pts = torch.from_numpy(np.pad(coords, ((0, num_tiles * batch_size - n), (0, 0)))).to(device)
+    models = replicate(fine, mesh.devices) if mesh is not None else [fine]
     parts = []
     with torch.no_grad():
-        for tile in pts.split(batch_size):
-            density = fine(tile, torch.zeros_like(tile))[0][..., 0].float()
-            parts.append(1.0 - torch.exp(-density))
-    return torch.cat(parts).cpu().numpy()
+        for tile, d in zip(pts.split(batch_size), tile_devices(num_tiles, mesh)):
+            tile = tile.to(mesh.devices[d]) if mesh is not None else tile
+            density = models[d](tile, torch.zeros_like(tile))[0][..., 0].float()
+            parts.append((1.0 - torch.exp(-density)).to(device))
+    return torch.cat(parts)[:n].cpu().numpy()
 
 
 def main(argv=None):
     args = argparser().parse_args(argv)
-    check_ported(args)
-    device = resolve_device(args.device)
+    mesh = frame_mesh(args.device)
+    device = mesh.devices[0] if mesh is not None else resolve_device(args.device)
     print("loading metadata...")
     metadata = ModelMetadata.from_json(args.metadata_json)
     print("loading model...")
@@ -72,7 +84,7 @@ def main(argv=None):
 
     coords = grid_coordinates(metadata.bbox_min, metadata.bbox_max, args.resolution).reshape(-1, 3)
     print("computing densities...")
-    occ = occupancy_volume(fine, coords, min(args.batch_size, coords.shape[0]), device)
+    occ = occupancy_volume(fine, coords, min(args.batch_size, coords.shape[0]), device, mesh)
     volume = np.pad(occ.reshape([args.resolution] * 3), 1, mode="constant", constant_values=0)
 
     print("extracting mesh...")

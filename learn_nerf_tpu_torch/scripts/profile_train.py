@@ -18,7 +18,11 @@ Takes ``train_nerf``'s flags and its ``data_dir`` and prints one JSON line:
   call (forward, backward; the pool layout's on a pooled step), on the
   host's clock around each call over the timed steps: their checks,
   allocations and ctypes call, which in a host-bound step delay every
-  launch after them.
+  launch after them;
+* ``matmul_flops``, ``tflops``, ``mfu``: one more step's matrix-product
+  FLOPs (:func:`~..utils.flops.traced_flops`, forward and backward) over
+  the median step, against the H100's peak for the models' GEMM dtype
+  (the JAX package's ``bench.py`` roofline; ``null`` on the CPU).
 
 ``--pooled`` profiles the JAX package's ``bench_pooled`` cell instead: a
 stand-in for a converged grid (5 % of the cells occupied, drawn from
@@ -58,9 +62,10 @@ from ..data.dataset import load_dataset
 from ..kernels import composite as kc
 from ..data.prefetch import prefetch_to_device
 from ..train import OccupancyTrainLoop
+from ..utils.flops import roofline, traced_flops
 from .common import resolve_device
 from .profile_render import _sync, profile_call
-from .train_nerf import build_parser, check_train_ported, make_loop
+from .train_nerf import build_parser, check_train_flags, make_loop
 
 
 def argparser():
@@ -154,6 +159,14 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
         composite_host_us=dict(forward=per_call("forward"), backward=per_call("backward")),
         **profile_call(step, device),
     )
+    # One more step under the FLOP counter: its matmul FLOPs over the
+    # median step, against the peak of the models' GEMM dtype.
+    while refresh_due():
+        step()
+    cost = traced_flops(step)
+    bf16 = any(getattr(m, "compute_dtype", "float32") == "bfloat16" for m in loop._models.values())
+    rates = roofline(cost, median / 1e3, dtype="bfloat16" if bf16 else "float32") if device.type == "cuda" else {}
+    result.update(matmul_flops=cost and cost["flops"], tflops=rates.get("tflops"), mfu=rates.get("mfu"))
     if dropped:
         result["fine_pool_dropped"] = max(int(v) for v in dropped)
     return result
@@ -166,7 +179,7 @@ def profile_args(args) -> dict:
         if args.pooled:
             raise SystemExit("--hierarchy and --pooled profile different loops; pick one")
         args.occupancy = False
-    check_train_ported(args)
+    check_train_flags(args)
     device = resolve_device(args.device)
     data = load_dataset(args.data_dir)
 

@@ -9,7 +9,9 @@ this port only).  On the card the vanilla model's ``--bf16`` routes
 its MLPs through the fused Hopper kernels, every hash-grid lookup of an
 Instant-NGP model runs through the encode kernel, and with ``--baked``
 (under ``--occupancy``) every sample's lookup in the baked grid through the
-baked-lookup kernel.
+baked-lookup kernel.  With several visible cards a frame's tiles spread
+over all of them (the JAX CLI's mesh of every device), each card holding a
+replica of the models.
 """
 
 import argparse
@@ -22,6 +24,7 @@ from ..checkpoint import checkpoint_from_flax, load_params_pickle
 from ..data.camera import CameraView
 from ..data.dataset import ModelMetadata
 from ..occ_render import OccupancyFrameSession
+from ..parallel.mesh import Mesh, replicate
 from ..render import Renderer, render_frame
 from .common import (
     add_baked_args,
@@ -30,8 +33,9 @@ from .common import (
     add_occupancy_args,
     apply_baking,
     build_occupancy_renderer,
-    check_ported,
     create_model,
+    frame_mesh,
+    require_occupancy_for_baking,
     resolve_device,
     seeded_generator,
     to_u8_image,
@@ -70,17 +74,30 @@ class RenderSession:
     """A loaded model on its device + whole-frame rendering.
 
     The device is ``device`` when given, else the one ``args.device``
-    names (the card by default, which raises when there is none).  The
-    occupancy path serves the checkpoint's fine model or, with
-    ``--baked``, its bake, with the selection levers the flags set.
-    ``include_depth_outputs`` adds ``alphas`` and ``coords`` to what
-    :meth:`render_arrays` returns (dataset distillation).
+    names (the card by default, which raises when there is none).  Frames
+    spread their tiles over ``mesh``'s devices when it has several (the
+    models, background and grid replicated once, here): by default, with
+    neither ``device`` nor ``mesh`` given, every visible card when there
+    are several (:func:`~.common.frame_mesh`).  The occupancy path serves
+    the checkpoint's fine model or, with ``--baked``, its bake, with the
+    selection levers the flags set.  ``include_depth_outputs`` adds
+    ``alphas`` and ``coords`` to what :meth:`render_arrays` returns
+    (dataset distillation).
     """
 
     def __init__(
-        self, args: argparse.Namespace, device: Optional[torch.device] = None, include_depth_outputs: bool = False
+        self,
+        args: argparse.Namespace,
+        device: Optional[torch.device] = None,
+        include_depth_outputs: bool = False,
+        mesh: Optional[Mesh] = None,
     ):
-        check_ported(args)
+        require_occupancy_for_baking(args)
+        if mesh is None and device is None:
+            mesh = frame_mesh(args.device)
+        self.mesh = mesh if mesh is not None and len(mesh.devices) > 1 else None
+        if mesh is not None:
+            device = mesh.devices[0]
         self.device = device if device is not None else resolve_device(args.device)
         print("loading metadata...")
         self.metadata = ModelMetadata.from_json(args.metadata_json)
@@ -116,6 +133,7 @@ class RenderSession:
                 transmittance_eps=getattr(args, "occ_t_eps", 0.0),
                 budget_cfg=getattr(args, "occ_budget_per_ray", None),
                 include_depth_outputs=include_depth_outputs,
+                mesh=self.mesh,
             )
             self._render = lambda rays: self.frames.render(rays, self.generator)
         else:
@@ -127,6 +145,7 @@ class RenderSession:
                 coarse_ts=args.coarse_samples,
                 fine_ts=args.fine_samples,
             )
+            replicas = replicate((self.renderer, self.background), self.mesh.devices) if self.mesh else None
             self._render = lambda rays: render_frame(
                 self.renderer,
                 rays,
@@ -134,6 +153,8 @@ class RenderSession:
                 tile_size=args.batch_size,
                 generator=self.generator,
                 include_depth_outputs=include_depth_outputs,
+                mesh=self.mesh,
+                replicas=replicas,
             )
 
     def render_arrays(self, view: CameraView, width: int, height: int) -> Dict[str, np.ndarray]:

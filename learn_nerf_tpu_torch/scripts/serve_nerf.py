@@ -3,7 +3,8 @@
 The serving surface of ``learn_nerf_tpu.scripts.serve_nerf``, on PyTorch:
 loads a checkpoint once into a :class:`~.render_nerf.RenderSession` and
 serves whole frames over HTTP, one render at a time (a lock serializes
-renders; a frame already fills the card).  It serves from the CUDA card and
+renders; a frame already fills the card).  It serves from the CUDA card, a
+frame's tiles spread over every visible card when there are several, and
 raises without one, unless given ``--device cpu``.
 
 Endpoints:

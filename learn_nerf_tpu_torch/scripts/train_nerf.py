@@ -29,10 +29,17 @@ saved run consumed (the JAX CLI starts its batch stream again), so it
 continues the uninterrupted run step for step; with ``--lr_schedule
 cosine`` the restored optimizer count carries the schedule on.
 
-Not ported yet, refused with ``SystemExit`` (see ROADMAP.md):
-``--coordinator_address``/``--num_processes`` (several processes) and
-``--profile_dir``.  ``--steps_per_dispatch k`` is accepted and runs k plain
-steps per log line; a last chunk of fewer than k batches is dropped unless
+Data parallelism: launched in several processes (``torchrun
+--nproc_per_node N -m learn_nerf_tpu_torch.scripts.train_nerf ...``, or the
+JAX CLI's ``--coordinator_address host:port --num_processes N --process_id
+i`` in each), every rank trains on its own ``--batch_size`` rays of each
+global batch of ``N * --batch_size`` on its own card (NCCL; gloo with
+``--device cpu``), all-reduces the gradients and logs the global values;
+rank 0 writes the checkpoints (:mod:`..parallel.mesh`, the loops' ``mesh=``).
+``--profile_dir`` captures a ``torch.profiler`` trace of the hot loop
+there (:func:`~..utils.profiling.profile_trace`).
+
+``--steps_per_dispatch k`` runs k plain steps per log line; a last chunk of fewer than k batches is dropped unless
 ``--steps`` cuts it (:func:`dispatch_chunks`), and checkpoints are written at
 the steps the JAX CLI writes them (:func:`save_due`).
 
@@ -45,26 +52,23 @@ Examples (the flagship recipe; the vanilla hierarchy, resumable):
 """
 
 import argparse
+import contextlib
 import itertools
 import os
 import random
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..checkpoint import load_params_pickle, peek_train_state_step
+from ..parallel.mesh import Mesh, broadcast_object, default_mesh, init_distributed
 from ..data.dataset import load_dataset
 from ..data.prefetch import prefetch_to_device
 from ..train import OccupancyTrainLoop, TrainLoop, cosine_decay_schedule
 from ..utils.logging import MetricLogger
-from .common import (
-    add_device_arg,
-    add_model_args,
-    add_occupancy_args,
-    check_ported,
-    create_model,
-    resolve_device,
-)
+from ..utils.profiling import profile_trace
+from .common import add_device_arg, add_model_args, add_occupancy_args, create_model, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -114,7 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--test_data_dir", type=str, default=None)
     parser.add_argument("--steps", type=int, default=None, help="stop after this many steps")
     parser.add_argument(
-        "--profile_dir", type=str, default=None, help="capture a profiler trace (not ported yet)"
+        "--profile_dir", type=str, default=None, help="capture a profiler trace here"
     )
     parser.add_argument(
         "--steps_per_dispatch", type=int, default=1,
@@ -122,7 +126,8 @@ def build_parser() -> argparse.ArgumentParser:
         "cadence) per log line; identical numerics to one step per line "
         "(incompatible with --test_data_dir)",
     )
-    # Several processes (not ported yet).
+    # Data parallelism in several processes (torch.distributed; each
+    # process reads its own rays, see data.shuffle and parallel.mesh).
     parser.add_argument("--coordinator_address", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
@@ -133,22 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def check_train_ported(args: argparse.Namespace) -> None:
-    """Refuse, with ``SystemExit``, every training flag whose path is not
-    ported (pure flag checks, before any dataset or checkpoint is read)."""
-    refused = [
-        (args.coordinator_address is not None or (args.num_processes or 1) > 1,
-         "--coordinator_address/--num_processes (training in several processes)"),
-        (args.profile_dir is not None,
-         "--profile_dir (profile a step with scripts/profile_train.py instead)"),
-    ]
-    for is_set, what in refused:
-        if is_set:
-            raise SystemExit(
-                f"{what} is not ported to learn_nerf_tpu_torch yet; this package trains "
-                "on one card in one process (see ROADMAP.md, Queue 1)"
-            )
-    # The occupancy renderer's selection levers, off their defaults.
+def check_train_flags(args: argparse.Namespace) -> None:
+    """Refuse, with ``SystemExit``, the occupancy renderer's selection levers
+    (pure flag checks, before any dataset or checkpoint is read)."""
     levers = [flag for flag, is_set in (
         ("--occ_span_candidates", args.occ_span_candidates), ("--occ_span_pool_factor", args.occ_span_pool_factor != 8),
         ("--occ_block_gather", args.occ_block_gather), ("--occ_span_block_gather", args.occ_span_block_gather),
@@ -160,7 +152,6 @@ def check_train_ported(args: argparse.Namespace) -> None:
             f"{', '.join(levers)}: inference levers of render_nerf, serve_nerf, eval_psnr and "
             "render_new_dataset; training does not read them (see ROADMAP.md, Queue 3)"
         )
-    check_ported(args)
 
 
 def resume_step_of(save_path: str, full_state_path=None) -> int:
@@ -174,9 +165,10 @@ def resume_step_of(save_path: str, full_state_path=None) -> int:
     return int(payload.get("occupancy_host_step", payload.get("train_host_step", 0)))
 
 
-def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device):
-    """The train loop the flags describe, on ``device``: the occupancy loop
-    with ``--occupancy``, else the hierarchy's."""
+def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device, mesh: Optional[Mesh] = None):
+    """The train loop the flags describe, on ``device`` (``mesh``'s card
+    when given): the occupancy loop with ``--occupancy``, else the
+    hierarchy's."""
     coarse, fine, train_kwargs = create_model(args, metadata)
     common = dict(
         lr=lr,
@@ -186,6 +178,7 @@ def make_loop(args: argparse.Namespace, metadata, lr, device: torch.device):
         density_penalty_batch_size=args.density_penalty_batch_size,
         ema_decay=args.ema,
         device=device,
+        mesh=mesh,
         **train_kwargs,
     )
     if not args.occupancy:
@@ -244,10 +237,17 @@ def main(argv=None, on_step=None):
             "--steps_per_dispatch > 1 is incompatible with --test_data_dir "
             "(the per-step test-loss path keeps one step per line)"
         )
-    check_train_ported(args)
+    check_train_flags(args)
     if args.test_batch_size is None:
         args.test_batch_size = args.batch_size
+    distributed = init_distributed(args.coordinator_address, args.num_processes, args.process_id,
+                                   device_type=args.device)
     device = resolve_device(args.device)
+    mesh = None
+    if distributed:
+        mesh = default_mesh([device])
+        print(f"process group: {torch.distributed.get_backend(mesh.group)}, rank {mesh.process_index} "
+              f"of {mesh.process_count}, on {mesh.devices[0]}", flush=True)
 
     print("loading dataset...")
     data = load_dataset(args.data_dir)
@@ -261,6 +261,8 @@ def main(argv=None, on_step=None):
             test_data.views = test_data.views[:1]
 
     seed = args.seed if args.seed is not None else random.randint(0, 2**32 - 1)
+    if mesh is not None:
+        seed = broadcast_object(seed, mesh)  # one seed: the same draws on every rank
     torch.manual_seed(seed)  # the model's initial parameters
     rng = np.random.Generator(np.random.Philox(seed))
 
@@ -298,7 +300,8 @@ def main(argv=None, on_step=None):
                 "dependent; for a pinned endpoint use --lr_schedule cosine "
                 "(+ --occ_freeze_grid_after, --ema)"
             )
-    loop = make_loop(args, data.metadata, lr, device)
+    loop = make_loop(args, data.metadata, lr, device, mesh)
+    device = loop.device  # the mesh's indexed card under a process group
     skip = 0
     if full_resume:
         print(f"loading full train state: {args.full_state_path}")
@@ -340,22 +343,24 @@ def main(argv=None, on_step=None):
         itertools.islice(data.iterate_batches(shuffle_dir, data_seed, args.batch_size), skip, None), device
     )
     done = 0
-    try:
-        for chunk in dispatch_chunks(batches, k, args.steps):
-            if test_iterator is None:
-                losses = loop.step_auto_many(base_seed, chunk)
-            else:
-                losses = loop.step(chunk[0], generator=step_generator)
-                test_losses = loop.eval_losses(next(test_iterator), generator=test_generator)
-                losses = dict(losses, **{f"test_{name}": v for name, v in test_losses.items()})
-            done += len(chunk)
-            logger.log_step(done - 1, losses)
-            if on_step is not None:
-                on_step(done, loop)
-            if save_due(done - 1, args.save_interval, k):
-                save()
-    finally:
-        logger.flush()
+    profiling = profile_trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    with profiling:
+        try:
+            for chunk in dispatch_chunks(batches, k, args.steps):
+                if test_iterator is None:
+                    losses = loop.step_auto_many(base_seed, chunk)
+                else:
+                    losses = loop.step(chunk[0], generator=step_generator)
+                    test_losses = loop.eval_losses(next(test_iterator), generator=test_generator)
+                    losses = dict(losses, **{f"test_{name}": v for name, v in test_losses.items()})
+                done += len(chunk)
+                logger.log_step(done - 1, losses)
+                if on_step is not None:
+                    on_step(done, loop)
+                if save_due(done - 1, args.save_interval, k):
+                    save()
+        finally:
+            logger.flush()
     save()
     return loop
 

@@ -47,8 +47,26 @@ Both loops write the params pickle both packages read (:meth:`save`) and
 the port's own full train state (:meth:`save_full`, the format of
 :func:`~.checkpoint.save_train_state`).
 
-Not ported yet (ROADMAP.md, Queue 1): meshes of several cards (data
-parallelism); asking for one raises.
+Data parallelism (``mesh=``, a :class:`~.parallel.mesh.Mesh` of one card
+and the process group): each rank trains on its own rows of the global
+batch, and the step equals the JAX step on the global batch with
+replicated parameters.  The parameters and the background are broadcast
+from rank 0 at construction and after a load; after ``backward()`` one
+coalesced all-reduce averages every gradient (one explicit reduce feeding
+Adam, where ``DistributedDataParallel`` would hook only the models'
+forwards: the loops also call their models for the grid refresh, the
+demand measure and the density penalty); one more averages the logged
+values (``fine_pool_dropped`` is summed), so every rank logs the global
+ones.  Each stratified draw the generator makes is drawn for the global
+batch and cut to the rank's rows, and the draws that do not depend on the
+batch (the density penalty, the grid refresh) are the same on every rank,
+so parameters and grids stay bit-equal across ranks.  The auto pool
+budget averages its measured demand over the ranks, so all pick one
+bucket; a pooled step pools ``n * budget`` samples a rank, which equals
+the JAX package's global pool whenever nothing is dropped (when samples
+are dropped, each rank drops its own trailing rays, not the global
+batch's).  Rank 0 alone writes checkpoints, then every rank passes a
+barrier.
 """
 
 import copy
@@ -72,12 +90,12 @@ from .checkpoint import (
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .occ_render import OccupancyRenderer
+from .ops.sampling import uniform
+from .parallel.mesh import Mesh, all_reduce_mean_, barrier, broadcast_, reduce_values, shard_batch
 from .render import Renderer
 
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
-
-NOT_PORTED = "is not ported to learn_nerf_tpu_torch yet (ROADMAP.md, Queue 1: {item})"
 
 # Stream tags of step_auto's per-step seeds (the JAX loop folds the same
 # two tags into its base key), and the base seed of the auto pool budget's
@@ -300,13 +318,17 @@ def grad_step(loop: "_Trainer", loss_fn: Callable[[], Tuple[Tensor, Dict[str, Te
     """THE gradient step both loops take (JAX's ``_grad_step``): the loss
     with its logging dict from ``loss_fn()``, the gradients, ``grad_norm`` /
     ``param_norm`` (before the update), the Adam step at the schedule's
-    lr, the step counters and the optional EMA.  Returns the logging dict
-    of 0-dim tensors (on the device: read them late)."""
+    lr, the step counters and the optional EMA.  Under data parallelism
+    the gradients are averaged over the ranks before the norms, and the
+    logged values reduced (:meth:`_Trainer._reduce`).  Returns the logging
+    dict of 0-dim tensors (on the device: read them late)."""
     loop.optimizer.zero_grad(set_to_none=True)
     total, values = loss_fn()
     total.backward()
     leaves = loop._leaves()
-    values = {k: v.detach() for k, v in values.items()}
+    if loop._dp is not None:
+        all_reduce_mean_([p.grad for p in leaves], loop._dp)
+    values = loop._reduce({k: v.detach() for k, v in values.items()})
     values["grad_norm"] = tree_norm(p.grad for p in leaves)
     values["param_norm"] = tree_norm(leaves)
     for group in loop.optimizer.param_groups:
@@ -328,6 +350,19 @@ class _Trainer:
 
     LOOP = ""
 
+    def _init_mesh(self, mesh: Optional[Mesh], device, model: FieldModel) -> None:
+        """Set ``self.mesh`` (by default one device: ``device``, else where
+        ``model`` lies, and no process group), ``self.device``, its card,
+        and ``self._dp``, the mesh when its process group runs the step's
+        collectives (else None)."""
+        if mesh is None:
+            mesh = Mesh(devices=(torch.device(device) if device is not None else next(model.parameters()).device,))
+        if len(mesh.devices) != 1:
+            raise ValueError(f"a train loop trains on one card a process; this mesh has {len(mesh.devices)} "
+                             "(launch one process a card: torchrun --nproc_per_node N)")
+        self.mesh, self.device = mesh, mesh.devices[0]
+        self._dp = mesh if mesh.group is not None else None
+
     def _init_training(
         self,
         models: Dict[str, FieldModel],
@@ -344,6 +379,7 @@ class _Trainer:
                 model.set_bf16_route("flax")
         self._models = models
         self.background = nn.Parameter(torch.tensor([-1.0, -1.0, -1.0], device=self.device))
+        self._broadcast_params()
         self._schedule = lr if callable(lr) else constant_schedule(float(lr))
         self.optimizer = torch.optim.Adam(
             self._leaves(), lr=self._schedule(0), betas=(adam_b1, adam_b2), eps=adam_eps,
@@ -363,6 +399,44 @@ class _Trainer:
 
     def _leaves(self) -> list:
         return [p for m in self._models.values() for p in m.parameters()] + [self.background]
+
+    # -- data parallelism -------------------------------------------------
+
+    def _broadcast_params(self) -> None:
+        """Rank 0's parameters and background on every rank."""
+        if self._dp is not None:
+            broadcast_(self._leaves(), self._dp)
+
+    def _reduce(self, values: Dict[str, Tensor]) -> Dict[str, Tensor]:
+        """The logged values over the ranks: ``fine_pool_dropped`` summed,
+        the losses and aux means averaged."""
+        if self._dp is None:
+            return values
+        return reduce_values(values, self._dp, summed=("fine_pool_dropped",))
+
+    def _rank_draws(self, n: int, draws: Dict[str, Any], widths: Dict[str, int]) -> Dict[str, Any]:
+        """``draws`` with each stratified draw that is left to the generator
+        (``widths``: name to columns, in the order the loss draws them)
+        drawn for the GLOBAL batch of ``P * n`` rays and cut to this rank's
+        rows, so a P-rank step draws what one process draws on the
+        concatenated batch.  Unchanged without data parallelism."""
+        generator = draws.get("generator")
+        if self._dp is None or self._dp.process_count == 1 or generator is None:
+            return draws
+        r, p = self._dp.process_index, self._dp.process_count
+        draws = dict(draws)
+        for name, width in widths.items():
+            if draws.get(name) is None:
+                draws[name] = uniform((p * n, width), self.device, generator)[r * n:(r + 1) * n]
+        return draws
+
+    def _write(self, write: Callable[[], None]) -> None:
+        """Rank 0 writes a checkpoint, then every rank passes a barrier (no
+        rank reads or writes the file before it is whole)."""
+        if self._dp is None or self._dp.process_index == 0:
+            write()
+        if self._dp is not None:
+            barrier(self._dp)
 
     def _seed_ema(self) -> None:
         """An independent copy of the parameters to seed the average."""
@@ -391,9 +465,7 @@ class _Trainer:
         return dict({name: m.state_dict() for name, m in models.items()}, background=background.detach())
 
     def _place(self, batch) -> Tensor:
-        if not isinstance(batch, Tensor):
-            batch = torch.from_numpy(np.asarray(batch, dtype=np.float32))
-        return batch.to(self.device, non_blocking=True)
+        return shard_batch(self.mesh, batch)
 
     # -- checkpointing ----------------------------------------------------
 
@@ -404,7 +476,8 @@ class _Trainer:
         """Write the params pickle both packages render (atomic): the eval
         parameters (the EMA average when enabled) as flax trees, and
         ``extra``."""
-        save_params_pickle(path, checkpoint_to_flax(dict(self.eval_params, **extra), **self._layout()))
+        self._write(lambda: save_params_pickle(
+            path, checkpoint_to_flax(dict(self.eval_params, **extra), **self._layout())))
 
     def _load_pickle(self, path: str) -> Dict[str, Any]:
         """Load the models and the background from a params pickle written
@@ -417,6 +490,7 @@ class _Trainer:
             model.load_state_dict(ckpt[name])
         with torch.no_grad():
             self.background.copy_(torch.as_tensor(np.asarray(payload["background"], dtype=np.float32)))
+        self._broadcast_params()
         if self._ema_models is not None:
             self._seed_ema()  # a params pickle has one tree: seed the average from it
         return payload
@@ -439,7 +513,7 @@ class _Trainer:
         and step, both step counters and the average, so a resumed run
         continues the uninterrupted one (the JAX package's ``save_full``, in
         the port's own format: :func:`~.checkpoint.save_train_state`)."""
-        save_train_state(path, self._full_state())
+        self._write(lambda: save_train_state(path, self._full_state()))
 
     def load_full(self, path: str) -> Dict[str, Any]:
         """Restore a state written by :meth:`save_full` of a loop of the
@@ -455,16 +529,12 @@ class _Trainer:
                 background.copy_(saved["background"])
 
         load(self._models, self.background, state["params"])
+        self._broadcast_params()
         self.optimizer.load_state_dict(state["optimizer"])
         self._opt_count, self.step_count = int(state["opt_count"]), int(state["step"])
         if self.ema_decay is not None:
             load(self._ema_models, self._ema_background, state["ema"])
         return state
-
-
-def _refuse_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError("training over a mesh of cards " + NOT_PORTED.format(item="data parallelism"))
 
 
 class TrainLoop(_Trainer):
@@ -478,7 +548,10 @@ class TrainLoop(_Trainer):
         (:func:`cosine_decay_schedule`).
     :param coarse_ts: stratified samples a ray; ``fine_ts`` the
         importance samples added to them for the fine pass.
-    :param device: where to train (default: where the fine model lies).
+    :param mesh: data parallelism (see the module doc): one card, and the
+        process group of the run.
+    :param device: where to train (default: the mesh's card, else where
+        the fine model lies).
     """
 
     LOOP = "hierarchy"
@@ -499,11 +572,10 @@ class TrainLoop(_Trainer):
         density_penalty: Optional[float] = None,
         density_penalty_batch_size: int = 128,
         ema_decay: Optional[float] = None,
-        mesh: Any = None,
+        mesh: Optional[Mesh] = None,
         device: Union[None, str, torch.device] = None,
     ):
-        _refuse_mesh(mesh)
-        self.device = torch.device(device) if device is not None else next(fine.parameters()).device
+        self._init_mesh(mesh, device, fine)
         self.coarse, self.fine = coarse.to(self.device), fine.to(self.device)
         self.renderer = Renderer(
             coarse=self.coarse, fine=self.fine,
@@ -517,6 +589,8 @@ class TrainLoop(_Trainer):
         self._init_training(dict(coarse=self.coarse, fine=self.fine), lr, adam_b1, adam_b2, adam_eps, ema_decay)
 
     def _loss(self, renderer: Renderer, background: Tensor, batch: Tensor, **draws):
+        draws = self._rank_draws(batch.shape[0], draws, dict(u_coarse=self.renderer.coarse_ts,
+                                                             u_fine=self.renderer.fine_ts))
         return compute_losses(
             renderer, background, batch, self.loss_weights, density_penalty=self.density_penalty,
             density_penalty_batch_size=self.density_penalty_batch_size, **draws)
@@ -578,7 +652,7 @@ class TrainLoop(_Trainer):
         with torch.no_grad():
             _, values = self._loss(renderer, background, self._place(batch), u_coarse=u_coarse,
                                    u_fine=u_fine, density_draws=density_draws, generator=generator)
-        return values
+        return self._reduce(values)
 
     def save(self, path: str) -> None:
         """Write the params pickle both packages render (atomic): the eval
@@ -617,7 +691,10 @@ class OccupancyTrainLoop(_Trainer):
         trains its parameters in place.
     :param lr: a float, or a schedule of the optimizer step
         (:func:`cosine_decay_schedule`).
-    :param device: where to train (default: where the model lies).
+    :param mesh: data parallelism (see the module doc): one card, and the
+        process group of the run.
+    :param device: where to train (default: the mesh's card, else where
+        the model lies).
     """
 
     LOOP = "occupancy"
@@ -647,13 +724,12 @@ class OccupancyTrainLoop(_Trainer):
         pool_t_eps: float = 0.0,
         grid_warmup_updates: int = 16,
         ema_decay: Optional[float] = None,
-        mesh: Any = None,
+        mesh: Optional[Mesh] = None,
         device: Union[None, str, torch.device] = None,
     ):
-        _refuse_mesh(mesh)
+        self._init_mesh(mesh, device, model)
         bbox_min_t = tuple(np.asarray(bbox_min, dtype=np.float32).tolist())
         bbox_max_t = tuple(np.asarray(bbox_max, dtype=np.float32).tolist())
-        self.device = torch.device(device) if device is not None else next(model.parameters()).device
         self.grid = OccupancyGrid(
             bbox_min=bbox_min_t, bbox_max=bbox_max_t, resolution=grid_resolution,
             threshold=grid_threshold, warmup_updates=grid_warmup_updates,
@@ -686,6 +762,7 @@ class OccupancyTrainLoop(_Trainer):
 
     def _loss(self, renderer, background, batch, budget: Optional[int] = None, **draws):
         """The dense loss, or the pooled one with a pool of ``budget``."""
+        draws = self._rank_draws(batch.shape[0], draws, dict(u=self.renderer.candidates))
         common = dict(density_penalty=self.density_penalty,
                       density_penalty_batch_size=self.density_penalty_batch_size, **draws)
         if budget is None:
@@ -707,15 +784,18 @@ class OccupancyTrainLoop(_Trainer):
         survivor count of ``batch`` under the pooled pass's own selection
         (``pool_t_eps`` included), measured again once
         ``_AUTO_REBUDGET_INTERVAL`` host steps have passed since the last
-        measurement.  The budget follows demand both ways; each change of
-        bucket is printed."""
+        measurement (under data parallelism: on the global batch, the mean
+        over the ranks, so every rank picks one bucket).  The budget
+        follows demand both ways; each change of bucket is printed."""
         if self.pool_budget_per_ray != "auto":
             return self.pool_budget_per_ray
         if (self._auto_per_ray is None
                 or self._host_step - self._auto_resolved_at >= self._AUTO_REBUDGET_INTERVAL):
             self._generator.manual_seed(fold_seed(DEMAND_SEED, 0, self._host_step))
-            demand = float(self.renderer.mean_sample_demand(
-                batch[:, :2], self.grid_state, self.pool_t_eps, generator=self._generator))
+            draws = self._rank_draws(batch.shape[0], dict(generator=self._generator), dict(u=self.renderer.candidates))
+            demand = self._reduce(dict(demand=self.renderer.mean_sample_demand(
+                batch[:, :2], self.grid_state, self.pool_t_eps, **draws)))["demand"]
+            demand = float(demand)
             bucket = auto_budget_from_demand(demand, self.renderer.samples)
             if bucket != self._auto_per_ray:
                 print(
@@ -841,7 +921,7 @@ class OccupancyTrainLoop(_Trainer):
                 renderer, background, self._place(batch), u=u, density_draws=density_draws,
                 generator=generator,
             )
-        return values
+        return self._reduce(values)
 
     # -- checkpointing ----------------------------------------------------
 

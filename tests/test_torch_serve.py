@@ -304,11 +304,20 @@ def test_ref_nerf_serves_at_the_jax_widths(scene, tmp_path, flags):
     np.testing.assert_array_equal(served, direct)
 
 
-def test_visible_multi_gpu_mesh_refuses(scene, monkeypatch):
+@pytest.mark.parametrize("mode", [[], ["--occupancy", "--occ_budget_per_ray", "auto"]])
+def test_session_over_a_mesh_renders_the_one_device_image(scene, mode):
+    """A session over two devices (the render CLIs take every visible card)
+    replicates its models once and renders what one device renders; the
+    view's 256 rays in tiles of 64 spread 2 + 2."""
+    from learn_nerf_tpu_torch.parallel.mesh import default_mesh
+
     scene_dir, pkl = scene
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        render_nerf.RenderSession(render_nerf.argparser().parse_args(_argv(scene_dir, pkl)))
+    view = CameraView.from_json(f"{scene_dir}/0000.json")
+    args = render_nerf.argparser().parse_args(_argv(scene_dir, pkl, *mode))
+    sessions = [render_nerf.RenderSession(args, mesh=default_mesh([torch.device("cpu")] * 2)),
+                render_nerf.RenderSession(args)]
+    assert sessions[0].mesh is not None and sessions[1].mesh is None
+    np.testing.assert_array_equal(*(s.render_view(view) for s in sessions))
 
 
 def test_flags_and_defaults_match_the_jax_cli():
@@ -358,6 +367,12 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.occ_render\n"
         "import learn_nerf_tpu_torch.render\n"
         "import learn_nerf_tpu_torch.mesh\n"
+        "import learn_nerf_tpu_torch.parallel.mesh\n"
+        "import learn_nerf_tpu_torch.utils.profiling\n"
+        "import learn_nerf_tpu_torch.utils.flops\n"
+        "import learn_nerf_tpu_torch.scripts.cv_nerf\n"
+        "import learn_nerf_tpu_torch.scripts.check_bbox\n"
+        "import learn_nerf_tpu_torch.scripts.plot_log\n"
         "import learn_nerf_tpu_torch.scripts.render_nerf_spin\n"
         "import learn_nerf_tpu_torch.scripts.render_nerf_pan\n"
         "import learn_nerf_tpu_torch.scripts.render_nerf_interactive\n"

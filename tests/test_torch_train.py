@@ -466,12 +466,23 @@ def test_fold_seed_is_a_pure_function_of_its_arguments():
     assert train.fold_seed(7, 1, 9) == train.fold_seed(7, 1, 9)
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    (dict(mesh=object()), "Queue 1: data parallelism"),
-])
-def test_unported_loop_options_raise(kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        port_loop(**kwargs)
+@pytest.mark.parametrize("devices", [1, 2])
+def test_loop_trains_on_a_mesh_of_one_card_a_process(devices):
+    """A mesh of one device and no process group trains as no mesh does, on
+    its device; a mesh of several devices is refused (one card a process:
+    data parallelism runs a process a card, tests/test_torch_parallel.py)."""
+    from learn_nerf_tpu_torch.parallel.mesh import default_mesh
+
+    mesh = default_mesh([torch.device("cpu")] * devices)
+    if devices > 1:
+        with pytest.raises(ValueError, match="one card a process"):
+            port_loop(mesh=mesh)
+        return
+    on_mesh, plain = port_loop(mesh=mesh), port_loop()
+    assert on_mesh.device == torch.device("cpu") and on_mesh._dp is None
+    plain.model.load_state_dict(on_mesh.model.state_dict())
+    got, want = (loop.step_auto(3, ray_batch(5)) for loop in (on_mesh, plain))
+    assert {k: float(v) for k, v in got.items()} == {k: float(v) for k, v in want.items()}
 
 
 def test_tree_norm_and_loss_weights():

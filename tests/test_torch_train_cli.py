@@ -12,6 +12,7 @@ the same seed, and the metric logger's line.
 """
 
 import io
+import json
 import os
 
 import numpy as np
@@ -133,16 +134,32 @@ def test_create_model_returns_the_ngp_adam_settings(scene):
     assert common.create_model(parser.parse_args([scene]), metadata)[2] == {}
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--instant_ngp", "--occupancy", "--coordinator_address", "localhost:1"], "--coordinator_address"),
-    (["--instant_ngp", "--occupancy", "--num_processes", "2"], "--num_processes"),
-    (["--instant_ngp", "--occupancy", "--profile_dir", "p"], "--profile_dir"),
-])
-def test_unported_flags_exit_naming_the_roadmap(scene, flags, match):
-    with pytest.raises(SystemExit) as info:
-        train_nerf.main([*flags, "--device", "cpu", scene])
-    assert match in str(info.value) and "ROADMAP.md" in str(info.value)
-    assert "not ported" in str(info.value)
+@pytest.mark.parametrize("case", ["profile_dir", "one process", "no coordinator"])
+def test_distributed_flags_and_profile_dir(scene, tmp_path, monkeypatch, case):
+    """``--profile_dir`` writes a trace of the hot loop; ``--num_processes 1``
+    trains in one process (no process group, whatever the environment
+    says); ``--num_processes 2`` needs ``--coordinator_address``.  Two
+    processes: tests/test_torch_parallel.py."""
+    import torch.distributed as dist
+
+    flags = ["--instant_ngp", "--occupancy", "--device", "cpu", "--occ_candidates", "16", "--occ_samples", "4",
+             "--occ_grid", "16", "--batch_size", "32", "--lr", "1e-2", "--seed", "0", "--steps", "2",
+             "--save_path", str(tmp_path / "run.pkl"), scene]
+    if case == "no coordinator":
+        with pytest.raises(ValueError, match="--coordinator_address"):
+            train_nerf.main(["--num_processes", "2", "--process_id", "0", *flags])
+        return
+    if case == "one process":
+        for var, value in dict(MASTER_ADDR="localhost", WORLD_SIZE="2", RANK="0").items():
+            monkeypatch.setenv(var, value)
+        loop = train_nerf.main(["--num_processes", "1", *flags])
+        assert loop._dp is None and not dist.is_initialized() and loop.step_count == 2
+        return
+    train_nerf.main(["--profile_dir", str(tmp_path / "trace"), *flags])
+    (trace,) = os.listdir(tmp_path / "trace")
+    with open(tmp_path / "trace" / trace) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("addmm" in n for n in names)  # the step's products are in the trace
 
 
 @pytest.mark.parametrize("flags,match", [

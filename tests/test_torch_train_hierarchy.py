@@ -330,9 +330,14 @@ def test_fused_bf16_route_refuses_gradients_and_the_loops_pick_the_flax_route():
     assert all(p.grad is not None for p in loop._leaves()) and np.isfinite(float(values["fine"]))
 
 
-def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1: data parallelism"):
-        port_loop(mesh=object())
+def test_loop_on_a_one_device_mesh_steps_as_without_one():
+    """``mesh=`` of one device and no process group: the loop trains on the
+    mesh's device, step for step as without a mesh."""
+    from learn_nerf_tpu_torch.parallel.mesh import default_mesh
+
+    loops = [port_loop(mesh=default_mesh([torch.device("cpu")])), port_loop()]
+    got, want = ({k: float(v) for k, v in loop.step_auto(2, ray_batch(3)).items()} for loop in loops)
+    assert got == want and loops[0].device == torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -368,6 +373,7 @@ def test_profile_train_hierarchy_profiles_the_hierarchy_step(scene):
     result = profile_train.profile_args(profile_train.argparser().parse_args(argv))
     assert len(result["step_ms"]) == 2 and result["refresh_step_ms"] == [] and result["batch_size"] == 64
     assert result["device_ms"] is None and result["gemm_ms"] is None  # no card: not measured
+    assert result["matmul_flops"] > 0 and result["tflops"] is None and result["mfu"] is None
     with pytest.raises(SystemExit, match="--hierarchy and --pooled"):
         profile_train.profile_args(profile_train.argparser().parse_args([*argv, "--pooled"]))
 
