@@ -99,7 +99,21 @@ nonzero):
    designed (``csrc/ablations/hashgrid_dx_parent.cu``, built on its own)
    and its table gradients within the backward's bound of that pair's,
    timed beside that pair (turns A B B A), the plain versions and eager
-   autograd of the plain encode;
+   autograd of the plain encode; the selection kernels
+   (``check_selection_kernels``): select_strided at the train step's 4096
+   rays x 192 candidates -> 32 on the scene's ball grid, an off-centre ball
+   and a warmup grid (c = 192 > K), at served tiles of 8192 rays (the
+   ball, an opaque ball with the prune at eps 1e-2, frame_matrix's shell
+   grid with it, and the span lever's range of 64 probes as input to 96
+   candidates) and at the edges (1, 31 and 33 rays, rays that miss the
+   box, directions with zero components, C = 1, 33, 100, 200 and 4096, K =
+   1 and 64), bit for bit equal to its plain version, with the prune's
+   decisions different only within PRUNE_MARGIN of eps (the count and the
+   largest gap printed); pool_pack bit for bit at budgets that hold every
+   survivor and that drop; a rank off by one, x and z swapped in the cell
+   index and a tail row not written (copies of the source) each caught;
+   both timed by graph replay beside the plain route's device time, the
+   selection beside the card's rate for its random grid reads;
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -135,7 +149,10 @@ nonzero):
    --occupancy --occ_block_gather 2``: three ``POST /render`` requests
    each at 256x256, each answered 200 with a PNG of that shape, with
    latencies;
-5. every kernel of each mode launched during its serve phase (fused_mlp,
+5. every kernel of each mode launched during its serve phase (select_strided
+   once a tile in every occupancy mode but the block-word ones, and once
+   more a frame for an auto budget's demand, pool_pack once a pooled tile,
+   the block-word modes' plain candidate test counted apart; fused_mlp,
    fused_render, the encode kernel in the three live NGP modes, the
    composite kernel in both hierarchy modes, twice a tile, and in fixed-K
    NGP, its pool layout in pooled NGP, the baked lookup once a tile in
@@ -147,12 +164,14 @@ nonzero):
    models, coloured by position) and the port's ``train_nerf --instant_ngp
    --occupancy`` on it at full width (16 levels of 2^18 rows, 192 -> 32
    samples, a 128^3 grid, batch 4096) for 96 steps: every loss finite and
-   falling, the encode, table-gradient and composite kernels launched on
-   every step and no plain version called, six grid refreshes; then the
+   falling, the encode, table-gradient, composite and selection kernels
+   launched on every step and no plain version called, six grid refreshes;
+   then the
    same run pooled, the flagship ``--occ_train_budget auto`` from step 36
    with ``--steps_per_dispatch 8`` (the macro step 32-39 straddles the
-   switch): the pool-layout pair launched on every step from 36 on and on
-   no other, ``fine_pool_dropped`` 0 on every pooled step; both
+   switch): the pool-layout pair and pool_pack launched on every step from
+   36 on and on no other, the selection once more for each demand
+   measurement, ``fine_pool_dropped`` 0 on every pooled step; both
    checkpoints scored by the port's ``eval_psnr`` on two held-out views
    (the pooled run's shortfall bounded), the dense one also baked
    (``--baked 384 --baked_pack 4``: its shortfall against the live score
@@ -422,6 +441,40 @@ POOLED_SHAPES = {
     "tile 8192 x 6 of 32": (8192, 32, 6, 4.6, None),
     "tile 8192 x 32 of 32": (8192, 32, 32, 23.0, None),
     "tile 8192 x 6 of 32, runs": (8192, 32, 6, 34.0, 36),
+}
+# The selection kernels (csrc/selection.cu) against their plain versions on
+# the card, bit for bit with the prune off: the train step's 4096 rays x 192
+# candidates -> 32 on the scene's ball grid (density 5 in a ball of radius
+# 0.45), on an off-centre ball (which a cell index with x and z swapped
+# misses) and on a warmup grid (c = 192 > K), and served tiles of 8192
+# rays; the edges below.  With the prune on (eps 1e-2, the served frames'
+# --occ_t_eps; on the ball at density 50, which it cuts), the kernel's
+# prefix sum adds in another order than torch.cumsum: a ray may differ only
+# where one of its candidates has exp(-acc_prev) within PRUNE_MARGIN
+# (relative) of eps, set at four times the f32 scan's own rounding of
+# acc_prev where exp(-acc_prev) is near eps (its gap to an f64 scan, which
+# is the relative error it puts on exp(-acc_prev)): 9.5e-7 measured on an
+# H100 on these inputs.
+# The pack at the step's pool (budget 32 a ray, and 4 a ray, which drops)
+# and a served tile's (8192 x 6), bit for bit.
+SELECT_RAYS, SELECT_CANDIDATES, SELECT_SAMPLES = 4096, 192, 32
+SELECT_EDGES = ((1, 192, 32), (31, 192, 32), (33, 192, 32), (33, 100, 32), (64, 33, 1), (64, 1, 1),
+                (64, 200, 64), (256, 4096, 64))
+PRUNE_EPS = 1e-2
+# The block-word lever's candidate test stays plain ops by decision (block
+# words do not pay on the card, PERF.md §7): its calls count under this name
+# and are no fault.
+BLOCK_WORD_SELECTION = "block-word selection (plain by decision)"
+PRUNE_MARGIN = 4e-6
+PACK_BUDGETS = {"step pool, budget 32 a ray": (SELECT_RAYS, 32), "step pool, budget 4 a ray (drops)": (SELECT_RAYS, 4),
+                "tile 8192 x 6": (8192, 6)}
+# Deliberate faults in copies of csrc/selection.cu, each of which the checks
+# above must catch.
+SELECTION_FAULTS = {
+    "a rank off by one": ("const int target = min(rank + 1, count);", "const int target = min(rank + 2, count);"),
+    "x and z swapped in the cell index": ("return cell[0] + a.resolution * (cell[1] + a.resolution * cell[2]);",
+                                          "return cell[2] + a.resolution * (cell[1] + a.resolution * cell[0]);"),
+    "a tail row not written": ("if (i >= total && i < a.budget)", "if (i > total && i < a.budget)"),
 }
 # One train step by the kernel route on the card: (loss relative, table
 # gradients by L2 norm relative, other gradients relative to their max)
@@ -2247,12 +2300,283 @@ def check_baked_kernel(root, device, rng, parent, probes):
     return result
 
 
+def build_selection_faults():
+    """``{fault: library}``: csrc/selection.cu alone with each of
+    SELECTION_FAULTS, all built at once."""
+    from learn_nerf_tpu_torch.kernels import build
+    from learn_nerf_tpu_torch.scripts.mlp_ablations import variant_sources
+
+    procs = {}
+    for name, (old, new) in SELECTION_FAULTS.items():
+        out = build.BUILD_DIR / "ablations" / "selection" / name.replace(" ", "_")
+        variant_sources(out, name, [("selection.cu", old, new)])
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out / "libselection.so"),
+               str(out / "selection.cu")]
+        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (out, proc) in procs.items():
+        log = proc.communicate()[0]
+        require(proc.returncode == 0, f"the selection fault {name!r} does not build:\n{log[-4000:]}")
+        import ctypes
+
+        libs[name] = build.bind_selection(ctypes.CDLL(str(out / "libselection.so")))
+    return libs
+
+
+def selection_rays(rng, n, half=0.7, device="cuda"):
+    """``n`` rays from a sphere of radius 2 around the bbox [-half, half]^3,
+    aimed at points inside it; one in 16 aimed away (it misses), one in 16
+    axis-aligned (zero direction components, one of them -0.0)."""
+    origins = rng.randn(n, 3)
+    origins *= 2.0 / np.linalg.norm(origins, axis=-1, keepdims=True)
+    dirs = rng.uniform(-0.7 * half, 0.7 * half, (n, 3)) - origins
+    dirs[::16] *= -1.0
+    axis = np.arange(1, n, 16)
+    dirs[axis] = 0.0
+    origins[axis] = rng.uniform(-0.9 * half, 0.9 * half, (len(axis), 3))
+    origins[axis, axis % 3] = -2.0
+    dirs[axis, axis % 3] = 1.0
+    if len(axis):
+        dirs[axis[0], (axis[0] + 1) % 3] = -0.0
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    return torch.from_numpy(np.stack([origins, dirs], axis=1).astype(np.float32)).to(device)
+
+
+def selection_grids(device):
+    """The scene's 128^3 grid over [-0.7, 0.7]^3 and its states: the ball
+    (density 5 in radius 0.45, as write_scene), an off-centre ball, the
+    ball in warmup (every candidate occupied) and at density 50 (opaque:
+    the prune at eps 1e-2 cuts inside it)."""
+    from learn_nerf_tpu_torch.acceleration import OccupancyGrid, OccupancyGridState
+
+    grid = OccupancyGrid(bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3, resolution=128)
+    c = (np.arange(128, dtype=np.float32) + 0.5) / 128 * 1.4 - 0.7
+    z, y, x = np.meshgrid(c, c, c, indexing="ij")
+    ball = np.where(x**2 + y**2 + z**2 < 0.45**2, 5.0, 0.0).astype(np.float32).reshape(-1)
+    off = np.where((x - 0.25) ** 2 + (y + 0.1) ** 2 + (z + 0.3) ** 2 < 0.3**2, 5.0, 0.0)
+    states = {name: OccupancyGridState(densities=torch.from_numpy(d.astype(np.float32).reshape(-1)).to(device),
+                                       step=step)
+              for name, d, step in (("ball", ball, 16), ("off-centre ball", off, 16), ("warmup", ball, 0),
+                                    ("opaque ball", 10.0 * ball, 16))}
+    return grid, states
+
+
+def bits_of(v):
+    return v.view(torch.int32) if v.dtype == torch.float32 else v
+
+
+def rays_that_differ(a, b):
+    """``[N]`` bool: the rays where two selections differ in any bit."""
+    diff = (a.mask != b.mask) | (a.count != b.count) | (bits_of(a.dt) != bits_of(b.dt))[:, 0]
+    diff |= ((bits_of(a.ts) != bits_of(b.ts)) | (a.sample_mask != b.sample_mask)).any(dim=1)
+    if a.points is not None:
+        diff |= (bits_of(a.points) != bits_of(b.points)).any(dim=2).any(dim=1)
+    return diff
+
+
+def prune_gaps(rays, u, grid, state, span, eps):
+    """Per ray, the least relative distance ``|exp(-acc_prev) / eps - 1|``
+    over its occupied candidates under the plain prune's scan (inf where it
+    has none), the scan's own rounding: the largest ``|acc_prev - acc_prev
+    in f64|`` where ``exp(-acc_prev)`` is within a factor 4 of eps (the
+    relative error it puts on ``exp(-acc_prev)`` there), and the occupied
+    candidates before the prune."""
+    from learn_nerf_tpu_torch.kernels import selection as ksel
+
+    cand_ts, occ, dt, _ = ksel.select_candidates_reference(rays, u, grid, state, 1e-3, 0.0, span)
+    d = state.densities[grid.cell_indices(rays[:, None, 0] + rays[:, None, 1] * cand_ts[..., None])]
+    approx = torch.where(occ, d, 0.0) * dt
+    acc = torch.cumsum(approx, dim=1) - approx
+    acc64 = torch.cumsum(approx.double(), dim=1) - approx.double()
+    transmittance = torch.exp(-acc)
+    gap = torch.where(occ, (transmittance / eps - 1.0).abs(), float("inf")).amin(dim=1)
+    near = occ & (transmittance > eps / 4) & (transmittance < 4 * eps)
+    rounding = torch.where(near, (acc.double() - acc64).abs(), 0.0).max().item()
+    return gap, rounding, int(occ.sum())
+
+
+def plain_device_ms(call, device, tries=3):
+    """Device ms (busy time under torch.profiler) and kernels of one call of
+    a plain version, profiled again while the trace holds no kernel."""
+    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    timed()
+    for _ in range(tries):
+        seen = profile_call(timed, device)
+        if seen["kernels_launched"]:
+            break
+    return seen["device_ms"], seen["kernels_launched"]
+
+
+def check_selection_kernels(device, views, probes, faults):
+    """select_strided_kernel and pool_pack_kernel against their plain
+    versions on the card (see SELECT_RAYS above), each check shown to catch
+    a deliberate fault (SELECTION_FAULTS), both kernels timed by graph
+    replay beside the plain route's device time; their kernel-line
+    entries."""
+    from learn_nerf_tpu_torch.kernels import selection as ksel
+    from learn_nerf_tpu_torch.occ_render import OccupancyRenderer
+    from learn_nerf_tpu_torch.scripts.frame_matrix import frame_view, shell_grid_state
+    from learn_nerf_tpu_torch.scripts.hashgrid_ablations import sector_us
+
+    from learn_nerf_tpu_torch.acceleration import OccupancyGrid
+
+    rng = np.random.RandomState(SEED + 19)
+    grid, states = selection_grids(device)
+    shell_grid = OccupancyGrid(bbox_min=(-1.0,) * 3, bbox_max=(1.0,) * 3, resolution=128)
+    shell = shell_grid_state(shell_grid, device)
+    step_rays = selection_rays(rng, SELECT_RAYS, device=device)
+    tile_rays = torch.from_numpy(views[0].bare_rays(128, 64)).to(device)  # a served tile of 8192 rays
+    shell_rays = torch.from_numpy(frame_view().bare_rays(800, 800)[320_000:328_192]).to(device)
+    uniforms = lambda n, c: torch.from_numpy(rng.rand(n, c).astype(np.float32)).to(device)
+    u_step, u_tile = uniforms(SELECT_RAYS, SELECT_CANDIDATES), uniforms(8192, SELECT_CANDIDATES)
+    span_renderer = OccupancyRenderer(model=None, grid=grid, bbox_min=grid.bbox_min, bbox_max=grid.bbox_max,
+                                      candidates=96, samples=SELECT_SAMPLES, span_candidates=64)
+    span = span_renderer._span(tile_rays, states["ball"], None)
+    cases = {  # name: (rays, u, grid, state, K, eps, span)
+        "step, ball grid": (step_rays, u_step, grid, states["ball"], SELECT_SAMPLES, 0.0, None),
+        "step, off-centre ball": (step_rays, u_step, grid, states["off-centre ball"], SELECT_SAMPLES, 0.0, None),
+        "step, warmup grid": (step_rays, u_step, grid, states["warmup"], SELECT_SAMPLES, 0.0, None),
+        "tile, ball grid": (tile_rays, u_tile, grid, states["ball"], SELECT_SAMPLES, 0.0, None),
+        "tile, opaque ball, eps 1e-2": (tile_rays, u_tile, grid, states["opaque ball"], SELECT_SAMPLES, PRUNE_EPS,
+                                        None),
+        "tile, shell grid, eps 1e-2": (shell_rays, u_tile, shell_grid, shell, SELECT_SAMPLES, PRUNE_EPS, None),
+        "tile, span 64, 96 candidates": (tile_rays, u_tile[:, :96].contiguous(), grid, states["ball"],
+                                         SELECT_SAMPLES, 0.0, span),
+        "tile, span 64, 96 candidates, eps 1e-2": (tile_rays, u_tile[:, :96].contiguous(), grid,
+                                                   states["opaque ball"], SELECT_SAMPLES, PRUNE_EPS, span),
+    }
+    for n, c, k in SELECT_EDGES:
+        cases[f"edge: {n} rays x {c} candidates -> {k}"] = (
+            step_rays[:n] if n <= SELECT_RAYS else selection_rays(rng, n, device=device), uniforms(n, c), grid,
+            states["ball"], k, 0.0, None)
+
+    def run(case, lib=None):
+        rays, u, g, state, k, eps, sp = case
+        return ksel.launch_select_strided(rays, u, g, state, k, 1e-3, eps, sp, True, lib=lib)
+
+    selections, unequal, pruned, roundings, counts = {}, [], {}, [], {}
+    for name, case in cases.items():
+        rays, u, g, state, k, eps, sp = case
+        got = selections[name] = run(case)
+        want = ksel.select_strided_reference(rays, u, g, state, k, 1e-3, eps, sp, True)
+        differ = rays_that_differ(got, want)
+        counts[name] = (int(got.count.min()), int(got.count.max()), int(got.mask.sum()))
+        if eps == 0.0:
+            if differ.any():
+                unequal.append(name)
+            continue
+        gap, rounding, occupied = prune_gaps(rays, u, g, state, sp, eps)
+        roundings.append(rounding)
+        pruned[name] = (occupied - int(got.count.sum()), int(differ.sum()),
+                        float(gap[differ].max()) if differ.any() else 0.0, int((gap <= PRUNE_MARGIN).sum()))
+        if (gap[differ] > PRUNE_MARGIN).any():
+            unequal.append(name)
+    step = selections["step, ball grid"]
+    require(int(selections["step, warmup grid"].count.max()) == SELECT_CANDIDATES,
+            "the warmup grid did not occupy every candidate")
+    require((step.count > 0).any() and (step.count[step.mask] == 0).any() and not step.mask.all(),
+            "the step's rays do not hold occupied, empty and missed rays")
+
+    # The pack, bit for bit, at budgets that hold and that drop.
+    packs, unequal_packs, dropped = {}, [], {}
+    for name, (n, per_ray) in PACK_BUDGETS.items():
+        sel = step if n == SELECT_RAYS else selections["tile, opaque ball, eps 1e-2"]
+        rays = step_rays if n == SELECT_RAYS else tile_rays
+        budget = n * per_ray
+        cum = ksel.kept_scan(sel.count, SELECT_SAMPLES)
+        got = ksel.launch_pool_pack(rays, sel.ts, cum, budget)
+        want = ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget)
+        packs[name] = (rays, sel, cum, budget)
+        dropped[name] = (int(got.selected), int(got.dropped))
+        if not all(torch.equal(bits_of(a), bits_of(b)) for a, b in zip(got, want)):
+            unequal_packs.append(name)
+    require(dropped["step pool, budget 4 a ray (drops)"][1] > 0 and dropped["step pool, budget 32 a ray"][1] == 0,
+            f"the pack's budgets do not both drop and hold: {dropped}")
+
+    # Each deliberate fault must be caught by the same checks.
+    caught = {}
+    for fault, lib in faults.items():
+        if fault == "a tail row not written":
+            rays, sel, cum, budget = packs["step pool, budget 32 a ray"]
+            out = ksel.Pool(*(torch.full_like(v, -1) for v in ksel.launch_pool_pack(rays, sel.ts, cum, budget)))
+            got = ksel.launch_pool_pack(rays, sel.ts, cum, budget, out=out, lib=lib)
+            want = ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget)
+            caught[fault] = not all(torch.equal(bits_of(a), bits_of(b)) for a, b in zip(got, want))
+        else:
+            case = cases["step, off-centre ball" if "swapped" in fault else "step, ball grid"]
+            caught[fault] = bool(rays_that_differ(run(case, lib), selections[
+                "step, off-centre ball" if "swapped" in fault else "step, ball grid"]).any())
+
+    # Times: the step's selection (with points, as the dense step takes it),
+    # a served tile's (eps 1e-2), the step's pool and a tile's.
+    timed = {"step 4096 x 192 -> 32": cases["step, ball grid"],
+             "tile 8192 x 192 -> 32, eps 1e-2": cases["tile, opaque ball, eps 1e-2"]}
+    select_times = {}
+    for name, case in timed.items():
+        rays, u, g, state, k, eps, sp = case
+        ms = graph_ms(lambda: run(case), 50)
+        plain_ms, plain_kernels = plain_device_ms(
+            lambda: ksel.select_strided_reference(rays, u, g, state, k, 1e-3, eps, sp, True), device)
+        n, c = u.shape
+        out = selections["step, ball grid" if n == SELECT_RAYS else "tile, opaque ball, eps 1e-2"]
+        bound_ms, bound_by = bound(nbytes(u, rays, *[v for v in out if v is not None]))
+        rate_ms = sector_us(probes, 1 << 20, n * c, device) / 1e3
+        select_times[name] = dict(ms=ms, plain_ms=plain_ms, plain_kernels=plain_kernels, bound_ms=bound_ms,
+                                  bound_by=bound_by, card_rate_ms=rate_ms)
+    pack_times = {}
+    for name in ("step pool, budget 32 a ray", "tile 8192 x 6"):
+        rays, sel, cum, budget = packs[name]
+        out = ksel.launch_pool_pack(rays, sel.ts, cum, budget)
+        ms = graph_ms(lambda: ksel.launch_pool_pack(rays, sel.ts, cum, budget), 50)
+        scan_ms = graph_ms(lambda: ksel.kept_scan(sel.count, SELECT_SAMPLES), 50)
+        plain_ms, plain_kernels = plain_device_ms(
+            lambda: ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget), device)
+        bound_ms, bound_by = bound(nbytes(sel.ts, cum, rays, *out))
+        pack_times[name] = dict(ms=ms, scan_ms=scan_ms, plain_ms=plain_ms, plain_kernels=plain_kernels,
+                                bound_ms=bound_ms, bound_by=bound_by)
+
+    print(f"select_strided: {len(cases)} cases, rays that differ from the plain version {unequal or 'none'}; "
+          f"(min c, max c, rays in the box) {counts}; with the prune (eps {PRUNE_EPS:g}): (candidates pruned, "
+          f"rays that differ, the largest of their least gaps, rays with a candidate within the margin) {pruned} (margin "
+          f"{PRUNE_MARGIN:g}; the f32 scan's own rounding of acc_prev {max(roundings):.3e}); times "
+          f"{select_times}", flush=True)
+    print(f"pool_pack: {len(packs)} budgets, (selected, dropped) {dropped}, unequal {unequal_packs or 'none'}; "
+          f"times {pack_times}; faults caught {caught}", flush=True)
+    require(not unequal, f"select_strided disagrees with its plain version in {unequal}")
+    require(not unequal_packs, f"pool_pack disagrees with its plain version in {unequal_packs}")
+    require(all(caught.values()) and len(caught) == len(SELECTION_FAULTS), f"a fault went uncaught: {caught}")
+    require(2 * max(roundings) <= PRUNE_MARGIN, f"the prune margin {PRUNE_MARGIN:g} is under twice the scan's "
+            f"rounding {max(roundings):.3e}")
+    require(pruned["tile, opaque ball, eps 1e-2"][0] > 0, "the prune cut nothing")
+    first = select_times["step 4096 x 192 -> 32"]
+    step_pack = pack_times["step pool, budget 32 a ray"]
+    return [
+        dict(name="select_strided", route="cuda", source="learn_nerf_tpu_torch/csrc/selection.cu",
+             replaces="learn_nerf_tpu/occ_render.py:279-327 with acceleration.py:114-131 and :389-428, "
+                      "ops/sampling.py:31, ops/geometry.py:21-62 (XLA)",
+             max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+             bound_by=first["bound_by"], library_ms=None, card_rate_ms=first["card_rate_ms"], shapes=select_times),
+        dict(name="pool_pack", route="cuda", source="learn_nerf_tpu_torch/csrc/selection.cu",
+             replaces="learn_nerf_tpu/occ_render.py:586-606 (XLA: the slot cumsum, scatter and gathers)",
+             max_abs_err=0.0, ms=step_pack["ms"], plain_ms=step_pack["plain_ms"], bound_ms=step_pack["bound_ms"],
+             bound_by=step_pack["bound_by"], library_ms=None, shapes=pack_times),
+    ]
+
+
 @contextlib.contextmanager
 def plain_routes():
     """Inside, the port takes its plain versions for CUDA tensors too (the
     encoding, the composite of both renderers, which call it from
-    ``render.composite_samples``, and the pooled composite): the card's own
-    plain route, for ``check_train_step``."""
+    ``render.composite_samples``, the pooled composite, the selection and
+    the pack): the card's own plain route, for ``check_train_step``."""
     from learn_nerf_tpu_torch import render
     from learn_nerf_tpu_torch.kernels import composite as kc
     from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
@@ -2260,15 +2584,20 @@ def plain_routes():
     from learn_nerf_tpu_torch.ops import hashgrid as hg
 
     from learn_nerf_tpu_torch import occ_render
+    from learn_nerf_tpu_torch.kernels import selection as ksel
 
-    saved = ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled
-    ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled = (
+    saved = (ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled,
+             occ_render.select_strided, occ_render.pool_pack)
+    (ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled,
+     occ_render.select_strided, occ_render.pool_pack) = (
         hg.hash_grid_encode_reference, hg.hash_grid_encode_dx_reference, kc.render_composite_reference,
-        kc.render_composite_pooled_reference)
+        kc.render_composite_pooled_reference, ksel.select_strided_reference,
+        lambda rays, sel, budget: ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget))
     try:
         yield
     finally:
-        ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled = saved
+        (ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled,
+         occ_render.select_strided, occ_render.pool_pack) = saved
 
 
 def check_train_step(root, device, rng):
@@ -2294,6 +2623,7 @@ def check_train_step(root, device, rng):
     from learn_nerf_tpu_torch.kernels import composite as kc
     from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.kernels import selection as ksel
     from learn_nerf_tpu_torch.models import InstantNGPModel
     from learn_nerf_tpu_torch.train import OccupancyTrainLoop
 
@@ -2331,17 +2661,17 @@ def check_train_step(root, device, rng):
     budget = TRAIN_RAYS * per_ray
 
     counters = (ke.counter, kb.counter, kc.counter, kc.backward_counter, kc.pooled_counter,
-                kc.pooled_backward_counter)
+                kc.pooled_backward_counter, ksel.counter, ksel.pack_counter)
     results = {}
-    for name, step_budget, want_launched in (("train step", None, [2, 2, 1, 1, 0, 0]),
-                                             ("pooled train step", budget, [2, 2, 0, 0, 1, 1])):
+    for name, step_budget, want_launched in (("train step", None, [2, 2, 1, 1, 0, 0, 1, 0]),
+                                             ("pooled train step", budget, [2, 2, 0, 0, 1, 1, 1, 1])):
         for c in counters:
             c.reset()
         got = step(device, step_budget)
         launched = [c.launches for c in counters]
         require(launched == want_launched and not any(c.plain_calls for c in counters),
                 f"the card's {name} launched (encode, backward, composite, its backward, pooled composite, its "
-                f"backward) {launched}")
+                f"backward, selection, pack) {launched}")
         with plain_routes():
             card_plain = step(device, step_budget)
         require([c.launches for c in counters] == launched, "the card's plain route launched a kernel")
@@ -2435,14 +2765,24 @@ def kernel_counters():
     from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
     from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.kernels import selection as ksel
     from learn_nerf_tpu_torch.kernels import table_gather as tg
+    from learn_nerf_tpu_torch.occ_render import block_word_counter
 
     return dict(fused_mlp=fm.counter, fused_render=fr.counter, table_gather=tg.counter,
                 hashgrid_corners=kh.counter, hashgrid_encode=ke.counter,
                 hashgrid_backward=kb.counter, hashgrid_dx=kd.counter, hashgrid_dx_backward=kd.backward_counter,
                 composite=kc.counter,
                 composite_backward=kc.backward_counter, composite_pooled=kc.pooled_counter,
-                composite_pooled_backward=kc.pooled_backward_counter, baked_lookup=kbaked.counter)
+                composite_pooled_backward=kc.pooled_backward_counter, baked_lookup=kbaked.counter,
+                select_strided=ksel.counter, pool_pack=ksel.pack_counter,
+                **{BLOCK_WORD_SELECTION: block_word_counter})
+
+
+def plain_called(counts):
+    """``{kernel: plain calls}`` of the wrappers that ran a plain version,
+    the block-word lever's plain candidate test (plain by decision) apart."""
+    return {k: plain for k, (_, plain) in counts.items() if plain and k != BLOCK_WORD_SELECTION}
 
 
 @contextlib.contextmanager
@@ -2519,7 +2859,7 @@ def train_run(root, name, flags, checkpoint, steps=TRAIN_STEPS, data="train", st
           + f"; fine loss, mean of the first {head} steps {first:.5f}, of the last {head} {last:.5f}{grid}; "
           f"{notes}; {lines[-1] if lines else ''}; (launches, plain calls) {counts}", flush=True)
     require(done != steps or last < first, f"{name}: the fine loss did not fall")
-    require(all(plain == 0 for _, plain in counts.values()), f"{name} called a plain version: {counts}")
+    require(not plain_called(counts), f"{name} called a plain version: {counts}")
     torch.cuda.empty_cache()
     return counts, records, rate, loop
 
@@ -2586,15 +2926,19 @@ def train_phase(root, profile):
     want = {
         "train": dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
                       composite=TRAIN_STEPS, composite_backward=TRAIN_STEPS, composite_pooled=0,
-                      composite_pooled_backward=0),
+                      composite_pooled_backward=0, select_strided=TRAIN_STEPS, pool_pack=0),
         "train pooled": dict(hashgrid_encode=TRAIN_STEPS + refreshes, hashgrid_backward=TRAIN_STEPS,
                              composite=POOL_START, composite_backward=POOL_START,
                              composite_pooled=TRAIN_STEPS - POOL_START,
-                             composite_pooled_backward=TRAIN_STEPS - POOL_START),
+                             composite_pooled_backward=TRAIN_STEPS - POOL_START, pool_pack=TRAIN_STEPS - POOL_START),
     }
     for run, expected in want.items():
         require(all(counts[run][k][0] == v for k, v in expected.items()),
                 f"the {run} run's launches {counts[run]} are not {expected}")
+    # The pooled run also selects once for each demand measurement of its
+    # auto budget (at least the first).
+    require(counts["train pooled"]["select_strided"][0] > TRAIN_STEPS,
+            f"the pooled run's demand did not select on the card: {counts['train pooled']}")
     require(not pooled_at["train"], "the dense run took a pooled step")
     pooled = pooled_at["train pooled"]
     dropped = [d for _, d in pooled]
@@ -2649,7 +2993,7 @@ def counted(name, call):
         c.reset()
     result = call()
     counts = {k: (c.launches, c.plain_calls) for k, c in counters.items()}
-    require(all(plain == 0 for _, plain in counts.values()), f"{name} called a plain version: {counts}")
+    require(not plain_called(counts), f"{name} called a plain version: {counts}")
     return result, counts
 
 
@@ -3722,7 +4066,7 @@ def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS, bake=
     print(f"serve {name}{' --bf16' if bf16 else ''} {SIDE}x{SIDE}: latencies ms "
           f"{[round(v, 3) for v in latencies]}; (launches, plain calls) {counts}{pool_note}; "
           f"set-up {setup_note}", flush=True)
-    require(all(plain == 0 for _, plain in [*counts.values(), *setup.values()]),
+    require(not plain_called(counts) and not plain_called(setup),
             f"{name} serving or its set-up called a plain version: {counts}, {setup}")
     return counts, setup
 
@@ -3796,6 +4140,7 @@ def main():
             ["parent"], composite_ablations.POOLED_VARIANTS)["parent"])),
         threading.Thread(target=lambda: baked_parts.update(gather=build_gather_libraries(list(gathers), gathers))),
         threading.Thread(target=lambda: baked_parts.update(dx_parent=build_dx_libraries([DX_PARENT])[DX_PARENT])),
+        threading.Thread(target=lambda: baked_parts.update(selection_faults=build_selection_faults())),
     ]
     for thread in threads:
         thread.start()
@@ -3805,8 +4150,8 @@ def main():
         thread.join()
     require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,
             "the hash-grid kernels' measured variants did not build")
-    require(len(baked_parts) == 5, "the replaced baked-lookup, composite, gather or dx kernels, the gather fault "
-            "or the probes did not build")
+    require(len(baked_parts) == 6, "the replaced baked-lookup, composite, gather or dx kernels, the gather or "
+            "selection faults or the probes did not build")
     kernels.append(check_table_gather(device, np.random.RandomState(SEED + 13), baked_parts["gather"],
                                       baked_parts["probes"]))
     torch.cuda.empty_cache()
@@ -3825,6 +4170,9 @@ def main():
         views = write_scene(root, rng)
         kernels.append(check_baked_kernel(root, device, np.random.RandomState(SEED + 11), baked_parts["parent"],
                                           baked_parts["probes"]))
+        torch.cuda.empty_cache()
+        kernels += check_selection_kernels(device, views, baked_parts["probes"], baked_parts["selection_faults"])
+        torch.cuda.empty_cache()
         check_frames(root, views, device, rng, VANILLA_MODES, bf16=True)
         check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
         check_frames(root, views, device, np.random.RandomState(SEED + 12), BAKED_MODES, bf16=False)
@@ -3914,6 +4262,25 @@ def main():
                 f"{name} serving did not composite in the pool layout: {served[name]}")
     for name in VANILLA_LEVER_MODES:
         require(served[name]["fused_render"][0] > 0, f"{name} serving never launched fused_render")
+    # The selection: every occupancy tile launches select_strided (fixed-K
+    # frames once a tile; an auto-pooled frame once more, for its demand),
+    # and every pooled tile pool_pack; the block-word modes keep their plain
+    # candidate test (counted) and pack on the card.
+    block_modes = ("ngp live levers", *VANILLA_LEVER_MODES)
+    for name in ("occupancy", "ngp occupancy", "ngp baked occupancy", "trained ngp occupancy"):
+        tiles_served = baked_tiles * (1 if name.startswith("trained") else REQUESTS)
+        require(served[name]["select_strided"][0] == tiles_served and served[name]["pool_pack"][0] == 0,
+                f"{name} serving did not select once a tile on the card: {served[name]}")
+    for name in ("ngp pooled", "ngp baked pooled", NORTH_STAR, "ngp live levers", "trained ngp pooled"):
+        counts = served[name]
+        frames = 1 if name.startswith("trained") else REQUESTS
+        require(counts["pool_pack"][0] == counts["composite_pooled"][0] >= baked_tiles * frames,
+                f"{name} serving did not pack each pooled tile on the card: {counts}")
+        require(name in block_modes or counts["select_strided"][0] >= counts["pool_pack"][0] + frames,
+                f"{name} serving did not select each tile and each frame's demand on the card: {counts}")
+    for name in block_modes:
+        require(served[name]["select_strided"][0] == 0 and served[name][BLOCK_WORD_SELECTION][1] > 0,
+                f"{name} serving did not keep the block words' plain candidate test: {served[name]}")
     if args.profile:
         from learn_nerf_tpu_torch.scripts import frame_matrix
 

@@ -6,7 +6,9 @@ A binary occupancy grid over the scene bbox (an EMA of model densities per
 cell, trained with the model and checkpointed beside it) culls cheap
 stratified candidates; :func:`compact_occupied_strided` then keeps K
 occupied candidates per ray, evenly strided over the occupied span, so the
-field model runs on ``[N, K]`` points.  Static shapes throughout.  The
+field model runs on ``[N, K]`` points.  Static shapes throughout.  On the
+card one kernel does both (:mod:`.kernels.selection`); the ops here are its
+plain version.  The
 pooled inference path sizes its sample pool with the budget buckets below.
 
 The inference levers' tables are built here too: the max-pooled supergrid
@@ -81,12 +83,16 @@ class OccupancyGrid:
         bit = cell[..., 0] % dx + dx * (cell[..., 1] % dy) + dx * dy * (cell[..., 2] % dz)
         return widx, bit
 
+    def in_warmup(self, state: OccupancyGridState) -> bool:
+        """Whether every cell tests occupied: ``state.step <
+        warmup_updates``.  Its single definition; every occupancy consumer
+        routes through here (the selection kernel takes it by value)."""
+        return state.step < self.warmup_updates
+
     def occupied_from_bits(self, state: OccupancyGridState, bits: Tensor) -> Tensor:
         """The warmup rule on per-cell threshold tests (``d > threshold``,
-        or a block word's bit): all true while ``state.step <
-        warmup_updates``.  Its single definition; every occupancy consumer
-        routes through here."""
-        warm = torch.tensor(state.step < self.warmup_updates, device=bits.device)
+        or a block word's bit): all true in warmup (:meth:`in_warmup`)."""
+        warm = torch.tensor(self.in_warmup(state), device=bits.device)
         return bits | warm
 
     def occupied_from_densities(self, state: OccupancyGridState, d: Tensor) -> Tensor:

@@ -128,6 +128,18 @@ def bind_table_gather(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def bind_selection(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/selection.cu``'s entry points."""
+    ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    lib.nerf_select_strided.argtypes = (
+        [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32] + [f32] * 7 + [i32] + [f32] * 4 + [ptr] * 7
+    )
+    lib.nerf_select_strided.restype = i32
+    lib.nerf_pool_pack.argtypes = [ptr, i64, ptr, ptr, i64, i32, i64] + [ptr] * 8
+    lib.nerf_pool_pack.restype = i32
+    return lib
+
+
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.nerf_fused_mlp.argtypes = [ptr] * 5 + [i64] + [i32] * 4 + [ptr]
@@ -135,6 +147,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_fused_render.argtypes = [ptr] * 6 + [i64, i32] + [i32] * 4 + [ptr]
     lib.nerf_fused_render.restype = i32
     bind_table_gather(lib)
+    bind_selection(lib)
     lib.nerf_hashgrid_corners.argtypes = (
         [ptr, i64, ptr, ptr, ptr, i32] + [ctypes.c_float] * 6 + [i32, ptr, ptr, ptr]
     )

@@ -4,15 +4,16 @@ the fixed-K path, the pooled inference path and the selection levers).
 1. stratify C cheap candidate ts per ray over the bbox range,
 2. occupancy-test every candidate against the grid,
 3. compact K occupied candidates per ray, evenly strided over the occupied
-   span (``acceleration.compact_occupied_strided``),
+   span (``acceleration.compact_occupied_strided``); steps 1-3 are one
+   kernel on the card (:mod:`.kernels.selection`),
 4. evaluate the field model on ``[N, K]`` points and composite, each
    survivor standing for ``c/K`` candidate bins.
 
 The pooled path (:meth:`OccupancyRenderer.render_rays_pooled`, the CLIs'
 ``--occ_budget_per_ray``) packs a tile's survivors into one pool of
-``budget`` samples, so the field model runs on the samples that exist and
-not on the ``N * K`` worst case; :class:`OccupancyFrameSession` sizes the
-pool from measured demand.
+``budget`` samples (on the card one more kernel), so the field model runs
+on the samples that exist and not on the ``N * K`` worst case;
+:class:`OccupancyFrameSession` sizes the pool from measured demand.
 
 Three inference levers of the selection, all off by default as in the JAX
 package: two-phase span selection (``span_candidates``: probe a max-pooled,
@@ -20,7 +21,9 @@ dilated supergrid to bound each ray's occupied span, then place the C
 candidates inside it), block-word occupancy gathers
 (``block_gather_stride``: one packed row of a 4x4x2 block's 32 occupancy
 bits answers every candidate that falls in the block) and the same words
-for the span probes (``span_block_gather``).  They are plain tensor code;
+for the span probes (``span_block_gather``).  They are plain tensor code:
+the span's range goes into the selection kernel, and with block words the
+whole candidate test stays plain ops, by decision;
 :meth:`OccupancyRenderer.selection_tables` builds their tables once a
 frame.
 
@@ -55,22 +58,28 @@ from .acceleration import (
     OccupancyGrid,
     OccupancyGridState,
     auto_budget_from_demand,
-    compact_occupied_strided,
     dilate_supercells,
     next_budget_bucket,
     pack_block_table,
     superpool_densities,
 )
+from .kernels import build
 from .kernels.composite import render_composite_pooled
 from .kernels.fused_render import fused_render
+from .kernels.selection import (Selection, compact_reference, pool_pack, select_candidates_reference,
+                                select_strided)
 from .models.base import FieldModel
 from .models.vanilla import NeRFModel
 from .ops.geometry import ray_bbox_range
-from .ops.sampling import stratified_ts, uniform
+from .ops.sampling import uniform
 from .parallel.mesh import Mesh, replicate
 from .render import composite_samples, pad_rays_to_tiles, tile_devices
 
 Tensor = torch.Tensor
+
+# The selections whose candidate test ran as plain ops because the block-word
+# lever is on (plain_calls), on any device.
+block_word_counter = build.LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
@@ -202,39 +211,62 @@ class OccupancyRenderer:
         generator: Optional[torch.Generator] = None,
         tables: Optional[Dict[str, Tensor]] = None,
     ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
-        """Stratified candidates (inside the occupied span with
-        ``span_candidates``), occupancy test (incl. warmup; block words
-        with ``block_gather_stride``), optional grid-transmittance prune,
-        bbox mask.
+        """The candidate test as plain ops: stratified candidates (inside
+        the occupied span with ``span_candidates``), occupancy test (incl.
+        warmup; block words with ``block_gather_stride``), optional
+        grid-transmittance prune, bbox mask.
 
         :param u: optional ``[N, candidates]`` uniforms for the draw.
         :param tables: optional :meth:`selection_tables` (frame callers
             build them once, outside their tile loop).
         :return: ``(cand_ts [N,C], occ [N,C] bool, dt [N,1], mask [N])``.
         """
+        if u is None:
+            u = uniform((rays.shape[0], self.candidates), rays.device, generator)
+        occupancy = None
+        if self.block_gather_stride > 0:
+            occupancy = functools.partial(self._block_word_occupancy, grid_state=grid_state,
+                                          table=(tables or {}).get("block"))
+        return select_candidates_reference(rays, u, self.grid, grid_state, self.min_t_range, transmittance_eps,
+                                           self._span(rays, grid_state, tables), occupancy)
+
+    def _span(
+        self, rays: Tensor, grid_state: OccupancyGridState, tables: Optional[Dict[str, Tensor]]
+    ) -> Optional[Tuple[Tensor, Tensor, Tensor]]:
+        """:meth:`_occupied_span` of the rays' bbox ranges with
+        ``span_candidates``, else None."""
+        if self.span_candidates == 0:
+            return None
         bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=rays.device)
         bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=rays.device)
         origins, dirs = rays[:, 0], rays[:, 1]
-        t_min, t_max, mask = ray_bbox_range(origins, dirs, bbox_min, bbox_max, self.min_t_range)
-        if self.span_candidates > 0:
-            t_min, t_max, span_hit = self._occupied_span(origins, dirs, t_min, t_max, grid_state, tables)
-            mask = mask & span_hit
-        cand_ts = stratified_ts(t_min, t_max, self.candidates, u=u, generator=generator)
-        cand_pts = origins[:, None, :] + dirs[:, None, :] * cand_ts[..., None]
+        t_min, t_max, _ = ray_bbox_range(origins, dirs, bbox_min, bbox_max, self.min_t_range)
+        return self._occupied_span(origins, dirs, t_min, t_max, grid_state, tables)
+
+    def _select(
+        self,
+        rays: Tensor,
+        grid_state: OccupancyGridState,
+        transmittance_eps: float,
+        u: Optional[Tensor],
+        generator: Optional[torch.Generator],
+        tables: Optional[Dict[str, Tensor]] = None,
+        with_points: bool = False,
+    ) -> Selection:
+        """Candidates -> K strided occupied samples a ray: the selection
+        kernel on the card (:func:`~.kernels.selection.select_strided`; the
+        span's range, from plain ops, as its input).  With
+        ``block_gather_stride`` the candidate test stays plain ops, by
+        decision (block words do not pay on the card, ``PERF.md`` §7), and
+        each such call counts in ``block_word_counter``."""
+        if u is None:
+            u = uniform((rays.shape[0], self.candidates), rays.device, generator)
         if self.block_gather_stride > 0:
-            occ, d_grid = self._block_word_occupancy(cand_pts, grid_state, (tables or {}).get("block"))
-        else:
-            d_grid = grid_state.densities.detach()[self.grid.cell_indices(cand_pts)]
-            occ = self.grid.occupied_from_densities(grid_state, d_grid)
-        dt = (t_max - t_min)[:, None] / self.candidates  # [N, 1]
-        if transmittance_eps > 0.0:
-            # Exclusive scan of the grid's own EMA densities: a small eps
-            # prunes only candidates behind essentially opaque matter.
-            approx = torch.where(occ, d_grid, 0.0) * dt
-            acc_prev = torch.cumsum(approx, dim=1) - approx
-            occ = occ & (torch.exp(-acc_prev) > transmittance_eps)
-        occ = occ & mask[:, None]
-        return cand_ts, occ, dt, mask
+            block_word_counter.plain_calls += 1
+            cand_ts, occ, dt, mask = self._select_candidates(rays, grid_state, transmittance_eps, u=u, tables=tables)
+            return compact_reference(rays, cand_ts, occ, dt, mask, self.samples, with_points)
+        return select_strided(rays, u, self.grid, grid_state, self.samples, self.min_t_range, transmittance_eps,
+                              self._span(rays, grid_state, tables), with_points)
 
     def _block_word_occupancy(
         self, cand_pts: Tensor, grid_state: OccupancyGridState, table: Optional[Tensor] = None
@@ -348,18 +380,14 @@ class OccupancyRenderer:
         generator: Optional[torch.Generator],
         tables: Optional[Dict[str, Tensor]] = None,
     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
-        """Candidates -> K strided occupied samples per ray.
+        """Candidates -> K strided occupied samples per ray (:meth:`_select`).
 
         :return: ``(points [N,K,3], ts [N,K], sample_mask [N,K], dt [N,1],
                  mask [N])``; every survivor stands for ``dt`` (the
                  candidate bin width times ``c/K`` on strided rays).
         """
-        cand_ts, occ, dt0, mask = self._select_candidates(
-            rays, grid_state, transmittance_eps, u=u, generator=generator, tables=tables
-        )
-        sel_ts, sel_mask, delta_scale = compact_occupied_strided(cand_ts, occ, self.samples)
-        points = rays[:, None, 0, :] + rays[:, None, 1, :] * sel_ts[..., None]
-        return points, sel_ts, sel_mask, dt0 * delta_scale, mask
+        sel = self._select(rays, grid_state, transmittance_eps, u, generator, tables, with_points=True)
+        return sel.points, sel.ts, sel.sample_mask, sel.dt, sel.mask
 
     def render_rays(
         self,
@@ -418,7 +446,7 @@ class OccupancyRenderer:
     ) -> Dict[str, Tensor]:
         """:meth:`render_rays`'s ``outputs`` and ``alphas``, with the
         per-sample chain in the fused render kernel (bf16 vanilla model
-        only); selection stays plain tensor code.  The kernel blends no
+        only), after the selection kernel.  The kernel blends no
         ``coords``: frames that need them take :meth:`render_rays`."""
         points, _, sel_mask, dt, mask = self._select_samples(
             rays, grid_state, transmittance_eps, u, generator, tables
@@ -445,11 +473,8 @@ class OccupancyRenderer:
         model (sizes the ``"auto"`` pool budgets from a real batch).
 
         :param u: optional ``[N, candidates]`` uniforms for the draw."""
-        _, occ, _, _ = self._select_candidates(
-            rays, grid_state, transmittance_eps, u=u, generator=generator, tables=tables
-        )
-        c = occ.to(torch.float32).sum(dim=1)
-        return torch.clamp(c, max=float(self.samples)).mean()
+        sel = self._select(rays, grid_state, transmittance_eps, u, generator, tables)
+        return torch.clamp(sel.count, max=self.samples).to(torch.float32).mean()
 
     def render_rays_pooled(
         self,
@@ -469,7 +494,8 @@ class OccupancyRenderer:
            EMA densities) falls below ``transmittance_eps`` (0 disables);
         2. caps survivors per ray at K (:meth:`render_rays`'s selection),
            then packs the tile's survivors ray-major into one ``[budget]``
-           pool, so the field model runs on the survivors only.  Slots at
+           pool (:func:`~.kernels.selection.pool_pack`: one kernel on the
+           card), so the field model runs on the survivors only.  Slots at
            or past ``budget`` are dropped, never clamped: on overflow the
            trailing rays of the tile lose samples;
         3. composites per ray in the pool's own layout
@@ -489,50 +515,23 @@ class OccupancyRenderer:
                  ``selected`` (survivors the selection produced) and
                  ``dropped`` (those that did not fit the pool).
         """
-        if budget < 1:
-            raise ValueError(f"a pool needs at least one sample, got budget {budget}")
-        origins, dirs = rays[:, 0], rays[:, 1]
-        n = origins.shape[0]
-        cand_ts, occ, dt, mask = self._select_candidates(
-            rays, grid_state, transmittance_eps, u=u, generator=generator, tables=tables
-        )
-        sel_ts, sel_mask, delta_scale = compact_occupied_strided(cand_ts, occ, self.samples)
+        sel = self._select(rays, grid_state, transmittance_eps, u, generator, tables)
+        pool = pool_pack(rays, sel, budget)
+        density, rgbs, aux = self.model(pool.points, pool.dirs)
 
-        # Ray-major slots keep each ray's samples contiguous and t-sorted.
-        flat_occ = sel_mask.reshape(-1)  # [N*K]
-        slots = torch.cumsum(flat_occ.to(torch.int64), dim=0) - 1
-        kept = flat_occ & (slots < budget)
-        # Scatter each kept survivor's flat position into its slot; every
-        # other entry lands in the spare slot `budget`, which is cut off.
-        flat_pos = torch.arange(flat_occ.shape[0], device=rays.device)
-        pool_src = torch.full((budget + 1,), flat_occ.shape[0], dtype=torch.int64, device=rays.device)
-        pool_src.scatter_(0, torch.where(kept, slots, budget), flat_pos)
-        pool_src = pool_src[:budget]
-        pool_ray = torch.clamp(pool_src // self.samples, max=n - 1)
-        pool_t = torch.cat([sel_ts.reshape(-1), sel_ts.new_zeros(1)])[pool_src]
-
-        dirs_p = dirs[pool_ray]
-        points = origins[pool_ray] + dirs_p * pool_t[:, None]
-        density, rgbs, aux = self.model(points, dirs_p)
-
-        # Ray r owns rows starts[r] .. starts[r+1] - 1: its kept survivors.
-        counts = torch.cumsum(sel_mask.sum(dim=1), dim=0)
-        starts = torch.cat([counts.new_zeros(1), torch.clamp(counts, max=budget)]).to(torch.int32)
-        extras = points
+        extras = pool.points
         if aux:
-            extras = torch.cat([points, torch.stack(list(aux.values()), dim=-1).to(points.dtype)], dim=-1)
+            extras = torch.cat([pool.points, torch.stack(list(aux.values()), dim=-1).to(pool.points.dtype)], dim=-1)
         outputs, alphas, blended = render_composite_pooled(
-            density[..., 0], starts, dt * delta_scale, rgbs, background, mask, extras, self.samples)
+            density[..., 0], pool.starts, sel.dt, rgbs, background, sel.mask, extras, self.samples)
         aux_means = {name: blended[:, 3 + i].mean() for i, name in enumerate(aux)}
-        selected = flat_occ.sum()
-        dropped = torch.clamp(selected - budget, min=0)
         return dict(
             outputs=outputs,
             alphas=alphas,
             coords=blended[:, :3],
             aux=aux_means,
-            selected=selected,
-            dropped=dropped,
+            selected=pool.selected,
+            dropped=pool.dropped,
         )
 
 

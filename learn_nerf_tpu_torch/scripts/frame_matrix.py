@@ -20,7 +20,7 @@ clock around a synchronised render) and one frame under
 ``torch.profiler``.  Each row prints its median seconds a frame, device
 ms, idle share, kernel count, auto budget and ``dropped`` (which must be
 0), and the ``selection`` rows the device time of one 8192-ray tile's
-candidate selection alone with each lever (CUDA events).  The last line is
+selection alone with each lever, as the frames take it (CUDA events).  The last line is
 one JSON object with the card's name and power limit.  ``--device cpu``
 runs the same at a small size with no device numbers (a smoke run).
 
@@ -70,7 +70,7 @@ CONFIGS = {
     "baked256_p8_bg4_sb4": dict(bake=256, pack=8, block_gather=4, span_block_gather=4),
 }
 
-#: The selection rows: one tile's candidate selection alone, per lever.
+#: The selection rows: one tile's selection alone, per lever.
 SELECTIONS = {
     "192 candidates, no levers": dict(candidates=192),
     "96, span 64": dict(span_candidates=64),
@@ -188,8 +188,9 @@ def time_config(session: OccupancyFrameSession, rays: torch.Tensor, reps: int, d
 
 
 def time_selection(model, grid, grid_state, rays, tile, eps, device) -> Dict[str, float]:
-    """Device ms of one tile's candidate selection (tables included) per
-    lever, by CUDA events."""
+    """Device ms of one tile's selection as the frames take it (tables
+    included; the selection kernel, or with block words the plain candidate
+    test and compaction) per lever, by CUDA events."""
     from .timing import cuda_ms
 
     tile_rays = rays[:tile].contiguous()
@@ -200,7 +201,7 @@ def time_selection(model, grid, grid_state, rays, tile, eps, device) -> Dict[str
 
         def select():
             tables = renderer.selection_tables(grid_state)
-            return renderer._select_candidates(tile_rays, grid_state, eps, generator=generator, tables=tables)
+            return renderer._select(tile_rays, grid_state, eps, None, generator, tables)
 
         with torch.inference_mode():
             result[name] = cuda_ms(select, reps=20)

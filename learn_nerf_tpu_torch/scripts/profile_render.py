@@ -49,7 +49,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # The port's hand-written kernels, by the name their CUDA function carries.
 PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode",
                 "hashgrid_backward", "hashgrid_dx", "hashgrid_dx_backward", "composite_forward",
-                "composite_backward", "composite_pooled_forward", "composite_pooled_backward", "baked_lookup")
+                "composite_backward", "composite_pooled_forward", "composite_pooled_backward", "baked_lookup",
+                "select_strided", "pool_pack")
 
 
 def argparser():

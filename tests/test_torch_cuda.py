@@ -52,6 +52,10 @@ and the cells' faces, every pack bit-equal to pack 1; and at r = 2, 3 and
 384 (the served table) and 1, 31, 32, 33, 999 and 2^16 points bit-equal to
 the kernel it replaced (one thread a point, built from csrc/ablations); the
 baked model on the card against the CPU (1e-5); the wrapper's refusals.
+The selection kernels (csrc/selection.cu): select_strided bit for bit
+with the prune off at 1 to 700 rays, C = 1 to 600, K = 1 to 64, in warmup
+and past it, its prune's decisions equal where no candidate is near eps;
+pool_pack bit for bit at budgets that drop and that hold.
 The Ref-NeRF kernels: hashgrid_dx and its backward within chip_smoke.py's
 bounds (2e-6, 5e-6 of each tensor's largest value) at F = 1 to 4, plain and
 smooth mode, points on a face of the bbox and the edges of their thread
@@ -80,6 +84,7 @@ from learn_nerf_tpu_torch.kernels import composite as kc
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
 from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
 from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+from learn_nerf_tpu_torch.kernels import selection as ksel
 from learn_nerf_tpu_torch.kernels import table_gather as tg
 from learn_nerf_tpu_torch.ops import hashgrid
 from learn_nerf_tpu_torch.scripts.common import default_device
@@ -1102,3 +1107,67 @@ def test_hierarchy_step_kernel_route_matches_plain_route(cuda, kind, monkeypatch
             assert ((got[k] - want[k]).abs().max() / want[k].abs().max()).item() <= 1e-4, k
     flat_got, flat_want = (torch.cat([g[k].flatten() for k in g]) for g in (got, want))
     assert ((flat_got - flat_want).norm() / flat_want.norm()).item() <= 1e-2
+
+
+def _selection_inputs(device, n, c, r=32, warm=False, seed=0):
+    """Rays from a sphere of radius 3 into a [-1, 1]^3 box (one in 8 aimed
+    away, one in 8 along an axis), a ball grid of density 20 and uniforms."""
+    from learn_nerf_tpu_torch.acceleration import OccupancyGrid, OccupancyGridState
+
+    rng = np.random.RandomState(seed)
+    origins = rng.randn(n, 3)
+    origins *= 3.0 / np.linalg.norm(origins, axis=-1, keepdims=True)
+    dirs = rng.uniform(-0.6, 0.6, (n, 3)) - origins
+    dirs[::8] *= -1.0
+    dirs[1::8] = 0.0
+    dirs[1::8, 0] = 1.0
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rays = t(np.stack([origins, dirs], axis=1).astype(np.float32)).to(device)
+    grid = OccupancyGrid(bbox_min=(-1.0,) * 3, bbox_max=(1.0,) * 3, resolution=r)
+    x = (np.arange(r) + 0.5) / r * 2.0 - 1.0
+    zz, yy, xx = np.meshgrid(x, x, x, indexing="ij")
+    ball = np.where((xx - 0.1) ** 2 + yy**2 + (zz + 0.2) ** 2 < 0.5**2, 20.0, 0.0).astype(np.float32).reshape(-1)
+    state = OccupancyGridState(densities=t(ball).to(device), step=0 if warm else 16)
+    return rays, t(rng.rand(n, c).astype(np.float32)).to(device), grid, state
+
+
+def _bits(v):
+    return v.view(torch.int32) if v.dtype == torch.float32 else v
+
+
+@pytest.mark.parametrize("n,c,k,warm", [(1, 64, 8, False), (33, 100, 32, False), (500, 192, 32, False),
+                                         (500, 192, 32, True), (64, 1, 1, False), (70, 600, 64, False)])
+def test_select_strided_kernel_equals_its_plain_version(cuda, n, c, k, warm):
+    """Bit for bit with the prune off (csrc/selection.cu's _rn steps and the
+    reciprocal PyTorch's division by a Python number multiplies by)."""
+    rays, u, grid, state = _selection_inputs(cuda, n, c, warm=warm)
+    got = ksel.launch_select_strided(rays, u, grid, state, k, 1e-3, 0.0, None, True)
+    want = ksel.select_strided_reference(rays, u, grid, state, k, 1e-3, 0.0, None, True)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    if warm:
+        assert int(got.count.max()) == c
+
+
+def test_select_strided_kernel_prunes_as_its_plain_version(cuda):
+    """With the prune on, the decisions agree on every ray here (they may
+    differ only on a candidate within a few ulps of eps), and it cuts."""
+    rays, u, grid, state = _selection_inputs(cuda, 2000, 192, seed=1)
+    got = ksel.launch_select_strided(rays, u, grid, state, 32, 1e-3, 1e-2)
+    want = ksel.select_strided_reference(rays, u, grid, state, 32, 1e-3, 1e-2)
+    free = ksel.select_strided_reference(rays, u, grid, state, 32, 1e-3, 0.0)
+    assert torch.equal(got.count, want.count) and torch.equal(_bits(got.ts), _bits(want.ts))
+    assert int(got.count.sum()) < int(free.count.sum())
+
+
+@pytest.mark.parametrize("per_ray", [1, 4, 32])
+def test_pool_pack_kernel_equals_its_plain_version(cuda, per_ray):
+    """Bit for bit, at budgets that drop (1, 4 a ray) and that hold (32)."""
+    rays, u, grid, state = _selection_inputs(cuda, 700, 192)
+    sel = ksel.select_strided(rays, u, grid, state, 32, 1e-3)
+    budget = 700 * per_ray
+    got = ksel.pool_pack(rays, sel, budget)
+    want = ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
+    assert (int(got.dropped) > 0) == (per_ray < 32)

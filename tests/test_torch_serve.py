@@ -337,6 +337,7 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.kernels.build\n"
         "import learn_nerf_tpu_torch.kernels.hashgrid\n"
         "import learn_nerf_tpu_torch.kernels.table_gather\n"
+        "import learn_nerf_tpu_torch.kernels.selection\n"
         "import learn_nerf_tpu_torch.models.instant_ngp\n"
         "import learn_nerf_tpu_torch.ops.hashgrid\n"
         "import learn_nerf_tpu_torch.scripts.train_nerf\n"
