@@ -100,20 +100,32 @@ nonzero):
    and its table gradients within the backward's bound of that pair's,
    timed beside that pair (turns A B B A), the plain versions and eager
    autograd of the plain encode; the selection kernels
-   (``check_selection_kernels``): select_strided at the train step's 4096
-   rays x 192 candidates -> 32 on the scene's ball grid, an off-centre ball
-   and a warmup grid (c = 192 > K), at served tiles of 8192 rays (the
-   ball, an opaque ball with the prune at eps 1e-2, frame_matrix's shell
-   grid with it, and the span lever's range of 64 probes as input to 96
-   candidates) and at the edges (1, 31 and 33 rays, rays that miss the
-   box, directions with zero components, C = 1, 33, 100, 200 and 4096, K =
-   1 and 64), bit for bit equal to its plain version, with the prune's
-   decisions different only within PRUNE_MARGIN of eps (the count and the
-   largest gap printed); pool_pack bit for bit at budgets that hold every
-   survivor and that drop; a rank off by one, x and z swapped in the cell
-   index and a tail row not written (copies of the source) each caught;
-   both timed by graph replay beside the plain route's device time, the
-   selection beside the card's rate for its random grid reads;
+   (``check_selection_kernels``): select_strided, which reads its
+   occupancy test from the grid's packed cell bits, at the train step's
+   4096 rays x 192 candidates -> 32 on the scene's ball grid, an
+   off-centre ball, a warmup grid (c = 192 > K), an opaque off-centre ball
+   with the prune at eps 1e-2 and a 126^3 grid (padded words), at served
+   tiles of 8192 rays (the ball, an opaque ball with the prune,
+   frame_matrix's shell grid with it, and the span lever's range of 64
+   probes as input to 96 candidates) and at the edges (1, 31 and 33 rays,
+   rays that miss the box, directions with zero components, C = 1, 33,
+   100, 200 and 4096, K = 1 and 64), bit for bit equal to its plain
+   version, with the prune's decisions different only within PRUNE_MARGIN
+   of eps (the count and the largest gap printed), and bit for bit equal
+   to the kernel it replaced (``csrc/ablations/selection_parent.cu``, the
+   prune included); pool_pack, one launch from the selection's counts, bit
+   for bit at budgets that hold every survivor and that drop and at the
+   edges of its chunks and blocks (one ray, 33 rays, counts off a 16-byte
+   boundary), against its plain version from the counts, the plain pack
+   of the sample mask and the replaced clamp, cumsum and pack; a rank off
+   by one, x and z swapped in the cell index (which only the prune reads)
+   and in a word's bit index, a tail row not written and a scan off by
+   one ray (copies of the source), and the words of another grid state,
+   each caught; a pooled tile's selection and pack profiled to two kernels
+   and no memset; both timed by graph replay in turns A B B A beside the
+   replaced pair and the plain route's device time, the selection beside
+   the card's rate for its random word reads (and the replaced kernel's
+   for its random grid reads);
 3. a synthetic scene with a full-width vanilla checkpoint and a full-width
    Instant-NGP checkpoint (6 coarse and 16 fine hash-grid levels of 2^18
    rows) in the pickle contract (random weights from a NumPy seed, a 128^3
@@ -275,8 +287,10 @@ process to itself (the runs that set DP_LOSS_BOUND).
 import argparse
 import contextlib
 import copy
+import functools
 import io
 import json
+import os
 import re
 import struct
 import subprocess
@@ -452,18 +466,20 @@ POOLED_SHAPES = {
 # The selection kernels (csrc/selection.cu) against their plain versions on
 # the card, bit for bit with the prune off: the train step's 4096 rays x 192
 # candidates -> 32 on the scene's ball grid (density 5 in a ball of radius
-# 0.45), on an off-centre ball (which a cell index with x and z swapped
-# misses) and on a warmup grid (c = 192 > K), and served tiles of 8192
-# rays; the edges below.  With the prune on (eps 1e-2, the served frames'
-# --occ_t_eps; on the ball at density 50, which it cuts), the kernel's
-# prefix sum adds in another order than torch.cumsum: a ray may differ only
-# where one of its candidates has exp(-acc_prev) within PRUNE_MARGIN
-# (relative) of eps, set at four times the f32 scan's own rounding of
-# acc_prev where exp(-acc_prev) is near eps (its gap to an f64 scan, which
-# is the relative error it puts on exp(-acc_prev)): 9.5e-7 measured on an
-# H100 on these inputs.
+# 0.45), on an off-centre ball (which a word's bit index with x and z
+# swapped misses) and on a warmup grid (c = 192 > K), and served tiles of
+# 8192 rays; the edges below, and a 126^3 grid, whose words are padded (the
+# block dims do not divide 126).  With the prune on (eps 1e-2, the served
+# frames' --occ_t_eps; on both balls at density 50, which it cuts), the
+# kernel's prefix sum adds in another order than torch.cumsum: a ray may
+# differ only where one of its candidates has exp(-acc_prev) within
+# PRUNE_MARGIN (relative) of eps, set at four times the f32 scan's own
+# rounding of acc_prev where exp(-acc_prev) is near eps (its gap to an f64
+# scan, which is the relative error it puts on exp(-acc_prev)): 9.5e-7
+# measured on an H100 on these inputs.
 # The pack at the step's pool (budget 32 a ray, and 4 a ray, which drops)
-# and a served tile's (8192 x 6), bit for bit.
+# and a served tile's (8192 x 6), and at the edges of its blocks and chunks,
+# bit for bit.
 SELECT_RAYS, SELECT_CANDIDATES, SELECT_SAMPLES = 4096, 192, 32
 SELECT_EDGES = ((1, 192, 32), (31, 192, 32), (33, 192, 32), (33, 100, 32), (64, 33, 1), (64, 1, 1),
                 (64, 200, 64), (256, 4096, 64))
@@ -475,14 +491,25 @@ BLOCK_WORD_SELECTION = "block-word selection (plain by decision)"
 PRUNE_MARGIN = 4e-6
 PACK_BUDGETS = {"step pool, budget 32 a ray": (SELECT_RAYS, 32), "step pool, budget 4 a ray (drops)": (SELECT_RAYS, 4),
                 "tile 8192 x 6": (8192, 6)}
+# (rays, first ray, budget a ray): one ray; a part-full chunk; counts that
+# start off a 16-byte boundary (the kernel's scalar head); a part-full last
+# chunk of the last block at a tile that drops.
+PACK_EDGES = ((1, 0, 32), (33, 0, 3), (4093, 3, 8), (8189, 1, 1))
 # Deliberate faults in copies of csrc/selection.cu, each of which the checks
-# above must catch.
+# above must catch (the cell index only the prune reads, on the opaque
+# off-centre ball); and the words of another grid state, handed to the
+# kernel as the state's (STALE_WORDS).
 SELECTION_FAULTS = {
     "a rank off by one": ("const int target = min(rank + 1, count);", "const int target = min(rank + 2, count);"),
-    "x and z swapped in the cell index": ("return cell[0] + a.resolution * (cell[1] + a.resolution * cell[2]);",
-                                          "return cell[2] + a.resolution * (cell[1] + a.resolution * cell[0]);"),
-    "a tail row not written": ("if (i >= total && i < a.budget)", "if (i > total && i < a.budget)"),
+    "x and z swapped in the cell index": ("return cell[0] + r * (cell[1] + r * cell[2]);",
+                                          "return cell[2] + r * (cell[1] + r * cell[0]);"),
+    "x and z swapped in a word's bit index": ("return (cell[0] & 3) + 4 * (cell[1] & 3) + 16 * (cell[2] & 1);",
+                                              "return (cell[2] & 3) + 4 * (cell[1] & 3) + 16 * (cell[0] & 1);"),
+    "a tail row not written": ("long long i = total + static_cast<long long>(blockIdx.x)",
+                               "long long i = total + 1 + static_cast<long long>(blockIdx.x)"),
+    "a scan off by one ray": ("if (i < first) before += kept;", "if (i < first - 1) before += kept;"),
 }
+STALE_WORDS = "the words of another grid state"
 # One train step by the kernel route on the card: (loss relative, table
 # gradients by L2 norm relative, other gradients relative to their max)
 # against the plain route on the card and on the CPU (check_train_step).
@@ -703,6 +730,21 @@ def bound(nbytes, flops=0.0, f32_ops=0.0):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def pack_bytes(rays, sel, budget, out):
+    """The bytes pool_pack must move on this data: the counts, the ts of
+    the survivors it places (not the rest of ``ts``), the rows of the rays
+    it writes slots for (the last ray's too where a tail is left), and
+    every output."""
+    kept = torch.clamp(sel.count.long(), max=sel.ts.shape[1])
+    before = torch.cumsum(kept, dim=0) - kept
+    placed = torch.minimum(kept, torch.clamp(budget - before, min=0))
+    read = placed > 0
+    read[-1] |= bool(kept.sum() < budget)
+    ray_bytes = rays[0].numel() * rays.element_size()
+    return (nbytes(sel.count) + int(placed.sum()) * sel.ts.element_size() + int(read.sum()) * ray_bytes
+            + nbytes(*out))
 
 
 def ptxas_report(log):
@@ -961,6 +1003,33 @@ def profiled(call, device, counters, tries=3):
         print(f"  the call launched {launched} kernel(s) and the profiler recorded no device event "
               f"(try {attempt + 1} of {tries})", flush=True)
     return seen
+
+
+def kernel_sequence(call, device, tries=3):
+    """The names of the kernels one call of ``call`` launched, in launch
+    order (torch.profiler's trace), profiled again, up to ``tries`` times,
+    while the trace holds no kernel (see ``profiled``)."""
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize(device)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = sorted((float(e["ts"]), e["name"]) for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
+        if kernels:
+            break
+    return [name for _, name in kernels]
+
+
+def after_selection(sequence):
+    """The kernel launched right after each ``select_strided_kernel`` of a
+    kernel sequence (None after the last kernel)."""
+    return [(sequence[i + 1] if i + 1 < len(sequence) else None) for i, name in enumerate(sequence)
+            if "select_strided_kernel" in name]
 
 
 def same_rows(got, want):
@@ -2310,65 +2379,14 @@ def check_baked_kernel(root, device, rng, parent, probes):
     return result
 
 
-def build_selection_faults():
-    """``{fault: library}``: csrc/selection.cu alone with each of
-    SELECTION_FAULTS, all built at once."""
-    from learn_nerf_tpu_torch.kernels import build
-    from learn_nerf_tpu_torch.scripts.mlp_ablations import variant_sources
+def build_selection_libraries():
+    """``{name: library}``: the pair as first written
+    (``csrc/ablations/selection_parent.cu``) and csrc/selection.cu alone
+    with each of SELECTION_FAULTS, all built at once."""
+    from learn_nerf_tpu_torch.scripts import selection_ablations
 
-    procs = {}
-    for name, (old, new) in SELECTION_FAULTS.items():
-        out = build.BUILD_DIR / "ablations" / "selection" / name.replace(" ", "_")
-        variant_sources(out, name, [("selection.cu", old, new)])
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(out / "libselection.so"),
-               str(out / "selection.cu")]
-        procs[name] = (out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (out, proc) in procs.items():
-        log = proc.communicate()[0]
-        require(proc.returncode == 0, f"the selection fault {name!r} does not build:\n{log[-4000:]}")
-        import ctypes
-
-        libs[name] = build.bind_selection(ctypes.CDLL(str(out / "libselection.so")))
-    return libs
-
-
-def selection_rays(rng, n, half=0.7, device="cuda"):
-    """``n`` rays from a sphere of radius 2 around the bbox [-half, half]^3,
-    aimed at points inside it; one in 16 aimed away (it misses), one in 16
-    axis-aligned (zero direction components, one of them -0.0)."""
-    origins = rng.randn(n, 3)
-    origins *= 2.0 / np.linalg.norm(origins, axis=-1, keepdims=True)
-    dirs = rng.uniform(-0.7 * half, 0.7 * half, (n, 3)) - origins
-    dirs[::16] *= -1.0
-    axis = np.arange(1, n, 16)
-    dirs[axis] = 0.0
-    origins[axis] = rng.uniform(-0.9 * half, 0.9 * half, (len(axis), 3))
-    origins[axis, axis % 3] = -2.0
-    dirs[axis, axis % 3] = 1.0
-    if len(axis):
-        dirs[axis[0], (axis[0] + 1) % 3] = -0.0
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    return torch.from_numpy(np.stack([origins, dirs], axis=1).astype(np.float32)).to(device)
-
-
-def selection_grids(device):
-    """The scene's 128^3 grid over [-0.7, 0.7]^3 and its states: the ball
-    (density 5 in radius 0.45, as write_scene), an off-centre ball, the
-    ball in warmup (every candidate occupied) and at density 50 (opaque:
-    the prune at eps 1e-2 cuts inside it)."""
-    from learn_nerf_tpu_torch.acceleration import OccupancyGrid, OccupancyGridState
-
-    grid = OccupancyGrid(bbox_min=(-0.7,) * 3, bbox_max=(0.7,) * 3, resolution=128)
-    c = (np.arange(128, dtype=np.float32) + 0.5) / 128 * 1.4 - 0.7
-    z, y, x = np.meshgrid(c, c, c, indexing="ij")
-    ball = np.where(x**2 + y**2 + z**2 < 0.45**2, 5.0, 0.0).astype(np.float32).reshape(-1)
-    off = np.where((x - 0.25) ** 2 + (y + 0.1) ** 2 + (z + 0.3) ** 2 < 0.3**2, 5.0, 0.0)
-    states = {name: OccupancyGridState(densities=torch.from_numpy(d.astype(np.float32).reshape(-1)).to(device),
-                                       step=step)
-              for name, d, step in (("ball", ball, 16), ("off-centre ball", off, 16), ("warmup", ball, 0),
-                                    ("opaque ball", 10.0 * ball, 16))}
-    return grid, states
+    faults = {name: [("selection.cu", old, new)] for name, (old, new) in SELECTION_FAULTS.items()}
+    return selection_ablations.build_selection_libraries([selection_ablations.PARENT, *faults], faults)
 
 
 def bits_of(v):
@@ -2425,27 +2443,38 @@ def plain_device_ms(call, device, tries=3):
     return seen["device_ms"], seen["kernels_launched"]
 
 
-def check_selection_kernels(device, views, probes, faults):
+def check_selection_kernels(device, views, probes, libs):
     """select_strided_kernel and pool_pack_kernel against their plain
-    versions on the card (see SELECT_RAYS above), each check shown to catch
-    a deliberate fault (SELECTION_FAULTS), both kernels timed by graph
-    replay beside the plain route's device time; their kernel-line
-    entries."""
+    versions and against the pair they replaced (csrc/ablations/
+    selection_parent.cu, bit for bit, the prune included) on the card (see
+    SELECT_RAYS above), each check shown to catch a deliberate fault
+    (SELECTION_FAULTS, STALE_WORDS), a pooled tile's selection and pack
+    profiled to two kernels and no memset, both kernels timed by graph
+    replay in turns A B B A beside the replaced pair (the pack beside the
+    parent's clamp, cumsum and pack) and the plain route's device time; their
+    kernel-line entries."""
+    from unittest import mock
+
+    from learn_nerf_tpu_torch.acceleration import OccupancyGrid, OccupancyGridState
     from learn_nerf_tpu_torch.kernels import selection as ksel
     from learn_nerf_tpu_torch.occ_render import OccupancyRenderer
     from learn_nerf_tpu_torch.scripts.frame_matrix import frame_view, shell_grid_state
     from learn_nerf_tpu_torch.scripts.hashgrid_ablations import sector_us
-
-    from learn_nerf_tpu_torch.acceleration import OccupancyGrid
+    from learn_nerf_tpu_torch.scripts.selection_ablations import (PARENT, ball_densities, launch_parent_pack,
+                                                                   launch_parent_select, selection_grids,
+                                                                   selection_rays)
 
     rng = np.random.RandomState(SEED + 19)
     grid, states = selection_grids(device)
     shell_grid = OccupancyGrid(bbox_min=(-1.0,) * 3, bbox_max=(1.0,) * 3, resolution=128)
     shell = shell_grid_state(shell_grid, device)
+    padded_grid = OccupancyGrid(bbox_min=grid.bbox_min, bbox_max=grid.bbox_max, resolution=126)
+    padded = OccupancyGridState(densities=torch.from_numpy(ball_densities(126, (0.25, -0.1, -0.3), 0.3)).to(device),
+                                step=16)
     step_rays = selection_rays(rng, SELECT_RAYS, device=device)
     tile_rays = torch.from_numpy(views[0].bare_rays(128, 64)).to(device)  # a served tile of 8192 rays
     shell_rays = torch.from_numpy(frame_view().bare_rays(800, 800)[320_000:328_192]).to(device)
-    uniforms = lambda n, c: torch.from_numpy(rng.rand(n, c).astype(np.float32)).to(device)
+    uniforms = lambda n, c: torch.from_numpy(rng.rand(n, c).astype(np.float32)).to(device)  # noqa: E731
     u_step, u_tile = uniforms(SELECT_RAYS, SELECT_CANDIDATES), uniforms(8192, SELECT_CANDIDATES)
     span_renderer = OccupancyRenderer(model=None, grid=grid, bbox_min=grid.bbox_min, bbox_max=grid.bbox_max,
                                       candidates=96, samples=SELECT_SAMPLES, span_candidates=64)
@@ -2454,6 +2483,9 @@ def check_selection_kernels(device, views, probes, faults):
         "step, ball grid": (step_rays, u_step, grid, states["ball"], SELECT_SAMPLES, 0.0, None),
         "step, off-centre ball": (step_rays, u_step, grid, states["off-centre ball"], SELECT_SAMPLES, 0.0, None),
         "step, warmup grid": (step_rays, u_step, grid, states["warmup"], SELECT_SAMPLES, 0.0, None),
+        "step, opaque off-centre ball, eps 1e-2": (step_rays, u_step, grid, states["opaque off-centre ball"],
+                                                   SELECT_SAMPLES, PRUNE_EPS, None),
+        "step, 126^3 grid (padded words)": (step_rays, u_step, padded_grid, padded, SELECT_SAMPLES, 0.0, None),
         "tile, ball grid": (tile_rays, u_tile, grid, states["ball"], SELECT_SAMPLES, 0.0, None),
         "tile, opaque ball, eps 1e-2": (tile_rays, u_tile, grid, states["opaque ball"], SELECT_SAMPLES, PRUNE_EPS,
                                         None),
@@ -2467,27 +2499,40 @@ def check_selection_kernels(device, views, probes, faults):
         cases[f"edge: {n} rays x {c} candidates -> {k}"] = (
             step_rays[:n] if n <= SELECT_RAYS else selection_rays(rng, n, device=device), uniforms(n, c), grid,
             states["ball"], k, 0.0, None)
+    parent = libs[PARENT]
 
     def run(case, lib=None):
         rays, u, g, state, k, eps, sp = case
         return ksel.launch_select_strided(rays, u, g, state, k, 1e-3, eps, sp, True, lib=lib)
 
-    selections, unequal, pruned, roundings, counts = {}, [], {}, [], {}
+    def run_parent(case):
+        rays, u, g, state, k, eps, sp = case
+        return launch_parent_select(parent, rays, u, g, state, k, 1e-3, eps, sp, True)
+
+    selections, wants, gaps = {}, {}, {}
+
+    def fails(name, got):
+        """The check each case must pass: bit for bit with the prune off,
+        decisions outside PRUNE_MARGIN with it on."""
+        differ = rays_that_differ(got, wants[name])
+        return bool(differ.any()) if name not in gaps else bool((gaps[name][differ] > PRUNE_MARGIN).any())
+
+    unequal, unequal_parent, pruned, roundings, counts = [], [], {}, [], {}
     for name, case in cases.items():
         rays, u, g, state, k, eps, sp = case
         got = selections[name] = run(case)
-        want = ksel.select_strided_reference(rays, u, g, state, k, 1e-3, eps, sp, True)
-        differ = rays_that_differ(got, want)
+        wants[name] = ksel.select_strided_reference(rays, u, g, state, k, 1e-3, eps, sp, True)
         counts[name] = (int(got.count.min()), int(got.count.max()), int(got.mask.sum()))
-        if eps == 0.0:
-            if differ.any():
-                unequal.append(name)
-            continue
-        gap, rounding, occupied = prune_gaps(rays, u, g, state, sp, eps)
-        roundings.append(rounding)
-        pruned[name] = (occupied - int(got.count.sum()), int(differ.sum()),
-                        float(gap[differ].max()) if differ.any() else 0.0, int((gap <= PRUNE_MARGIN).sum()))
-        if (gap[differ] > PRUNE_MARGIN).any():
+        if rays_that_differ(got, run_parent(case)).any():
+            unequal_parent.append(name)
+        if eps > 0.0:
+            gaps[name], rounding, occupied = prune_gaps(rays, u, g, state, sp, eps)
+            roundings.append(rounding)
+            differ = rays_that_differ(got, wants[name])
+            pruned[name] = (occupied - int(got.count.sum()), int(differ.sum()),
+                            float(gaps[name][differ].max()) if differ.any() else 0.0,
+                            int((gaps[name] <= PRUNE_MARGIN).sum()))
+        if fails(name, got):
             unequal.append(name)
     step = selections["step, ball grid"]
     require(int(selections["step, warmup grid"].count.max()) == SELECT_CANDIDATES,
@@ -2495,89 +2540,151 @@ def check_selection_kernels(device, views, probes, faults):
     require((step.count > 0).any() and (step.count[step.mask] == 0).any() and not step.mask.all(),
             "the step's rays do not hold occupied, empty and missed rays")
 
-    # The pack, bit for bit, at budgets that hold and that drop.
-    packs, unequal_packs, dropped = {}, [], {}
-    for name, (n, per_ray) in PACK_BUDGETS.items():
-        sel = step if n == SELECT_RAYS else selections["tile, opaque ball, eps 1e-2"]
-        rays = step_rays if n == SELECT_RAYS else tile_rays
-        budget = n * per_ray
-        cum = ksel.kept_scan(sel.count, SELECT_SAMPLES)
-        got = ksel.launch_pool_pack(rays, sel.ts, cum, budget)
-        want = ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget)
-        packs[name] = (rays, sel, cum, budget)
+    # The pack, bit for bit, at budgets that hold and that drop, and at the
+    # edges of its chunks and blocks; equal to the plain pack of the sample
+    # mask too.
+    tile = selections["tile, opaque ball, eps 1e-2"]
+    packs = {name: ((step_rays, step) if n == SELECT_RAYS else (tile_rays, tile)) + (n * per_ray,)
+             for name, (n, per_ray) in PACK_BUDGETS.items()}
+    for n, first, per_ray in PACK_EDGES:
+        rays, sel = (step_rays, step) if first + n <= SELECT_RAYS else (tile_rays, tile)
+        cut = slice(first, first + n)
+        packs[f"edge: {n} rays from ray {first}, {per_ray} a ray"] = (
+            rays[cut], ksel.Selection(*(v[cut] for v in sel[:5]), None), n * per_ray)
+    unequal_packs, dropped = [], {}
+
+    def pack_fails(name, got):
+        rays, sel, budget = packs[name]
+        want = ksel.pack_pool_from_counts_reference(rays, sel.ts, sel.count, budget)
+        by_mask = ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget)
+        return not all(torch.equal(bits_of(a), bits_of(b)) and torch.equal(bits_of(a), bits_of(c))
+                       for a, b, c in zip(got, want, by_mask))
+
+    for name, (rays, sel, budget) in packs.items():
+        got = ksel.launch_pool_pack(rays, sel.ts, sel.count, budget)
         dropped[name] = (int(got.selected), int(got.dropped))
-        if not all(torch.equal(bits_of(a), bits_of(b)) for a, b in zip(got, want)):
+        parent_pool = launch_parent_pack(parent, rays, sel.ts, sel.count, budget)
+        if pack_fails(name, got) or not all(torch.equal(bits_of(a), bits_of(b)) for a, b in zip(got, parent_pool)):
             unequal_packs.append(name)
     require(dropped["step pool, budget 4 a ray (drops)"][1] > 0 and dropped["step pool, budget 32 a ray"][1] == 0,
             f"the pack's budgets do not both drop and hold: {dropped}")
 
     # Each deliberate fault must be caught by the same checks.
     caught = {}
-    for fault, lib in faults.items():
-        if fault == "a tail row not written":
-            rays, sel, cum, budget = packs["step pool, budget 32 a ray"]
-            out = ksel.Pool(*(torch.full_like(v, -1) for v in ksel.launch_pool_pack(rays, sel.ts, cum, budget)))
-            got = ksel.launch_pool_pack(rays, sel.ts, cum, budget, out=out, lib=lib)
-            want = ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget)
-            caught[fault] = not all(torch.equal(bits_of(a), bits_of(b)) for a, b in zip(got, want))
-        else:
-            case = cases["step, off-centre ball" if "swapped" in fault else "step, ball grid"]
-            caught[fault] = bool(rays_that_differ(run(case, lib), selections[
-                "step, off-centre ball" if "swapped" in fault else "step, ball grid"]).any())
+    fault_cases = {"a rank off by one": "step, ball grid",
+                   "x and z swapped in the cell index": "step, opaque off-centre ball, eps 1e-2",
+                   "x and z swapped in a word's bit index": "step, off-centre ball"}
+    for fault, lib in libs.items():
+        if fault in fault_cases:
+            caught[fault] = fails(fault_cases[fault], run(cases[fault_cases[fault]], lib))
+        elif fault != PARENT:  # the pack's, on every pool; the outputs filled beforehand
+            caught[fault] = False
+            for name, (rays, sel, budget) in packs.items():
+                out = ksel.Pool(*(torch.full_like(v, -1) for v in ksel.launch_pool_pack(rays, sel.ts, sel.count,
+                                                                                        budget)))
+                got = ksel.launch_pool_pack(rays, sel.ts, sel.count, budget, out=out, lib=lib)
+                caught[fault] = caught[fault] or pack_fails(name, got)
+    ball_words = grid.occupancy_words(states["ball"])
+    with mock.patch.object(OccupancyGrid, "occupancy_words", lambda self, state: ball_words):
+        caught[STALE_WORDS] = fails("step, off-centre ball", run(cases["step, off-centre ball"]))
+
+    # A pooled tile as the renderer runs it: the selection and the pack, two
+    # kernels, no clamp or scan between them and no memset.
+    tile_renderer = OccupancyRenderer(model=None, grid=grid, bbox_min=grid.bbox_min, bbox_max=grid.bbox_max,
+                                      candidates=SELECT_CANDIDATES, samples=SELECT_SAMPLES)
+
+    def pooled_tile():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel = tile_renderer._select(tile_rays, states["opaque ball"], PRUNE_EPS, u_tile, None)
+        ksel.pool_pack(tile_rays, sel, 8192 * 6)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    pooled_tile()
+    seen = profiled(pooled_tile, device, (ksel.counter, ksel.pack_counter))
+    tile_kernels = (seen["kernels_launched"], seen["memsets"], sorted(seen["port_kernels"] or {}))
 
     # Times: the step's selection (with points, as the dense step takes it),
-    # a served tile's (eps 1e-2), the step's pool and a tile's.
-    timed = {"step 4096 x 192 -> 32": cases["step, ball grid"],
-             "tile 8192 x 192 -> 32, eps 1e-2": cases["tile, opaque ball, eps 1e-2"]}
+    # a served tile's (eps 1e-2), the step's pool and a tile's, each in turns
+    # beside the replaced pair.
+    timed = {"step 4096 x 192 -> 32": "step, ball grid",
+             "tile 8192 x 192 -> 32, eps 1e-2": "tile, opaque ball, eps 1e-2"}
     select_times = {}
-    for name, case in timed.items():
+    for name, case_name in timed.items():
+        case = cases[case_name]
         rays, u, g, state, k, eps, sp = case
-        ms = graph_ms(lambda: run(case), 50)
+        turns = {"ms": [], "parent_ms": []}
+        for own in (True, False, False, True):
+            turns["ms" if own else "parent_ms"].append(graph_ms((lambda: run(case)) if own else
+                                                                (lambda: run_parent(case)), 50))
         plain_ms, plain_kernels = plain_device_ms(
             lambda: ksel.select_strided_reference(rays, u, g, state, k, 1e-3, eps, sp, True), device)
         n, c = u.shape
-        out = selections["step, ball grid" if n == SELECT_RAYS else "tile, opaque ball, eps 1e-2"]
+        out = selections[case_name]
+        words = g.occupancy_words(state)
+        # u, the rays and the outputs: the grid's reads depend on the data
+        # and stay in L2 (a step touches a few % of its cells).
         bound_ms, bound_by = bound(nbytes(u, rays, *[v for v in out if v is not None]))
-        rate_ms = sector_us(probes, 1 << 20, n * c, device) / 1e3
-        select_times[name] = dict(ms=ms, plain_ms=plain_ms, plain_kernels=plain_kernels, bound_ms=bound_ms,
-                                  bound_by=bound_by, card_rate_ms=rate_ms)
+        # The card's rate for the test's n * c random reads: the words' 8-byte
+        # rows over their bytes (with the prune, the densities', as the
+        # parent's).
+        select_times[name] = dict(
+            {key: sum(v) / len(v) for key, v in turns.items()}, turns=turns, plain_ms=plain_ms,
+            plain_kernels=plain_kernels, bound_ms=bound_ms, bound_by=bound_by,
+            card_rate_ms=sector_us(probes, words.numel() // 2 if eps == 0.0 else 1 << 20, n * c, device) / 1e3,
+            parent_card_rate_ms=sector_us(probes, 1 << 20, n * c, device) / 1e3)
     pack_times = {}
     for name in ("step pool, budget 32 a ray", "tile 8192 x 6"):
-        rays, sel, cum, budget = packs[name]
-        out = ksel.launch_pool_pack(rays, sel.ts, cum, budget)
-        ms = graph_ms(lambda: ksel.launch_pool_pack(rays, sel.ts, cum, budget), 50)
-        scan_ms = graph_ms(lambda: ksel.kept_scan(sel.count, SELECT_SAMPLES), 50)
+        rays, sel, budget = packs[name]
+        out = ksel.launch_pool_pack(rays, sel.ts, sel.count, budget)
+        turns = {"ms": [], "parent_ms": []}
+        for own in (True, False, False, True):
+            turns["ms" if own else "parent_ms"].append(graph_ms(
+                (lambda: ksel.launch_pool_pack(rays, sel.ts, sel.count, budget)) if own else
+                (lambda: launch_parent_pack(parent, rays, sel.ts, sel.count, budget)), 50))
         plain_ms, plain_kernels = plain_device_ms(
-            lambda: ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget), device)
-        bound_ms, bound_by = bound(nbytes(sel.ts, cum, rays, *out))
-        pack_times[name] = dict(ms=ms, scan_ms=scan_ms, plain_ms=plain_ms, plain_kernels=plain_kernels,
-                                bound_ms=bound_ms, bound_by=bound_by)
+            lambda: ksel.pack_pool_from_counts_reference(rays, sel.ts, sel.count, budget), device)
+        bound_ms, bound_by = bound(pack_bytes(rays, sel, budget, out))
+        pack_times[name] = dict({key: sum(v) / len(v) for key, v in turns.items()}, turns=turns, plain_ms=plain_ms,
+                                plain_kernels=plain_kernels, bound_ms=bound_ms, bound_by=bound_by)
 
-    print(f"select_strided: {len(cases)} cases, rays that differ from the plain version {unequal or 'none'}; "
-          f"(min c, max c, rays in the box) {counts}; with the prune (eps {PRUNE_EPS:g}): (candidates pruned, "
-          f"rays that differ, the largest of their least gaps, rays with a candidate within the margin) {pruned} (margin "
-          f"{PRUNE_MARGIN:g}; the f32 scan's own rounding of acc_prev {max(roundings):.3e}); times "
-          f"{select_times}", flush=True)
-    print(f"pool_pack: {len(packs)} budgets, (selected, dropped) {dropped}, unequal {unequal_packs or 'none'}; "
-          f"times {pack_times}; faults caught {caught}", flush=True)
+    us = lambda times: {name: {k: [round(1e3 * v, 3) for v in vals] for k, vals in t["turns"].items()}  # noqa: E731
+                        for name, t in times.items()}
+    print(f"select_strided: {len(cases)} cases, rays that differ from the plain version {unequal or 'none'}, from the "
+          f"replaced kernel {unequal_parent or 'none'}; (min c, max c, rays in the box) {counts}; with the prune "
+          f"(eps {PRUNE_EPS:g}): (candidates pruned, rays that differ, the largest of their least gaps, rays with a "
+          f"candidate within the margin) {pruned} (margin {PRUNE_MARGIN:g}; the f32 scan's own rounding of acc_prev "
+          f"{max(roundings):.3e}); graph replay, turns A B B A, us {us(select_times)}; times {select_times}",
+          flush=True)
+    print(f"pool_pack: {len(packs)} pools, (selected, dropped) {dropped}, unequal {unequal_packs or 'none'}; "
+          f"a pooled tile's selection and pack profiled: (kernels, memsets, the port's) {tile_kernels}; graph "
+          f"replay, turns A B B A (the replaced clamp, cumsum and pack), us {us(pack_times)}; times {pack_times}; "
+          f"faults caught {caught}", flush=True)
     require(not unequal, f"select_strided disagrees with its plain version in {unequal}")
-    require(not unequal_packs, f"pool_pack disagrees with its plain version in {unequal_packs}")
-    require(all(caught.values()) and len(caught) == len(SELECTION_FAULTS), f"a fault went uncaught: {caught}")
+    require(not unequal_parent, f"select_strided differs from the kernel it replaced in {unequal_parent}")
+    require(not unequal_packs, f"pool_pack disagrees with its plain version or the kernel it replaced in "
+            f"{unequal_packs}")
+    require(all(caught.values()) and len(caught) == len(SELECTION_FAULTS) + 1, f"a fault went uncaught: {caught}")
+    require(tile_kernels == (2, 0, ["pool_pack", "select_strided"]),
+            f"a pooled tile's selection and pack launched more than the two kernels: {tile_kernels}")
     require(2 * max(roundings) <= PRUNE_MARGIN, f"the prune margin {PRUNE_MARGIN:g} is under twice the scan's "
             f"rounding {max(roundings):.3e}")
-    require(pruned["tile, opaque ball, eps 1e-2"][0] > 0, "the prune cut nothing")
+    require(pruned["tile, opaque ball, eps 1e-2"][0] > 0 and pruned["step, opaque off-centre ball, eps 1e-2"][0] > 0,
+            "the prune cut nothing")
     first = select_times["step 4096 x 192 -> 32"]
     step_pack = pack_times["step pool, budget 32 a ray"]
     return [
         dict(name="select_strided", route="cuda", source="learn_nerf_tpu_torch/csrc/selection.cu",
              replaces="learn_nerf_tpu/occ_render.py:279-327 with acceleration.py:114-131 and :389-428, "
                       "ops/sampling.py:31, ops/geometry.py:21-62 (XLA)",
-             max_abs_err=0.0, ms=first["ms"], plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
-             bound_by=first["bound_by"], library_ms=None, card_rate_ms=first["card_rate_ms"], shapes=select_times),
+             max_abs_err=0.0, ms=first["ms"], parent_ms=first["parent_ms"], plain_ms=first["plain_ms"],
+             bound_ms=first["bound_ms"], bound_by=first["bound_by"], library_ms=None,
+             card_rate_ms=first["card_rate_ms"], shapes=select_times),
         dict(name="pool_pack", route="cuda", source="learn_nerf_tpu_torch/csrc/selection.cu",
              replaces="learn_nerf_tpu/occ_render.py:586-606 (XLA: the slot cumsum, scatter and gathers)",
-             max_abs_err=0.0, ms=step_pack["ms"], plain_ms=step_pack["plain_ms"], bound_ms=step_pack["bound_ms"],
-             bound_by=step_pack["bound_by"], library_ms=None, shapes=pack_times),
+             max_abs_err=0.0, ms=step_pack["ms"], parent_ms=step_pack["parent_ms"], plain_ms=step_pack["plain_ms"],
+             bound_ms=step_pack["bound_ms"], bound_by=step_pack["bound_by"], library_ms=None, shapes=pack_times),
     ]
 
 
@@ -2601,8 +2708,8 @@ def plain_routes():
     (ke._encode_on_card, kd._dx_on_card, render.render_composite, occ_render.render_composite_pooled,
      occ_render.select_strided, occ_render.pool_pack) = (
         hg.hash_grid_encode_reference, hg.hash_grid_encode_dx_reference, kc.render_composite_reference,
-        kc.render_composite_pooled_reference, ksel.select_strided_reference,
-        lambda rays, sel, budget: ksel.pack_pool_reference(rays, sel.ts, sel.sample_mask, budget))
+        kc.render_composite_pooled_reference, lambda *args, words=None: ksel.select_strided_reference(*args),
+        lambda rays, sel, budget: ksel.pack_pool_from_counts_reference(rays, sel.ts, sel.count, budget))
     try:
         yield
     finally:
@@ -2675,6 +2782,11 @@ def check_train_step(root, device, rng):
     results = {}
     for name, step_budget, want_launched in (("train step", None, [2, 2, 1, 1, 0, 0, 1, 0]),
                                              ("pooled train step", budget, [2, 2, 0, 0, 1, 1, 1, 1])):
+        if step_budget is not None:  # the pack right after the selection: no clamp or scan between them
+            following = after_selection(kernel_sequence(lambda: step(device, step_budget), device))
+            print(f"pooled train step: the kernels right after the selection {following}", flush=True)
+            require(len(following) == 1 and "pool_pack_kernel" in (following[0] or ""),
+                    f"the pooled train step launched other kernels between the selection and the pack: {following}")
         for c in counters:
             c.reset()
         got = step(device, step_budget)
@@ -3897,14 +4009,20 @@ def check_frames(root, views, device, rng, modes, bf16):
         budget = None
         if args.occ_budget_per_ray == "auto":
             budget = resolve_auto_budget(cpu.renderer, cpu.grid_state, rays, args.occ_t_eps, quiet=True)
-        outs = []
+        outs, following = [], None
         for s in sessions:
             dev = s.device
             with torch.inference_mode():
                 if occupancy:
-                    out = render_frame_occupancy(
-                        s.renderer, rays.to(dev), s.background, s.grid_state, tile_size=256,
+                    frame = functools.partial(
+                        render_frame_occupancy, s.renderer, rays.to(dev), s.background, s.grid_state, tile_size=256,
                         transmittance_eps=args.occ_t_eps, uniforms=u.to(dev), budget_per_ray=budget)
+                    if budget is not None and dev.type == "cuda":  # a pooled frame's kernels, in order
+                        held = {}
+                        following = after_selection(kernel_sequence(lambda: held.update(out=frame()), dev))
+                        out = held["out"]
+                    else:
+                        out = frame()
                 else:
                     out = render_frame(s.renderer, rays.to(dev), s.background, tile_size=256,
                                        uniforms=[(a.to(dev), b.to(dev)) for a, b in u])
@@ -3921,6 +4039,13 @@ def check_frames(root, views, device, rng, modes, bf16):
             print(f"{name} inputs: optical depth of the {depth.numel()} rays that cross the ball: "
                   f"median {depth.median().item():.3f}, min {depth.min().item():.3f}, "
                   f"max {depth.max().item():.3f}", flush=True)
+        if following is not None:
+            # Each pooled tile packs right after its selection: no clamp or
+            # scan between them (the block-word modes select by plain ops).
+            print(f"{name} frame: the kernels right after each selection {following}", flush=True)
+            require(all("pool_pack_kernel" in (f or "") for f in following)
+                    and (following or "--occ_block_gather" in mode),
+                    f"{name}: a pooled tile launched other kernels between the selection and the pack: {following}")
         require(torch.isfinite(outs[0]).all().item(), f"{name} frame is not finite")
         require(err <= FRAME_BOUND, f"{name} kernel route disagrees with the plain route")
         require(outs[0].std().item() > 1e-3, f"{name} frame is flat")
@@ -4210,7 +4335,7 @@ def main():
             ["parent"], composite_ablations.POOLED_VARIANTS)["parent"])),
         threading.Thread(target=lambda: baked_parts.update(gather=build_gather_libraries(list(gathers), gathers))),
         threading.Thread(target=lambda: baked_parts.update(dx_parent=build_dx_libraries([DX_PARENT])[DX_PARENT])),
-        threading.Thread(target=lambda: baked_parts.update(selection_faults=build_selection_faults())),
+        threading.Thread(target=lambda: baked_parts.update(selection=build_selection_libraries())),
     ]
     for thread in threads:
         thread.start()
@@ -4241,7 +4366,7 @@ def main():
         kernels.append(check_baked_kernel(root, device, np.random.RandomState(SEED + 11), baked_parts["parent"],
                                           baked_parts["probes"]))
         torch.cuda.empty_cache()
-        kernels += check_selection_kernels(device, views, baked_parts["probes"], baked_parts["selection_faults"])
+        kernels += check_selection_kernels(device, views, baked_parts["probes"], baked_parts["selection"])
         torch.cuda.empty_cache()
         check_frames(root, views, device, rng, VANILLA_MODES, bf16=True)
         check_frames(root, views, device, np.random.RandomState(SEED + 2), NGP_MODES, bf16=False)
@@ -4334,8 +4459,11 @@ def main():
         require(served[name]["fused_render"][0] > 0, f"{name} serving never launched fused_render")
     # The selection: every occupancy tile launches select_strided (fixed-K
     # frames once a tile; an auto-pooled frame once more, for its demand),
-    # and every pooled tile pool_pack; the block-word modes keep their plain
-    # candidate test (counted) and pack on the card.
+    # and every pooled tile pool_pack, one launch from the selection's counts
+    # (check_frames and check_train_step hold from a profile that the pack
+    # comes right after the selection, with no clamp or scan between); the
+    # block-word modes keep their plain candidate test (counted) and pack on
+    # the card.
     block_modes = ("ngp live levers", *VANILLA_LEVER_MODES)
     for name in ("occupancy", "ngp occupancy", "ngp baked occupancy", "trained ngp occupancy"):
         tiles_served = baked_tiles * (1 if name.startswith("trained") else REQUESTS)

@@ -14,7 +14,9 @@ pooled inference path sizes its sample pool with the budget buckets below.
 The inference levers' tables are built here too: the max-pooled supergrid
 of two-phase span selection (:func:`superpool_densities`,
 :func:`dilate_supercells`) and the packed block words
-(:func:`pack_block_table`, :meth:`OccupancyGrid.block_indices`).
+(:func:`pack_block_table`, :meth:`OccupancyGrid.block_indices`), whose
+bits (:func:`pack_occupancy_words`) the selection kernel reads, kept on
+each grid state (:meth:`OccupancyGrid.occupancy_words`).
 """
 
 from dataclasses import dataclass
@@ -73,12 +75,13 @@ class OccupancyGrid:
 
     def block_indices(self, x: Tensor) -> Tuple[Tensor, Tensor]:
         """(flat block-word index, bit index) per point for the packed
-        occupancy table (:func:`pack_block_table`); the quantization of
+        occupancy words (:func:`pack_occupancy_words`, the grid padded to
+        whole words; :func:`pack_block_table`); the quantization of
         :meth:`cell_indices`."""
         cell = self._cell_coords(x)
         dx, dy, dz = BLOCK_DIMS
         r = self.resolution
-        nbx, nby = r // dx, r // dy
+        nbx, nby = -(-r // dx), -(-r // dy)
         widx = cell[..., 0] // dx + nbx * (cell[..., 1] // dy + nby * (cell[..., 2] // dz))
         bit = cell[..., 0] % dx + dx * (cell[..., 1] % dy) + dx * dy * (cell[..., 2] % dz)
         return widx, bit
@@ -88,6 +91,24 @@ class OccupancyGrid:
         warmup_updates``.  Its single definition; every occupancy consumer
         routes through here (the selection kernel takes it by value)."""
         return state.step < self.warmup_updates
+
+    def occupancy_words(self, state: OccupancyGridState) -> Tensor:
+        """The state's packed cell bits ``d > threshold``
+        (:func:`pack_occupancy_words`), which the selection kernel reads:
+        built at the first call, kept on the state, and built again
+        whenever ``state.densities`` is another tensor or was changed in
+        place since (its ``_version``).  An inference tensor keeps no
+        version, so its words are built at every call: frames take them
+        from ``OccupancyRenderer.selection_tables``, built once a frame."""
+        densities = state.densities
+        version = None if densities.is_inference() else densities._version
+        key = (self.resolution, self.threshold)
+        cached = getattr(state, "_occupancy_words", None)
+        if cached is not None and version is not None and cached[0] is densities and cached[1:3] == (version, key):
+            return cached[3]
+        words = pack_occupancy_words(densities.detach(), self.resolution, self.threshold)
+        state._occupancy_words = (densities, version, key, words)
+        return words
 
     def occupied_from_bits(self, state: OccupancyGridState, bits: Tensor) -> Tensor:
         """The warmup rule on per-cell threshold tests (``d > threshold``,
@@ -219,10 +240,36 @@ def superpool_densities(densities: Tensor, resolution: int, factor: int) -> Tens
 BLOCK_DIMS = (4, 4, 2)
 
 
+def pack_occupancy_words(densities: Tensor, resolution: int, threshold: float) -> Tensor:
+    """Pack flat ``[r^3]`` cell densities into contiguous int32 words of
+    ``BLOCK_DIMS`` cells, a cell's bit set where ``d > threshold``: word
+    ``bx + ceil(r/4)*(by + ceil(r/4)*bz)``, bit ``x%4 + 4*(y%4) + 16*(z%2)``
+    (:meth:`OccupancyGrid.block_indices`).  A resolution the block dims do
+    not divide is padded to whole words with clear bits, which no cell
+    reads.  ``[r^3/32]`` when they divide: 256 KiB at 128^3.  The bit
+    pattern of each uint32 word is stored as an int32."""
+    r = resolution
+    dx, dy, dz = BLOCK_DIMS
+    nbx, nby, nbz = -(-r // dx), -(-r // dy), -(-r // dz)
+    bits = torch.zeros((nbz * dz, nby * dy, nbx * dx), dtype=torch.int64, device=densities.device)
+    # Flat layout x-fastest -> the [z, y, x] cube (as superpool_densities).
+    bits[:r, :r, :r] = (densities.reshape(r, r, r) > threshold).to(torch.int64)
+    cube = bits.reshape(nbz, dz, nby, dy, nbx, dx)
+    device = densities.device
+    zi = torch.arange(dz, dtype=torch.int64, device=device)
+    yi = torch.arange(dy, dtype=torch.int64, device=device)
+    xi = torch.arange(dx, dtype=torch.int64, device=device)
+    weight = 1 << (xi[None, None, :] + dx * yi[None, :, None] + dx * dy * zi[:, None, None])  # [dz, dy, dx]
+    words = (cube * weight[:, None, :, None, :]).sum(dim=(1, 3, 5)) & 0xFFFFFFFF  # [bz, by, bx]
+    # The uint32 value as the int32 of the same bits (two's complement).
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32).reshape(-1)
+
+
 def pack_block_table(densities: Tensor, resolution: int, threshold: float) -> Tensor:
     """Pack flat ``[r^3]`` cell densities into a ``[r^3/32, 2]`` float32
-    table: column 0 the block's 32 occupancy bits (``d > threshold``) as
-    the bit pattern of a uint32, column 1 the block's max density.
+    table: column 0 the block's 32 occupancy bits (``d > threshold``,
+    :func:`pack_occupancy_words`) as the bit pattern of a uint32, column 1
+    the block's max density.
 
     Block flat index ``bx + (r/4)*(by + (r/4)*bz)``, bit index ``x%4 +
     4*(y%4) + 16*(z%2)``: :meth:`OccupancyGrid.block_indices` computes
@@ -239,19 +286,9 @@ def pack_block_table(densities: Tensor, resolution: int, threshold: float) -> Te
             f"occupancy grid resolution {r} is not divisible by the "
             f"block dims {BLOCK_DIMS} (block-word selection needs it)"
         )
-    # Flat layout x-fastest -> the [z, y, x] cube (as superpool_densities).
     cube = densities.reshape(r // dz, dz, r // dy, dy, r // dx, dx)
-    bits = (cube > threshold).to(torch.int64)
-    device = densities.device
-    zi = torch.arange(dz, dtype=torch.int64, device=device)
-    yi = torch.arange(dy, dtype=torch.int64, device=device)
-    xi = torch.arange(dx, dtype=torch.int64, device=device)
-    weight = 1 << (xi[None, None, :] + dx * yi[None, :, None] + dx * dy * zi[:, None, None])  # [dz, dy, dx]
-    words = (bits * weight[:, None, :, None, :]).sum(dim=(1, 3, 5)) & 0xFFFFFFFF  # [bz, by, bx]
-    # The uint32 value as the int32 of the same bits (two's complement).
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
     dmax = cube.amax(dim=(1, 3, 5)).contiguous().view(torch.int32)
-    table = torch.stack([words.reshape(-1), dmax.reshape(-1)], dim=-1)
+    table = torch.stack([pack_occupancy_words(densities, r, threshold), dmax.reshape(-1)], dim=-1)
     return table.view(torch.float32)  # [nblocks, 2]; flatten order bx-fastest
 
 

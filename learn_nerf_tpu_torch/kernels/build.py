@@ -132,7 +132,7 @@ def bind_selection(lib: ctypes.CDLL) -> ctypes.CDLL:
     """The argument types of ``csrc/selection.cu``'s entry points."""
     ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     lib.nerf_select_strided.argtypes = (
-        [ptr, i64, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32] + [f32] * 7 + [i32] + [f32] * 4 + [ptr] * 7
+        [ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, i32] + [f32] * 7 + [i32] + [f32] * 7 + [ptr] * 7
     )
     lib.nerf_select_strided.restype = i32
     lib.nerf_pool_pack.argtypes = [ptr, i64, ptr, ptr, i64, i32, i64] + [ptr] * 8

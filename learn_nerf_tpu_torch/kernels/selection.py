@@ -15,14 +15,17 @@ survivors ray-major into one pool of ``budget`` samples, slots past the
 budget dropped, the unused tail at the last ray's origin
 (:class:`Pool`).
 
-``csrc/selection.cu``: ``select_strided_kernel`` (a warp a ray) and
-``pool_pack_kernel`` (a thread a sample), with one ``torch.cumsum`` of the
-kept counts ``min(c, K)`` between them.  Every scalar goes by value and
-every shape is static: a launch makes no host copy and no host sync.
-With the prune off both are bit-equal to their plain versions on the card;
-the prune's prefix sum adds in another order than ``torch.cumsum``, so its
-decisions may differ where ``exp(-acc_prev)`` lies within a few ulps of
-``eps``.
+``csrc/selection.cu``: ``select_strided_kernel`` (a warp a ray, its
+occupancy test one bit a cell from the grid's packed words,
+:meth:`~..acceleration.OccupancyGrid.occupancy_words`, built once per grid
+state; with the prune, the density the prune reads anyway) and
+``pool_pack_kernel`` (one launch from the selection's counts: it clamps and
+scans them itself, a lane group a ray).  Every scalar goes by
+value and every shape is static: a launch makes no host copy and no host
+sync.  With the prune off both are bit-equal to their plain versions on
+the card; the prune's prefix sum adds in another order than
+``torch.cumsum``, so its decisions may differ where ``exp(-acc_prev)``
+lies within a few ulps of ``eps``.
 
 :func:`select_strided` and :func:`pool_pack` run the plain versions for
 CPU tensors and the kernels for CUDA tensors, with no fallback between the
@@ -35,7 +38,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..acceleration import OccupancyGrid, OccupancyGridState, compact_occupied_strided
+from ..acceleration import BLOCK_DIMS, OccupancyGrid, OccupancyGridState, compact_occupied_strided
 from ..ops.geometry import ray_bbox_range
 from ..ops.sampling import stratified_ts
 from . import build
@@ -48,9 +51,12 @@ counter = build.LaunchCounter()
 pack_counter = build.LaunchCounter()
 
 # The kernels take K <= 64 samples a ray (the pooled composite kernels'
-# limit), and up to 48 KiB of one ray's candidate ballots: C <= 393,216.
+# limit), up to 48 KiB of one ray's candidate ballots: C <= 393,216, grids
+# of fewer than 2^31 cells and pools of fewer than 2^31 rows.
 MAX_SAMPLES = 64
 MAX_CANDIDATES = 48 * 1024 * 8
+MAX_CELLS = 1 << 31
+MAX_BUDGET = (1 << 31) - 1
 
 
 class Selection(NamedTuple):
@@ -155,8 +161,8 @@ def select_strided_reference(
 
 
 def pack_pool_reference(rays: Tensor, ts: Tensor, sample_mask: Tensor, budget: int) -> Pool:
-    """Plain PyTorch version of ``pool_pack_kernel`` (and of the scan
-    before it), from the selection's ``ts`` and ``sample_mask``."""
+    """The pooled pass's packing as plain ops, from a selection's ``ts``
+    and ``sample_mask``."""
     n, k = ts.shape
     origins, dirs = rays[:, 0], rays[:, 1]
     # Ray-major slots keep each ray's samples contiguous and t-sorted.
@@ -179,6 +185,16 @@ def pack_pool_reference(rays: Tensor, ts: Tensor, sample_mask: Tensor, budget: i
     selected = flat_occ.sum()
     dropped = torch.clamp(selected - budget, min=0)
     return Pool(pool_t, pool_ray, points, dirs_p, starts, selected, dropped)
+
+
+def pack_pool_from_counts_reference(rays: Tensor, ts: Tensor, count: Tensor, budget: int) -> Pool:
+    """Plain PyTorch version of ``pool_pack_kernel``, from the selection's
+    ``ts [N, K]`` and ``count [N]``: :func:`pack_pool_reference` on the
+    sample mask the counts imply, ``arange(K) < min(count, K)`` (a
+    selection's ``sample_mask`` is exactly that, on every route)."""
+    k = ts.shape[1]
+    sample_mask = torch.arange(k, device=ts.device)[None, :] < torch.clamp(count, max=k)[:, None]
+    return pack_pool_reference(rays, ts, sample_mask, budget)
 
 
 def _check_rays(rays: Tensor) -> None:
@@ -211,6 +227,22 @@ def _reciprocal(value: int) -> float:
     return float(np.float32(1.0) / np.float32(value))
 
 
+def _span_reciprocals(grid: OccupancyGrid) -> Tuple[float, float, float]:
+    """Per axis ``1 / (hi - lo)``, the difference and the quotient each
+    rounded to f32: the kernel's residual steps turn ``x * inv`` into the
+    rounded ``x / (hi - lo)``."""
+    span = np.float32(grid.bbox_max) - np.float32(grid.bbox_min)
+    if not ((span >= np.float32(2.0**-60)) & (span <= np.float32(2.0**60))).all():
+        raise ValueError(f"the selection kernel takes bbox sides in [2^-60, 2^60]; got {span.tolist()}")
+    return tuple(float(np.float32(1.0) / s) for s in span)
+
+
+def word_count(resolution: int) -> int:
+    """The packed words of a grid of ``resolution^3`` cells
+    (:func:`~..acceleration.pack_occupancy_words`)."""
+    return int(np.prod([-(-resolution // d) for d in BLOCK_DIMS]))
+
+
 def launch_select_strided(
     rays: Tensor,
     u: Tensor,
@@ -221,13 +253,19 @@ def launch_select_strided(
     transmittance_eps: float = 0.0,
     span: Optional[Span] = None,
     with_points: bool = False,
+    words: Optional[Tensor] = None,
     lib=None,
 ) -> Selection:
-    """Launch ``select_strided_kernel`` on the current stream (``lib``: a
-    build of ``csrc/selection.cu`` other than the package's)."""
+    """Launch ``select_strided_kernel`` on the current stream, with the
+    packed words of ``grid_state`` (``words``: those words built already,
+    as :meth:`~..occ_render.OccupancyRenderer.selection_tables` builds them
+    once a frame; ``lib``: a build of ``csrc/selection.cu`` other than the
+    package's)."""
     _check_card_rays(rays)
     densities = grid_state.densities.detach()
     n, c = u.shape
+    if grid.resolution**3 >= MAX_CELLS:
+        raise ValueError(f"the selection kernel takes grids of fewer than 2^31 cells; got {grid.resolution}^3")
     if not 1 <= samples <= MAX_SAMPLES:
         raise ValueError(f"the selection kernel takes 1 to {MAX_SAMPLES} samples a ray; got {samples}")
     if not 1 <= c <= MAX_CANDIDATES or c * samples >= 1 << 31:
@@ -243,7 +281,13 @@ def launch_select_strided(
             raise ValueError(f"want an f32 span and a bool hit; got {t_lo.dtype}, {t_hi.dtype}, {hit.dtype}")
         if not all(v.is_contiguous() and v.shape == (n,) for v in span):
             raise ValueError(f"want a contiguous [{n}] span and hit")
-    _check_card_device(rays.device, u, densities, *(span or ()))
+    inv_span = _span_reciprocals(grid)
+    if words is None:
+        words = grid.occupancy_words(grid_state)
+    elif words.dtype != torch.int32 or not words.is_contiguous() or words.numel() != word_count(grid.resolution):
+        raise ValueError(f"want the grid's {word_count(grid.resolution)} contiguous int32 words; got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    _check_card_device(rays.device, u, densities, words, *(span or ()))
     device = rays.device
     ts = torch.empty((n, samples), dtype=torch.float32, device=device)
     sample_mask = torch.empty((n, samples), dtype=torch.bool, device=device)
@@ -258,10 +302,10 @@ def launch_select_strided(
     span_ptrs = [v.data_ptr() for v in span] if span is not None else [None] * 3
     with build.launch_context(device):
         err = lib.nerf_select_strided(
-            rays.data_ptr(), rays.stride(0), u.data_ptr(), densities.data_ptr(), *span_ptrs, n, c, samples,
-            grid.resolution, *map(float, grid.bbox_min), *map(float, grid.bbox_max), float(grid.threshold),
+            rays.data_ptr(), rays.stride(0), u.data_ptr(), words.data_ptr(), densities.data_ptr(), *span_ptrs, n, c,
+            samples, grid.resolution, *map(float, grid.bbox_min), *map(float, grid.bbox_max), float(grid.threshold),
             int(grid.in_warmup(grid_state)), float(min_t_range), float(transmittance_eps), _reciprocal(c),
-            _reciprocal(samples), ts.data_ptr(), sample_mask.data_ptr(), dt.data_ptr(), mask.data_ptr(),
+            _reciprocal(samples), *inv_span, ts.data_ptr(), sample_mask.data_ptr(), dt.data_ptr(), mask.data_ptr(),
             count.data_ptr(), points.data_ptr() if points is not None else None, build.current_stream(device),
         )
     build.check_launch(lib, err, "select_strided")
@@ -269,29 +313,26 @@ def launch_select_strided(
     return selection
 
 
-def kept_scan(count: Tensor, samples: int) -> Tensor:
-    """The inclusive scan of the kept counts ``min(c, K)``, int32 [N]: the
-    one plain op between the two kernels."""
-    return torch.cumsum(torch.clamp(count, max=samples), dim=0, dtype=torch.int32)
-
-
 def launch_pool_pack(
-    rays: Tensor, ts: Tensor, cum: Tensor, budget: int, out: Optional[Pool] = None, lib=None
+    rays: Tensor, ts: Tensor, count: Tensor, budget: int, out: Optional[Pool] = None, lib=None
 ) -> Pool:
     """Launch ``pool_pack_kernel`` on the current stream, from the
-    selection's ``ts [N, K]`` and :func:`kept_scan`'s ``cum [N]`` (``out``:
-    buffers to write in place of new ones)."""
+    selection's ``ts [N, K]`` and ``count [N]`` (int32, not clamped: the
+    kernel clamps and scans them itself; ``out``: buffers to write in place
+    of new ones)."""
     _check_card_rays(rays)
     n, k = ts.shape
     if n < 1 or budget < 1:
         raise ValueError(f"a pool needs a ray and a slot; got {n} rays, budget {budget}")
+    if budget > MAX_BUDGET:
+        raise ValueError(f"the pack kernel takes a budget under 2^31; got {budget}")
     if not 1 <= k <= MAX_SAMPLES:
         raise ValueError(f"the pack kernel takes 1 to {MAX_SAMPLES} samples a ray; got {k}")
-    if ts.dtype != torch.float32 or cum.dtype != torch.int32 or cum.shape != (n,):
-        raise ValueError(f"want f32 ts and an int32 [{n}] scan; got {ts.dtype}, {cum.dtype} {tuple(cum.shape)}")
-    if not (ts.is_contiguous() and cum.is_contiguous()):
-        raise ValueError("the pack kernel takes contiguous ts and scan")
-    _check_card_device(rays.device, ts, cum)
+    if ts.dtype != torch.float32 or count.dtype != torch.int32 or count.shape != (n,):
+        raise ValueError(f"want f32 ts and int32 [{n}] counts; got {ts.dtype}, {count.dtype} {tuple(count.shape)}")
+    if not (ts.is_contiguous() and count.is_contiguous()):
+        raise ValueError("the pack kernel takes contiguous ts and counts")
+    _check_card_device(rays.device, ts, count)
     device = rays.device
     if out is None:
         out = Pool(
@@ -306,7 +347,7 @@ def launch_pool_pack(
     lib = lib or build.library()
     with build.launch_context(device):
         err = lib.nerf_pool_pack(
-            rays.data_ptr(), rays.stride(0), ts.data_ptr(), cum.data_ptr(), n, k, budget, out.t.data_ptr(),
+            rays.data_ptr(), rays.stride(0), ts.data_ptr(), count.data_ptr(), n, k, budget, out.t.data_ptr(),
             out.ray.data_ptr(), out.points.data_ptr(), out.dirs.data_ptr(), out.starts.data_ptr(),
             out.selected.data_ptr(), out.dropped.data_ptr(), build.current_stream(device),
         )
@@ -331,6 +372,7 @@ def select_strided(
     transmittance_eps: float = 0.0,
     span: Optional[Span] = None,
     with_points: bool = False,
+    words: Optional[Tensor] = None,
 ) -> Selection:
     """K strided survivors a ray of C candidates (``C = u.shape[1]``).
 
@@ -339,6 +381,10 @@ def select_strided(
     :param span: optional ``(t_lo [N], t_hi [N], hit [N] bool)`` of the
         two-phase span lever: the range the candidates fill.
     :param with_points: also return the survivors' points.
+    :param words: the state's packed cell bits for the kernel, built
+        already (else it takes the state's own,
+        :meth:`~..acceleration.OccupancyGrid.occupancy_words`); the plain
+        version reads the densities.
     """
     _check_rays(rays)
     if u.dim() != 2 or u.shape[0] != rays.shape[0]:
@@ -349,18 +395,19 @@ def select_strided(
         counter.plain_calls += 1
         return select_strided_reference(rays, u, grid, grid_state, samples, min_t_range, transmittance_eps, span,
                                         with_points)
-    return _cuda_launcher(rays, u, grid, grid_state, samples, min_t_range, transmittance_eps, span, with_points)
+    return _cuda_launcher(rays, u, grid, grid_state, samples, min_t_range, transmittance_eps, span, with_points,
+                          words)
 
 
 def pool_pack(rays: Tensor, selection: Selection, budget: int) -> Pool:
     """Pack a selection's survivors ray-major into ``budget`` pool rows;
     slots at or past ``budget`` are dropped, never clamped (the trailing
-    rays lose samples), and the unused tail holds the last ray at t = 0."""
+    rays lose samples), and the unused tail holds the last ray at t = 0.
+    On the card one launch, from the selection's ``ts`` and ``count``."""
     _check_rays(rays)
     if budget < 1:
         raise ValueError(f"a pool needs at least one sample, got budget {budget}")
     if rays.device.type == "cpu":
         pack_counter.plain_calls += 1
-        return pack_pool_reference(rays, selection.ts, selection.sample_mask, budget)
-    cum = kept_scan(selection.count, selection.ts.shape[1])
-    return _cuda_pack_launcher(rays, selection.ts, cum, budget)
+        return pack_pool_from_counts_reference(rays, selection.ts, selection.count, budget)
+    return _cuda_pack_launcher(rays, selection.ts, selection.count, budget)

@@ -186,14 +186,20 @@ class OccupancyRenderer:
     def selection_tables(self, grid_state: OccupancyGridState) -> Dict[str, Tensor]:
         """The frame-invariant tables of the levers that are on: ``block``
         (the packed grid), ``span_sup`` (the dilated supergrid) and
-        ``span_block`` (the supergrid packed).  Empty with every lever
-        off; each consumer builds its table itself when its key is
-        absent."""
+        ``span_block`` (the supergrid packed); and on the card, where the
+        selection kernel runs, ``words`` (its packed cell bits,
+        :meth:`~.acceleration.OccupancyGrid.occupancy_words`: once a frame
+        even for a state made under ``torch.inference_mode``, whose
+        densities keep no version to cache on).  Empty with every lever
+        off on the CPU; each consumer builds its table itself when its key
+        is absent."""
         tables: Dict[str, Tensor] = {}
         densities = grid_state.densities.detach()
         r = self.grid.resolution
         if self.block_gather_stride > 0:
             tables["block"] = pack_block_table(densities, r, self.grid.threshold)
+        elif densities.device.type != "cpu":
+            tables["words"] = self.grid.occupancy_words(grid_state)
         if self.span_candidates > 0 and r % self.span_pool_factor == 0:
             rs = r // self.span_pool_factor
             sup = superpool_densities(densities, r, self.span_pool_factor)
@@ -266,7 +272,7 @@ class OccupancyRenderer:
             cand_ts, occ, dt, mask = self._select_candidates(rays, grid_state, transmittance_eps, u=u, tables=tables)
             return compact_reference(rays, cand_ts, occ, dt, mask, self.samples, with_points)
         return select_strided(rays, u, self.grid, grid_state, self.samples, self.min_t_range, transmittance_eps,
-                              self._span(rays, grid_state, tables), with_points)
+                              self._span(rays, grid_state, tables), with_points, words=(tables or {}).get("words"))
 
     def _block_word_occupancy(
         self, cand_pts: Tensor, grid_state: OccupancyGridState, table: Optional[Tensor] = None
