@@ -137,8 +137,22 @@ nonzero):
    and gradients on the card (kernel route) against the plain route on the
    CPU, with no table left without its gradient, dense and pooled (at the
    batch's auto budget), and the pooled step at a budget that holds every
-   survivor against the dense step on the card; the selection levers'
-   frames the same way (NGP pooled with ``--occ_span_candidates 64``, and
+   survivor against the dense step on the card; the occupancy loop's
+   step graph (``check_graph_step``): ``step_auto`` as CUDA-graph replays,
+   dense across the grid's warmup exit and auto-pooled on the ball grid,
+   96 steps each against eager ``step()`` from the graph loop's own state
+   and draws (forward values and grid bit for bit, ``grad_norm`` within
+   its bound), 96 free-running steps within the eager route's run-to-run
+   noise, one replay a step after the first, one capture a key, a handful
+   of host launches a replayed step in the profile, whose trace runs each
+   of the port's kernels as often as the counters claim, the composite
+   ticket back at 0, replays of a graph captured at 4096 rays bit-equal to
+   eager steps after steps of 8192 rays outgrew its composite scratch
+   (kept, not freed), three deliberate faults caught (words not rebuilt after a
+   refresh, the batch not copied into its buffer, the logged values read
+   after the next replay), and a full state saved on the CPU resumed on
+   the card;
+   the selection levers' frames the same way (NGP pooled with ``--occ_span_candidates 64``, and
    with ``--occ_block_gather 4 --occ_span_block_gather 4`` too, NGP
    fixed-K with ``--occ_block_gather 1``, vanilla ``--bf16 --occupancy``
    with ``--occ_block_gather 2``, baked pooled with span 64) and their
@@ -177,7 +191,9 @@ nonzero):
    --occupancy`` on it at full width (16 levels of 2^18 rows, 192 -> 32
    samples, a 128^3 grid, batch 4096) for 96 steps: every loss finite and
    falling, the encode, table-gradient, composite and selection kernels
-   launched on every step and no plain version called, six grid refreshes;
+   launched on every step and no plain version called, six grid refreshes,
+   every step after the first a graph replay (in every occupancy run of
+   ``train_nerf`` below too);
    then the
    same run pooled, the flagship ``--occ_train_budget auto`` from step 36
    with ``--steps_per_dispatch 8`` (the macro step 32-39 straddles the
@@ -282,6 +298,13 @@ PSNR, mean SSIM]}}`` (the five seeds that set GATE_FLOOR).
 runs phase 8's ranks against one process alone, twelve times, and prints
 each run's fine loss gaps by step, of the ranks to one process and of one
 process to itself (the runs that set DP_LOSS_BOUND).
+
+    python3 chip_smoke.py --graph_runs 12
+
+runs ``check_graph_step``'s free-running comparison alone, twelve times,
+dense and pooled, and prints each run's fine loss and parameter gaps of the
+graph route and of the eager route to the eager route (the runs that set
+GRAPH_LOSS_BOUND and GRAPH_PARAM_BOUND).
 """
 
 import argparse
@@ -704,6 +727,38 @@ MESH_FRAME_MODES = {"vanilla hierarchy --bf16": ([], True), "vanilla occupancy -
                     "ngp hierarchy": (NGP_MODES["ngp hierarchy"], False),
                     "ngp pooled": (NGP_MODES["ngp pooled"], False)}
 CV_FOLDS, CV_STEPS = 2, 16
+# The step graph (check_graph_step): OccupancyTrainLoop.step_auto as
+# CUDA-graph replays against eager step() fed the same draws, at
+# bench_occupancy's width on the train scene with the density penalty,
+# GRAPH_STEPS steps dense (from the loop's own grid, across its warmup exit)
+# and auto-pooled from step 0 (on the scene's ball grid, past warmup, whose
+# refreshes change its words), each route from train_nerf's loop with one
+# seed.  Each step against an eager step from the graph loop's own state:
+# the forward values (the losses, param_norm, the pool's drops) and the
+# grid are bit-equal, as no sum changes order before the backward;
+# grad_norm, after hashgrid_backward's atomics, within
+# GRAPH_GRAD_NORM_BOUND (an H100 measured it bit-equal on every step of
+# six runs).  This catches each deliberate fault (GRAPH_FAULTS, on the
+# pooled run's first GRAPH_FAULT_STEPS steps, two refreshes).
+# Free-running, the atomics add in another order on each route, and Adam
+# at eps 1e-15 turns a near-zero gradient of either sign into a whole step,
+# so two eager runs part as far as the graph route and an eager one do
+# (``--graph_runs 12`` on an H100, 96 steps, largest of the twelve, dense:
+# fine loss 3.67e-2 graph to eager, 2.57e-2 eager to itself; parameters'
+# relative L2 distance 3.21e-2 and 2.94e-2; pooled 3.6e-5 / 2.3e-5 and
+# 3.1e-3 / 3.0e-3): the loss and parameter bounds are about four times the
+# dense ones.  A replayed step makes at most GRAPH_HOST_LAUNCHES launches on
+# the host (an H100 profiled 13 dense and 14 pooled: the draws, the batch's
+# copy, the replay, the logged values' clones, then Adam's foreach
+# launches, eager after the replay).
+GRAPH_STEPS, GRAPH_FAULT_STEPS, GRAPH_SEED = 96, 24, SEED + 21
+GRAPH_LOSS_BOUND, GRAPH_PARAM_BOUND, GRAPH_GRAD_NORM_BOUND = 0.15, 0.13, 1e-5
+GRAPH_HOST_LAUNCHES = 16
+# A wrapper's launch counter by the name its CUDA kernel carries
+# (profile_render.PORT_KERNELS), where the two differ.
+COUNTER_KERNELS = {"composite": "composite_forward", "composite_pooled": "composite_pooled_forward"}
+GRAPH_FAULTS = ("words not rebuilt after a refresh", "the batch not copied into its buffer",
+                "the logged values read after the next replay")
 
 
 def require(ok, message):
@@ -2848,6 +2903,377 @@ def check_train_step(root, device, rng):
             "the pooled step at an ample budget disagrees with the dense step")
 
 
+def graph_flags(root, pooled):
+    """check_graph_step's train flags: bench_occupancy's width, the density
+    penalty, auto pooling from step 0 when ``pooled``."""
+    pool = ["--occ_train_budget", "auto", "--occ_train_budget_start", "0"] if pooled else []
+    return ["--instant_ngp", "--occupancy", "--seed", str(SEED), "--lr", "1e-2", "--batch_size", str(TRAIN_RAYS),
+            "--occ_warmup", str(TRAIN_WARMUP), "--density_penalty", "1e-3", *pool, str(root / "train")]
+
+
+def graph_loop(root, device, pooled):
+    """train_nerf's loop of ``graph_flags`` on ``device`` (the model from
+    ``torch.manual_seed(SEED)``); the pooled one on the scene's ball grid
+    (``ngp.pkl``'s, past warmup), whose refreshes then change its words."""
+    from learn_nerf_tpu_torch.checkpoint import load_params_pickle
+    from learn_nerf_tpu_torch.data.dataset import ModelMetadata
+    from learn_nerf_tpu_torch.scripts import train_nerf
+
+    args = train_nerf.build_parser().parse_args(graph_flags(root, pooled))
+    torch.manual_seed(SEED)
+    loop = train_nerf.make_loop(args, ModelMetadata.from_json(str(root / "train" / "metadata.json")), args.lr,
+                                device)
+    if pooled:
+        loop.grid_state = loop.grid.state_from_checkpoint(load_params_pickle(str(root / "ngp.pkl")), device)
+    return loop
+
+
+def graph_batches(root, device, steps, rays_a_batch=TRAIN_RAYS):
+    """``steps`` batches of ``rays_a_batch`` rays of the train scene, drawn from
+    GRAPH_SEED, on ``device``."""
+    from learn_nerf_tpu_torch.data.dataset import load_dataset
+
+    rays = np.concatenate([view.rays() for view in load_dataset(str(root / "train")).views])
+    rng = np.random.RandomState(GRAPH_SEED)
+    return [torch.from_numpy(rays[rng.choice(rays.shape[0], rays_a_batch, replace=False)]).to(device)
+            for _ in range(steps)]
+
+
+def relative_l2(a, b):
+    """``||a - b|| / ||b||`` over lists of tensors."""
+    num = sum(float((x.detach().double() - y.detach().double()).pow(2).sum()) for x, y in zip(a, b))
+    den = sum(float(y.detach().double().pow(2).sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def graph_against_eager(root, device, pooled, steps):
+    """``steps`` free-running steps of the graph route (``step_auto``) and
+    of two eager loops from the same start (``step()`` fed the graph loop's
+    draws of each step: the candidate and penalty draws from its static
+    buffers, the refresh's from the same seed).  Returns the fine loss's
+    relative gaps by step of the graph loop to the first eager loop and of
+    the second eager loop to the first (every dict read after the run), the
+    parameters' relative L2 gaps at the end likewise, and the graph loop."""
+    batches = graph_batches(root, device, steps)
+    graph, eager, again = (graph_loop(root, device, pooled) for _ in range(3))
+    got, want, noise = [], [], []
+    for batch in batches:
+        got.append(graph.step_auto(GRAPH_SEED, batch))
+        draws = graph_draws(graph)
+        for loop, out in ((eager, want), (again, noise)):
+            out.append(loop.step(batch, generator=refresh_generator(loop, device), **draws))
+
+    def gaps(a, b):
+        return [abs(float(x["fine"]) - float(y["fine"])) / float(y["fine"]) for x, y in zip(a, b)]
+
+    params = (relative_l2(graph._leaves(), eager._leaves()), relative_l2(again._leaves(), eager._leaves()))
+    return gaps(got, want), gaps(noise, want), params, graph
+
+
+def graph_draws(loop, rays=TRAIN_RAYS):
+    """The draws the graph loop's prologue made for its last step of
+    ``rays`` rays (copies of its static buffers), as ``step()`` takes
+    them."""
+    inputs = loop._inputs[rays]
+    return dict(u=inputs["u"].clone(), density_draws=(inputs["coords_u"].clone(), inputs["dirs_normal"].clone()))
+
+
+def refresh_generator(loop, device):
+    """A generator seeded as ``step_auto`` seeds a grid refresh before
+    ``loop``'s next step."""
+    from learn_nerf_tpu_torch.train import GRID_TAG, fold_seed
+
+    return torch.Generator(device=device).manual_seed(fold_seed(GRAPH_SEED, GRID_TAG, loop._host_step))
+
+
+def sync_loop(src, dst):
+    """``dst`` (a loop that steps eagerly) at ``src``'s state: parameters,
+    Adam's moments and step counts, the grid, the counters and the auto
+    budget."""
+    from learn_nerf_tpu_torch.acceleration import OccupancyGridState
+
+    with torch.no_grad():
+        for a, b in zip(dst._leaves(), src._leaves()):
+            a.copy_(b)
+    for a, b in zip(dst._leaves(), src._leaves()):
+        dst.optimizer.state[a] = {k: v.clone() for k, v in src.optimizer.state[b].items()}
+    dst.grid_state = OccupancyGridState(src.grid_state.densities.clone(), src.grid_state.step)
+    dst._host_step, dst.step_count, dst._opt_count = src._host_step, src.step_count, src._opt_count
+    dst._auto_per_ray, dst._auto_resolved_at = src._auto_per_ray, src._auto_resolved_at
+
+
+def graph_in_step(root, device, pooled, steps):
+    """``steps`` steps of the graph route, each against eager ``step()``
+    from the graph loop's state just before it (copied into an eager loop)
+    and fed its draws.  Returns the graph loop and, by step, both routes'
+    logged values (the graph loop's dicts read after the run) and whether
+    both grids are bit-equal after the step."""
+    batches = graph_batches(root, device, steps)
+    graph, eager = graph_loop(root, device, pooled), graph_loop(root, device, pooled)
+    got, want, grids = [], [], []
+    for batch in batches:
+        sync_loop(graph, eager)
+        got.append(graph.step_auto(GRAPH_SEED, batch))
+        want.append(eager.step(batch, generator=refresh_generator(eager, device), **graph_draws(graph)))
+        grids.append(torch.equal(graph.grid_state.densities, eager.grid_state.densities))
+    floats = [[{k: float(v) for k, v in values.items()} for values in route] for route in (got, want)]
+    return graph, *floats, grids
+
+
+def graph_sizes(root, device):
+    """The composite backward's scratch across batch sizes on the dense
+    graph loop, from a scratch as small as a fresh process's: steps of
+    TRAIN_RAYS rays (the first eager, the second captured), one eager
+    ``step()`` and two ``step_auto`` steps of twice as many (their scratch
+    outgrows the captured one, and their key is captured), three steps of
+    TRAIN_RAYS (replays of the first graph) and one of twice as many.
+    Each ``step_auto`` step is held against eager ``step()`` from the
+    graph loop's state and draws.  Returns the graph loop, both routes'
+    logged values and the grids' agreement by step (as ``graph_in_step``),
+    whether the outgrown scratch was retired rather than freed, and the
+    replays and captures."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+
+    big = 2 * TRAIN_RAYS
+    card = torch.empty(0, device=device).device  # the scratch's key: the device with its index
+    ticket, partials = kc._scratch[card]
+    kc._retired.append(partials)
+    kc._scratch[card] = (ticket, torch.empty(0, device=card))
+    small, large = graph_batches(root, device, 5), graph_batches(root, device, 3, big)
+    graph, eager = graph_loop(root, device, False), graph_loop(root, device, False)
+    got, want, grids = [], [], []
+
+    def compare(batch):
+        sync_loop(graph, eager)
+        got.append(graph.step_auto(GRAPH_SEED, batch))
+        want.append(eager.step(batch, generator=refresh_generator(eager, device),
+                               **graph_draws(graph, batch.shape[0])))
+        grids.append(torch.equal(graph.grid_state.densities, eager.grid_state.densities))
+
+    for batch in small[:2]:
+        compare(batch)
+    captured = kc._scratch[card][1]
+    draws = torch.Generator(device=device).manual_seed(GRAPH_SEED)
+    graph.step(large[0], generator=refresh_generator(graph, device),
+               u=torch.rand((big, graph.renderer.candidates), generator=draws, device=device),
+               density_draws=(torch.rand((graph.density_penalty_batch_size, 3), generator=draws, device=device),
+                              torch.randn((graph.density_penalty_batch_size, 3), generator=draws, device=device)))
+    for batch in (*large[1:], *small[2:], large[1]):
+        compare(batch)
+    outgrown = kc._scratch[card][1] is not captured
+    retired = any(t is captured for t in kc._retired)
+    floats = [[{k: float(v) for k, v in values.items()} for values in route] for route in (got, want)]
+    return graph, *floats, grids, outgrown and retired, (graph.graph_replays, graph.captures)
+
+
+def in_step_faults(got, want, grids):
+    """The steps whose forward values (all but ``grad_norm``, which the
+    backward's atomics move) or grid differ between the routes, and the
+    largest relative gap of ``grad_norm``."""
+    differ = [i for i, (a, b, same) in enumerate(zip(got, want, grids))
+              if not same or {k: v for k, v in a.items() if k != "grad_norm"}
+              != {k: v for k, v in b.items() if k != "grad_norm"}]
+    return differ, max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"] for a, b in zip(got, want))
+
+
+@contextlib.contextmanager
+def graph_fault(name):
+    """Inside, the graph route has the deliberate fault ``name`` (one of
+    GRAPH_FAULTS)."""
+    from learn_nerf_tpu_torch import step_graph
+    from learn_nerf_tpu_torch.acceleration import StaticGridState
+    from learn_nerf_tpu_torch.train import OccupancyTrainLoop
+
+    if name == GRAPH_FAULTS[0]:
+        owner, attr = StaticGridState, "follow"
+        original = StaticGridState.follow
+
+        def faulty(self, state):  # the words of the first state, kept through every refresh
+            out = original(self, state)
+            first = self.__dict__.setdefault("_first_words", self.words.clone())
+            self.words.copy_(first)
+            return out
+    elif name == GRAPH_FAULTS[1]:
+        owner, attr = OccupancyTrainLoop, "_hot_step"
+        original = OccupancyTrainLoop._hot_step
+
+        def faulty(self, batch, budget):  # the buffer keeps the first batch
+            return original(self, self.__dict__.setdefault("_first_batch", batch), budget)
+    else:
+        owner, attr = step_graph, "_unpacked"
+        original = step_graph._unpacked
+
+        def faulty(outputs):  # views of the graph's outputs, which the next replay writes
+            order, groups = outputs
+            values = {key: stacked[i] for stacked, keys in groups.values() for i, key in enumerate(keys)}
+            return {key: values[key] for key in order}
+    setattr(owner, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, original)
+
+
+def check_graph_step(root, device):
+    """The occupancy loop's hot route on the card: ``step_auto`` as
+    CUDA-graph replays, dense and auto-pooled (see GRAPH_STEPS and the
+    lines before it): every step against eager ``step()`` from the same
+    state and draws (the forward values and the grid bit-equal,
+    ``grad_norm`` within GRAPH_GRAD_NORM_BOUND), GRAPH_STEPS free-running
+    steps within GRAPH_LOSS_BOUND and GRAPH_PARAM_BOUND of the eager route
+    (the eager route against itself printed beside), one replay a step
+    after the first and one capture a key, at most GRAPH_HOST_LAUNCHES host
+    launches a replayed step and, in its trace, each of the port's kernels
+    run as many times as the counters claim for it, the composite ticket
+    back at 0, the launch counters moved once a step on each route; the
+    same across batch sizes (``graph_sizes``); each deliberate fault
+    (GRAPH_FAULTS) caught; and a full state saved on the CPU resumed on the
+    card, its next step the CPU's and the graph route going on."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+
+    for pooled in (False, True):
+        name = "pooled (auto)" if pooled else "dense"
+        counters = kernel_counters()
+        for c in counters.values():
+            c.reset()
+        loop, got, want, grids = graph_in_step(root, device, pooled, GRAPH_STEPS)
+        counts = {k: c.launches for k, c in counters.items()}
+        differ, grad_gap = in_step_faults(got, want, grids)
+        keys = sorted(loop._graphs._graphs, key=str)
+        print(f"graph step, {name}, {GRAPH_STEPS} steps, each against eager step() from its state: forward values "
+              f"or grid differ at steps {differ}; grad_norm gap max {grad_gap:.3e} (bound "
+              f"{GRAPH_GRAD_NORM_BOUND:g}); first steps {got[:2]} vs {want[:2]}; {loop.graph_replays} replays, "
+              f"{loop.captures} captures, keys {keys}", flush=True)
+        require(not differ and grad_gap <= GRAPH_GRAD_NORM_BOUND,
+                f"graph step, {name}: the replayed steps disagree with the eager steps")
+        require(loop.graph_replays == GRAPH_STEPS - 1 and loop.captures == len(keys) >= (1 if pooled else 2),
+                f"graph step, {name}: {loop.graph_replays} replays and {loop.captures} captures in {GRAPH_STEPS} "
+                "steps")
+        ticket = int(kc._scratch[loop.background.device][0].item())
+        require(ticket == 0, f"graph step, {name}: the composite ticket stands at {ticket} after the replays")
+        # Two loops took each step: a step's launches, counted once on each
+        # route (the table-gradient kernel twice a step: the batch's points
+        # and the density penalty's).
+        require(counts["select_strided"] >= 2 * GRAPH_STEPS and counts["hashgrid_backward"] == 4 * GRAPH_STEPS
+                and counts["composite_backward"] + counts["composite_pooled_backward"] == 2 * GRAPH_STEPS,
+                f"graph step, {name}: the launch counters did not move once a step on each route: {counts}")
+        while loop._refresh_due():
+            loop.step_auto(GRAPH_SEED, graph_batches(root, device, 1)[0])
+        batch = graph_batches(root, device, 1)[0]
+
+        def replay():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loop.step_auto(GRAPH_SEED, batch)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        before = {k: c.launches for k, c in counters.items()}
+        replay()
+        claimed = {COUNTER_KERNELS.get(k, k): c.launches - before[k] for k, c in counters.items()
+                   if c.launches != before[k]}
+        seen = profiled(replay, device, list(counters.values()))
+        print(f"graph step, {name}: a replayed step under the profiler: {seen['host_launches']} host launches, "
+              f"{seen['kernels_launched']} kernels, {seen['device_ms']:.3f} device ms of {seen['profiled_ms']:.3f} "
+              f"ms; the port's kernels it ran {seen['port_calls']}, the launches its counters claim {claimed}",
+              flush=True)
+        require(1 <= seen["host_launches"] <= GRAPH_HOST_LAUNCHES,
+                f"graph step, {name}: a replayed step made {seen['host_launches']} host launches")
+        require(claimed and seen["port_calls"] == claimed,
+                f"graph step, {name}: the replayed step ran the port's kernels {seen['port_calls']}, but its "
+                f"counters claim {claimed}")
+        del loop
+        gaps, noise, (param_gap, param_noise), loop = graph_against_eager(root, device, pooled, GRAPH_STEPS)
+        print(f"graph step, {name}, {GRAPH_STEPS} free-running steps: fine loss gap to the eager route max "
+              f"{max(gaps):.3e} (bound {GRAPH_LOSS_BOUND:g}; the eager route to itself {max(noise):.3e}); parameters' "
+              f"relative L2 gap {param_gap:.3e} (bound {GRAPH_PARAM_BOUND:g}; eager to itself {param_noise:.3e})",
+              flush=True)
+        require(max(gaps) <= GRAPH_LOSS_BOUND and param_gap <= GRAPH_PARAM_BOUND,
+                f"graph step, {name}: the graph route strayed from the eager route")
+        del loop
+        torch.cuda.empty_cache()
+
+    loop, got, want, grids, kept, (replays, captures) = graph_sizes(root, device)
+    del loop
+    differ, grad_gap = in_step_faults(got, want, grids)
+    print(f"graph step across batch sizes ({TRAIN_RAYS} rays captured, {2 * TRAIN_RAYS} eager and captured, "
+          f"{TRAIN_RAYS} replayed): forward values or grid differ at steps {differ}; grad_norm gap max "
+          f"{grad_gap:.3e}; the captured composite scratch outgrown and kept {kept}; {replays} replays, "
+          f"{captures} captures", flush=True)
+    require(not differ and grad_gap <= GRAPH_GRAD_NORM_BOUND and kept and (replays, captures) == (len(got) - 1, 2),
+            "graph step across batch sizes: the replays disagree with the eager steps, or the scratch a graph "
+            "captured was freed")
+    torch.cuda.empty_cache()
+
+    for fault in GRAPH_FAULTS:
+        with graph_fault(fault):
+            loop, got, want, grids = graph_in_step(root, device, True, GRAPH_FAULT_STEPS)
+        del loop
+        differ, _ = in_step_faults(got, want, grids)
+        print(f"graph step fault, {fault}: the routes differ at steps {differ}", flush=True)
+        require(differ, f"graph step: the fault '{fault}' went unseen")
+    torch.cuda.empty_cache()
+
+    # A full state saved on the CPU resumes on the card: the same step with
+    # the same draws gives the CPU's loss; then the graph route goes on.
+    loop = graph_loop(root, device, False)
+    cpu = graph_loop(root, torch.device("cpu"), False)
+    batches = [b.cpu() for b in graph_batches(root, torch.device("cpu"), 2)]
+    rng = np.random.RandomState(GRAPH_SEED)
+    draws = [dict(u=torch.from_numpy(rng.rand(TRAIN_RAYS, 192).astype(np.float32)),
+                  density_draws=(torch.from_numpy(rng.rand(128, 3).astype(np.float32)),
+                                 torch.from_numpy(rng.randn(128, 3).astype(np.float32)))) for _ in range(2)]
+    generator = torch.Generator().manual_seed(GRAPH_SEED)
+    cpu.step(batches[0], generator=generator, **draws[0])
+    path = root / "cpu_state.pt"
+    cpu.save_full(str(path))
+    loop.load_full(str(path))
+    path.unlink()
+    cpu_loss = float(cpu.step(batches[1], generator=generator, **draws[1])["fine"])
+    card = dict(u=draws[1]["u"].to(device), density_draws=tuple(d.to(device) for d in draws[1]["density_draws"]))
+    card_loss = float(loop.step(batches[1].to(device), generator=refresh_generator(loop, device), **card)["fine"])
+    gap = abs(card_loss - cpu_loss) / cpu_loss
+    for batch in graph_batches(root, device, 2):
+        values = loop.step_auto(GRAPH_SEED, batch)
+    print(f"a full state saved on the CPU, resumed on the card: the next step's loss {card_loss:.7f} vs the CPU's "
+          f"{cpu_loss:.7f} (relative {gap:.2e}, bound {STEP_BOUNDS_CPU[0]:g}); then {loop.graph_replays} replay(s), "
+          f"fine {float(values['fine']):.6f}", flush=True)
+    require(gap <= STEP_BOUNDS_CPU[0] and loop.graph_replays == 1 and np.isfinite(float(values["fine"])),
+            "a full state saved on the CPU did not resume on the card")
+    del loop, cpu
+    torch.cuda.empty_cache()
+
+
+def graph_runs(n):
+    """``--graph_runs``: check_graph_step's comparison alone, ``n`` times
+    on the card, dense and pooled; prints each run's largest fine loss gap
+    and parameter gap of the graph route and of the eager route to the
+    eager route, then one JSON line of them all."""
+    from learn_nerf_tpu_torch.kernels import build
+    from learn_nerf_tpu_torch.scripts.common import default_device
+
+    device = default_device()
+    print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    results = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=build.BUILD_DIR) as tmp:
+        root = Path(tmp)
+        with contextlib.redirect_stdout(io.StringIO()):
+            write_scene(root, np.random.RandomState(SEED))
+        write_train_scene(root / "train", np.random.RandomState(SEED + 7))
+        for run in range(n):
+            for pooled in (False, True):
+                gaps, noise, params, loop = graph_against_eager(root, device, pooled, GRAPH_STEPS)
+                del loop
+                results.append(dict(run=run, pooled=pooled, graph=gaps, eager=noise, params=params))
+                print(f"graph run {run}, {'pooled' if pooled else 'dense'}: fine loss gap max, graph {max(gaps):.3e}, "
+                      f"eager to itself {max(noise):.3e}; parameters, graph {params[0]:.3e}, eager to itself "
+                      f"{params[1]:.3e}", flush=True)
+                torch.cuda.empty_cache()
+    print(json.dumps({"graph_runs": results}))
+    return 0
+
+
 def write_train_scene(root, rng, views=TRAIN_VIEWS):
     """A posed dataset of the ball the occupancy grid models: PNG + JSON
     views from a sphere of radius 2, the ball (radius 0.45) coloured by
@@ -2910,14 +3336,14 @@ def plain_called(counts):
 @contextlib.contextmanager
 def recording_steps():
     """Inside, every gradient step of either train loop appends its logging
-    dict (tensors on the card, read after the run) and its lr to the
-    yielded list."""
+    dict (tensors on the card, read after the run; a replayed step's is its
+    own clone) and its lr to the yielded list."""
     from learn_nerf_tpu_torch import train
 
     original, steps = train.grad_step, []
 
-    def grad_step(loop, loss_fn):
-        values = original(loop, loss_fn)
+    def grad_step(loop, loss_fn, *graph):
+        values = original(loop, loss_fn, *graph)
         steps.append((values, loop.optimizer.param_groups[0]["lr"]))
         return values
 
@@ -2975,6 +3401,10 @@ def train_run(root, name, flags, checkpoint, steps=TRAIN_STEPS, data="train", st
     rate = {n: n / (marks[steps] - marks[steps - n]) for n in (64, 48) if steps - n in marks and steps in marks}
     notes = [line for line in text.splitlines() if line.startswith(("auto pool budget", "cosine", "skipping"))]
     grid = f"; grid updates {loop.grid_state.step}" if hasattr(loop, "grid_state") else ""
+    if hasattr(loop, "graph_replays"):  # the occupancy loop: every step after the first a graph replay
+        grid += f"; {loop.graph_replays} graph replays, {loop.captures} captures"
+        require(loop.graph_replays == done - 1 and loop.captures >= 1,
+                f"{name}: {loop.graph_replays} graph replays and {loop.captures} captures in {done} steps")
     print(f"{name}, {len(records)} steps of {rays} rays: first step(s) "
           f"{marks[min(marks.keys() - {0})] - marks[0]:.3f} s (dataset, shuffle and model set-up included); "
           + "; ".join(f"last {n} steps {r:.2f} steps/s, {r * rays:.0f} rays/s" for n, r in rate.items())
@@ -4285,6 +4715,9 @@ def main():
     parser.add_argument("--dp_runs", type=int, default=None,
                         help="run only the data-parallel comparison (ranks against one process), this many times, "
                              "and print each run's loss gaps")
+    parser.add_argument("--graph_runs", type=int, default=None,
+                        help="run only the step graph's comparison (graph route against eager steps), this many "
+                             "times, and print each run's loss and parameter gaps")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke test runs on the card", file=sys.stderr)
@@ -4293,6 +4726,8 @@ def main():
         return gate_seeds(args.gate_seeds)
     if args.dp_runs is not None:
         return dp_runs(args.dp_runs)
+    if args.graph_runs is not None:
+        return graph_runs(args.graph_runs)
     started = time.perf_counter()
 
     from learn_nerf_tpu_torch.kernels import build
@@ -4379,6 +4814,8 @@ def main():
         torch.cuda.empty_cache()
         write_train_scene(root / "train", np.random.RandomState(SEED + 7))
         check_train_step(root, device, np.random.RandomState(SEED + 8))
+        torch.cuda.empty_cache()
+        check_graph_step(root, device)
         torch.cuda.empty_cache()
         hierarchy_step_check(root, device, np.random.RandomState(SEED + 14))
         served, setups, bake = {}, {}, {}

@@ -17,6 +17,10 @@ of two-phase span selection (:func:`superpool_densities`,
 (:func:`pack_block_table`, :meth:`OccupancyGrid.block_indices`), whose
 bits (:func:`pack_occupancy_words`) the selection kernel reads, kept on
 each grid state (:meth:`OccupancyGrid.occupancy_words`).
+
+A captured train step reads the grid through :class:`StaticGridState`: one
+densities storage and one words buffer that every new state is copied
+into, since a CUDA graph reads the addresses it captured.
 """
 
 from dataclasses import dataclass
@@ -36,6 +40,19 @@ class OccupancyGridState:
 
     densities: Tensor
     step: int
+
+
+def bbox_tensors(owner, device: Union[str, torch.device]) -> Tuple[Tensor, Tensor]:
+    """``(bbox_min [3], bbox_max [3])`` of ``owner`` (a grid or a renderer:
+    anything with those two fields) as f32 tensors on ``device``, built once
+    per device and kept on ``owner``: a tensor made from Python numbers is a
+    host copy, which a captured step may not make."""
+    device = torch.device(device)
+    corners = owner.__dict__.setdefault("_bbox_by_device", {})
+    if device not in corners:
+        corners[device] = tuple(torch.tensor(v, dtype=torch.float32, device=device)
+                                for v in (owner.bbox_min, owner.bbox_max))
+    return corners[device]
 
 
 @dataclass(frozen=True)
@@ -62,8 +79,7 @@ class OccupancyGrid:
 
     def _cell_coords(self, x: Tensor) -> Tensor:
         """Integer (x, y, z) cell coordinates: the one quantization rule."""
-        bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=x.device)
-        bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=x.device)
+        bbox_min, bbox_max = bbox_tensors(self, x.device)
         frac = ((x - bbox_min) / (bbox_max - bbox_min)).clamp(0.0, 1.0 - 1e-7)
         return (frac * self.resolution).to(torch.int64)
 
@@ -113,8 +129,7 @@ class OccupancyGrid:
     def occupied_from_bits(self, state: OccupancyGridState, bits: Tensor) -> Tensor:
         """The warmup rule on per-cell threshold tests (``d > threshold``,
         or a block word's bit): all true in warmup (:meth:`in_warmup`)."""
-        warm = torch.tensor(self.in_warmup(state), device=bits.device)
-        return bits | warm
+        return bits | self.in_warmup(state)
 
     def occupied_from_densities(self, state: OccupancyGridState, d: Tensor) -> Tensor:
         """Occupancy test on already-gathered cell densities: all true while
@@ -167,8 +182,7 @@ class OccupancyGrid:
             [ids % r, torch.div(ids, r, rounding_mode="floor") % r,
              torch.div(ids, r * r, rounding_mode="floor")], dim=-1,
         )
-        bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=ids.device)
-        bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=ids.device)
+        bbox_min, bbox_max = bbox_tensors(self, ids.device)
         frac = (coords.to(torch.float32) + jitter) / r
         return bbox_min + frac * (bbox_max - bbox_min)
 
@@ -220,6 +234,39 @@ class OccupancyGrid:
             densities = state.densities * decay
             densities.scatter_reduce_(0, ids, density, reduce="amax", include_self=True)
         return OccupancyGridState(densities=densities, step=state.step + 1)
+
+
+class StaticGridState:
+    """The grid as a captured train step reads it: one densities storage
+    and one buffer of its packed words (:func:`pack_occupancy_words`), both
+    overwritten in place whenever the loop's state changes.  A CUDA graph
+    reads the addresses it captured, so a new state's densities are copied
+    into the storage (:meth:`OccupancyGrid.update` keeps returning new
+    ones, the JAX contract) and its words rebuilt into the buffer, outside
+    the graph: a stale buffer would select wrong samples with no error, and
+    a rebuild inside the graph would repack every cell on every replay."""
+
+    def __init__(self, grid: OccupancyGrid):
+        self.grid = grid
+        self.densities: Optional[Tensor] = None
+        self.words: Optional[Tensor] = None
+        self._source = None  # (state, its words) last copied
+
+    def follow(self, state: OccupancyGridState) -> OccupancyGridState:
+        """``state`` over the storage: its densities and its words
+        (:meth:`OccupancyGrid.occupancy_words`, which decides when they are
+        stale) copied in whenever ``state`` or those words are not the ones
+        last copied, else nothing.  The storage keeps ``state``'s step."""
+        words = self.grid.occupancy_words(state)
+        if self._source is None or self._source[0] is not state or self._source[1] is not words:
+            densities = state.densities.detach()
+            if self.densities is None:
+                self.densities, self.words = densities.clone(), words.clone()
+            else:
+                self.densities.copy_(densities)
+                self.words.copy_(words)
+            self._source = (state, words)
+        return OccupancyGridState(densities=self.densities, step=state.step)
 
 
 def superpool_densities(densities: Tensor, resolution: int, factor: int) -> Tensor:

@@ -41,9 +41,18 @@ class LaunchCounter:
     launches: int = 0
     plain_calls: int = 0
 
+    def __post_init__(self):
+        COUNTERS.append(self)
+
     def reset(self) -> None:
         self.launches = 0
         self.plain_calls = 0
+
+
+# Every LaunchCounter made, in order: a captured train step records which
+# ones its capture moved, and moves them again at each replay
+# (step_graph.StepGraphs).
+COUNTERS = []
 
 
 _lock = threading.Lock()

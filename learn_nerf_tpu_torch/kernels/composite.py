@@ -44,7 +44,7 @@ autograd) and the kernels for CUDA tensors, with no fallback between the
 two.
 """
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -190,15 +190,24 @@ def _launch_forward(densities, deltas, rgbs, background, mask, extras, per_sampl
 # sum (zeroed once, then reset by every launch) and one slot of 3 floats a
 # block (never zeroed).  Launches that share them run in stream order.
 _scratch: Dict[torch.device, Tuple[Tensor, Tensor]] = {}
+# Slots that a larger launch outgrew, kept alive: a CUDA graph that captured
+# a launch writes the slots it captured at every replay.
+_retired: List[Tensor] = []
 
 
 def _background_scratch(device: torch.device, blocks: int) -> Tuple[Tensor, Tensor]:
     ticket, partials = _scratch.get(device, (None, None))
+    if ticket is not None and partials.numel() >= 3 * blocks:
+        return ticket, partials
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"the composite backward's scratch for {blocks} blocks is made while a CUDA graph "
+                           "captures: run the launch once eagerly first, so that it lives outside the graph's pool")
     if ticket is None:
         ticket = torch.zeros(1, dtype=torch.int32, device=device)
-    if partials is None or partials.numel() < 3 * blocks:
-        partials = torch.empty(3 * blocks, dtype=torch.float32, device=device)
-        _scratch[device] = (ticket, partials)
+    else:
+        _retired.append(partials)
+    partials = torch.empty(3 * blocks, dtype=torch.float32, device=device)
+    _scratch[device] = (ticket, partials)
     return ticket, partials
 
 

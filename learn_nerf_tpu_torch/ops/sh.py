@@ -68,10 +68,13 @@ def spherical_harmonics(degree: int, coords: Tensor) -> Tensor:
 
 
 def sh_band_indices(degree: int, device=None) -> Tensor:
-    """Band index ``l`` of each SH coefficient, shape ``[degree^2]`` (f32)."""
-    return torch.tensor(
-        [l for l in range(degree) for _ in range(2 * l + 1)], dtype=torch.float32, device=device
-    )
+    """Band index ``l`` of each SH coefficient, shape ``[degree^2]`` (f32):
+    coefficient ``i`` lies in band ``l`` when ``l^2 <= i < (l+1)^2``.
+    Computed on ``device`` (a tensor made from a Python list is a host copy,
+    which a captured train step may not make)."""
+    i = torch.arange(degree * degree, device=device)
+    squares = torch.arange(1, degree, device=device) ** 2
+    return (squares[None, :] <= i[:, None]).sum(dim=1).to(torch.float32)
 
 
 def integrated_dir_enc(degree: int, coords: Tensor, roughness: Tensor) -> Tensor:

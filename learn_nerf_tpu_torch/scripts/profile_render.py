@@ -16,9 +16,13 @@ and prints one JSON line for the view:
   ``gemm_ms`` the device time of all its matrix products (the kernels
   whose name holds ``gemm``: cuBLAS's and CUTLASS's);
 * ``port_kernels``: device time and share of each of the port's own
-  kernels (``csrc/``) that ran in that call;
+  kernels (``csrc/``) that ran in that call, and ``port_calls`` how many
+  times each ran (a CUDA graph's replay runs its kernels one by one in
+  the trace);
 * ``kernels_launched``: the number of kernels the card ran in that call,
   and ``memsets`` the number of memsets;
+* ``host_launches``: the launch calls the host made in that call (kernels,
+  memsets, copies; a CUDA graph's replay counts one);
 * ``host_top``: the host ops with the most self time in that call (on the
   host's clock: where an idle card waits), with their call counts.
 
@@ -46,6 +50,11 @@ from ..data.camera import CameraView
 from .render_nerf import RenderSession, argparser as render_argparser
 
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+# The host's launch calls in a trace (the CUDA runtime's and the lower API's):
+# a kernel, a memset or copy enqueued, or a CUDA graph's replay (one call).
+HOST_API_CATEGORIES = ("cuda_runtime", "cuda_driver")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
+                "cuGraphLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
 # The port's hand-written kernels, by the name their CUDA function carries.
 PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode",
                 "hashgrid_backward", "hashgrid_dx", "hashgrid_dx_backward", "composite_forward",
@@ -93,6 +102,18 @@ def device_summary(trace_events, top=3):
     return _busy_ms(spans), ranked, dict(ours)
 
 
+def port_kernel_calls(trace_events) -> dict:
+    """``{port kernel: runs}`` of a Chrome trace's kernels (matched as
+    :func:`device_summary` matches them)."""
+    calls = defaultdict(int)
+    for e in trace_events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for kernel in PORT_KERNELS:
+                if f"{kernel}_kernel" in e["name"]:
+                    calls[kernel] += 1
+    return dict(calls)
+
+
 def host_summary(averages, top=5):
     """``[{name, self_ms, calls}]`` of the host ops with the most self time."""
     ranked = sorted(averages, key=lambda a: -a.self_cpu_time_total)[:top]
@@ -121,8 +142,9 @@ def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> 
 def profile_call(call, device: torch.device) -> dict:
     """One call of ``call`` (which returns its own host-clock latency in ms)
     under ``torch.profiler``: ``profiled_ms``, ``device_ms``,
-    ``idle_share``, ``top``, ``port_kernels``, ``kernels_launched``,
-    ``memsets`` and ``host_top`` as the module doc describes them."""
+    ``idle_share``, ``top``, ``port_kernels``, ``port_calls``, ``kernels_launched``,
+    ``host_launches``, ``memsets`` and ``host_top`` as the module doc
+    describes them."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -135,7 +157,9 @@ def profile_call(call, device: torch.device) -> dict:
         top=None,
         gemm_ms=None,
         port_kernels=None,
+        port_calls=None,
         kernels_launched=None,
+        host_launches=None,
         memsets=None,
         host_top=host_summary(prof.key_averages()),
     )
@@ -150,6 +174,8 @@ def profile_call(call, device: torch.device) -> dict:
             kernels_launched=sum(
                 1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
             ),
+            host_launches=sum(1 for e in events if e.get("ph") == "X" and e.get("cat") in HOST_API_CATEGORIES
+                              and e.get("name") in LAUNCH_CALLS),
             memsets=sum(1 for e in events if e.get("ph") == "X" and e.get("cat") == "gpu_memset"),
             device_ms=busy,
             idle_share=1.0 - busy / profiled,
@@ -157,6 +183,7 @@ def profile_call(call, device: torch.device) -> dict:
             gemm_ms=sum(float(e["dur"]) / 1e3 for e in events
                         if e.get("ph") == "X" and e.get("cat") == "kernel" and "gemm" in e["name"]),
             port_kernels={name: dict(ms=ms, share=ms / busy) for name, ms in ours.items()},
+            port_calls=port_kernel_calls(events),
         )
     return result
 

@@ -8,19 +8,32 @@ Takes ``train_nerf``'s flags and its ``data_dir`` and prints one JSON line:
   loop's ``step_auto`` (each synchronised at its end), after
   ``--warmup_steps`` untimed ones; ``median_ms`` their median, and
   ``refresh_step_ms`` those of them that began with a grid refresh;
+* ``host_ms``: the host's own time of each of those steps, until
+  ``step_auto`` returned (what it takes to enqueue the step), and
+  ``host_median_ms`` their median;
+* ``graph_replays`` and ``captures``: the occupancy loop's step graphs
+  over the whole run (on the card ``step_auto`` replays a captured graph,
+  ``learn_nerf_tpu_torch.step_graph``; 0 on the CPU and in the
+  hierarchy's loop, whose steps run eagerly), and ``graph_pool_bytes``
+  the card's memory in the loop's graphs' pool (0 without graphs),
+  ``reserved_bytes`` all the caching allocator holds, after the timed
+  steps (``null`` on the CPU);
 * ``rays_per_s``: the batch size over the median step;
 * ``profiled_ms``, ``device_ms``, ``idle_share``, ``top``,
-  ``port_kernels``, ``kernels_launched``, ``memsets``, ``host_top``: one
-  more step (on the occupancy path one without a grid refresh) under
-  ``torch.profiler``, as
-  :mod:`.profile_render` reports a render;
+  ``port_kernels``, ``port_calls``, ``kernels_launched``, ``host_launches``, ``memsets``,
+  ``host_top``: one more step (on the occupancy path one without a grid
+  refresh) under ``torch.profiler``, as :mod:`.profile_render` reports a
+  render (``host_launches``: the launches the host made, a graph's
+  replay one);
 * ``composite_host_us``: the composite kernels' wrappers' own host time a
   call (forward, backward; the pool layout's on a pooled step), on the
   host's clock around each call over the timed steps: their checks,
   allocations and ctypes call, which in a host-bound step delay every
-  launch after them;
+  launch after them (``null`` when the timed steps were graph replays,
+  which call no wrapper);
 * ``matmul_flops``, ``tflops``, ``mfu``: one more step's matrix-product
-  FLOPs (:func:`~..utils.flops.traced_flops`, forward and backward) over
+  FLOPs (:func:`~..utils.flops.traced_flops`, forward and backward, on an
+  eager ``step()``: a replay dispatches no operator to count) over
   the median step, against the H100's peak for the models' GEMM dtype
   (the JAX package's ``bench.py`` roofline; ``null`` on the CPU).
 
@@ -120,7 +133,7 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
     over ``batches`` (an iterator of ``[N, 3, 3]`` batches on the loop's
     device)."""
     device = loop.device
-    refreshed, dropped = [], []
+    refreshed, dropped, enqueued = [], [], []
     refresh_due = getattr(loop, "_refresh_due", lambda: False)  # the hierarchy has no grid
 
     def step():
@@ -129,6 +142,7 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
         _sync(device)
         t0 = time.perf_counter()
         values = loop.step_auto(base_seed, batch)
+        enqueued.append((time.perf_counter() - t0) * 1e3)
         _sync(device)
         if "fine_pool_dropped" in values:
             dropped.append(values["fine_pool_dropped"])
@@ -136,13 +150,20 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
 
     for _ in range(warmup_steps):  # first-use costs stay out of the numbers
         step()
-    del refreshed[:]
+    del refreshed[:], enqueued[:]
     # The dense pair's launchers and, where the checkout has them, the pool
     # layout's (scripts/profile_trees.py runs this function in others).
     launchers = [name for name in ("_forward_launcher", "_backward_launcher", "_pooled_forward_launcher",
                                    "_pooled_backward_launcher") if hasattr(kc, name)]
     with timed_launchers(kc, launchers) as host:
         times = [step() for _ in range(repeats)]
+    host_ms = enqueued[:repeats]
+    pool_bytes = reserved = None
+    if device.type == "cuda":
+        reserved = torch.cuda.memory_reserved(device)
+        pool = getattr(getattr(loop, "_graphs", None), "_pool", None)
+        pool_bytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                         if pool is not None and tuple(s.get("segment_pool_id", ())) == tuple(pool))
     with_refresh = [ms for ms, due in zip(times, refreshed) if due]
     while refresh_due():  # profile a step without a grid refresh
         step()
@@ -151,24 +172,27 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
 
     def per_call(kind):  # a step calls the dense or the pooled pair
         seconds, calls = (sum(v[i] for name, v in host.items() if kind in name) for i in (0, 1))
-        return seconds / max(calls, 1) * 1e6
+        return seconds / calls * 1e6 if calls else None
 
     result = dict(
-        step_ms=times, median_ms=median, refresh_step_ms=with_refresh,
+        step_ms=times, median_ms=median, refresh_step_ms=with_refresh, host_ms=host_ms,
+        host_median_ms=statistics.median(host_ms), graph_pool_bytes=pool_bytes, reserved_bytes=reserved,
         rays_per_s=batch_size / median * 1e3, batch_size=batch_size,
         composite_host_us=dict(forward=per_call("forward"), backward=per_call("backward")),
         **profile_call(step, device),
     )
-    # One more step under the FLOP counter: its matmul FLOPs over the
+    # One more step under the FLOP counter, eager: its matmul FLOPs over the
     # median step, against the peak of the models' GEMM dtype.
     while refresh_due():
         step()
-    cost = traced_flops(step)
+    generator = torch.Generator(device=device).manual_seed(base_seed)
+    cost = traced_flops(lambda: loop.step(next(batches), generator=generator))
     bf16 = any(getattr(m, "compute_dtype", "float32") == "bfloat16" for m in loop._models.values())
     rates = roofline(cost, median / 1e3, dtype="bfloat16" if bf16 else "float32") if device.type == "cuda" else {}
     result.update(matmul_flops=cost and cost["flops"], tflops=rates.get("tflops"), mfu=rates.get("mfu"))
     if dropped:
         result["fine_pool_dropped"] = max(int(v) for v in dropped)
+    result.update(graph_replays=getattr(loop, "graph_replays", 0), captures=getattr(loop, "captures", 0))
     return result
 
 

@@ -15,13 +15,18 @@ and occupancy, ``--bf16`` and f32; the three NGP modes in f32;
 ``scripts/profile_render.py``: one warm-up render at 256x256, five timed,
 one profiled); with ``--pooled`` also ``bench_pooled``'s cell
 (``profile_train.py --pooled``: the dense and the auto-pooled step on a
-frozen 5 %-occupied grid).  Checkouts run in the order given on even turns
-and in the reverse order on odd ones (A B, then B A).
+frozen 5 %-occupied grid); with ``--train_rates`` also ``train_nerf``'s
+steps/s and rays/s over the last 64 and 48 of 96 steps, dense and pooled
+(``chip_smoke.train_run`` with ``chip_smoke.py``'s phase-6 flags, the
+checkout's own).  Checkouts run in the order given on even turns and in
+the reverse order on odd ones (A B, then B A).
 
-Every run counts the memsets of each profiled call, and times the train
-steps with this checkout's ``profile_train.profile_steps`` whichever
-checkout it runs, so that the composite kernels' wrappers are timed on the
-host during the timed steps (``composite_host_us``) the same way in each.  Prints
+Every run counts the memsets of each profiled call, and times and profiles
+the train steps with this checkout's ``profile_train.profile_steps`` and
+``profile_render.profile_call`` whichever checkout it runs, so that the
+composite kernels' wrappers are timed on the host during the timed steps
+(``composite_host_us``), and the host's launches counted, the same way in
+each.  Prints
 one JSON line per checkout, turn and mode (with the checkout's path and
 the card's name and power limit), and writes them to ``--out``.
 """
@@ -33,7 +38,7 @@ import subprocess
 import sys
 from pathlib import Path
 
-from . import profile_train
+from . import profile_render, profile_train
 
 # Runs inside a checkout: only that checkout's code is imported.
 RUN = r'''
@@ -83,15 +88,29 @@ try:
     flags = ["--instant_ngp", "--occupancy", "--seed", str(cs.SEED), "--lr", "1e-2",
              "--batch_size", str(cs.TRAIN_RAYS), "--occ_warmup", str(cs.TRAIN_WARMUP), str(root / "train")]
     args = profile_train.argparser().parse_args(flags + ["--repeats", os.environ["PROFILE_REPEATS"]])
-    # Every checkout's steps are timed by the same profile_steps: the one of
-    # the checkout that runs this script.
-    profile_train.kc, profile_train.contextlib = kc, contextlib
+    # Every checkout's steps are timed and profiled by the same profile_steps
+    # and profile_call: the ones of the checkout that runs this script.
+    profile_train.kc, profile_train.contextlib, profile_train.tempfile, profile_train.json = (
+        kc, contextlib, tempfile, json)
+    profile_train.device_summary, profile_train.host_summary = (profile_render.device_summary,
+                                                                profile_render.host_summary)
     exec(os.environ["PROFILE_STEPS_SOURCE"], profile_train.__dict__)
     emit("ngp occupancy train step", profile_train.profile_args(args))
     if os.environ["PROFILE_POOLED"] == "1":
         pooled = profile_train.argparser().parse_args(flags + ["--repeats", os.environ["PROFILE_REPEATS"], "--pooled"])
         for half, result in profile_train.profile_args(pooled).items():
             emit(f"ngp occupancy train step, bench_pooled grid, {half}", result)
+    if os.environ["PROFILE_RATES"] == "1":
+        base = flags[:-1]
+        pooled_flags = [*base, "--occ_train_budget", "auto", "--occ_train_budget_start", str(cs.POOL_START),
+                        "--steps_per_dispatch", "8"]
+        for run, run_flags in (("train_nerf", base), ("train_nerf pooled", pooled_flags)):
+            with open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+                _, _, rate, loop = cs.train_run(root, run, run_flags, run.replace(" ", "_") + ".pkl")
+            emit(run, dict(steps_per_s=rate, rays_per_s={n: r * cs.TRAIN_RAYS for n, r in rate.items()},
+                           graph_replays=getattr(loop, "graph_replays", None)))
+            del loop
+            torch.cuda.empty_cache()
     view = CameraView.from_json(str(root / "0000.json"))
     runs = [(name, mode, bf16) for name, mode in cs.VANILLA_MODES.items() for bf16 in (True, False)]
     runs += [(name, mode, False) for name, mode in cs.NGP_MODES.items()]
@@ -115,19 +134,24 @@ def main(argv=None):
     parser.add_argument("--repeats", type=int, default=16, help="timed train steps a run")
     parser.add_argument("--train_only", action="store_true", help="profile the train step, no render mode")
     parser.add_argument("--pooled", action="store_true", help="also profile bench_pooled's dense and pooled step")
+    parser.add_argument("--train_rates", action="store_true",
+                        help="also time train_nerf's last steps, dense and pooled (chip_smoke's train flags)")
     args = parser.parse_args(argv)
     trees = [str(Path(t).resolve()) for t in args.trees]
     for tree in trees:
         if not (Path(tree) / "chip_smoke.py").exists():
             parser.error(f"{tree} holds no chip_smoke.py")
-    steps_source = inspect.getsource(profile_train.timed_launchers) + "\n\n" + inspect.getsource(
-        profile_train.profile_steps)
+    steps_source = "\n\n".join([
+        f"HOST_API_CATEGORIES = {profile_render.HOST_API_CATEGORIES!r}",
+        f"LAUNCH_CALLS = {profile_render.LAUNCH_CALLS!r}",
+        inspect.getsource(profile_render.profile_call), inspect.getsource(profile_train.timed_launchers),
+        inspect.getsource(profile_train.profile_steps)])
     lines = []
     for turn in range(args.turns):
         for tree in trees if turn % 2 == 0 else trees[::-1]:
             env = dict(os.environ, PROFILE_TREE=tree, PROFILE_TURN=str(turn), PROFILE_STEPS_SOURCE=steps_source,
                        PROFILE_REPEATS=str(args.repeats), PROFILE_RENDERS="0" if args.train_only else "1",
-                       PROFILE_POOLED="1" if args.pooled else "0")
+                       PROFILE_POOLED="1" if args.pooled else "0", PROFILE_RATES="1" if args.train_rates else "0")
             proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, env=env, capture_output=True,
                                   text=True, timeout=args.timeout)
             if proc.returncode != 0:

@@ -22,6 +22,16 @@ given explicitly (``u_coarse=``, ``u_fine=``, ``u=``, ``density_draws=``,
 ``grid_ids=``, ``grid_jitter=``), which is how the parity tests feed both
 packages the same numbers.
 
+On the card the occupancy loop's ``step_auto`` and ``step_auto_many``
+replay a captured CUDA graph of the step (:mod:`.step_graph`): a host
+prologue (the grid refresh when due, the step's draws into static buffers,
+the batch copied into its buffer), one replay of the body (the loss, its
+gradients and the norms), then Adam and the EMA, eagerly, as on every
+route.  The loop stays eager under a process group, in ``step()`` with the
+caller's draws (the reference route the graph is held against), on the
+CPU (the same prologue, the body run eagerly) and in the hierarchy's
+loop.
+
 On the card the hierarchy's step runs the composite kernels, forward and
 backward, once a pass (:mod:`.kernels.composite`), and with Instant-NGP
 models the all-level hash-grid encode and its table-gradient kernel once a
@@ -78,7 +88,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .acceleration import OccupancyGrid, OccupancyGridState, auto_budget_from_demand
+from .acceleration import OccupancyGrid, OccupancyGridState, StaticGridState, auto_budget_from_demand, bbox_tensors
 from .checkpoint import (
     checkpoint_from_flax,
     checkpoint_to_flax,
@@ -93,6 +103,7 @@ from .occ_render import OccupancyRenderer
 from .ops.sampling import uniform
 from .parallel.mesh import Mesh, all_reduce_mean_, barrier, broadcast_, reduce_values, shard_batch
 from .render import Renderer
+from .step_graph import step_graphs
 
 Tensor = torch.Tensor
 Schedule = Callable[[int], float]
@@ -170,11 +181,6 @@ def average_density(
     return densities.mean()
 
 
-def _bbox(renderer, device) -> Tuple[Tensor, Tensor]:
-    return (torch.tensor(renderer.bbox_min, dtype=torch.float32, device=device),
-            torch.tensor(renderer.bbox_max, dtype=torch.float32, device=device))
-
-
 def compute_losses(
     renderer: Renderer,
     background: Tensor,
@@ -217,7 +223,7 @@ def compute_losses(
                 torch.randn((density_penalty_batch_size, 3), generator=generator, device=device),
             )
         for prefix, model in (("fine", renderer.fine), ("coarse", renderer.coarse)):
-            penalty = average_density(model, *_bbox(renderer, device), density_penalty_batch_size,
+            penalty = average_density(model, *bbox_tensors(renderer, device), density_penalty_batch_size,
                                       *density_draws)
             loss_dict[f"{prefix}_density"] = penalty
             total = total + density_penalty * penalty
@@ -246,7 +252,7 @@ def _single_model_loss_tail(
     if density_penalty is not None:
         coords_u, dirs_normal = density_draws if density_draws is not None else (None, None)
         penalty = average_density(
-            renderer.model, *_bbox(renderer, outputs.device), density_penalty_batch_size,
+            renderer.model, *bbox_tensors(renderer, outputs.device), density_penalty_batch_size,
             coords_u=coords_u, dirs_normal=dirs_normal, generator=generator,
         )
         loss_dict["fine_density"] = penalty
@@ -265,6 +271,7 @@ def compute_losses_occupancy(
     u: Optional[Tensor] = None,
     density_draws: Optional[Tuple[Tensor, Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    tables: Optional[Dict[str, Tensor]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """Total loss and the logging dict of one ray batch on the occupancy
     path.  The field's parameters are ``renderer.model``'s.
@@ -273,8 +280,11 @@ def compute_losses_occupancy(
     :param u: optional ``[N, candidates]`` uniforms for the candidate draw.
     :param density_draws: optional ``(uniforms [B, 3], normals [B, 3])`` of
         the density penalty.
+    :param tables: optional selection tables
+        (:meth:`~.occ_render.OccupancyRenderer.selection_tables`): the
+        captured step passes its static ``words``.
     """
-    out, aux = renderer.render_rays(batch[:, :2], background, grid_state, u=u, generator=generator)
+    out, aux = renderer.render_rays(batch[:, :2], background, grid_state, u=u, generator=generator, tables=tables)
     return _single_model_loss_tail(
         renderer, out["outputs"], aux, batch[:, 2], loss_weights, density_penalty,
         density_penalty_batch_size, density_draws=density_draws, generator=generator,
@@ -294,6 +304,7 @@ def compute_losses_occupancy_pooled(
     u: Optional[Tensor] = None,
     density_draws: Optional[Tuple[Tensor, Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    tables: Optional[Dict[str, Tensor]] = None,
 ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """The pooled variant of :func:`compute_losses_occupancy`: the field
     model runs on one pool of ``budget`` samples
@@ -301,10 +312,10 @@ def compute_losses_occupancy_pooled(
     logged dict adds ``fine_pool_dropped``, the survivors that did not fit
     (0 in a healthy run: a dropped sample starves its ray of gradient).
     ``transmittance_eps`` > 0 prunes candidates the grid marks occluded
-    before pooling.  The same draws as the dense loss.
+    before pooling.  The same draws and tables as the dense loss.
     """
     out = renderer.render_rays_pooled(
-        batch[:, :2], background, grid_state, budget, transmittance_eps, u=u, generator=generator
+        batch[:, :2], background, grid_state, budget, transmittance_eps, u=u, generator=generator, tables=tables
     )
     total, loss_dict = _single_model_loss_tail(
         renderer, out["outputs"], out["aux"], batch[:, 2], loss_weights, density_penalty,
@@ -314,14 +325,35 @@ def compute_losses_occupancy_pooled(
     return total, loss_dict
 
 
-def grad_step(loop: "_Trainer", loss_fn: Callable[[], Tuple[Tensor, Dict[str, Tensor]]]) -> Dict[str, Tensor]:
-    """THE gradient step both loops take (JAX's ``_grad_step``): the loss
-    with its logging dict from ``loss_fn()``, the gradients, ``grad_norm`` /
-    ``param_norm`` (before the update), the Adam step at the schedule's
-    lr, the step counters and the optional EMA.  Under data parallelism
-    the gradients are averaged over the ranks before the norms, and the
-    logged values reduced (:meth:`_Trainer._reduce`).  Returns the logging
-    dict of 0-dim tensors (on the device: read them late)."""
+def grad_step(loop: "_Trainer", loss_fn: Callable[[], Tuple[Tensor, Dict[str, Tensor]]], graphs=None,
+              key=None) -> Dict[str, Tensor]:
+    """THE gradient step both loops take (JAX's ``_grad_step``): the body
+    (:func:`grad_body`: the loss with its logging dict from ``loss_fn()``,
+    the gradients and the norms), the Adam step at the schedule's lr, the
+    step counters and the optional EMA.  With ``graphs`` (a
+    :class:`~.step_graph.StepGraphs`), the body runs as the replay of
+    ``key``'s CUDA graph, which leaves its gradients in the leaves'
+    ``.grad``.  Returns the logging dict of 0-dim tensors (on the device:
+    read them late)."""
+    body = lambda: grad_body(loop, loss_fn)  # noqa: E731
+    values = body() if graphs is None else graphs.run(key, body, loop._leaves())
+    for group in loop.optimizer.param_groups:
+        group["lr"] = loop._schedule(loop._opt_count)
+    loop.optimizer.step()
+    loop._opt_count += 1
+    loop.step_count += 1
+    if loop.ema_decay is not None:
+        loop._ema_step()
+    return values
+
+
+def grad_body(loop: "_Trainer", loss_fn: Callable[[], Tuple[Tensor, Dict[str, Tensor]]]) -> Dict[str, Tensor]:
+    """The device work of a gradient step up to the optimizer: the loss and
+    its logging dict from ``loss_fn()``, the gradients and ``grad_norm`` /
+    ``param_norm`` (before the update).  Under data parallelism the
+    gradients are averaged over the ranks before the norms, and the logged
+    values reduced (:meth:`_Trainer._reduce`).  No host-side state moves
+    here: it is what a step graph captures."""
     loop.optimizer.zero_grad(set_to_none=True)
     total, values = loss_fn()
     total.backward()
@@ -331,13 +363,6 @@ def grad_step(loop: "_Trainer", loss_fn: Callable[[], Tuple[Tensor, Dict[str, Te
     values = loop._reduce({k: v.detach() for k, v in values.items()})
     values["grad_norm"] = tree_norm(p.grad for p in leaves)
     values["param_norm"] = tree_norm(leaves)
-    for group in loop.optimizer.param_groups:
-        group["lr"] = loop._schedule(loop._opt_count)
-    loop.optimizer.step()
-    loop._opt_count += 1
-    loop.step_count += 1
-    if loop.ema_decay is not None:
-        loop._ema_step()
     return values
 
 
@@ -687,6 +712,13 @@ class OccupancyTrainLoop(_Trainer):
     printed.  ``pool_t_eps`` > 0 also prunes grid-occluded candidates, which
     the JAX package measured harmful while the grid still trains.
 
+    On the card, :meth:`step_auto` and :meth:`step_auto_many` replay a
+    captured CUDA graph of each step (:mod:`.step_graph`), one graph per
+    ``(rays, pool budget or None, grid in warmup)``, captured at its first
+    use after the run's first (eager) step; ``graph_replays`` and
+    ``captures`` count them.  The loop stays eager under a process group
+    and in :meth:`step`, which takes the caller's draws, on every device.
+
     :param model: the field model; the loop moves it to ``device`` and
         trains its parameters in place.
     :param lr: a float, or a schedule of the optimizer step
@@ -757,19 +789,36 @@ class OccupancyTrainLoop(_Trainer):
         self._host_step = 0  # host steps (the refresh cadence, the pooled switch)
         self._init_training(dict(fine=self.model), lr, adam_b1, adam_b2, adam_eps, ema_decay)
         self.grid_state = self.grid.init(self.device)
+        # The hot route's buffers: the grid the body reads, and per batch
+        # size the batch and the step's draws (_hot_step).
+        self._static_grid = StaticGridState(self.grid)
+        self._inputs: Dict[int, Dict[str, Tensor]] = {}
+        self._graphs = step_graphs(self.device, self._dp)
+
+    @property
+    def graph_replays(self) -> int:
+        """Steps the card ran as a graph replay (0 where steps run eagerly)."""
+        return 0 if self._graphs is None else self._graphs.replays
+
+    @property
+    def captures(self) -> int:
+        """Step graphs captured (0 where steps run eagerly)."""
+        return 0 if self._graphs is None else self._graphs.captures
 
     # -- steps ------------------------------------------------------------
 
-    def _loss(self, renderer, background, batch, budget: Optional[int] = None, **draws):
-        """The dense loss, or the pooled one with a pool of ``budget``."""
+    def _loss(self, renderer, background, batch, budget: Optional[int] = None, grid_state=None, tables=None,
+              **draws):
+        """The dense loss, or the pooled one with a pool of ``budget``, on
+        ``grid_state`` (the loop's by default) and ``tables``."""
         draws = self._rank_draws(batch.shape[0], draws, dict(u=self.renderer.candidates))
         common = dict(density_penalty=self.density_penalty,
-                      density_penalty_batch_size=self.density_penalty_batch_size, **draws)
+                      density_penalty_batch_size=self.density_penalty_batch_size, tables=tables, **draws)
+        grid_state = self.grid_state if grid_state is None else grid_state
         if budget is None:
-            return compute_losses_occupancy(
-                renderer, background, batch, self.grid_state, self.loss_weights, **common)
+            return compute_losses_occupancy(renderer, background, batch, grid_state, self.loss_weights, **common)
         return compute_losses_occupancy_pooled(
-            renderer, background, batch, self.grid_state, self.loss_weights, budget,
+            renderer, background, batch, grid_state, self.loss_weights, budget,
             transmittance_eps=self.pool_t_eps, **common)
 
     _AUTO_REBUDGET_INTERVAL = 256  # host steps between demand measurements
@@ -807,10 +856,53 @@ class OccupancyTrainLoop(_Trainer):
             self._auto_resolved_at = self._host_step
         return self._auto_per_ray
 
-    def _grad_step(self, batch: Tensor, budget: Optional[int] = None, **draws) -> Dict[str, Tensor]:
+    def _grad_step(self, batch: Tensor, budget: Optional[int] = None, seed: Optional[int] = None,
+                   **draws) -> Dict[str, Tensor]:
         """:func:`grad_step` on the dense loss, or the pooled one with a
-        pool of ``budget`` samples."""
+        pool of ``budget`` samples: with the caller's ``draws``, or with
+        ``seed`` (step_auto's) the step's draws from the loop's generator
+        seeded with it, through :meth:`_hot_step` (outside a process
+        group)."""
+        if seed is not None:
+            self._generator.manual_seed(seed)
+            if self._dp is None:
+                return self._hot_step(batch, budget)
+            draws = dict(generator=self._generator)
         return grad_step(self, lambda: self._loss(self.renderer, self.background, batch, budget, **draws))
+
+    def _hot_step(self, batch: Tensor, budget: Optional[int]) -> Dict[str, Tensor]:
+        """The hot route's step.  The prologue, on the host: the grid the
+        body reads follows the loop's (:class:`~.acceleration.StaticGridState`),
+        the step's draws go into static buffers in the order the eager loss
+        draws them (the candidate uniforms, then the density penalty's
+        uniforms and normals), and the batch is copied into its buffer.
+        The body (:func:`grad_body`) reads only those buffers: eagerly on the
+        CPU, as a CUDA-graph replay on the card; Adam follows eagerly
+        (:func:`grad_step`)."""
+        n = batch.shape[0]
+        inputs = self._inputs.get(n)
+        if inputs is None:
+            inputs = self._inputs[n] = dict(
+                batch=torch.empty_like(batch),
+                u=torch.empty((n, self.renderer.candidates), dtype=torch.float32, device=self.device))
+            if self.density_penalty is not None:
+                b = self.density_penalty_batch_size
+                inputs.update(coords_u=torch.empty((b, 3), dtype=torch.float32, device=self.device),
+                              dirs_normal=torch.empty((b, 3), dtype=torch.float32, device=self.device))
+        grid_state = self._static_grid.follow(self.grid_state)
+        generator = self._generator
+        inputs["u"].uniform_(generator=generator)
+        draws = None
+        if self.density_penalty is not None:
+            draws = (inputs["coords_u"].uniform_(generator=generator),
+                     inputs["dirs_normal"].normal_(generator=generator))
+        inputs["batch"].copy_(batch)
+        tables = dict(words=self._static_grid.words)
+        key = (n, budget, self.grid.in_warmup(grid_state))
+        return grad_step(self, lambda: self._loss(self.renderer, self.background, inputs["batch"], budget,
+                                                  grid_state=grid_state, tables=tables, u=inputs["u"],
+                                                  density_draws=draws),
+                         self._graphs, key)
 
     def _refresh_grid(self, generator=None, ids=None, jitter=None) -> None:
         self.grid_state = self.grid.update(
@@ -834,8 +926,10 @@ class OccupancyTrainLoop(_Trainer):
         grid_ids: Optional[Tensor] = None,
         grid_jitter: Optional[Tensor] = None,
     ) -> Dict[str, Tensor]:
-        """One in-place training step with the caller's draws; returns the
-        logging dict of 0-dim tensors (on the device: read them late).
+        """One in-place training step with the caller's draws, eager on
+        every device (the route the step graph is held against, and
+        ``train_nerf --test_data_dir``'s); returns the logging dict of 0-dim
+        tensors (on the device: read them late).
 
         :param batch: ``[N, 3, 3]`` rows of (origin, direction, colour).
         :param generator: draws whatever is not given explicitly.
@@ -860,7 +954,8 @@ class OccupancyTrainLoop(_Trainer):
         """Hot-loop step: pass the SAME ``base_seed`` every call.  The
         step's draws come from a generator seeded with ``(base_seed, 0,
         train step)``, a grid refresh's with ``(base_seed, 1, host
-        step)``; both counters are checkpointed by :meth:`save`."""
+        step)``; both counters are checkpointed by :meth:`save`.  On the
+        card the step is a graph replay (:meth:`_hot_step`)."""
         return self._step_auto(base_seed, batch, self._step_budget)
 
     def _step_auto(self, base_seed: int, batch, budget_of: Callable[[Tensor], Optional[int]]):
@@ -872,12 +967,12 @@ class OccupancyTrainLoop(_Trainer):
         self._host_step += 1
         batch = self._place(batch)
         budget = budget_of(batch)
-        self._generator.manual_seed(fold_seed(base_seed, TRAIN_TAG, self.step_count))
-        return self._grad_step(batch, budget, generator=self._generator)
+        return self._grad_step(batch, budget, seed=fold_seed(base_seed, TRAIN_TAG, self.step_count))
 
     def step_auto_many(self, base_seed: int, batches: Sequence) -> Dict[str, Tensor]:
-        """K hot-loop steps (a plain loop), numerically K :meth:`step_auto`
-        calls, with the JAX loop's macro-step rules: a macro step that
+        """K hot-loop steps, numerically K :meth:`step_auto` calls (on the
+        card K graph replays, the grid refresh eager between them), with the
+        JAX loop's macro-step rules: a macro step that
         straddles ``pool_start_step`` is split there, and each part holds
         one pool budget, resolved before its first step on its first batch
         (so the auto budget's re-measure falls on a macro boundary).

@@ -343,6 +343,8 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.scripts.train_nerf\n"
         "import learn_nerf_tpu_torch.scripts.profile_train\n"
         "import learn_nerf_tpu_torch.train\n"
+        "import learn_nerf_tpu_torch.step_graph\n"
+        "import learn_nerf_tpu_torch.scripts.adam_ablations\n"
         "import learn_nerf_tpu_torch.data.shuffle\n"
         "import learn_nerf_tpu_torch.data.prefetch\n"
         "import learn_nerf_tpu_torch.utils.logging\n"
@@ -399,7 +401,7 @@ def test_profile_view_times_renders_on_cpu(scene):
     assert result["profiled_ms"] > 0 and not session.images
     # No card: the device fields are not measured; the host ops are.
     assert result["device_ms"] is None and result["idle_share"] is None
-    assert result["kernels_launched"] is None and result["port_kernels"] is None
+    assert result["kernels_launched"] is None and result["port_kernels"] is None and result["port_calls"] is None
     assert result["memsets"] is None and result["gemm_ms"] is None
     assert 0 < len(result["host_top"]) <= 5 and result["host_top"][0]["calls"] > 0
 
@@ -438,3 +440,16 @@ def test_device_summary_merges_overlapping_device_spans():
     events.append(dict(ph="X", cat="kernel", name="void nerf::table_gather_kernel<2>(float const*)",
                        ts=5000.0, dur=750.0))
     assert profile_render.device_summary(events)[2] == {"table_gather": pytest.approx(0.75)}
+
+
+def test_port_kernel_calls_count_each_run_of_a_port_kernel():
+    """One count a kernel event, by the port kernel its name holds; host
+    events, copies and other kernels count nothing."""
+    kernel = lambda name: dict(ph="X", cat="kernel", name=name, ts=0.0, dur=1.0)  # noqa: E731
+    events = [kernel("void nerf::select_strided_kernel<4>(nerf::SelectArgs)"), kernel("sm90_xmma_gemm"),
+              kernel("void nerf::composite_backward_kernel<false, 0, false>(nerf::In, nerf::Grads)"),
+              kernel("void nerf::select_strided_kernel<4>(nerf::SelectArgs)"),
+              dict(ph="X", cat="gpu_memcpy", name="select_strided_kernel", ts=0.0, dur=1.0),
+              dict(ph="X", cat="cuda_runtime", name="cudaGraphLaunch", ts=0.0, dur=1.0)]
+    assert profile_render.port_kernel_calls(events) == {"select_strided": 2, "composite_backward": 1}
+    assert profile_render.port_kernel_calls([]) == {}
