@@ -161,7 +161,23 @@ nonzero):
    words and span block words at stride 1 equal to the per-cell paths, at
    stride 4 only adding, and no span skipping an occupied cell by a
    brute-force check against the full-resolution grid, which must catch a
-   span of one probe);
+   span of one probe); frames as tile replays (``check_frame_graphs``):
+   every render mode's 256x256 frame (vanilla ``--bf16`` hierarchy, fused
+   occupancy and block words 2; NGP hierarchy, fixed-K and pooled; baked
+   pooled and fixed-K; the north star; the live lever stack; NGP pooled
+   with depth outputs; once trained, the Ref-NeRF hierarchy and the NGP
+   Ref-NeRF occupancy mode) twice by replays and twice by the eager route
+   from the same generator states, bit for bit (outputs, ``selected``,
+   ``dropped``), one capture a key, a profiled replayed frame whose trace
+   runs each of the port's kernels as often as the counters claim, in the
+   replays and on their own (profiled again only where the trace shows
+   the kernel records it lost), the
+   grid changed in place between frames (graphs dropped, still
+   bit-equal), three deliberate faults caught (a tile's rays not copied
+   into the static buffer, a changed grid under kept graphs, a tile's
+   outputs read after the next replay), and one 800x800 frame of
+   frame_matrix's shell the same way, one of its tile replays timed by
+   CUDA events beside the profiler;
 4. the port's ``serve_nerf`` in a thread, vanilla with ``--bf16`` in
    hierarchy and occupancy mode, and NGP in f32 (the CLI default) in
    hierarchy, occupancy and pooled mode (``--occ_budget_per_ray auto
@@ -174,7 +190,8 @@ nonzero):
    stack (pooled, span 64, block words 4 in both) and vanilla ``--bf16
    --occupancy --occ_block_gather 2``: three ``POST /render`` requests
    each at 256x256, each answered 200 with a PNG of that shape, with
-   latencies;
+   latencies, every request after the first served by the tile replays of
+   the graphs the first captured (replays and captures printed);
 5. every kernel of each mode launched during its serve phase (select_strided
    once a tile in every occupancy mode but the block-word ones, and once
    more a frame for an auto budget's demand, pool_pack once a pooled tile,
@@ -759,6 +776,28 @@ GRAPH_HOST_LAUNCHES = 16
 COUNTER_KERNELS = {"composite": "composite_forward", "composite_pooled": "composite_pooled_forward"}
 GRAPH_FAULTS = ("words not rebuilt after a refresh", "the batch not copied into its buffer",
                 "the logged values read after the next replay")
+# Frames as tile replays (check_frame_graphs): each mode's SIDE x SIDE frame
+# rendered FRAME_GRAPH_FRAMES times by replays (the first captures) and again
+# by the eager route from the same generator states, bit for bit; then one
+# 800x800 frame of frame_matrix's shell (its no-lever row) the same way.
+# The Ref-NeRF models' frames are held the same way once they are trained.
+# name -> (render flags, --bf16, include_depth_outputs).
+FRAME_GRAPH_FRAMES = 2
+FRAME_GRAPH_MODES = {
+    "hierarchy --bf16": (VANILLA_MODES["hierarchy"], True, False),
+    "occupancy --bf16 (fused)": (VANILLA_MODES["occupancy"], True, False),
+    "occupancy --bf16 block words 2": (VANILLA_LEVER_MODES["occupancy block words"], True, False),
+    "ngp hierarchy": (NGP_MODES["ngp hierarchy"], False, False),
+    "ngp occupancy (fixed-K)": (NGP_MODES["ngp occupancy"], False, False),
+    "ngp pooled": (NGP_MODES["ngp pooled"], False, False),
+    "ngp baked pooled": (BAKED_MODES["ngp baked pooled"], False, False),
+    "ngp baked occupancy": (BAKED_MODES["ngp baked occupancy"], False, False),
+    NORTH_STAR: (LEVER_SERVE_MODES[NORTH_STAR], False, False),
+    "ngp live levers": (LEVER_SERVE_MODES["ngp live levers"], False, False),
+    "ngp pooled, depth outputs": (NGP_MODES["ngp pooled"], False, True),
+}
+FRAME_GRAPH_FAULTS = ("the tile's rays not copied into the static buffer", "a changed grid kept its graphs",
+                      "a tile's outputs read after the next replay")
 
 
 def require(ok, message):
@@ -1063,8 +1102,12 @@ def profiled(call, device, counters, tries=3):
 def kernel_sequence(call, device, tries=3):
     """The names of the kernels one call of ``call`` launched, in launch
     order (torch.profiler's trace), profiled again, up to ``tries`` times,
-    while the trace holds no kernel (see ``profiled``)."""
-    for _ in range(tries):
+    while the trace holds no kernel (see ``profiled``) or shows kernel
+    records it lost (``profile_render.launch_records``: a launch call with
+    no kernel record), which would hide a kernel from the sequence."""
+    from learn_nerf_tpu_torch.scripts.profile_render import launch_records
+
+    for attempt in range(tries):
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                 torch.profiler.ProfilerActivity.CUDA]) as prof:
             call()
@@ -1075,8 +1118,13 @@ def kernel_sequence(call, device, tries=3):
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
         kernels = sorted((float(e["ts"]), e["name"]) for e in events if e.get("ph") == "X" and e.get("cat") == "kernel")
-        if kernels:
+        records = launch_records(events)
+        lost = lost_records(dict(graph_launch_kernels=records["graph_kernels"],
+                                 launches_without_kernel=records["without_kernel"]))
+        if kernels and not lost:
             break
+        print(f"  the trace of {len(kernels)} kernels shows {lost} kernel record(s) lost (try {attempt + 1} of "
+              f"{tries})", flush=True)
     return [name for _, name in kernels]
 
 
@@ -3168,20 +3216,22 @@ def check_graph_step(root, device):
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3
 
-        before = {k: c.launches for k, c in counters.items()}
         replay()
-        claimed = {COUNTER_KERNELS.get(k, k): c.launches - before[k] for k, c in counters.items()
-                   if c.launches != before[k]}
-        seen = profiled(replay, device, list(counters.values()))
+        seen = traced_until_matched(f"graph step, {name}", replay, device)
         print(f"graph step, {name}: a replayed step under the profiler: {seen['host_launches']} host launches, "
               f"{seen['kernels_launched']} kernels, {seen['device_ms']:.3f} device ms of {seen['profiled_ms']:.3f} "
-              f"ms; the port's kernels it ran {seen['port_calls']}, the launches its counters claim {claimed}",
-              flush=True)
+              f"ms; the port's kernels it ran {seen['port_calls']} ({seen['port_graph_calls']} in replays), the "
+              f"launches its counters claim {seen['claimed']} ({seen['claimed_graph']} by replays)", flush=True)
+        times = replay_device_ms(list(loop._graphs._graphs.values())[-1][0], device)
+        print(f"graph step, {name}: one replay {times['events_ms']:.4f} ms by CUDA events, "
+              f"{times['kernel_sum_ms']:.4f} ms its {times['kernels']} kernels' sum and {times['busy_ms']:.4f} ms "
+              f"busy under the profiler", flush=True)
         require(1 <= seen["host_launches"] <= GRAPH_HOST_LAUNCHES,
                 f"graph step, {name}: a replayed step made {seen['host_launches']} host launches")
-        require(claimed and seen["port_calls"] == claimed,
-                f"graph step, {name}: the replayed step ran the port's kernels {seen['port_calls']}, but its "
-                f"counters claim {claimed}")
+        require(seen["claimed_graph"] and trace_matches(seen),
+                f"graph step, {name}: the replayed step ran the port's kernels {seen['port_calls']} "
+                f"({seen['port_graph_calls']} in replays), but its counters claim {seen['claimed']} "
+                f"({seen['claimed_graph']} by replays)")
         del loop
         gaps, noise, (param_gap, param_noise), loop = graph_against_eager(root, device, pooled, GRAPH_STEPS)
         print(f"graph step, {name}, {GRAPH_STEPS} free-running steps: fine loss gap to the eager route max "
@@ -3686,14 +3736,14 @@ def print_normal_mse(name, records):
     require(np.isfinite(normal).all(), f"{name}: a normal_mse that is not finite")
 
 
-def ref_nerf_phase(root, profile):
+def ref_nerf_phase(root, device, profile):
     """The Ref-NeRF hybrid through ``train_nerf --instant_ngp --ref_nerf
     --occupancy`` at bench_occupancy's width on the ball (TRAIN_STEPS
     steps: the loss falls, normal_mse is printed; the encode, table-gradient,
     hashgrid_dx, its backward and composite kernels launched on every
     step, the encode and hashgrid_dx kernels once more a grid refresh, no
-    plain version), scored by ``eval_psnr`` on the held-out views and
-    served.  Returns ``{run: {kernel: (launches, plain calls)}}``."""
+    plain version), scored by ``eval_psnr`` on the held-out views, served,
+    and its frame held to the eager route (``check_frame_graph_mode``).  Returns ``{run: {kernel: (launches, plain calls)}}``."""
     from learn_nerf_tpu_torch.scripts import profile_train
 
     mode = ["--instant_ngp", "--ref_nerf", "--occupancy"]
@@ -3715,6 +3765,8 @@ def ref_nerf_phase(root, profile):
           f"ssim {[round(float(v), 4) for v in ssims]}", flush=True)
     served, _ = serve_mode(root, "trained ref-nerf ngp occupancy", mode, bf16=False,
                            checkpoint="trained_refnerf.pkl", requests=1)
+    check_frame_graph_mode(root, device, "trained ref-nerf ngp occupancy", mode, False,
+                           checkpoint="trained_refnerf.pkl")
     if profile:
         args = profile_train.argparser().parse_args([*flags, str(root / "train")])
         print("profile:", json.dumps({"mode": "ref-nerf ngp occupancy train step", **profile_train.profile_args(args)}),
@@ -4481,6 +4533,393 @@ def check_frames(root, views, device, rng, modes, bf16):
         require(outs[0].std().item() > 1e-3, f"{name} frame is flat")
 
 
+def same_frames(got, want):
+    """Whether two frames' output dicts hold the same keys and bits."""
+    return set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+
+
+def graph_and_eager_frames(session, rays, frames=FRAME_GRAPH_FRAMES, render=None):
+    """``frames`` frames of ``rays`` by the session's tile replays, then the
+    same frames by its eager route (``session.graphs`` None) from the same
+    generator states of ``session.generator`` (and the same escalated pool
+    floor); returns both lists of output dicts.  ``render(rays)`` renders a
+    frame: a ``RenderSession``'s own by default."""
+    render = render or session._render
+    generator, graphs = session.generator, session.graphs
+    pool = getattr(session, "frames", None) or session
+    floor = getattr(pool, "_escalated_floor", 0)
+    states, got, want = [], [], []
+    with torch.inference_mode():
+        for _ in range(frames):
+            states.append(generator.get_state())
+            got.append(render(rays))
+        session.graphs = None
+        try:
+            if hasattr(pool, "_escalated_floor"):
+                pool._escalated_floor = floor
+            for state in states:
+                generator.set_state(state)
+                want.append(render(rays))
+        finally:
+            session.graphs = graphs
+    return got, want
+
+
+def replay_device_ms(graph, device, reps=20):
+    """One replay of ``graph`` timed three ways: by CUDA events (the mean of
+    ``reps`` back-to-back replays after a warm one), and under the profiler
+    as the sum of its kernels' durations and the union of its device
+    intervals (``profile_render.device_summary``)."""
+    from learn_nerf_tpu_torch.scripts.profile_render import device_summary
+
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    events_ms = start.elapsed_time(end) / reps
+    for _ in range(3):  # the profiler now and then records no device event (see ``profiled``)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize(device)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)["traceEvents"]
+        kernels = [float(e["dur"]) / 1e3 for e in trace if e.get("ph") == "X" and e.get("cat") == "kernel"]
+        if kernels:
+            break
+    return dict(events_ms=events_ms, kernel_sum_ms=sum(kernels), busy_ms=device_summary(trace)[0],
+                kernels=len(kernels))
+
+
+@contextlib.contextmanager
+def frame_fault(name):
+    """Inside, the frame graphs have the deliberate fault ``name`` (one of
+    FRAME_GRAPH_FAULTS)."""
+    from learn_nerf_tpu_torch import frame_graph
+
+    if name == FRAME_GRAPH_FAULTS[0]:
+        owner, attr = frame_graph.TileBuffers, "get"
+        original = frame_graph.TileBuffers.get
+
+        def faulty(self, buffer, shape, dtype, device):  # the rays copied into a scratch tensor, not the buffer
+            buf = original(self, buffer, shape, dtype, device)
+            seen = self.__dict__.setdefault("_seen", set())
+            if buffer != "rays" or (shape, device) not in seen:
+                seen.add((shape, device))
+                return buf
+            return torch.empty_like(buf)
+    elif name == FRAME_GRAPH_FAULTS[1]:
+        owner, attr = frame_graph.FrameGraphs, "follow"
+        original = frame_graph.FrameGraphs.follow
+
+        def faulty(self, reads):  # the first reads kept: nothing is dropped after
+            if self._stamp is None:
+                original(self, reads)
+    else:
+        owner, attr = frame_graph.TileOutputs, "add"
+        original = frame_graph.TileOutputs.add
+
+        def faulty(self, i, out):  # each tile's outputs copied after the next tile ran
+            pending = self.__dict__.pop("_pending", None)
+            if pending is not None:
+                original(self, *pending)
+            if i == self.num_tiles - 1:
+                original(self, i, out)
+            else:
+                self._pending = (i, out)
+    setattr(owner, attr, faulty)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, original)
+
+
+def changed_grid(session, in_place=True):
+    """The session's grid with every cell of an odd x index emptied: in
+    place (its densities' ``_version`` moves), or as a new state."""
+    from learn_nerf_tpu_torch.acceleration import OccupancyGridState
+
+    frames = session.frames
+    r = frames.renderer.grid.resolution
+    densities = frames.grid_state.densities if in_place else frames.grid_state.densities.clone()
+    with torch.no_grad():
+        densities.view(r, r, r)[..., 1::2] = 0.0
+    if not in_place:
+        frames.grid_state = OccupancyGridState(densities, frames.grid_state.step)
+
+
+def frame_graph_session(root, device, mode, bf16, depth, bake=None, checkpoint=None):
+    """``render_nerf``'s session of one mode on ``device`` (of ``checkpoint``
+    when given), serving ``bake`` in a baked mode when given."""
+    from learn_nerf_tpu_torch.scripts import render_nerf
+
+    argv = mode_flags(root, mode, bf16, checkpoint) + [str(root / "metadata.json")]
+    with serving_bake(bake):
+        return render_nerf.RenderSession(render_nerf.argparser().parse_args(argv), device=device,
+                                         include_depth_outputs=depth)
+
+
+@contextlib.contextmanager
+def replayed_launches():
+    """Inside, ``{"launches": {kernel: launches}, "replays": n, "graphs":
+    {ids}}``: the launches (by the name the CUDA function carries) that
+    graph replays add to the wrappers' counters, the replays and the graphs
+    replayed, filled as they replay."""
+    from learn_nerf_tpu_torch.step_graph import StepGraphs
+
+    names = {id(c): COUNTER_KERNELS.get(k, k) for k, c in kernel_counters().items()}
+    claims = dict(launches={}, replays=0, graphs=set())
+    replay = StepGraphs._replay
+
+    def counting(self, graph, moved):
+        replay(self, graph, moved)
+        claims["replays"] += 1
+        claims["graphs"].add(id(graph))
+        for c, n, _ in moved:
+            if n:  # a counter whose replays move only plain calls (the block words' candidate test)
+                claims["launches"][names[id(c)]] = claims["launches"].get(names[id(c)], 0) + n
+
+    StepGraphs._replay = counting
+    try:
+        yield claims
+    finally:
+        StepGraphs._replay = replay
+
+
+def traced_call(call, device):
+    """``profile_render.profile_call`` of ``call``, with the launches the
+    wrappers' counters claim for that same call (``claimed``), those of
+    them that graph replays claim (``claimed_graph``), the replays
+    (``replays``) and the number of graphs replayed (``graphs``)."""
+    from learn_nerf_tpu_torch.scripts.profile_render import profile_call
+
+    counters = kernel_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    with replayed_launches() as claims:
+        seen = profile_call(call, device)
+    claimed = {COUNTER_KERNELS.get(k, k): c.launches - before[k] for k, c in counters.items()
+               if c.launches != before[k]}
+    return dict(seen, claimed=claimed, claimed_graph=dict(claims["launches"]), replays=claims["replays"],
+                graphs=len(claims["graphs"]))
+
+
+def eager_calls(calls, in_graphs):
+    """``{kernel: runs}`` of ``calls`` outside the graph replays."""
+    return {k: v - in_graphs.get(k, 0) for k, v in calls.items() if v != in_graphs.get(k, 0)}
+
+
+def replays_back_the_claims(seen):
+    """Whether a ``traced_call``'s graph launches back what the replays
+    claim: the host made a graph launch for every replay counted, and,
+    where every replay is of one graph, the port's kernels of its fullest
+    replay (the one with the most kernel records) times the replays equal
+    the replays' claim, and no replay ran a port kernel more often than
+    that one (a replay cannot run part of its graph: a shorter one lost
+    records); else the replays' port kernels in all equal the claim."""
+    per, totals = seen["graph_launch_port_calls"], seen["graph_launch_kernels"]
+    if len(per) != seen["replays"]:
+        return False
+    if seen["graphs"] != 1:
+        return seen["port_graph_calls"] == seen["claimed_graph"]
+    fullest = per[max(range(len(per)), key=totals.__getitem__)]
+    return ({k: v * len(per) for k, v in fullest.items()} == seen["claimed_graph"]
+            and all(n <= fullest.get(k, 0) for calls in per for k, n in calls.items()))
+
+
+def trace_matches(seen):
+    """Whether a ``traced_call``'s trace backs its counters: the replays
+    (``replays_back_the_claims``) and each of the port's kernels launched
+    on its own as often as claimed."""
+    return (replays_back_the_claims(seen) and eager_calls(seen["port_calls"], seen["port_graph_calls"])
+            == eager_calls(seen["claimed"], seen["claimed_graph"]))
+
+
+def lost_records(seen):
+    """The kernel records a trace shows lost: its kernel launch calls with
+    no kernel record, and the kernels each graph launch ran fewer than the
+    fullest one (where every replay is of one graph, as in a frame's tiles
+    and ``kernel_sequence``'s calls)."""
+    counts = seen["graph_launch_kernels"]
+    return seen["launches_without_kernel"] + sum(max(counts, default=0) - c for c in counts)
+
+
+def trace_loss_explained(seen):
+    """Whether a ``traced_call``'s trace differs from its counters only by
+    kernel records the trace itself shows lost: it holds no kernel at all
+    (the profiler lost the call's device side, see ``profiled``), or its
+    replays back their claims and it lacks, never exceeds, launches of the
+    port's kernels on their own, no more of them than its launch calls
+    without a kernel record."""
+    if not seen["kernels_launched"]:
+        return True
+    got = eager_calls(seen["port_calls"], seen["port_graph_calls"])
+    want = eager_calls(seen["claimed"], seen["claimed_graph"])
+    return (replays_back_the_claims(seen) and all(0 <= v <= want.get(k, 0) for k, v in got.items())
+            and sum(want.values()) - sum(got.values()) <= seen["launches_without_kernel"])
+
+
+def traced_until_matched(label, call, device):
+    """``traced_call`` of ``call``, profiled again (up to three times) only
+    while its trace differs from the counters by kernel records it shows
+    lost (``trace_loss_explained``); any other difference fails at once.
+    Every difference is printed with that call's time.  The caller requires
+    ``trace_matches`` of what it returns."""
+    for attempt in range(3):
+        seen = traced_call(call, device)
+        if trace_matches(seen):
+            break
+        print(f"  {label}: TRACE MISMATCH in the profiled call of {seen['profiled_ms']:.3f} ms "
+              f"({seen['kernels_launched']} kernels): it ran the port's kernels {seen['port_calls']}, "
+              f"{seen['port_graph_calls']} of them in replays; the counters claim {seen['claimed']}, "
+              f"{seen['claimed_graph']} by {seen['replays']} replays of {seen['graphs']} graph(s); kernels a graph "
+              f"launch {seen['graph_launch_kernels']}, launch calls without a kernel record "
+              f"{seen['launches_without_kernel']} (try {attempt + 1} of 3)", flush=True)
+        require(trace_loss_explained(seen), f"{label}: the trace differs from the counters by more than the kernel "
+                "records it shows lost")
+    counts = seen["graph_launch_kernels"]
+    short = [i for i, n in enumerate(counts) if n < max(counts)]
+    if short:  # printed for the record: a replay short of its siblings lost records
+        print(f"  {label}: the profiled call's graph launches {short} hold fewer kernel records than the "
+              f"others ({counts}); its replays' port kernels {seen['graph_launch_port_calls']}", flush=True)
+    return seen
+
+
+def check_frame_graph_mode(root, device, name, mode, bf16, depth=False, bake=None, checkpoint=None):
+    """One mode's SIDE x SIDE frame of view 0 by tile replays and by the
+    eager route from the same generator states, bit for bit (outputs, depth
+    outputs, ``selected`` and ``dropped``), one capture a key and a replay
+    a tile; then one more frame by replays under the profiler, whose trace
+    must back the counters (``trace_matches``: each replay's port kernels
+    as the replays claim them, and those launched on their own).  A trace
+    that differs is profiled again (up to three times) only where it shows
+    the kernel records it lost (``trace_loss_explained``); every difference
+    is printed with that frame's time.  Returns the session's field (a
+    baked mode's bake)."""
+    from learn_nerf_tpu_torch.data.camera import CameraView
+
+    rays = torch.from_numpy(CameraView.from_json(str(root / "0000.json")).bare_rays(SIDE, SIDE)).to(device)
+    session = frame_graph_session(root, device, mode, bf16, depth, bake, checkpoint)
+    got, want = graph_and_eager_frames(session, rays)
+    graphs = session.graphs
+    same = [same_frames(a, b) for a, b in zip(got, want)]
+
+    def frame():
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            session._render(rays)
+        torch.cuda.synchronize(device)
+        return (time.perf_counter() - t0) * 1e3
+
+    seen = traced_until_matched(f"frame graphs, {name}", frame, device)
+    pool = getattr(getattr(session, "frames", None), "last_pool", None)
+    print(f"frame graphs, {name}: {FRAME_GRAPH_FRAMES} frames by replays bit-equal to eager {same}; "
+          f"{graphs.captures} capture(s), {graphs.replays} replays, {graphs.drops} drops"
+          f"{f', pool {pool}' if pool else ''}; a replayed frame under the profiler: {seen['host_launches']} host "
+          f"launches, {seen['kernels_launched']} kernels, {seen['device_ms']:.3f} device ms of "
+          f"{seen['profiled_ms']:.3f} ms; the port's kernels it ran {seen['port_calls']} "
+          f"({seen['port_graph_calls']} in replays), the launches its counters claim {seen['claimed']} "
+          f"({seen['claimed_graph']} by replays)", flush=True)
+    require(all(same), f"frame graphs, {name}: the replayed frames differ from the eager route")
+    require(graphs.captures >= 1 and graphs.replays >= FRAME_GRAPH_FRAMES and graphs.drops == 0,
+            f"frame graphs, {name}: {graphs.captures} captures, {graphs.replays} replays, {graphs.drops} drops")
+    require(seen["claimed_graph"] and trace_matches(seen),
+            f"frame graphs, {name}: the replayed frame ran the port's kernels {seen['port_calls']} "
+            f"({seen['port_graph_calls']} in replays), but its counters claim {seen['claimed']} "
+            f"({seen['claimed_graph']} by replays)")
+    field = getattr(session, "field", None)
+    del session
+    torch.cuda.empty_cache()
+    return field
+
+
+def check_frame_graphs(root, views, device, big_side=800):
+    """Frames as tile replays on the card: each FRAME_GRAPH_MODES mode
+    through ``check_frame_graph_mode``; the grid changed in place between
+    frames, and the next frame's replays bit-equal to eager after the
+    graphs were dropped; each deliberate fault (FRAME_GRAPH_FAULTS) caught;
+    an 800x800 frame of frame_matrix's shell (its no-lever row) by replays
+    and eagerly, and one of its tile replays timed by CUDA events beside
+    the profiler's kernel sum and busy time.  The two Ref-NeRF models'
+    frames go through ``check_frame_graph_mode`` once they are trained
+    (``ref_nerf_phase``, ``hierarchy_phase``)."""
+    from learn_nerf_tpu_torch.acceleration import OccupancyGrid
+    from learn_nerf_tpu_torch.scripts import frame_matrix
+
+    rays = torch.from_numpy(views[0].bare_rays(SIDE, SIDE)).to(device)
+    bakes = {}
+    for name, (mode, bf16, depth) in FRAME_GRAPH_MODES.items():
+        bake_key = (mode[mode.index("--baked") + 1], mode[mode.index("--baked_pack") + 1]
+                    if "--baked_pack" in mode else "1") if "--baked" in mode else None
+        field = check_frame_graph_mode(root, device, name, mode, bf16, depth, bakes.get(bake_key))
+        if bake_key is not None:
+            bakes[bake_key] = field
+    del bakes
+    torch.cuda.empty_cache()
+
+    # The grid changed in place between frames: the session's tables are
+    # built again and the graphs dropped before the next replay.
+    mode, bf16, depth = FRAME_GRAPH_MODES["ngp pooled"]
+    session = frame_graph_session(root, device, mode, bf16, depth)
+    graph_and_eager_frames(session, rays, 1)
+    changed_grid(session)
+    got, want = graph_and_eager_frames(session, rays, 1)
+    graphs = session.graphs
+    print(f"frame graphs after the grid changed in place: bit-equal to eager {same_frames(got[0], want[0])}; "
+          f"{graphs.drops} graph(s) dropped, {graphs.captures} captures", flush=True)
+    require(same_frames(got[0], want[0]) and graphs.drops >= 1,
+            "frame graphs: a frame after the grid changed differs from the eager route")
+    del session
+
+    mode, bf16, depth = FRAME_GRAPH_MODES["ngp occupancy (fixed-K)"]
+    for fault in FRAME_GRAPH_FAULTS:
+        session = frame_graph_session(root, device, mode, bf16, depth)
+        if fault == FRAME_GRAPH_FAULTS[1]:
+            with frame_fault(fault):
+                graph_and_eager_frames(session, rays, 1)
+                changed_grid(session, in_place=False)
+                got, want = graph_and_eager_frames(session, rays, 1)
+        else:
+            start = session.generator.get_state()
+            with frame_fault(fault):
+                got, _ = graph_and_eager_frames(session, rays)
+            session.generator.set_state(start)
+            _, want = graph_and_eager_frames(session, rays)  # fault-free eager frames from the same states
+        differ = [i for i, (a, b) in enumerate(zip(got, want)) if not same_frames(a, b)]
+        print(f"frame graphs fault, {fault}: the routes differ at frames {differ}", flush=True)
+        require(differ, f"frame graphs: the fault '{fault}' went unseen")
+        del session
+    torch.cuda.empty_cache()
+
+    # One big_side^2 frame of frame_matrix's shell, no levers (79 tiles at 800).
+    model = frame_matrix.seeded_ngp(device)
+    grid = OccupancyGrid(resolution=128, **frame_matrix.BBOX)
+    cfg = dict(frame_matrix.BASE, **frame_matrix.CONFIGS["live_no_levers"])
+    frames = frame_matrix.frame_session(cfg, model, grid, frame_matrix.shell_grid_state(grid, device), 8192, 1e-2, {})
+    frames.generator = torch.Generator(device=device).manual_seed(SEED)
+    big = torch.from_numpy(frame_matrix.frame_view().bare_rays(big_side, big_side)).to(device)
+    got, want = graph_and_eager_frames(frames, big, render=lambda r: frames.render(r, frames.generator))
+    same = [same_frames(a, b) for a, b in zip(got, want)]
+    graph = next(iter(frames.graphs._graphs.values()))[0]
+    times = replay_device_ms(graph, device)
+    print(f"frame graphs, {big_side}x{big_side} frame_matrix live_no_levers: {FRAME_GRAPH_FRAMES} frames by replays "
+          f"bit-equal to eager {same}; {frames.graphs.captures} capture(s), {frames.graphs.replays} replays, pool "
+          f"{frames.last_pool}; one tile's replay: {times['events_ms']:.4f} ms by CUDA events, "
+          f"{times['kernel_sum_ms']:.4f} ms its {times['kernels']} kernels' sum and {times['busy_ms']:.4f} ms busy "
+          f"under the profiler", flush=True)
+    require(all(same) and int(got[-1]["dropped"]) == 0,
+            f"frame graphs: the {big_side}x{big_side} frame's replays differ from the eager route or dropped samples")
+    del frames, model
+    torch.cuda.empty_cache()
+
+
 def lever_renderer(grid, **levers):
     """An occupancy renderer of the main path's selection (192 candidates,
     32 samples) on ``grid``, with ``levers``; selection only (no model)."""
@@ -4660,11 +5099,14 @@ def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS, bake=
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
     host, port = server.server_address[:2]
-    latencies = []
+    latencies, captured = [], None
+    graphs = server.session.graphs
     try:
         for c in counters.values():
             c.reset()
         for i in range(requests):
+            if i == 1:
+                captured = (graphs.captures, graphs.replays)
             body = (root / f"{i:04}.json").read_bytes()
             req = urllib.request.Request(f"http://{host}:{port}/render", data=body, method="POST")
             t0 = time.perf_counter()
@@ -4685,9 +5127,16 @@ def serve_mode(root, name, mode, bf16, checkpoint=None, requests=REQUESTS, bake=
     setup_note = {k: v for k, v in setup.items() if v != (0, 0)}
     print(f"serve {name}{' --bf16' if bf16 else ''} {SIDE}x{SIDE}: latencies ms "
           f"{[round(v, 3) for v in latencies]}; (launches, plain calls) {counts}{pool_note}; "
-          f"set-up {setup_note}", flush=True)
+          f"set-up {setup_note}; frame graphs: {graphs.captures} capture(s), {graphs.replays} replays "
+          f"({captured} after the first request)", flush=True)
     require(not plain_called(counts) and not plain_called(setup),
             f"{name} serving or its set-up called a plain version: {counts}, {setup}")
+    # Every request after the first is served by the tile replays of the
+    # graphs the first one captured.
+    require(graphs.replays > 0 and (requests == 1 or (captured[0] == graphs.captures
+                                                          and graphs.replays > captured[1])),
+            f"{name}: requests after the first captured again or replayed nothing: {captured}, "
+            f"{graphs.captures} captures, {graphs.replays} replays")
     return counts, setup
 
 
@@ -4810,6 +5259,8 @@ def main():
         check_frames(root, views, device, np.random.RandomState(SEED + 16), LEVER_FRAME_MODES, bf16=False)
         check_frames(root, views, device, np.random.RandomState(SEED + 17), VANILLA_LEVER_MODES, bf16=True)
         torch.cuda.empty_cache()
+        check_frame_graphs(root, views, device)
+        torch.cuda.empty_cache()
         check_lever_invariants(root, device, np.random.RandomState(SEED + 18))
         torch.cuda.empty_cache()
         write_train_scene(root / "train", np.random.RandomState(SEED + 7))
@@ -4834,11 +5285,13 @@ def main():
         counts, dense_psnr = train_phase(root, args.profile)
         served.update(counts)
         served.update(lever_phase(root, device, dense_psnr))
-        served.update(ref_nerf_phase(root, args.profile))
+        served.update(ref_nerf_phase(root, device, args.profile))
         served.update(hierarchy_phase(root, args.profile))
         served.update(parallel_phase(root, device))
         served["hierarchy ref-nerf served"], _ = serve_mode(
             root, "hierarchy ref-nerf", ["--ref_nerf"], bf16=False, checkpoint="hierarchy_ref-nerf.pkl", requests=1)
+        check_frame_graph_mode(root, device, "hierarchy ref-nerf", ["--ref_nerf"], False,
+                               checkpoint="hierarchy_ref-nerf.pkl")
         gate, served["quality gate"] = quality_gate(root, [SEED])
         require(gate[SEED][0] >= GATE_FLOOR, f"the quality gate scored {gate[SEED][0]:.3f} dB, under its floor "
                 f"{GATE_FLOOR:g} dB")

@@ -117,13 +117,12 @@ class OccupancyGrid:
         version, so its words are built at every call: frames take them
         from ``OccupancyRenderer.selection_tables``, built once a frame."""
         densities = state.densities
-        version = None if densities.is_inference() else densities._version
-        key = (self.resolution, self.threshold)
+        stamp, key = tensor_stamp(densities), (self.resolution, self.threshold)
         cached = getattr(state, "_occupancy_words", None)
-        if cached is not None and version is not None and cached[0] is densities and cached[1:3] == (version, key):
+        if cached is not None and stamp[2] is not None and cached[1:3] == (stamp, key):
             return cached[3]
         words = pack_occupancy_words(densities.detach(), self.resolution, self.threshold)
-        state._occupancy_words = (densities, version, key, words)
+        state._occupancy_words = (densities, stamp, key, words)  # the tensor kept alive: its id stays its own
         return words
 
     def occupied_from_bits(self, state: OccupancyGridState, bits: Tensor) -> Tensor:
@@ -285,6 +284,17 @@ def superpool_densities(densities: Tensor, resolution: int, factor: int) -> Tens
 #: Cells per packed occupancy word, (x, y, z): 4*4*2 = 32 cells, one
 #: 32-bit word.  A table row is the word and the block's max density.
 BLOCK_DIMS = (4, 4, 2)
+
+
+def tensor_stamp(t: Tensor) -> tuple:
+    """What tells whether a table derived from ``t`` is stale: ``t``'s
+    identity and storage, and its ``_version``, which in-place changes move
+    (None for an inference tensor, which keeps none: only a new tensor
+    counts).  The single definition of that rule: the packed words
+    (:meth:`OccupancyGrid.occupancy_words`), a frame session's selection
+    tables and the frame graphs' reads all compare these.  The caller keeps
+    ``t`` alive beside its stamp, so that its id stays its own."""
+    return id(t), t.data_ptr(), None if t.is_inference() else t._version
 
 
 def pack_occupancy_words(densities: Tensor, resolution: int, threshold: float) -> Tensor:

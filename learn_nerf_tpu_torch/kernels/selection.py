@@ -38,7 +38,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..acceleration import BLOCK_DIMS, OccupancyGrid, OccupancyGridState, compact_occupied_strided
+from ..acceleration import BLOCK_DIMS, OccupancyGrid, OccupancyGridState, bbox_tensors, compact_occupied_strided
 from ..ops.geometry import ray_bbox_range
 from ..ops.sampling import stratified_ts
 from . import build
@@ -107,8 +107,7 @@ def select_candidates_reference(
 
     :return: ``(cand_ts [N, C], occ [N, C] bool, dt [N, 1], mask [N])``.
     """
-    bbox_min = torch.tensor(grid.bbox_min, dtype=torch.float32, device=rays.device)
-    bbox_max = torch.tensor(grid.bbox_max, dtype=torch.float32, device=rays.device)
+    bbox_min, bbox_max = bbox_tensors(grid, rays.device)
     origins, dirs = rays[:, 0], rays[:, 1]
     t_min, t_max, mask = ray_bbox_range(origins, dirs, bbox_min, bbox_max, min_t_range)
     if span is not None:

@@ -38,10 +38,13 @@ runs step 4's per-sample chain (points -> MLP -> scan -> composite) as one
 fused kernel (:mod:`.kernels.fused_render`), as
 ``tools/pallas_recipe/fused_render.fused_render_occupancy`` does.
 
-With ``mesh=`` a frame spreads its tiles over several devices, each with
-its replica of the field, the background, the grid and its tables
-(:func:`occupancy_replicas`; :class:`OccupancyFrameSession` makes them
-once), as the JAX package's ``shard_map`` over the data axis does.
+On the card each tile of a frame is one CUDA-graph replay
+(:mod:`.frame_graph`; :class:`OccupancyFrameSession` owns the graphs and
+the tables they read).  With ``mesh=`` a frame spreads its tiles over
+several devices, each with its replica of the field, the background, the
+grid and its tables (:func:`occupancy_replicas`;
+:class:`OccupancyFrameSession` makes them once), as the JAX package's
+``shard_map`` over the data axis does; those tiles run eagerly.
 """
 
 import dataclasses
@@ -58,11 +61,14 @@ from .acceleration import (
     OccupancyGrid,
     OccupancyGridState,
     auto_budget_from_demand,
+    bbox_tensors,
     dilate_supercells,
     next_budget_bucket,
     pack_block_table,
     superpool_densities,
+    tensor_stamp,
 )
+from .frame_graph import FrameGraphs, TileBuffers, TileOutputs, draw_uniforms, field_reads, frame_graphs
 from .kernels import build
 from .kernels.composite import render_composite_pooled
 from .kernels.fused_render import fused_render
@@ -123,6 +129,13 @@ def _bracketed_block_words(
     dmax = torch.where(m0, dmax_p[:, j0], dmax_p[:, j1])
     bit = ((words_c >> bit_c.to(torch.int32)) & 1).to(torch.bool)
     return bit, dmax, m0 | m1
+
+
+@functools.lru_cache(maxsize=None)
+def _supergrid(grid: OccupancyGrid, resolution: int) -> OccupancyGrid:
+    """``grid`` at the span's pooled resolution, one object per grid (its
+    bbox tensors are kept on it, :func:`~.acceleration.bbox_tensors`)."""
+    return dataclasses.replace(grid, resolution=resolution)
 
 
 def min_span_candidates(resolution: int, span_pool_factor: int, bbox_min, bbox_max) -> int:
@@ -243,8 +256,7 @@ class OccupancyRenderer:
         ``span_candidates``, else None."""
         if self.span_candidates == 0:
             return None
-        bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=rays.device)
-        bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=rays.device)
+        bbox_min, bbox_max = bbox_tensors(self, rays.device)
         origins, dirs = rays[:, 0], rays[:, 1]
         t_min, t_max, _ = ray_bbox_range(origins, dirs, bbox_min, bbox_max, self.min_t_range)
         return self._occupied_span(origins, dirs, t_min, t_max, grid_state, tables)
@@ -350,7 +362,7 @@ class OccupancyRenderer:
 
         # The supergrid's flat index is cell_indices' at the pooled
         # resolution: one convention with superpool_densities.
-        supergrid = dataclasses.replace(self.grid, resolution=rs)
+        supergrid = _supergrid(self.grid, rs)
         if self.span_block_gather > 0 and all(rs % d == 0 for d in BLOCK_DIMS):
             table = tables.get("span_block")
             if table is None:
@@ -542,12 +554,16 @@ class OccupancyRenderer:
 
 
 def make_demand_fn(
-    renderer: OccupancyRenderer, transmittance_eps: float = 0.0
+    renderer: OccupancyRenderer,
+    transmittance_eps: float = 0.0,
+    tables: Optional[Callable[[], Dict[str, Tensor]]] = None,
 ) -> Callable[[torch.Generator, Tensor, OccupancyGridState], Tensor]:
     """Mean-per-ray-demand function ``(generator, rays, grid_state)``,
-    reusable across frames (the JAX package jits it once per session)."""
+    reusable across frames (the JAX package jits it once per session);
+    ``tables()`` gives the grid's selection tables where a session keeps
+    them."""
     return lambda generator, rays, grid_state: renderer.mean_sample_demand(
-        rays, grid_state, transmittance_eps, generator=generator
+        rays, grid_state, transmittance_eps, generator=generator, tables=tables() if tables else None
     )
 
 
@@ -596,6 +612,13 @@ class OccupancyFrameSession:
     * numeric ``budget_cfg``: the user asked for that budget; drops are
       reported with their rate (a warning), and the budget is kept.
     * ``budget_cfg=None``: the fixed-K path, no pooling.
+
+    On a card without a mesh the session's tiles are CUDA-graph replays
+    (``graphs``, :func:`~.frame_graph.frame_graphs`; None elsewhere, and
+    set to None for the eager route): the session keeps the selection
+    tables they read, built once and again only when the grid's densities
+    are another tensor or changed in place (their ``_version``; an
+    inference tensor keeps none, so only a new tensor counts).
     """
 
     def __init__(
@@ -625,8 +648,18 @@ class OccupancyFrameSession:
         # The last pooled frame's budget per ray and sample counters.
         self.last_pool: Optional[Dict[str, int]] = None
         self._demand_fn = (
-            make_demand_fn(renderer, transmittance_eps) if budget_cfg == "auto" else None
+            make_demand_fn(renderer, transmittance_eps, self.tables) if budget_cfg == "auto" else None
         )
+        self.graphs = frame_graphs(grid_state.densities.device, mesh)
+        self._tables: Optional[Tuple[Tensor, tuple, Dict[str, Tensor]]] = None
+
+    def tables(self) -> Dict[str, Tensor]:
+        """:meth:`OccupancyRenderer.selection_tables` of the session's grid
+        state, built again only when its densities moved."""
+        densities = self.grid_state.densities
+        if self._tables is None or self._tables[1] != tensor_stamp(densities):
+            self._tables = (densities, tensor_stamp(densities), self.renderer.selection_tables(self.grid_state))
+        return self._tables[2]
 
     def render(self, rays: Tensor, generator: Optional[torch.Generator] = None) -> Dict[str, Tensor]:
         """Render one frame's rays; returns the output dict
@@ -656,6 +689,8 @@ class OccupancyFrameSession:
                 include_depth_outputs=self._depth,
                 mesh=self._mesh,
                 replicas=self._replicas,
+                graphs=self.graphs,
+                tables=None if self._mesh is not None else self.tables(),
             )
             if budget is None:
                 return out
@@ -704,11 +739,14 @@ def render_frame_occupancy(
     include_depth_outputs: bool = False,
     mesh: Optional[Mesh] = None,
     replicas=None,
+    graphs: Optional[FrameGraphs] = None,
+    tables: Optional[Dict[str, Tensor]] = None,
 ) -> Dict[str, Tensor]:
     """Render a whole frame through the occupancy fast path, tile by tile.
 
     The lever tables (:meth:`OccupancyRenderer.selection_tables`) are built
-    once, before the tile loop.  With ``budget_per_ray`` set, each tile runs
+    once, before the tile loop, unless the caller gives them.  With
+    ``budget_per_ray`` set, each tile runs
     :meth:`OccupancyRenderer.render_rays_pooled` with a pool of
     ``int(tile_size * budget_per_ray)`` samples, and tiles interleave the
     frame's rays (tile g takes rays g, g+G, g+2G, ...) so each sees the
@@ -716,7 +754,10 @@ def render_frame_occupancy(
     order and run the fixed-K path (``renderer.fused`` selects the fused
     render kernel, except with ``include_depth_outputs``: the kernel blends
     no ``coords``, so those frames take :meth:`OccupancyRenderer.render_rays`,
-    the MLP kernel's route).
+    the MLP kernel's route).  Each tile's rays are copied into a static
+    buffer and its candidate uniforms drawn into another (the prologue);
+    its outputs, and a pooled tile's counters, are copied into the frame's
+    (the epilogue).
 
     :param rays: ``[M, 2, 3]`` rays in raster order.
     :param uniforms: optional ``[num_tiles, tile_size, candidates]``
@@ -730,52 +771,92 @@ def render_frame_occupancy(
         and counters gather once, on the first device.
     :param replicas: :func:`occupancy_replicas` of the mesh, made once by
         the caller; made for this frame when absent.
+    :param graphs: the session's :class:`~.frame_graph.FrameGraphs` (no
+        mesh): each tile's body is one replay; eager when None.
+    :param tables: the grid's :meth:`OccupancyRenderer.selection_tables`,
+        built by the caller (no mesh).
     :return: dict with ``outputs [M, 3]``; the pooled path adds the 0-dim
         ``selected``/``dropped`` counters summed over tiles (a nonzero
         ``dropped`` means the budget was undersized for this frame).
     """
     m = rays.shape[0]
-    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max, len(mesh.devices) if mesh else 1)
+    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, bbox_tensors(renderer, rays.device)[1],
+                                         len(mesh.devices) if mesh else 1)
     pooled = budget_per_ray is not None
+    budget = int(tile_size * budget_per_ray) if pooled else None
     if pooled:
         rays_t = rays_p.reshape(tile_size, num_tiles, 2, 3).transpose(0, 1)
     else:
         rays_t = rays_p.reshape(num_tiles, tile_size, 2, 3)
     keys = ("outputs", "alphas", "coords") if include_depth_outputs else ("outputs",)
     if mesh is None:
-        replicas = [(renderer, background, grid_state, renderer.selection_tables(grid_state))]
+        if tables is None:
+            tables = renderer.selection_tables(grid_state)
+        replicas = [(renderer, background, grid_state, tables)]
     elif replicas is None:
         replicas = occupancy_replicas(renderer, background, grid_state, mesh)
-    tiles = {k: [] for k in keys}
-    selected, dropped = [], []
+    if graphs is not None and mesh is not None:
+        raise ValueError("frames over a mesh run eagerly: pass graphs=None")
+    buffers = TileBuffers() if graphs is None else graphs.buffers
+    if graphs is not None:
+        graphs.follow([*field_reads(renderer.model), background, grid_state.densities, *tables.values()])
+        # The renderer is frozen: its identity stands for its lever settings.
+        key = (renderer, tile_mode(renderer, pooled, include_depth_outputs), tile_size, budget,
+               renderer.grid.in_warmup(grid_state), transmittance_eps, include_depth_outputs)
+    frame = TileOutputs(num_tiles, rays.device)
     for i, d in enumerate(tile_devices(num_tiles, mesh)):
-        tile_renderer, tile_background, tile_grid, tables = replicas[d]
-        tile = rays_t[i].contiguous()
-        u = uniforms[i] if uniforms is not None else None
-        if mesh is not None:
-            if generator is not None and u is None:
-                u = uniform((tile_size, renderer.candidates), generator.device, generator)
-            tile, u = (None if v is None else v.to(mesh.devices[d]) for v in (tile, u))
-        common = dict(u=u, generator=generator if mesh is None else None, tables=tables)
-        if pooled:
-            out = tile_renderer.render_rays_pooled(
-                tile, tile_background, tile_grid, int(tile_size * budget_per_ray), transmittance_eps, **common
-            )
-            selected.append(out["selected"])
-            dropped.append(out["dropped"])
-        elif tile_renderer.fused and not include_depth_outputs:
-            out = tile_renderer.render_rays_fused(tile, tile_background, tile_grid, transmittance_eps, **common)
+        tile_renderer, tile_background, tile_grid, tile_tables = replicas[d]
+        dev = tile_background.device
+        tile = buffers.get("rays", (tile_size, 2, 3), torch.float32, dev).copy_(rays_t[i])
+        u = buffers.get("u", (tile_size, renderer.candidates), torch.float32, dev)
+        if uniforms is not None:
+            u.copy_(uniforms[i])
         else:
-            out, _ = tile_renderer.render_rays(tile, tile_background, tile_grid, transmittance_eps, **common)
-        for k in keys:
-            tiles[k].append(out[k])
+            draw_uniforms(u, generator)
+        body = functools.partial(occupancy_tile, tile_renderer, tile, tile_background, tile_grid, u, tile_tables,
+                                 budget, transmittance_eps, keys)
+        frame.add(i, body() if graphs is None else graphs.run(key, body))
     result = {}
-    for k, parts in tiles.items():
-        v = torch.stack([p.to(rays.device) for p in parts])  # [G, S, C]
+    for k in keys:
+        v = frame.tensors[k]  # [G, S, C]
         if pooled:  # undo the interleave: [G, S, C] -> [S, G, C], raster order
             v = v.transpose(0, 1)
         result[k] = v.reshape(-1, v.shape[-1])[:m]
     if pooled:
-        result.update(selected=torch.stack([s.to(rays.device) for s in selected]).sum(),
-                      dropped=torch.stack([s.to(rays.device) for s in dropped]).sum())
+        selected, dropped = frame.tensors["counts"].sum(dim=0)
+        result.update(selected=selected, dropped=dropped)
     return result
+
+
+def occupancy_tile(
+    renderer: OccupancyRenderer,
+    rays: Tensor,
+    background: Tensor,
+    grid_state: OccupancyGridState,
+    u: Tensor,
+    tables: Dict[str, Tensor],
+    budget: Optional[int],
+    transmittance_eps: float,
+    keys: Tuple[str, ...],
+) -> Dict[str, Tensor]:
+    """One tile of :func:`render_frame_occupancy` (what a frame graph
+    captures): ``keys`` of the tile's outputs, and with a pool ``budget``
+    the 0-dim ``selected`` and ``dropped`` counters stacked as ``counts
+    [2]``."""
+    common = dict(u=u, tables=tables)
+    if budget is not None:
+        out = renderer.render_rays_pooled(rays, background, grid_state, budget, transmittance_eps, **common)
+        return dict({k: out[k] for k in keys}, counts=torch.stack([out["selected"], out["dropped"]]))
+    if tile_mode(renderer, False, "coords" in keys) == "fused":
+        out = renderer.render_rays_fused(rays, background, grid_state, transmittance_eps, **common)
+    else:
+        out, _ = renderer.render_rays(rays, background, grid_state, transmittance_eps, **common)
+    return {k: out[k] for k in keys}
+
+
+def tile_mode(renderer: OccupancyRenderer, pooled: bool, include_depth_outputs: bool) -> str:
+    """The tile route of a frame: ``pooled``, ``fused`` (a ``--bf16``
+    vanilla model's fixed-K frame without depth outputs) or ``fixed-K``."""
+    if pooled:
+        return "pooled"
+    return "fused" if renderer.fused and not include_depth_outputs else "fixed-K"

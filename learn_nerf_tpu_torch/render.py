@@ -4,7 +4,8 @@ The output contract of ``learn_nerf_tpu.render``: ``coarse`` / ``fine``
 render results (``outputs``, ``rgbs``, ``densities``, ``alphas``,
 ``coords``, ``weights``) plus ``coarse_aux`` / ``fine_aux`` scalar means.
 The models carry their own parameters (``nn.Module``); random draws come
-from a ``torch.Generator`` or are passed in as uniforms.
+from a ``torch.Generator`` or are passed in as uniforms.  On the card a
+frame's tiles are CUDA-graph replays (:mod:`.frame_graph`).
 """
 
 from dataclasses import dataclass
@@ -12,10 +13,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .acceleration import bbox_tensors
+from .frame_graph import FrameGraphs, TileBuffers, TileOutputs, draw_uniforms, field_reads
 from .kernels.composite import render_composite
 from .models.base import FieldModel
 from .ops.geometry import ray_bbox_range
-from .ops.sampling import inverse_cdf_ts, merge_sorted, stratified_ts, uniform
+from .ops.sampling import inverse_cdf_ts, merge_sorted, stratified_ts
 from .ops.volume import bin_deltas
 from .parallel.mesh import Mesh, replicate
 
@@ -118,8 +121,7 @@ class Renderer:
             inverse-CDF draw; drawn after the coarse draw when absent.
         :return: dict with ``coarse``, ``fine``, ``coarse_aux``, ``fine_aux``.
         """
-        bbox_min = torch.tensor(self.bbox_min, dtype=torch.float32, device=rays.device)
-        bbox_max = torch.tensor(self.bbox_max, dtype=torch.float32, device=rays.device)
+        bbox_min, bbox_max = bbox_tensors(self, rays.device)
         t_min, t_max, mask = ray_bbox_range(
             rays[:, 0], rays[:, 1], bbox_min, bbox_max, self.min_t_range
         )
@@ -147,7 +149,8 @@ def pad_rays_to_tiles(rays: Tensor, tile_size: int, bbox_max, n_dev: int = 1) ->
 
     The one tile/pad layout of every whole-frame renderer.  Pad rays
     provably miss the bbox: they start at ``bbox_max + 1`` and point
-    further away along ``(1, 1, 1)``.
+    further away along ``(1, 1, 1)``.  ``bbox_max`` is three numbers, or
+    an f32 tensor on the rays' device (no host copy).
 
     :return: ``(rays_padded [num_tiles * tile_size, 2, 3], num_tiles)``.
     """
@@ -155,7 +158,7 @@ def pad_rays_to_tiles(rays: Tensor, tile_size: int, bbox_max, n_dev: int = 1) ->
     num_tiles = -(-m // (n_dev * tile_size)) * n_dev
     padded = num_tiles * tile_size
     if padded > m:
-        far_corner = torch.tensor(bbox_max, dtype=torch.float32, device=rays.device) + 1.0
+        far_corner = torch.as_tensor(bbox_max, dtype=torch.float32, device=rays.device) + 1.0
         pad_ray = torch.stack([far_corner, torch.ones_like(far_corner)])
         rays = torch.cat([rays, pad_ray.expand(padded - m, 2, 3)], dim=0)
     return rays, num_tiles
@@ -181,8 +184,11 @@ def render_frame(
     include_depth_outputs: bool = False,
     mesh: Optional[Mesh] = None,
     replicas: Optional[Sequence[Tuple[Renderer, Tensor]]] = None,
+    graphs: Optional[FrameGraphs] = None,
 ) -> Dict[str, Tensor]:
-    """Render all rays of a frame, tile by tile.
+    """Render all rays of a frame, tile by tile: each tile's rays and its
+    coarse, then its fine uniforms go into static buffers (the prologue),
+    the fine pass's outputs are copied into the frame's (the epilogue).
 
     :param rays: ``[M, 2, 3]`` rays in raster order.
     :param uniforms: optional per-tile ``(u_coarse, u_fine)``; tiles draw
@@ -197,35 +203,45 @@ def render_frame(
     :param replicas: the ``(renderer, background)`` of each mesh device,
         made once by the caller (:func:`~.parallel.mesh.replicate`); made
         for this frame when absent.
+    :param graphs: the session's :class:`~.frame_graph.FrameGraphs` (no
+        mesh): each tile's body is one replay; eager when None.
     :return: dict with ``outputs [M, 3]``.
     """
     m = rays.shape[0]
-    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, renderer.bbox_max, len(mesh.devices) if mesh else 1)
+    rays_p, num_tiles = pad_rays_to_tiles(rays, tile_size, bbox_tensors(renderer, rays.device)[1],
+                                         len(mesh.devices) if mesh else 1)
     if mesh is None:
         replicas = [(renderer, background)]
     elif replicas is None:
         replicas = replicate((renderer, background), mesh.devices)
     keys = ("outputs", "alphas", "coords") if include_depth_outputs else ("outputs",)
-    tiles = {k: [] for k in keys}
+    if graphs is not None and mesh is not None:
+        raise ValueError("frames over a mesh run eagerly: pass graphs=None")
+    buffers = TileBuffers() if graphs is None else graphs.buffers
+    if graphs is not None:
+        graphs.follow([*field_reads(renderer.coarse), *field_reads(renderer.fine), background])
+        key = (renderer, "hierarchy", tile_size, include_depth_outputs)
+    frame = TileOutputs(num_tiles, rays.device)
     for i, d in enumerate(tile_devices(num_tiles, mesh)):
         tile_renderer, tile_background = replicas[d]
-        tile = rays_p[i * tile_size : (i + 1) * tile_size]
-        u_c, u_f = uniforms[i] if uniforms is not None else (None, None)
-        if mesh is not None:
-            if generator is not None and uniforms is None:
-                u_c = uniform((tile_size, renderer.coarse_ts), generator.device, generator)
-                u_f = uniform((tile_size, renderer.fine_ts), generator.device, generator)
-            tile, u_c, u_f = (None if v is None else v.to(mesh.devices[d]) for v in (tile, u_c, u_f))
-        fine = tile_renderer.render_rays(
-            tile,
-            tile_background,
-            generator=generator if mesh is None else None,
-            u_coarse=u_c,
-            u_fine=u_f,
-        )["fine"]
-        for k in keys:
-            tiles[k].append(fine[k])
-    return {k: torch.cat([v.to(rays.device) for v in parts])[:m] for k, parts in tiles.items()}
+        dev = tile_background.device
+        tile = buffers.get("rays", (tile_size, 2, 3), torch.float32, dev)
+        tile.copy_(rays_p[i * tile_size : (i + 1) * tile_size])
+        u_c = buffers.get("u_coarse", (tile_size, renderer.coarse_ts), torch.float32, dev)
+        u_f = buffers.get("u_fine", (tile_size, renderer.fine_ts), torch.float32, dev)
+        if uniforms is not None:
+            u_c.copy_(uniforms[i][0])
+            u_f.copy_(uniforms[i][1])
+        else:
+            draw_uniforms(u_c, generator)
+            draw_uniforms(u_f, generator)
+
+        def body(tile_renderer=tile_renderer, tile_background=tile_background, tile=tile, u_c=u_c, u_f=u_f):
+            fine = tile_renderer.render_rays(tile, tile_background, u_coarse=u_c, u_fine=u_f)["fine"]
+            return {k: fine[k] for k in keys}
+
+        frame.add(i, body() if graphs is None else graphs.run(key, body))
+    return {k: v.reshape(-1, v.shape[-1])[:m] for k, v in frame.tensors.items()}
 
 
 def render_frame_sharded(

@@ -18,7 +18,12 @@ and prints one JSON line for the view:
 * ``port_kernels``: device time and share of each of the port's own
   kernels (``csrc/``) that ran in that call, and ``port_calls`` how many
   times each ran (a CUDA graph's replay runs its kernels one by one in
-  the trace);
+  the trace), ``port_graph_calls`` how many of those a graph's replay
+  launched (the kernels whose correlation id is a ``cudaGraphLaunch``'s);
+* ``graph_launch_kernels``: the kernels each graph launch of that call ran,
+  in launch order, ``graph_launch_port_calls`` the port's kernels each ran,
+  and ``launches_without_kernel`` its kernel launch calls outside graphs
+  with no kernel record (:func:`launch_records`);
 * ``kernels_launched``: the number of kernels the card ran in that call,
   and ``memsets`` the number of memsets;
 * ``host_launches``: the launch calls the host made in that call (kernels,
@@ -53,8 +58,8 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 # The host's launch calls in a trace (the CUDA runtime's and the lower API's):
 # a kernel, a memset or copy enqueued, or a CUDA graph's replay (one call).
 HOST_API_CATEGORIES = ("cuda_runtime", "cuda_driver")
-LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch",
-                "cuGraphLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
+KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx")
+LAUNCH_CALLS = (*KERNEL_LAUNCH_CALLS, "cudaGraphLaunch", "cuGraphLaunch", "cudaMemsetAsync", "cudaMemcpyAsync")
 # The port's hand-written kernels, by the name their CUDA function carries.
 PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode",
                 "hashgrid_backward", "hashgrid_dx", "hashgrid_dx_backward", "composite_forward",
@@ -102,16 +107,39 @@ def device_summary(trace_events, top=3):
     return _busy_ms(spans), ranked, dict(ours)
 
 
-def port_kernel_calls(trace_events) -> dict:
+def port_kernel_calls(trace_events, correlations=None) -> dict:
     """``{port kernel: runs}`` of a Chrome trace's kernels (matched as
-    :func:`device_summary` matches them)."""
+    :func:`device_summary` matches them); with ``correlations``, only of
+    the kernels whose launch carries one of those correlation ids."""
     calls = defaultdict(int)
     for e in trace_events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
+        if e.get("ph") == "X" and e.get("cat") == "kernel" and (
+                correlations is None or e.get("args", {}).get("correlation") in correlations):
             for kernel in PORT_KERNELS:
                 if f"{kernel}_kernel" in e["name"]:
                     calls[kernel] += 1
     return dict(calls)
+
+
+def launch_records(trace_events) -> dict:
+    """What a Chrome trace shows of its launch calls' device records:
+    ``graph``, the correlation ids of its CUDA graph launches in launch
+    order (a kernel that carries one ran in that launch's replay);
+    ``graph_kernels``, the kernels each of those ran, and
+    ``graph_port_calls`` the port's kernels each ran (as
+    :func:`port_kernel_calls` counts them); ``without_kernel``, its kernel
+    launch calls outside graphs whose correlation id no kernel carries
+    (device records the profiler lost)."""
+    kernels = defaultdict(int)
+    for e in trace_events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            kernels[e.get("args", {}).get("correlation")] += 1
+    calls = sorted((float(e["ts"]), e["name"], e["args"]["correlation"]) for e in trace_events
+                   if e.get("ph") == "X" and e.get("cat") in HOST_API_CATEGORIES and "correlation" in e.get("args", {}))
+    graph = [c for _, name, c in calls if "GraphLaunch" in name]
+    return dict(graph=graph, graph_kernels=[kernels[c] for c in graph],
+                graph_port_calls=[port_kernel_calls(trace_events, {c}) for c in graph],
+                without_kernel=sum(1 for _, name, c in calls if name in KERNEL_LAUNCH_CALLS and not kernels[c]))
 
 
 def host_summary(averages, top=5):
@@ -142,7 +170,10 @@ def profile_view(session: RenderSession, view: CameraView, repeats: int = 5) -> 
 def profile_call(call, device: torch.device) -> dict:
     """One call of ``call`` (which returns its own host-clock latency in ms)
     under ``torch.profiler``: ``profiled_ms``, ``device_ms``,
-    ``idle_share``, ``top``, ``port_kernels``, ``port_calls``, ``kernels_launched``,
+    ``idle_share``, ``top``, ``port_kernels``, ``port_calls`` (and
+    ``port_graph_calls``, those of them in graph replays),
+    ``graph_launch_kernels``, ``graph_launch_port_calls``,
+    ``launches_without_kernel``, ``kernels_launched``,
     ``host_launches``, ``memsets`` and ``host_top`` as the module doc
     describes them."""
     activities = [torch.profiler.ProfilerActivity.CPU]
@@ -158,6 +189,10 @@ def profile_call(call, device: torch.device) -> dict:
         gemm_ms=None,
         port_kernels=None,
         port_calls=None,
+        port_graph_calls=None,
+        graph_launch_kernels=None,
+        graph_launch_port_calls=None,
+        launches_without_kernel=None,
         kernels_launched=None,
         host_launches=None,
         memsets=None,
@@ -170,6 +205,7 @@ def profile_call(call, device: torch.device) -> dict:
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
         busy, ranked, ours = device_summary(events)
+        records = launch_records(events)
         result.update(
             kernels_launched=sum(
                 1 for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
@@ -184,6 +220,10 @@ def profile_call(call, device: torch.device) -> dict:
                         if e.get("ph") == "X" and e.get("cat") == "kernel" and "gemm" in e["name"]),
             port_kernels={name: dict(ms=ms, share=ms / busy) for name, ms in ours.items()},
             port_calls=port_kernel_calls(events),
+            port_graph_calls=port_kernel_calls(events, set(records["graph"])),
+            graph_launch_kernels=records["graph_kernels"],
+            graph_launch_port_calls=records["graph_port_calls"],
+            launches_without_kernel=records["without_kernel"],
         )
     return result
 

@@ -18,8 +18,12 @@ one profiled); with ``--pooled`` also ``bench_pooled``'s cell
 frozen 5 %-occupied grid); with ``--train_rates`` also ``train_nerf``'s
 steps/s and rays/s over the last 64 and 48 of 96 steps, dense and pooled
 (``chip_smoke.train_run`` with ``chip_smoke.py``'s phase-6 flags, the
-checkout's own).  Checkouts run in the order given on even turns and in
-the reverse order on odd ones (A B, then B A).
+checkout's own); with ``--frames`` also 800x800 frames of those rows of
+``scripts/frame_matrix.py`` (the checkout's own workload and sessions,
+pooled ``auto`` at eps 1e-2, tiles of 8192 rays: one warm-up frame,
+eight timed (``FRAME_REPS``), one profiled, with the frame graphs' replays and
+captures where the checkout has them).  Checkouts run in the order given
+on even turns and in the reverse order on odd ones (A B, then B A).
 
 Every run counts the memsets of each profiled call, and times and profiles
 the train steps with this checkout's ``profile_train.profile_steps`` and
@@ -42,12 +46,13 @@ from . import profile_render, profile_train
 
 # Runs inside a checkout: only that checkout's code is imported.
 RUN = r'''
-import contextlib, json, os, shutil, sys, tempfile
+import contextlib, json, os, shutil, statistics, sys, tempfile, time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+FRAME_REPS = 8  # timed 800x800 frames of a --frames row a run
 sys.path.insert(0, os.getcwd())
 import chip_smoke as cs
 from learn_nerf_tpu_torch.data.camera import CameraView
@@ -111,6 +116,38 @@ try:
                            graph_replays=getattr(loop, "graph_replays", None)))
             del loop
             torch.cuda.empty_cache()
+    if os.environ["PROFILE_FRAMES"] == "1":
+        from learn_nerf_tpu_torch.acceleration import OccupancyGrid
+        from learn_nerf_tpu_torch.scripts import frame_matrix as fm
+
+        device = torch.device("cuda")
+        model = fm.seeded_ngp(device)
+        grid = OccupancyGrid(resolution=128, **fm.BBOX)
+        state = fm.shell_grid_state(grid, device)
+        frame_rays = torch.from_numpy(fm.frame_view().bare_rays(800, 800)).to(device)
+        bakes = {}
+        for name in os.environ["PROFILE_FRAME_ROWS"].split(","):
+            session = fm.frame_session(dict(fm.BASE, **fm.CONFIGS[name]), model, grid, state, 8192, 1e-2, bakes)
+            generator = torch.Generator(device=device).manual_seed(1)
+
+            def render():
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    session.render(frame_rays, generator)
+                torch.cuda.synchronize(device)
+                return (time.perf_counter() - t0) * 1e3
+
+            render()  # warm-up: the captures, where the tree has graphs
+            latencies = [render() for _ in range(FRAME_REPS)]
+            graphs = getattr(session, "graphs", None)
+            emit(f"frame 800 {name}", dict(latencies_ms=latencies, median_ms=statistics.median(latencies),
+                                           **profile_train.profile_call(render, device), pool=session.last_pool,
+                                           graph_replays=None if graphs is None else graphs.replays,
+                                           graph_captures=None if graphs is None else graphs.captures))
+            del session
+        del bakes, model
+        torch.cuda.empty_cache()
     view = CameraView.from_json(str(root / "0000.json"))
     runs = [(name, mode, bf16) for name, mode in cs.VANILLA_MODES.items() for bf16 in (True, False)]
     runs += [(name, mode, False) for name, mode in cs.NGP_MODES.items()]
@@ -136,14 +173,21 @@ def main(argv=None):
     parser.add_argument("--pooled", action="store_true", help="also profile bench_pooled's dense and pooled step")
     parser.add_argument("--train_rates", action="store_true",
                         help="also time train_nerf's last steps, dense and pooled (chip_smoke's train flags)")
+    parser.add_argument("--frames", default=None,
+                        help="also time 800x800 frames of these comma-separated frame_matrix rows (for example "
+                             "live_no_levers,baked384_p4,live_span)")
     args = parser.parse_args(argv)
     trees = [str(Path(t).resolve()) for t in args.trees]
     for tree in trees:
         if not (Path(tree) / "chip_smoke.py").exists():
             parser.error(f"{tree} holds no chip_smoke.py")
     steps_source = "\n\n".join([
+        "from collections import defaultdict",
         f"HOST_API_CATEGORIES = {profile_render.HOST_API_CATEGORIES!r}",
+        f"KERNEL_LAUNCH_CALLS = {profile_render.KERNEL_LAUNCH_CALLS!r}",
         f"LAUNCH_CALLS = {profile_render.LAUNCH_CALLS!r}",
+        f"PORT_KERNELS = {profile_render.PORT_KERNELS!r}",
+        inspect.getsource(profile_render.port_kernel_calls), inspect.getsource(profile_render.launch_records),
         inspect.getsource(profile_render.profile_call), inspect.getsource(profile_train.timed_launchers),
         inspect.getsource(profile_train.profile_steps)])
     lines = []
@@ -151,7 +195,8 @@ def main(argv=None):
         for tree in trees if turn % 2 == 0 else trees[::-1]:
             env = dict(os.environ, PROFILE_TREE=tree, PROFILE_TURN=str(turn), PROFILE_STEPS_SOURCE=steps_source,
                        PROFILE_REPEATS=str(args.repeats), PROFILE_RENDERS="0" if args.train_only else "1",
-                       PROFILE_POOLED="1" if args.pooled else "0", PROFILE_RATES="1" if args.train_rates else "0")
+                       PROFILE_POOLED="1" if args.pooled else "0", PROFILE_RATES="1" if args.train_rates else "0",
+                       PROFILE_FRAMES="1" if args.frames else "0", PROFILE_FRAME_ROWS=args.frames or "")
             proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, env=env, capture_output=True,
                                   text=True, timeout=args.timeout)
             if proc.returncode != 0:

@@ -23,6 +23,7 @@ import torch
 from ..checkpoint import checkpoint_from_flax, load_params_pickle
 from ..data.camera import CameraView
 from ..data.dataset import ModelMetadata
+from ..frame_graph import frame_graphs
 from ..occ_render import OccupancyFrameSession
 from ..parallel.mesh import Mesh, replicate
 from ..render import Renderer, render_frame
@@ -82,7 +83,9 @@ class RenderSession:
     the checkpoint's fine model or, with ``--baked``, its bake, with the
     selection levers the flags set.  ``include_depth_outputs`` adds
     ``alphas`` and ``coords`` to what :meth:`render_arrays` returns
-    (dataset distillation).
+    (dataset distillation).  On one card each tile of a frame is a
+    CUDA-graph replay: ``graphs`` (:class:`~..frame_graph.FrameGraphs`,
+    None on the CPU and over a mesh, and set to None for the eager route).
     """
 
     def __init__(
@@ -135,27 +138,34 @@ class RenderSession:
                 include_depth_outputs=include_depth_outputs,
                 mesh=self.mesh,
             )
-            self._render = lambda rays: self.frames.render(rays, self.generator)
-        else:
-            self.renderer = Renderer(
-                coarse=self.coarse,
-                fine=self.fine,
-                bbox_min=tuple(self.metadata.bbox_min),
-                bbox_max=tuple(self.metadata.bbox_max),
-                coarse_ts=args.coarse_samples,
-                fine_ts=args.fine_samples,
-            )
-            replicas = replicate((self.renderer, self.background), self.mesh.devices) if self.mesh else None
-            self._render = lambda rays: render_frame(
-                self.renderer,
-                rays,
-                self.background,
-                tile_size=args.batch_size,
-                generator=self.generator,
-                include_depth_outputs=include_depth_outputs,
-                mesh=self.mesh,
-                replicas=replicas,
-            )
+            self.graphs = self.frames.graphs
+            self._render = self._render_occupancy
+            return
+        self.renderer = Renderer(
+            coarse=self.coarse,
+            fine=self.fine,
+            bbox_min=tuple(self.metadata.bbox_min),
+            bbox_max=tuple(self.metadata.bbox_max),
+            coarse_ts=args.coarse_samples,
+            fine_ts=args.fine_samples,
+        )
+        self.graphs = frame_graphs(self.device, self.mesh)
+        replicas = replicate((self.renderer, self.background), self.mesh.devices) if self.mesh else None
+        self._render = lambda rays: render_frame(
+            self.renderer,
+            rays,
+            self.background,
+            tile_size=args.batch_size,
+            generator=self.generator,
+            include_depth_outputs=include_depth_outputs,
+            mesh=self.mesh,
+            replicas=replicas,
+            graphs=self.graphs,
+        )
+
+    def _render_occupancy(self, rays: torch.Tensor) -> Dict[str, torch.Tensor]:
+        self.frames.graphs = self.graphs  # the session's one switch: None renders eagerly
+        return self.frames.render(rays, self.generator)
 
     def render_arrays(self, view: CameraView, width: int, height: int) -> Dict[str, np.ndarray]:
         """One view's frame outputs on the host, ``[width * height, C]``

@@ -82,19 +82,29 @@ class StepGraphs:
         entry = self._graphs.get(key)
         if entry is None:
             _uncounted(body)
-            (graph, outputs), moved = _uncounted(
-                lambda: self._capture(lambda: (_packed(body()), [p.grad for p in leaves])))
-            entry = self._graphs[key] = (graph, outputs, moved)
-            self.captures += 1
+            entry = self._graphs[key] = self._captured(lambda: (_packed(body()), [p.grad for p in leaves]))
         graph, (values, grads), moved = entry
-        graph.replay()
-        self.replays += 1
+        self._replay(graph, moved)
         for p, grad in zip(leaves, grads):
             p.grad = grad
+        return _unpacked(values)
+
+    def _captured(self, body: Callable) -> tuple:
+        """``(graph, body's outputs, the launch counters it moved)``:
+        ``body`` captured, its launches uncounted (each replay counts
+        them)."""
+        (graph, outputs), moved = _uncounted(lambda: self._capture(body))
+        self.captures += 1
+        return graph, outputs, moved
+
+    def _replay(self, graph, moved) -> None:
+        """One replay of ``graph``, counted, and the launch counters moved
+        as its capture moved them."""
+        graph.replay()
+        self.replays += 1
         for c, launches, plain in moved:
             c.launches += launches
             c.plain_calls += plain
-        return _unpacked(values)
 
     def _capture(self, body: Callable):
         """``(graph, body's outputs)``: ``body`` captured into a CUDA graph

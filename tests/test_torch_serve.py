@@ -344,6 +344,7 @@ def test_port_imports_without_jax():
         "import learn_nerf_tpu_torch.scripts.profile_train\n"
         "import learn_nerf_tpu_torch.train\n"
         "import learn_nerf_tpu_torch.step_graph\n"
+        "import learn_nerf_tpu_torch.frame_graph\n"
         "import learn_nerf_tpu_torch.scripts.adam_ablations\n"
         "import learn_nerf_tpu_torch.data.shuffle\n"
         "import learn_nerf_tpu_torch.data.prefetch\n"
@@ -402,8 +403,31 @@ def test_profile_view_times_renders_on_cpu(scene):
     # No card: the device fields are not measured; the host ops are.
     assert result["device_ms"] is None and result["idle_share"] is None
     assert result["kernels_launched"] is None and result["port_kernels"] is None and result["port_calls"] is None
+    assert result["port_graph_calls"] is None and result["graph_launch_kernels"] is None
     assert result["memsets"] is None and result["gemm_ms"] is None
     assert 0 < len(result["host_top"]) <= 5 and result["host_top"][0]["calls"] > 0
+
+
+def test_launch_records_tie_kernels_to_their_launches():
+    """A trace's kernels by the launch call whose correlation id they
+    carry: two graph launches (the second lost a kernel record), an eager
+    launch with its kernel and one without."""
+    def call(name, ts, corr):
+        return dict(ph="X", cat="cuda_runtime", name=name, ts=ts, args=dict(correlation=corr))
+
+    def kernel(name, corr):
+        return dict(ph="X", cat="kernel", name=name, ts=0.0, dur=1.0, args=dict(correlation=corr))
+
+    events = [call("cudaGraphLaunch", 3.0, 7), call("cudaGraphLaunch", 1.0, 5), call("cudaLaunchKernel", 2.0, 6),
+              call("cuLaunchKernel", 4.0, 8), call("cudaMemcpyAsync", 5.0, 9),
+              kernel("select_strided_kernel", 5), kernel("hashgrid_encode_kernel<16>", 5),
+              kernel("select_strided_kernel", 6), kernel("hashgrid_encode_kernel<16>", 7)]
+    records = profile_render.launch_records(events)
+    assert records == dict(graph=[5, 7], graph_kernels=[2, 1], without_kernel=1,
+                           graph_port_calls=[dict(select_strided=1, hashgrid_encode=1), dict(hashgrid_encode=1)])
+    assert profile_render.port_kernel_calls(events) == dict(select_strided=2, hashgrid_encode=2)
+    assert profile_render.port_kernel_calls(events, set(records["graph"])) == dict(select_strided=1,
+                                                                                   hashgrid_encode=2)
 
 
 def test_timed_launchers_add_up_host_time_and_restore():
