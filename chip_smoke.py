@@ -251,11 +251,23 @@ nonzero):
    scored by ``eval_psnr`` on the held-out views; the f32 run stopped
    after step 49 (its full state saved at 48) and resumed from its full
    state: the step counter and the lr continue, and every resumed step's
-   losses equal the uninterrupted run's within RESUME_BOUND.  Before the
+   losses equal the uninterrupted run's within RESUME_BOUND; every step
+   of every run after the first a graph replay.  Before the
    serve phase, one full-width step of each of these models by the kernel
    route against the plain route on the card (loss and gradients, and each
-   pass's normal_mse in the Ref-NeRF models), and in phase 2 the hash-grid
-   kernels at the NGP hierarchy's two passes;
+   pass's normal_mse in the Ref-NeRF models), then the hierarchy loop's
+   step graph (``check_hierarchy_graph_step``): each of these models'
+   ``step_auto`` with the density penalty as CUDA-graph replays, each step
+   against eager ``step()`` from the graph loop's state and the same seed
+   (forward values bit for bit, ``grad_norm`` within its bound), one
+   capture and a replay a step after the first, the launches of both
+   routes once a step, the composite ticket back at 0, a handful of host
+   launches a replayed step in the profile, whose trace runs each of the
+   port's kernels as often as the counters claim, each graph pool and the
+   peak memory printed, and three deliberate faults caught on the NGP loop
+   (the fine uniforms not redrawn into their buffer, the batch not copied,
+   the logged values read after the next replay); and in phase 2 the
+   hash-grid kernels at the NGP hierarchy's two passes;
 8. data parallelism (``parallel_phase``): two ranks sharing the card over
    gloo (``init_distributed`` with the JAX CLI's flags, CUDA tensors), each
    training 4096 rays of every global batch at bench_occupancy's width
@@ -328,6 +340,7 @@ import argparse
 import contextlib
 import copy
 import functools
+import gc
 import io
 import json
 import os
@@ -776,6 +789,29 @@ GRAPH_HOST_LAUNCHES = 16
 COUNTER_KERNELS = {"composite": "composite_forward", "composite_pooled": "composite_pooled_forward"}
 GRAPH_FAULTS = ("words not rebuilt after a refresh", "the batch not copied into its buffer",
                 "the logged values read after the next replay")
+# The hierarchy's hot route (check_hierarchy_graph_step): each
+# HIERARCHY_RUNS model at full width with the density penalty on,
+# HIERARCHY_GRAPH_STEPS[name] steps of train_nerf's loop, each against an
+# eager step() from the graph loop's state with the draws of the same seed
+# (drawn inside the loss, as before the hot route split the step): the
+# forward values bit-equal and grad_norm within GRAPH_GRAD_NORM_BOUND, as
+# in check_graph_step.  A step's launches on either route, with the
+# penalty's two model calls: the composite pair twice; in NGP the encode
+# and table-gradient kernels four times; in the hybrid the dx kernel four
+# times, its backward twice (the penalty reads no normal).  The eager
+# steps run after the graph loop is gone: the vanilla Ref-NeRF's graph pool
+# (42.3 GB) and an eager step beside it (37.9 GB at its peak) ran the card
+# out of memory in a full run.  The three
+# faults run on the NGP loop, HIERARCHY_GRAPH_FAULT_STEPS steps each.  A
+# replayed step makes at most HIERARCHY_HOST_LAUNCHES launches on the host
+# (an H100 profiled 14 in NGP and the vanilla Ref-NeRF, 16 in vanilla f32
+# and bf16: the four draws, the batch's copy, the replay, the values'
+# clone, then Adam's foreach launches, more of them for more tensors).
+HIERARCHY_GRAPH_STEPS = {"hierarchy f32": 8, "hierarchy ngp": 32, "hierarchy bf16": 8, "hierarchy ref-nerf ngp": 16,
+                         "hierarchy ref-nerf": 8}
+HIERARCHY_GRAPH_FAULT_STEPS, HIERARCHY_PENALTY = 4, "1e-3"
+HIERARCHY_HOST_LAUNCHES = 20
+HIERARCHY_GRAPH_FAULTS = ("the fine uniforms not redrawn into their buffer", GRAPH_FAULTS[1], GRAPH_FAULTS[2])
 # Frames as tile replays (check_frame_graphs): each mode's SIDE x SIDE frame
 # rendered FRAME_GRAPH_FRAMES times by replays (the first captures) and again
 # by the eager route from the same generator states, bit for bit; then one
@@ -3036,8 +3072,8 @@ def refresh_generator(loop, device):
 
 def sync_loop(src, dst):
     """``dst`` (a loop that steps eagerly) at ``src``'s state: parameters,
-    Adam's moments and step counts, the grid, the counters and the auto
-    budget."""
+    Adam's moments and step counts and, in the occupancy loop, the grid,
+    the host step and the auto budget."""
     from learn_nerf_tpu_torch.acceleration import OccupancyGridState
 
     with torch.no_grad():
@@ -3045,9 +3081,11 @@ def sync_loop(src, dst):
             a.copy_(b)
     for a, b in zip(dst._leaves(), src._leaves()):
         dst.optimizer.state[a] = {k: v.clone() for k, v in src.optimizer.state[b].items()}
-    dst.grid_state = OccupancyGridState(src.grid_state.densities.clone(), src.grid_state.step)
-    dst._host_step, dst.step_count, dst._opt_count = src._host_step, src.step_count, src._opt_count
-    dst._auto_per_ray, dst._auto_resolved_at = src._auto_per_ray, src._auto_resolved_at
+    dst.step_count, dst._opt_count = src.step_count, src._opt_count
+    if hasattr(src, "grid_state"):
+        dst.grid_state = OccupancyGridState(src.grid_state.densities.clone(), src.grid_state.step)
+        dst._host_step = src._host_step
+        dst._auto_per_ray, dst._auto_resolved_at = src._auto_per_ray, src._auto_resolved_at
 
 
 def graph_in_step(root, device, pooled, steps):
@@ -3125,14 +3163,24 @@ def in_step_faults(got, want, grids):
 
 
 @contextlib.contextmanager
-def graph_fault(name):
-    """Inside, the graph route has the deliberate fault ``name`` (one of
-    GRAPH_FAULTS)."""
+def graph_fault(name, loop_class=None):
+    """Inside, the graph route of ``loop_class`` (by default the occupancy
+    loop) has the deliberate fault ``name`` (one of GRAPH_FAULTS or
+    HIERARCHY_GRAPH_FAULTS)."""
     from learn_nerf_tpu_torch import step_graph
     from learn_nerf_tpu_torch.acceleration import StaticGridState
-    from learn_nerf_tpu_torch.train import OccupancyTrainLoop
+    from learn_nerf_tpu_torch.train import OccupancyTrainLoop, TrainLoop
 
-    if name == GRAPH_FAULTS[0]:
+    loop_class = loop_class or OccupancyTrainLoop
+    if name == HIERARCHY_GRAPH_FAULTS[0]:
+        owner, attr = TrainLoop, "_draw_inputs"
+        original = TrainLoop._draw_inputs
+
+        def faulty(self, inputs, batch, names):  # the fine uniforms of the first step, kept
+            kept = self.__dict__.setdefault("_fine_drawn", False)
+            self._fine_drawn = True
+            return original(self, inputs, batch, [n for n in names if not (kept and n == "u_fine")])
+    elif name == GRAPH_FAULTS[0]:
         owner, attr = StaticGridState, "follow"
         original = StaticGridState.follow
 
@@ -3142,11 +3190,11 @@ def graph_fault(name):
             self.words.copy_(first)
             return out
     elif name == GRAPH_FAULTS[1]:
-        owner, attr = OccupancyTrainLoop, "_hot_step"
-        original = OccupancyTrainLoop._hot_step
+        owner, attr = loop_class, "_hot_step"
+        original = loop_class._hot_step
 
-        def faulty(self, batch, budget):  # the buffer keeps the first batch
-            return original(self, self.__dict__.setdefault("_first_batch", batch), budget)
+        def faulty(self, batch, *rest):  # the buffer keeps the first batch
+            return original(self, self.__dict__.setdefault("_first_batch", batch), *rest)
     else:
         owner, attr = step_graph, "_unpacked"
         original = step_graph._unpacked
@@ -3155,11 +3203,15 @@ def graph_fault(name):
             order, groups = outputs
             values = {key: stacked[i] for stacked, keys in groups.values() for i, key in enumerate(keys)}
             return {key: values[key] for key in order}
+    own = attr in owner.__dict__
     setattr(owner, attr, faulty)
     try:
         yield
     finally:
-        setattr(owner, attr, original)
+        if own:
+            setattr(owner, attr, original)
+        else:
+            delattr(owner, attr)
 
 
 def check_graph_step(root, device):
@@ -3291,6 +3343,166 @@ def check_graph_step(root, device):
     require(gap <= STEP_BOUNDS_CPU[0] and loop.graph_replays == 1 and np.isfinite(float(values["fine"])),
             "a full state saved on the CPU did not resume on the card")
     del loop, cpu
+    torch.cuda.empty_cache()
+
+
+def hierarchy_graph_loop(root, device, name):
+    """train_nerf's loop of the HIERARCHY_RUNS model ``name`` at full width
+    with the density penalty on (the models from ``torch.manual_seed(SEED)``)."""
+    from learn_nerf_tpu_torch.data.dataset import ModelMetadata
+    from learn_nerf_tpu_torch.scripts import train_nerf
+
+    flags = [*HIERARCHY_FLAGS, *HIERARCHY_RUNS[name][0], "--density_penalty", HIERARCHY_PENALTY, str(root / "train")]
+    args = train_nerf.build_parser().parse_args(flags)
+    torch.manual_seed(SEED)
+    return train_nerf.make_loop(args, ModelMetadata.from_json(str(root / "train" / "metadata.json")), args.lr,
+                                device)
+
+
+def loop_state(loop):
+    """A copy of ``loop``'s parameters, Adam's state and step counts, as
+    ``sync_loop`` reads them from a loop."""
+    leaves = [p.detach().clone() for p in loop._leaves()]
+    adam = {c: {k: v.clone() for k, v in loop.optimizer.state[p].items()} for c, p in zip(leaves, loop._leaves())}
+    return types.SimpleNamespace(_leaves=lambda: leaves, optimizer=types.SimpleNamespace(state=adam),
+                                 step_count=loop.step_count, _opt_count=loop._opt_count)
+
+
+def hierarchy_in_step(root, device, name, steps, on_graph=None):
+    """``steps`` hot-route steps of the hierarchy loop of ``name``, then,
+    once that loop and its graphs are gone (a vanilla Ref-NeRF graph pool
+    and an eager step beside it do not fit the card together), each step
+    again by eager ``step()`` from the graph loop's state just before it
+    (``loop_state``, copied into an eager loop) with a generator seeded as
+    ``step_auto`` seeds the step, which draws inside the loss.
+    ``on_graph(loop)`` runs on the graph loop after its steps.  Returns both
+    routes' logged values by step (the graph loop's dicts read after its
+    run) and each route's launches by step (``counted``: no plain version
+    may run)."""
+    from learn_nerf_tpu_torch.train import TRAIN_TAG, fold_seed
+
+    batches = graph_batches(root, device, steps)
+    graph = hierarchy_graph_loop(root, device, name)
+    states, routes = [], ([], [])
+    for batch in batches:
+        states.append(loop_state(graph))
+        routes[0].append(counted(name, lambda: graph.step_auto(GRAPH_SEED, batch)))
+    got = [{k: float(v) for k, v in values.items()} for values, _ in routes[0]]
+    if on_graph is not None:
+        on_graph(graph)
+    del graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = hierarchy_graph_loop(root, device, name)
+    for batch, state in zip(batches, states):
+        sync_loop(state, eager)
+        generator = torch.Generator(device=device).manual_seed(fold_seed(GRAPH_SEED, TRAIN_TAG, eager.step_count))
+        routes[1].append(counted(name, lambda: eager.step(batch, generator=generator)))
+    want = [{k: float(v) for k, v in values.items()} for values, _ in routes[1]]
+    launches = [tuple({k: n for k, (n, _) in counts.items() if n} for _, counts in step) for step in zip(*routes)]
+    return got, want, launches
+
+
+def hierarchy_step_launches(name):
+    """A hierarchy step's launches of ``name``'s model with the density
+    penalty on (see HIERARCHY_GRAPH_STEPS)."""
+    flags = HIERARCHY_RUNS[name][0]
+    want = dict(composite=2, composite_backward=2)
+    if "--instant_ngp" in flags:
+        want.update(hashgrid_encode=4, hashgrid_backward=4)
+        if "--ref_nerf" in flags:
+            want.update(hashgrid_dx=4, hashgrid_dx_backward=2)
+    return want
+
+
+def check_hierarchy_graph_step(root, device):
+    """The hierarchy loop's hot route on the card: ``step_auto`` as
+    CUDA-graph replays for each HIERARCHY_RUNS model at full width, with
+    the density penalty (see HIERARCHY_GRAPH_STEPS and the lines before it):
+    every step against eager ``step()`` from the same state and the draws
+    of the same seed (the forward values bit-equal, ``grad_norm`` within
+    GRAPH_GRAD_NORM_BOUND), one capture and a replay a step after the
+    first, the composite ticket back at 0 after both passes' launches, each
+    route's launches once a step as HIERARCHY_GRAPH_STEPS says, at most
+    HIERARCHY_HOST_LAUNCHES host launches a replayed step in the profile,
+    whose trace runs each of the port's kernels as often as the counters
+    claim, the graph pool and the peak memory printed; then each
+    deliberate fault (HIERARCHY_GRAPH_FAULTS) caught on the NGP loop."""
+    from learn_nerf_tpu_torch.kernels import composite as kc
+    from learn_nerf_tpu_torch.scripts.profile_train import graph_pool_bytes
+    from learn_nerf_tpu_torch.train import TrainLoop
+
+    for name, steps in HIERARCHY_GRAPH_STEPS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        seen = {}
+
+        def on_graph(loop):
+            """The checks that need the graph loop: its captures and
+            replays, the ticket, the pool, a profiled and a timed replay."""
+            seen.update(replays=loop.graph_replays, captures=loop.captures, pool=graph_pool_bytes(loop),
+                        keys=sorted(loop._graphs._graphs, key=str),
+                        ticket=int(kc._scratch[loop.background.device][0].item()))
+            batch = graph_batches(root, device, 1)[0]
+
+            def replay():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loop.step_auto(GRAPH_SEED, batch)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+
+            replay()
+            seen["trace"] = traced_until_matched(f"hierarchy graph step, {name}", replay, device)
+            seen["times"] = replay_device_ms(list(loop._graphs._graphs.values())[0][0], device, reps=4)
+            seen["graph_peak"] = torch.cuda.max_memory_allocated(device)
+
+        got, want, launches = hierarchy_in_step(root, device, name, steps, on_graph)
+        peak = torch.cuda.max_memory_allocated(device)
+        differ, grad_gap = in_step_faults(got, want, [True] * steps)
+        per_step = hierarchy_step_launches(name)
+        wrong = [i for i, (a, b) in enumerate(launches) if a != per_step or b != per_step]
+        trace, times = seen["trace"], seen["times"]
+        print(f"hierarchy graph step, {name}, {steps} steps, each against eager step() from its state: forward "
+              f"values differ at steps {differ}; grad_norm gap max {grad_gap:.3e} (bound {GRAPH_GRAD_NORM_BOUND:g}); "
+              f"first steps {got[:2]} vs {want[:2]}; {seen['replays']} replays, {seen['captures']} captures, keys "
+              f"{seen['keys']}; launches a step not {per_step} on either route at steps {wrong} (first "
+              f"{launches[0]}); graph pool {seen['pool']} B, peak allocated {seen['graph_peak']} B with the graphs, "
+              f"{peak} B in all", flush=True)
+        print(f"hierarchy graph step, {name}: a replayed step under the profiler: {trace['host_launches']} host "
+              f"launches, {trace['kernels_launched']} kernels, {trace['device_ms']:.3f} device ms of "
+              f"{trace['profiled_ms']:.3f} ms; the port's kernels it ran {trace['port_calls']} "
+              f"({trace['port_graph_calls']} in replays), the launches its counters claim {trace['claimed']} "
+              f"({trace['claimed_graph']} by replays); one replay {times['events_ms']:.4f} ms by CUDA events, "
+              f"{times['kernel_sum_ms']:.4f} ms its {times['kernels']} kernels' sum and {times['busy_ms']:.4f} ms "
+              f"busy under the profiler", flush=True)
+        require(not differ and grad_gap <= GRAPH_GRAD_NORM_BOUND,
+                f"hierarchy graph step, {name}: the replayed steps disagree with the eager steps")
+        # The profiled and the timed replay come after the counted steps.
+        require(seen["replays"] == steps - 1 and seen["captures"] == 1 and seen["keys"] == [(TRAIN_RAYS,)],
+                f"hierarchy graph step, {name}: {seen['replays']} replays and {seen['captures']} captures in "
+                f"{steps} steps")
+        require(seen["ticket"] == 0, f"hierarchy graph step, {name}: the composite ticket stands at "
+                f"{seen['ticket']} after the replays")
+        require(not wrong, f"hierarchy graph step, {name}: the launch counters did not move once a step on each "
+                f"route: {launches}")
+        require(1 <= trace["host_launches"] <= HIERARCHY_HOST_LAUNCHES,
+                f"hierarchy graph step, {name}: a replayed step made {trace['host_launches']} host launches")
+        require(trace["claimed_graph"] and trace_matches(trace),
+                f"hierarchy graph step, {name}: the replayed step ran the port's kernels {trace['port_calls']} "
+                f"({trace['port_graph_calls']} in replays), but its counters claim {trace['claimed']} "
+                f"({trace['claimed_graph']} by replays)")
+
+    for fault in HIERARCHY_GRAPH_FAULTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with graph_fault(fault, TrainLoop):
+            got, want, _ = hierarchy_in_step(root, device, "hierarchy ngp", HIERARCHY_GRAPH_FAULT_STEPS)
+        differ, _ = in_step_faults(got, want, [True] * len(got))
+        print(f"hierarchy graph step fault, {fault}: the routes differ at steps {differ}", flush=True)
+        require(differ, f"hierarchy graph step: the fault '{fault}' went unseen")
+    gc.collect()
     torch.cuda.empty_cache()
 
 
@@ -3451,7 +3663,7 @@ def train_run(root, name, flags, checkpoint, steps=TRAIN_STEPS, data="train", st
     rate = {n: n / (marks[steps] - marks[steps - n]) for n in (64, 48) if steps - n in marks and steps in marks}
     notes = [line for line in text.splitlines() if line.startswith(("auto pool budget", "cosine", "skipping"))]
     grid = f"; grid updates {loop.grid_state.step}" if hasattr(loop, "grid_state") else ""
-    if hasattr(loop, "graph_replays"):  # the occupancy loop: every step after the first a graph replay
+    if hasattr(loop, "graph_replays"):  # either loop: every step after the first a graph replay
         grid += f"; {loop.graph_replays} graph replays, {loop.captures} captures"
         require(loop.graph_replays == done - 1 and loop.captures >= 1,
                 f"{name}: {loop.graph_replays} graph replays and {loop.captures} captures in {done} steps")
@@ -5269,6 +5481,7 @@ def main():
         check_graph_step(root, device)
         torch.cuda.empty_cache()
         hierarchy_step_check(root, device, np.random.RandomState(SEED + 14))
+        check_hierarchy_graph_step(root, device)
         served, setups, bake = {}, {}, {}
         runs = [(name, mode, True) for name, mode in {**VANILLA_MODES, **VANILLA_LEVER_MODES}.items()]
         runs += [(name, mode, False) for name, mode in {**NGP_MODES, **BAKED_MODES, **LEVER_SERVE_MODES}.items()]

@@ -65,6 +65,10 @@ PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners",
                 "hashgrid_backward", "hashgrid_dx", "hashgrid_dx_backward", "composite_forward",
                 "composite_backward", "composite_pooled_forward", "composite_pooled_backward", "baked_lookup",
                 "select_strided", "pool_pack")
+# CUDA functions that run for a port kernel under a name of their own: the
+# dx wrapper launches hashgrid_dx_points_kernel where no level hashes (the
+# Ref-NeRF hybrid's coarse model).
+KERNEL_ALIASES = {"hashgrid_dx_points": "hashgrid_dx"}
 
 
 def argparser():
@@ -101,10 +105,19 @@ def device_summary(trace_events, top=3):
     ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:top]
     ours = defaultdict(float)
     for name, ms in per_kernel.items():
-        for kernel in PORT_KERNELS:
-            if f"{kernel}_kernel" in name:
-                ours[kernel] += ms
+        kernel = port_kernel_of(name)
+        if kernel is not None:
+            ours[kernel] += ms
     return _busy_ms(spans), ranked, dict(ours)
+
+
+def port_kernel_of(name: str):
+    """The port kernel (of PORT_KERNELS) that the CUDA function ``name``
+    runs for, or None."""
+    for stem in (*PORT_KERNELS, *KERNEL_ALIASES):
+        if f"{stem}_kernel" in name:
+            return KERNEL_ALIASES.get(stem, stem)
+    return None
 
 
 def port_kernel_calls(trace_events, correlations=None) -> dict:
@@ -115,9 +128,9 @@ def port_kernel_calls(trace_events, correlations=None) -> dict:
     for e in trace_events:
         if e.get("ph") == "X" and e.get("cat") == "kernel" and (
                 correlations is None or e.get("args", {}).get("correlation") in correlations):
-            for kernel in PORT_KERNELS:
-                if f"{kernel}_kernel" in e["name"]:
-                    calls[kernel] += 1
+            kernel = port_kernel_of(e["name"])
+            if kernel is not None:
+                calls[kernel] += 1
     return dict(calls)
 
 

@@ -11,13 +11,14 @@ Takes ``train_nerf``'s flags and its ``data_dir`` and prints one JSON line:
 * ``host_ms``: the host's own time of each of those steps, until
   ``step_auto`` returned (what it takes to enqueue the step), and
   ``host_median_ms`` their median;
-* ``graph_replays`` and ``captures``: the occupancy loop's step graphs
-  over the whole run (on the card ``step_auto`` replays a captured graph,
-  ``learn_nerf_tpu_torch.step_graph``; 0 on the CPU and in the
-  hierarchy's loop, whose steps run eagerly), and ``graph_pool_bytes``
+* ``graph_replays`` and ``captures``: the loop's step graphs over the
+  whole run (on the card ``step_auto`` replays a captured graph,
+  ``learn_nerf_tpu_torch.step_graph``; 0 on the CPU), and ``graph_pool_bytes``
   the card's memory in the loop's graphs' pool (0 without graphs),
   ``reserved_bytes`` all the caching allocator holds, after the timed
-  steps (``null`` on the CPU);
+  steps, and ``peak_bytes`` the most the loop's tensors held at once from
+  its first step to then (``torch.cuda.max_memory_allocated``) (``null`` on
+  the CPU);
 * ``rays_per_s``: the batch size over the median step;
 * ``profiled_ms``, ``device_ms``, ``idle_share``, ``top``,
   ``port_kernels``, ``port_calls``, ``kernels_launched``, ``host_launches``, ``memsets``,
@@ -128,6 +129,14 @@ def timed_launchers(module, names):
             setattr(module, name, fn)
 
 
+def graph_pool_bytes(loop) -> int:
+    """The card's memory in the segments of ``loop``'s step graphs' pool
+    (0 where the loop has none)."""
+    pool = getattr(getattr(loop, "_graphs", None), "_pool", None)
+    return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+               if pool is not None and tuple(s.get("segment_pool_id", ())) == tuple(pool))
+
+
 def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_steps: int = 3) -> dict:
     """Step times and one profiled step of ``loop`` (either train loop)
     over ``batches`` (an iterator of ``[N, 3, 3]`` batches on the loop's
@@ -148,6 +157,8 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
             dropped.append(values["fine_pool_dropped"])
         return (time.perf_counter() - t0) * 1e3
 
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     for _ in range(warmup_steps):  # first-use costs stay out of the numbers
         step()
     del refreshed[:], enqueued[:]
@@ -158,12 +169,10 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
     with timed_launchers(kc, launchers) as host:
         times = [step() for _ in range(repeats)]
     host_ms = enqueued[:repeats]
-    pool_bytes = reserved = None
+    pool_bytes = reserved = peak = None
     if device.type == "cuda":
-        reserved = torch.cuda.memory_reserved(device)
-        pool = getattr(getattr(loop, "_graphs", None), "_pool", None)
-        pool_bytes = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
-                         if pool is not None and tuple(s.get("segment_pool_id", ())) == tuple(pool))
+        reserved, peak = torch.cuda.memory_reserved(device), torch.cuda.max_memory_allocated(device)
+        pool_bytes = graph_pool_bytes(loop)
     with_refresh = [ms for ms, due in zip(times, refreshed) if due]
     while refresh_due():  # profile a step without a grid refresh
         step()
@@ -177,6 +186,7 @@ def profile_steps(loop, batches, base_seed: int = 0, repeats: int = 16, warmup_s
     result = dict(
         step_ms=times, median_ms=median, refresh_step_ms=with_refresh, host_ms=host_ms,
         host_median_ms=statistics.median(host_ms), graph_pool_bytes=pool_bytes, reserved_bytes=reserved,
+        peak_bytes=peak,
         rays_per_s=batch_size / median * 1e3, batch_size=batch_size,
         composite_host_us=dict(forward=per_call("forward"), backward=per_call("backward")),
         **profile_call(step, device),

@@ -15,7 +15,11 @@ and occupancy, ``--bf16`` and f32; the three NGP modes in f32;
 ``scripts/profile_render.py``: one warm-up render at 256x256, five timed,
 one profiled); with ``--pooled`` also ``bench_pooled``'s cell
 (``profile_train.py --pooled``: the dense and the auto-pooled step on a
-frozen 5 %-occupied grid); with ``--train_rates`` also ``train_nerf``'s
+frozen 5 %-occupied grid); with ``--hierarchy`` also the coarse/fine
+hierarchy's step of each model of ``chip_smoke.HIERARCHY_RUNS``
+(``profile_train.py --hierarchy`` with ``chip_smoke.py``'s hierarchy flags:
+batch 4096, 64 + 128 samples) and the Ref-NeRF hybrid's occupancy step
+(``chip_smoke.ref_nerf_phase``'s flags); with ``--train_rates`` also ``train_nerf``'s
 steps/s and rays/s over the last 64 and 48 of 96 steps, dense and pooled
 (``chip_smoke.train_run`` with ``chip_smoke.py``'s phase-6 flags, the
 checkout's own); with ``--frames`` also 800x800 frames of those rows of
@@ -105,6 +109,18 @@ try:
         pooled = profile_train.argparser().parse_args(flags + ["--repeats", os.environ["PROFILE_REPEATS"], "--pooled"])
         for half, result in profile_train.profile_args(pooled).items():
             emit(f"ngp occupancy train step, bench_pooled grid, {half}", result)
+    if os.environ["PROFILE_HIERARCHY"] == "1":
+        import gc
+
+        repeats = ["--repeats", os.environ["PROFILE_REPEATS"]]
+        runs = [(f"{name} train step", [*cs.HIERARCHY_FLAGS, *run_flags, "--hierarchy"])
+                for name, (run_flags, _) in cs.HIERARCHY_RUNS.items()]
+        runs.append(("ref-nerf ngp occupancy train step", ["--ref_nerf", *flags[:-1]]))
+        for mode, run_flags in runs:
+            emit(mode, profile_train.profile_args(profile_train.argparser().parse_args(
+                [*run_flags, *repeats, str(root / "train")])))
+            gc.collect()
+            torch.cuda.empty_cache()
     if os.environ["PROFILE_RATES"] == "1":
         base = flags[:-1]
         pooled_flags = [*base, "--occ_train_budget", "auto", "--occ_train_budget_start", str(cs.POOL_START),
@@ -171,6 +187,9 @@ def main(argv=None):
     parser.add_argument("--repeats", type=int, default=16, help="timed train steps a run")
     parser.add_argument("--train_only", action="store_true", help="profile the train step, no render mode")
     parser.add_argument("--pooled", action="store_true", help="also profile bench_pooled's dense and pooled step")
+    parser.add_argument("--hierarchy", action="store_true",
+                        help="also profile the hierarchy's step of each chip_smoke.HIERARCHY_RUNS model and the "
+                             "Ref-NeRF hybrid's occupancy step")
     parser.add_argument("--train_rates", action="store_true",
                         help="also time train_nerf's last steps, dense and pooled (chip_smoke's train flags)")
     parser.add_argument("--frames", default=None,
@@ -187,15 +206,17 @@ def main(argv=None):
         f"KERNEL_LAUNCH_CALLS = {profile_render.KERNEL_LAUNCH_CALLS!r}",
         f"LAUNCH_CALLS = {profile_render.LAUNCH_CALLS!r}",
         f"PORT_KERNELS = {profile_render.PORT_KERNELS!r}",
-        inspect.getsource(profile_render.port_kernel_calls), inspect.getsource(profile_render.launch_records),
+        f"KERNEL_ALIASES = {profile_render.KERNEL_ALIASES!r}",
+        inspect.getsource(profile_render.port_kernel_of), inspect.getsource(profile_render.port_kernel_calls), inspect.getsource(profile_render.launch_records),
         inspect.getsource(profile_render.profile_call), inspect.getsource(profile_train.timed_launchers),
-        inspect.getsource(profile_train.profile_steps)])
+        inspect.getsource(profile_train.graph_pool_bytes), inspect.getsource(profile_train.profile_steps)])
     lines = []
     for turn in range(args.turns):
         for tree in trees if turn % 2 == 0 else trees[::-1]:
             env = dict(os.environ, PROFILE_TREE=tree, PROFILE_TURN=str(turn), PROFILE_STEPS_SOURCE=steps_source,
                        PROFILE_REPEATS=str(args.repeats), PROFILE_RENDERS="0" if args.train_only else "1",
                        PROFILE_POOLED="1" if args.pooled else "0", PROFILE_RATES="1" if args.train_rates else "0",
+                       PROFILE_HIERARCHY="1" if args.hierarchy else "0",
                        PROFILE_FRAMES="1" if args.frames else "0", PROFILE_FRAME_ROWS=args.frames or "")
             proc = subprocess.run([sys.executable, "-c", RUN], cwd=tree, env=env, capture_output=True,
                                   text=True, timeout=args.timeout)

@@ -317,7 +317,10 @@ def main(argv=None, on_step=None):
         if args.full_state_path is not None:
             loop.save_full(args.full_state_path)
 
-    print("training...")
+    # On a card outside a process group step_auto replays a CUDA graph of
+    # each step after the first (both loops); --test_data_dir steps eagerly.
+    replays = loop._graphs is not None and args.test_data_dir is None
+    print("training... (" + ("steps after the first replay CUDA graphs" if replays else "eager steps") + ")")
     seed_base = int(rng.integers(0, 2**31 - 1))
     data_seed, test_seed, base_seed = seed_base, seed_base + 1, seed_base + 2
     shuffle_dir = os.path.join(args.data_dir, "shuffled")

@@ -1,16 +1,19 @@
-"""The occupancy loop's train step as CUDA-graph replays (the port's
-counterpart of the JAX package's jitted ``step_auto`` and scanned
-``step_auto_scan``, ``learn_nerf_tpu/train.py:664-765``).
+"""Both train loops' steps as CUDA-graph replays (the port's counterpart
+of the JAX package's jitted ``step_auto`` and scanned ``step_auto_scan``:
+the hierarchy's ``learn_nerf_tpu/train.py:237-334``, the occupancy loop's
+``:664-765``).
 
-A step splits into a host prologue (the grid refresh, the step's draws
-into static buffers, the batch copied into its buffer:
+A step splits into a host prologue (the occupancy loop's grid refresh, the
+step's draws into static buffers, the batch copied into its buffer:
+:meth:`~.train.TrainLoop._hot_step`,
 :meth:`~.train.OccupancyTrainLoop._hot_step`), a body on those buffers (the
 loss, its gradients and the norms: :func:`~.train.grad_body`) and the
 optimizer (Adam and the EMA, eager on every route: :func:`~.train.grad_step`).
 :class:`StepGraphs` runs the body: eagerly at the run's first step, then
-captured once per key into a CUDA graph and replayed.  A key is ``(rays,
-pool budget or None, grid in warmup)``: the selection kernel takes the
-warmup rule by value, and a pooled step's shapes follow its budget.
+captured once per key into a CUDA graph and replayed.  The hierarchy's key
+is ``(rays,)``; the occupancy loop's ``(rays, pool budget or None, grid in
+warmup)``: the selection kernel takes the warmup rule by value, and a
+pooled step's shapes follow its budget.
 
 Adam stays out of the graph: a graph needs Adam's ``capturable`` or
 ``fused`` form (step counts on the device, the bias corrections device
@@ -25,9 +28,9 @@ What the graphs rely on:
   outside the graphs' memory pool and is never freed while a graph may
   replay: the parameters (loads copy into them in place), the static
   inputs, and the composite backward's ticket (zeroed once, reset by every
-  launch inside the graph: launches share it in stream order) and its
-  per-block slots (kept when a larger launch outgrows them:
-  ``kernels/composite._retired``).  Each capture follows one eager run of
+  launch inside the graph: launches share it in stream order, the
+  hierarchy's two passes too) and its per-block slots (kept when a larger
+  launch outgrows them: ``kernels/composite._retired``).  Each capture follows one eager run of
   the body at its key, so a capture makes no such scratch (the composite
   wrapper raises if it would); any graph may replay after any other;
 - a graph's outputs are read right after its replay, before the next one
@@ -39,10 +42,12 @@ What the graphs rely on:
   counters (:data:`~.kernels.build.COUNTERS`); the step counters advance
   outside the body.
 
-All graphs share one memory pool and capture on one side stream.  A
-failure to capture or to replay raises; nothing falls back to eager.
+All graphs share one memory pool and capture on one side stream, with
+Python's cyclic garbage collector off while they capture.  A failure to
+capture or to replay raises; nothing falls back to eager.
 """
 
+import gc
 from typing import Callable, Dict, Hashable, List, Optional
 
 import torch
@@ -108,13 +113,22 @@ class StepGraphs:
 
     def _capture(self, body: Callable):
         """``(graph, body's outputs)``: ``body`` captured into a CUDA graph
-        on the side stream and the shared pool."""
+        on the side stream and the shared pool, with Python's cyclic garbage
+        collector off: a collection inside the capture that frees a dead
+        graph (one left in a reference cycle) destroys it mid-capture, which
+        invalidates the capture."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
-            outputs = body()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=self._stream):
+                outputs = body()
+        finally:
+            if collecting:
+                gc.enable()
         return graph, outputs
 
 
@@ -153,7 +167,7 @@ def _unpacked(outputs) -> Dict[str, Tensor]:
 
 
 def step_graphs(device: torch.device, process_group) -> Optional[StepGraphs]:
-    """The occupancy loop's step graphs: on a card, outside a process group
+    """A train loop's step graphs: on a card, outside a process group
     (a gloo all-reduce cannot be captured; NCCL capture is later work);
     None elsewhere, where the body runs eagerly."""
     if device.type != "cuda" or process_group is not None:

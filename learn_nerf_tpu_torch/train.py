@@ -22,15 +22,14 @@ given explicitly (``u_coarse=``, ``u_fine=``, ``u=``, ``density_draws=``,
 ``grid_ids=``, ``grid_jitter=``), which is how the parity tests feed both
 packages the same numbers.
 
-On the card the occupancy loop's ``step_auto`` and ``step_auto_many``
-replay a captured CUDA graph of the step (:mod:`.step_graph`): a host
-prologue (the grid refresh when due, the step's draws into static buffers,
-the batch copied into its buffer), one replay of the body (the loss, its
-gradients and the norms), then Adam and the EMA, eagerly, as on every
-route.  The loop stays eager under a process group, in ``step()`` with the
-caller's draws (the reference route the graph is held against), on the
-CPU (the same prologue, the body run eagerly) and in the hierarchy's
-loop.
+On the card both loops' ``step_auto`` and ``step_auto_many`` replay a
+captured CUDA graph of the step (:mod:`.step_graph`): a host prologue (the
+occupancy loop's grid refresh when due, the step's draws into static
+buffers, the batch copied into its buffer), one replay of the body (the
+loss, its gradients and the norms), then Adam and the EMA, eagerly, as on
+every route.  The loops stay eager under a process group, in ``step()``
+with the caller's draws (the reference route the graph is held against)
+and on the CPU (the same prologue, the body run eagerly).
 
 On the card the hierarchy's step runs the composite kernels, forward and
 backward, once a pass (:mod:`.kernels.composite`), and with Instant-NGP
@@ -421,6 +420,20 @@ class _Trainer:
         if ema_decay is not None:
             self._seed_ema()
         self._generator = torch.Generator(device=self.device)
+        # The hot route's buffers, per batch size (_step_inputs), and the
+        # step graphs that replay its body on the card (None elsewhere).
+        self._inputs: Dict[int, Dict[str, Tensor]] = {}
+        self._graphs = step_graphs(self.device, self._dp)
+
+    @property
+    def graph_replays(self) -> int:
+        """Steps the card ran as a graph replay (0 where steps run eagerly)."""
+        return 0 if self._graphs is None else self._graphs.replays
+
+    @property
+    def captures(self) -> int:
+        """Step graphs captured (0 where steps run eagerly)."""
+        return 0 if self._graphs is None else self._graphs.captures
 
     def _leaves(self) -> list:
         return [p for m in self._models.values() for p in m.parameters()] + [self.background]
@@ -453,6 +466,39 @@ class _Trainer:
         for name, width in widths.items():
             if draws.get(name) is None:
                 draws[name] = uniform((p * n, width), self.device, generator)[r * n:(r + 1) * n]
+        return draws
+
+    # -- the hot route's prologue -------------------------------------------
+
+    def _step_inputs(self, batch: Tensor, widths: Dict[str, int]) -> Dict[str, Tensor]:
+        """The static inputs of the hot route's body at ``batch``'s size,
+        made at its first use: the batch, one ``[n, width]`` buffer of
+        uniforms for each stratified draw of ``widths`` (name to columns)
+        and, with the density penalty, its uniforms and normals ``[B, 3]``."""
+        n = batch.shape[0]
+        inputs = self._inputs.get(n)
+        if inputs is None:
+            f32 = dict(dtype=torch.float32, device=self.device)
+            inputs = self._inputs[n] = dict(batch=torch.empty_like(batch),
+                                            **{name: torch.empty((n, w), **f32) for name, w in widths.items()})
+            if self.density_penalty is not None:
+                b = self.density_penalty_batch_size
+                inputs.update(coords_u=torch.empty((b, 3), **f32), dirs_normal=torch.empty((b, 3), **f32))
+        return inputs
+
+    def _draw_inputs(self, inputs: Dict[str, Tensor], batch: Tensor, names: Sequence[str]):
+        """The prologue's writes, in the order the eager loss draws: the
+        uniforms of each of ``names`` from the loop's generator, then the
+        density penalty's uniforms and normals; then ``batch`` copied into
+        its buffer.  Returns the penalty's draws (None without it)."""
+        generator = self._generator
+        for name in names:
+            inputs[name].uniform_(generator=generator)
+        draws = None
+        if self.density_penalty is not None:
+            draws = (inputs["coords_u"].uniform_(generator=generator),
+                     inputs["dirs_normal"].normal_(generator=generator))
+        inputs["batch"].copy_(batch)
         return draws
 
     def _write(self, write: Callable[[], None]) -> None:
@@ -567,6 +613,13 @@ class TrainLoop(_Trainer):
     TrainLoop``): each step renders the batch through both models
     (:func:`compute_losses`) and takes :func:`grad_step`.
 
+    On the card, :meth:`step_auto` and :meth:`step_auto_many` replay a
+    captured CUDA graph of each step (:mod:`.step_graph`), one graph per
+    batch size, captured at its first use after the run's first (eager)
+    step; ``graph_replays`` and ``captures`` count them.  The loop stays
+    eager under a process group and in :meth:`step`, which takes the
+    caller's draws, on every device.
+
     :param coarse: the coarse field model; ``fine`` the fine one.  The loop
         moves both to ``device`` and trains their parameters in place.
     :param lr: a float, or a schedule of the optimizer step
@@ -644,13 +697,35 @@ class TrainLoop(_Trainer):
         """Hot-loop step: pass the SAME ``base_seed`` every call.  The
         step's draws come from a generator seeded with ``(base_seed, 0,
         train step)`` (the JAX loop folds ``state.step`` into its key), so
-        they continue across a resume: both checkpoints keep the step."""
+        they continue across a resume: both checkpoints keep the step.  On
+        the card the step is a graph replay (:meth:`_hot_step`)."""
         self._generator.manual_seed(fold_seed(base_seed, TRAIN_TAG, self.step_count))
-        return self._grad_step(self._place(batch), generator=self._generator)
+        batch = self._place(batch)
+        if self._dp is None:
+            return self._hot_step(batch)
+        return self._grad_step(batch, generator=self._generator)
+
+    def _hot_step(self, batch: Tensor) -> Dict[str, Tensor]:
+        """The hot route's step.  The prologue, on the host: the step's
+        draws go into static buffers in the order the eager loss draws them
+        (the coarse pass's stratified uniforms, the fine pass's inverse-CDF
+        uniforms, then the density penalty's uniforms and normals), and the
+        batch is copied into its buffer.  The body (:func:`grad_body`)
+        reads only those buffers: eagerly on the CPU, as the replay of the
+        batch size's CUDA graph on the card; Adam follows eagerly
+        (:func:`grad_step`)."""
+        widths = dict(u_coarse=self.renderer.coarse_ts, u_fine=self.renderer.fine_ts)
+        inputs = self._step_inputs(batch, widths)
+        draws = self._draw_inputs(inputs, batch, list(widths))
+        return grad_step(self, lambda: self._loss(self.renderer, self.background, inputs["batch"],
+                                                  u_coarse=inputs["u_coarse"], u_fine=inputs["u_fine"],
+                                                  density_draws=draws),
+                         self._graphs, (batch.shape[0],))
 
     def step_auto_many(self, base_seed: int, batches: Sequence) -> Dict[str, Tensor]:
-        """K hot-loop steps (a plain loop, where the JAX loop scans), bit
-        for bit K :meth:`step_auto` calls.  Returns the LAST step's dict.
+        """K hot-loop steps (a plain loop, where the JAX loop scans; on the
+        card K graph replays, Adam eager between them), bit for bit K
+        :meth:`step_auto` calls.  Returns the LAST step's dict.
 
         :param batches: ``[k, N, 3, 3]`` stacked ray batches.
         """
@@ -789,21 +864,8 @@ class OccupancyTrainLoop(_Trainer):
         self._host_step = 0  # host steps (the refresh cadence, the pooled switch)
         self._init_training(dict(fine=self.model), lr, adam_b1, adam_b2, adam_eps, ema_decay)
         self.grid_state = self.grid.init(self.device)
-        # The hot route's buffers: the grid the body reads, and per batch
-        # size the batch and the step's draws (_hot_step).
+        # The grid the hot route's body reads (_hot_step).
         self._static_grid = StaticGridState(self.grid)
-        self._inputs: Dict[int, Dict[str, Tensor]] = {}
-        self._graphs = step_graphs(self.device, self._dp)
-
-    @property
-    def graph_replays(self) -> int:
-        """Steps the card ran as a graph replay (0 where steps run eagerly)."""
-        return 0 if self._graphs is None else self._graphs.replays
-
-    @property
-    def captures(self) -> int:
-        """Step graphs captured (0 where steps run eagerly)."""
-        return 0 if self._graphs is None else self._graphs.captures
 
     # -- steps ------------------------------------------------------------
 
@@ -879,26 +941,11 @@ class OccupancyTrainLoop(_Trainer):
         The body (:func:`grad_body`) reads only those buffers: eagerly on the
         CPU, as a CUDA-graph replay on the card; Adam follows eagerly
         (:func:`grad_step`)."""
-        n = batch.shape[0]
-        inputs = self._inputs.get(n)
-        if inputs is None:
-            inputs = self._inputs[n] = dict(
-                batch=torch.empty_like(batch),
-                u=torch.empty((n, self.renderer.candidates), dtype=torch.float32, device=self.device))
-            if self.density_penalty is not None:
-                b = self.density_penalty_batch_size
-                inputs.update(coords_u=torch.empty((b, 3), dtype=torch.float32, device=self.device),
-                              dirs_normal=torch.empty((b, 3), dtype=torch.float32, device=self.device))
+        inputs = self._step_inputs(batch, dict(u=self.renderer.candidates))
         grid_state = self._static_grid.follow(self.grid_state)
-        generator = self._generator
-        inputs["u"].uniform_(generator=generator)
-        draws = None
-        if self.density_penalty is not None:
-            draws = (inputs["coords_u"].uniform_(generator=generator),
-                     inputs["dirs_normal"].normal_(generator=generator))
-        inputs["batch"].copy_(batch)
+        draws = self._draw_inputs(inputs, batch, ["u"])
         tables = dict(words=self._static_grid.words)
-        key = (n, budget, self.grid.in_warmup(grid_state))
+        key = (batch.shape[0], budget, self.grid.in_warmup(grid_state))
         return grad_step(self, lambda: self._loss(self.renderer, self.background, inputs["batch"], budget,
                                                   grid_state=grid_state, tables=tables, u=inputs["u"],
                                                   density_draws=draws),

@@ -328,61 +328,20 @@ def test_flags_and_defaults_match_the_jax_cli():
 
 
 def test_port_imports_without_jax():
+    """Every module of the port, as ``pkgutil.walk_packages`` finds them
+    (so a new one cannot be missed), imports with ``jax`` and ``flax``
+    blocked and pulls in nothing of ``learn_nerf_tpu``."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['flax'] = None\n"
-        "import learn_nerf_tpu_torch.scripts.serve_nerf\n"
-        "import learn_nerf_tpu_torch.scripts.profile_render\n"
-        "import learn_nerf_tpu_torch.kernels.build\n"
-        "import learn_nerf_tpu_torch.kernels.hashgrid\n"
-        "import learn_nerf_tpu_torch.kernels.table_gather\n"
-        "import learn_nerf_tpu_torch.kernels.selection\n"
-        "import learn_nerf_tpu_torch.models.instant_ngp\n"
-        "import learn_nerf_tpu_torch.ops.hashgrid\n"
-        "import learn_nerf_tpu_torch.scripts.train_nerf\n"
-        "import learn_nerf_tpu_torch.scripts.profile_train\n"
-        "import learn_nerf_tpu_torch.train\n"
-        "import learn_nerf_tpu_torch.step_graph\n"
-        "import learn_nerf_tpu_torch.frame_graph\n"
-        "import learn_nerf_tpu_torch.scripts.adam_ablations\n"
-        "import learn_nerf_tpu_torch.data.shuffle\n"
-        "import learn_nerf_tpu_torch.data.prefetch\n"
-        "import learn_nerf_tpu_torch.utils.logging\n"
-        "import learn_nerf_tpu_torch.kernels.hashgrid_backward\n"
-        "import learn_nerf_tpu_torch.kernels.composite\n"
-        "import learn_nerf_tpu_torch.scripts.composite_ablations\n"
-        "import learn_nerf_tpu_torch.scripts.profile_trees\n"
-        "import learn_nerf_tpu_torch.scripts.eval_psnr\n"
-        "import learn_nerf_tpu_torch.utils.metrics\n"
-        "import learn_nerf_tpu_torch.utils.progress\n"
-        "import learn_nerf_tpu_torch.baked\n"
-        "import learn_nerf_tpu_torch.kernels.baked\n"
-        "import learn_nerf_tpu_torch.scripts.baked_ablations\n"
-        "import learn_nerf_tpu_torch.scripts.exp_gather\n"
-        "import learn_nerf_tpu_torch.scripts.hashgrid_ablations\n"
-        "import learn_nerf_tpu_torch.checkpoint\n"
-        "import learn_nerf_tpu_torch.convert.blender\n"
-        "import learn_nerf_tpu_torch.convert.llff\n"
-        "import learn_nerf_tpu_torch.ops.sh\n"
-        "import learn_nerf_tpu_torch.models.ref_nerf\n"
-        "import learn_nerf_tpu_torch.kernels.hashgrid_dx\n"
-        "import learn_nerf_tpu_torch.acceleration\n"
-        "import learn_nerf_tpu_torch.occ_render\n"
-        "import learn_nerf_tpu_torch.render\n"
-        "import learn_nerf_tpu_torch.mesh\n"
-        "import learn_nerf_tpu_torch.parallel.mesh\n"
-        "import learn_nerf_tpu_torch.utils.profiling\n"
-        "import learn_nerf_tpu_torch.utils.flops\n"
-        "import learn_nerf_tpu_torch.scripts.cv_nerf\n"
-        "import learn_nerf_tpu_torch.scripts.check_bbox\n"
-        "import learn_nerf_tpu_torch.scripts.plot_log\n"
-        "import learn_nerf_tpu_torch.scripts.render_nerf_spin\n"
-        "import learn_nerf_tpu_torch.scripts.render_nerf_pan\n"
-        "import learn_nerf_tpu_torch.scripts.render_nerf_interactive\n"
-        "import learn_nerf_tpu_torch.scripts.render_new_dataset\n"
-        "import learn_nerf_tpu_torch.scripts.marching_cubes\n"
-        "import learn_nerf_tpu_torch.scripts.frame_matrix\n"
+        "import learn_nerf_tpu_torch as port\n"
+        "def fail(name):\n"
+        "    raise ImportError(f'walking {name} failed')\n"
+        "names = [m.name for m in pkgutil.walk_packages(port.__path__, 'learn_nerf_tpu_torch.', onerror=fail)]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert len(names) >= 75 and 'learn_nerf_tpu_torch.scripts.timing' in names, names\n"
         "bad = [m for m in sys.modules if m == 'learn_nerf_tpu' or m.startswith('learn_nerf_tpu.')]\n"
         "assert not bad, bad\n"
     )
@@ -477,3 +436,17 @@ def test_port_kernel_calls_count_each_run_of_a_port_kernel():
               dict(ph="X", cat="cuda_runtime", name="cudaGraphLaunch", ts=0.0, dur=1.0)]
     assert profile_render.port_kernel_calls(events) == {"select_strided": 2, "composite_backward": 1}
     assert profile_render.port_kernel_calls([]) == {}
+
+
+def test_the_dx_wrappers_points_kernel_counts_as_hashgrid_dx():
+    """The dx wrapper launches ``hashgrid_dx_points_kernel`` where no level
+    hashes (the hybrid's coarse model): a run of ``hashgrid_dx``, as its
+    counter claims; the backward kernel stays its own."""
+    kernel = lambda name: dict(ph="X", cat="kernel", name=name, ts=0.0, dur=1.0)  # noqa: E731
+    events = [kernel("void nerf::hashgrid_dx_points_kernel<2>(float const*, float const*, long long)"),
+              kernel("void nerf::hashgrid_dx_kernel<2>(float const*, float const*, long long)"),
+              kernel("void nerf::hashgrid_dx_backward_kernel<2>(nerf::EncodeArgs)")]
+    assert profile_render.port_kernel_calls(events) == {"hashgrid_dx": 2, "hashgrid_dx_backward": 1}
+    assert profile_render.device_summary(events)[2] == {"hashgrid_dx": pytest.approx(0.002),
+                                                        "hashgrid_dx_backward": pytest.approx(0.001)}
+    assert profile_render.port_kernel_of("sm90_xmma_gemm") is None

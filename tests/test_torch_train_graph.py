@@ -23,7 +23,8 @@ host prologue and a body that the card replays as a CUDA graph,
   capture; the dict of step t survives step t+1; the optimizer steps on
   the replay's gradients; a load keeps the graphs; the route equals the
   eager one bit for bit; each capture follows one eager run of the body,
-  which moves no counter.
+  which moves no counter; the cyclic garbage collector is off while a
+  graph captures.
 * The composite backward's scratch, which a graph captures: slots that a
   larger launch outgrows are kept alive, and none is made while a graph
   captures.
@@ -269,6 +270,38 @@ def test_each_capture_follows_an_eager_run_of_the_body(monkeypatch):
     graphs.run("b", body, [])
     assert log[5:] == ["body"] and (graphs.captures, graphs.replays) == (1, 2)
     assert counter.launches - start == 3  # once a step
+
+
+def test_a_capture_runs_with_the_cyclic_collector_off(monkeypatch):
+    """A collection inside a capture that frees a dead graph (one in a
+    reference cycle) destroys it mid-capture, which invalidates the
+    capture: the collector is off while the body is captured, and back on
+    after it, when the body raises too; left off if it was off."""
+    import contextlib
+    import gc
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: "pool")
+    monkeypatch.setattr(torch.cuda, "Stream", lambda device: "stream")
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph", lambda graph, pool, stream: contextlib.nullcontext())
+    graphs = step_graph.StepGraphs(torch.device("cpu"))
+
+    def body():
+        seen.append(gc.isenabled())
+        return "outputs"
+
+    assert gc.isenabled()
+    assert graphs._capture(body) == ("graph", "outputs") and seen == [False] and gc.isenabled()
+    with pytest.raises(ZeroDivisionError):
+        graphs._capture(lambda: 1 / 0)
+    assert gc.isenabled()
+    gc.disable()
+    try:
+        graphs._capture(body)
+        assert seen == [False, False] and not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_the_composite_scratch_a_graph_captured_is_never_freed(monkeypatch):
