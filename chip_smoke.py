@@ -371,6 +371,16 @@ RENDER_RAYS, RENDER_SAMPLES = 8192, 32
 # 2.25e-4 (fused_render, whose wide bins scale a flipped density).
 MLP_BOUND = 5e-3
 RENDER_BOUND = 5e-4
+# The NGP MLP kernel (check_ngp_mlp_kernel) at both encoding widths, U(-1,
+# 1) encodings and unit directions: around its 192-row tiles, past one
+# persistent wave (132 SMs x 192 rows), a served tile's pool (8192 rays x
+# 3), the NGP hierarchy's passes (4096 rays x 192, x 64).  Its f32 sums run
+# in another order than cuBLAS's: the density's relative gap and rgb's
+# absolute gap are held to NGP_MLP_BOUND, about twenty times the widest measured
+# on an H100 (5.4e-7 for the density at 786,432 rows, 3.6e-7 for rgb).
+NGP_MLP_CASES = {32: (1, 33, 191, 192, 193, 8193, 24_576, 25_345, 786_432), 12: (1, 33, 8193, 262_144)}
+NGP_MLP_TIMED = (24_576, 786_432)
+NGP_MLP_BOUND = 1e-5
 # fused_render's bins: up to 0.25 wide, a fifth of them padding (0), which
 # puts each ray's optical depth at about 1-3 under the random weights
 # (density ~0.6), as on the occupancy path.  At these depths a scan that
@@ -1034,6 +1044,76 @@ def check_edges(device, rng, packed):
         + f" (bound {RENDER_BOUND:g})", flush=True)
     require(max(mlp_errs) <= MLP_BOUND, "fused_mlp disagrees with its plain version at an edge")
     require(max(render_errs) <= RENDER_BOUND, "fused_render disagrees with its plain version at an edge")
+
+
+def ngp_mlp_layers(device, rng, enc_dim):
+    """An InstantNGPModel's five layers at the ngp_mlp kernel's widths with
+    lecun-normal weights and U(-0.1, 0.1) biases from ``rng``."""
+    from learn_nerf_tpu_torch.kernels import ngp_mlp as km
+
+    layers = []
+    for out_dim, in_dim in km.layer_shapes(enc_dim):
+        layer = torch.nn.Linear(in_dim, out_dim)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(rng.standard_normal((out_dim, in_dim)) / np.sqrt(in_dim)))
+            layer.bias.copy_(torch.from_numpy(rng.uniform(-0.1, 0.1, out_dim)))
+        layers.append(layer.to(device))
+    return layers
+
+
+def ngp_mlp_gaps(got, want):
+    """(the density's relative gap, rgb's absolute gap) of two outputs."""
+    (density, rgb), (density_ref, rgb_ref) = got, want
+    return (((density - density_ref).abs() / density_ref.abs()).max().item(),
+            (rgb - rgb_ref).abs().max().item())
+
+
+def check_ngp_mlp_kernel(device, rng):
+    """The NGP MLP kernel against its plain version on the card (the
+    model's own cuBLAS and elementwise chain): at both encoding widths, at
+    the row counts around its 192-row tiles and its persistent loop, a
+    served tile's pool and the hierarchy's passes; bit-equal across runs;
+    timed by graph replay beside the chain it replaces."""
+    from learn_nerf_tpu_torch.kernels import ngp_mlp as km
+
+    uniform, unit, _ = samplers(rng, device)
+    gaps, results = [], []
+    for enc_dim, rows_list in NGP_MLP_CASES.items():
+        layers = ngp_mlp_layers(device, rng, enc_dim)
+        for rows in rows_list:
+            enc, d = uniform(rows, enc_dim), unit(rows)
+            got = km.launch_ngp_mlp(layers, enc, d)
+            again = km.launch_ngp_mlp(layers, enc, d)
+            torch.cuda.synchronize()
+            want = km.ngp_mlp_reference(layers, enc, d)
+            require(got[0].shape == (rows, 1) and got[1].shape == (rows, 3)
+                    and all(torch.isfinite(t).all().item() for t in got),
+                    f"ngp_mlp at E = {enc_dim}, {rows} rows: wrong shape or non-finite values")
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"ngp_mlp at E = {enc_dim}, {rows} rows: two runs differ")
+            gaps.append((enc_dim, rows, *ngp_mlp_gaps(got, want)))
+            if rows in NGP_MLP_TIMED:
+                macs = sum(layer.weight.numel() for layer in layers)
+                weights = nbytes(*(t for layer in layers for t in (layer.weight, layer.bias)))
+                results.append(dict(
+                    name="ngp_mlp", route="cuda", source="learn_nerf_tpu_torch/csrc/ngp_mlp.cu",
+                    replaces="none (the JAX package leaves the 64-wide layers to XLA)", shapes=f"E {enc_dim}, {rows} rows",
+                    max_abs_err=gaps[-1][3], ms=graph_ms(lambda: km.launch_ngp_mlp(layers, enc, d), 50),
+                    plain_ms=graph_ms(lambda: km.ngp_mlp_reference(layers, enc, d), 20),
+                    f32_flops=2.0 * macs * rows, nbytes=nbytes(enc, d, *got) + weights,
+                ))
+            del got, again, want, enc, d
+    for r in results:
+        r["bound_ms"], r["bound_by"] = bound(r.pop("nbytes"), f32_ops=r.pop("f32_flops"))
+        r["library_ms"] = r["plain_ms"]  # the plain version is the replaced chain: the model's own layers
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        print(f"ngp_mlp at {r['shapes']}: kernel {r['ms']:.4f} ms, the replaced chain {r['plain_ms']:.4f} ms "
+              f"(graph replays); bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['share_of_bound']:.1f} % of it", flush=True)
+    print("ngp_mlp against its plain version, density's relative gap / rgb's absolute gap: " + ", ".join(
+        f"E {e} x {n}: {dg:.2e} / {rg:.2e}" for e, n, dg, rg in gaps) + f" (bound {NGP_MLP_BOUND:g})", flush=True)
+    require(max(max(g[2], g[3]) for g in gaps) <= NGP_MLP_BOUND, "ngp_mlp disagrees with its plain version")
+    return results
 
 
 def shifted_scan(packed, points, dirs, deltas, ref):
@@ -3575,6 +3655,7 @@ def kernel_counters():
     from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
     from learn_nerf_tpu_torch.kernels import hashgrid_dx as kd
     from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+    from learn_nerf_tpu_torch.kernels import ngp_mlp as km
     from learn_nerf_tpu_torch.kernels import selection as ksel
     from learn_nerf_tpu_torch.kernels import table_gather as tg
     from learn_nerf_tpu_torch.occ_render import block_word_counter
@@ -3585,7 +3666,7 @@ def kernel_counters():
                 composite=kc.counter,
                 composite_backward=kc.backward_counter, composite_pooled=kc.pooled_counter,
                 composite_pooled_backward=kc.pooled_backward_counter, baked_lookup=kbaked.counter,
-                select_strided=ksel.counter, pool_pack=ksel.pack_counter,
+                select_strided=ksel.counter, pool_pack=ksel.pack_counter, ngp_mlp=km.counter,
                 **{BLOCK_WORD_SELECTION: block_word_counter})
 
 
@@ -5063,6 +5144,7 @@ def check_frame_graphs(root, views, device, big_side=800):
     frames go through ``check_frame_graph_mode`` once they are trained
     (``ref_nerf_phase``, ``hierarchy_phase``)."""
     from learn_nerf_tpu_torch.acceleration import OccupancyGrid
+    from learn_nerf_tpu_torch.kernels import ngp_mlp as km
     from learn_nerf_tpu_torch.scripts import frame_matrix
 
     rays = torch.from_numpy(views[0].bare_rays(SIDE, SIDE)).to(device)
@@ -5119,6 +5201,14 @@ def check_frame_graphs(root, views, device, big_side=800):
     big = torch.from_numpy(frame_matrix.frame_view().bare_rays(big_side, big_side)).to(device)
     got, want = graph_and_eager_frames(frames, big, render=lambda r: frames.render(r, frames.generator))
     same = [same_frames(a, b) for a, b in zip(got, want)]
+    # The NGP MLP kernel once a pooled tile: one replay a tile moves its counter.
+    launches = km.counter.launches
+    with torch.inference_mode():
+        frames.render(big, frames.generator)
+    mlp_launches, tiles = km.counter.launches - launches, -(-big_side * big_side // 8192)
+    print(f"frame graphs, {big_side}x{big_side} frame by replays: ngp_mlp launched {mlp_launches} times "
+          f"({tiles} tiles)", flush=True)
+    require(mlp_launches == tiles, f"the {big_side}x{big_side} pooled frame did not run ngp_mlp once a tile")
     graph = next(iter(frames.graphs._graphs.values()))[0]
     times = replay_device_ms(graph, device)
     print(f"frame graphs, {big_side}x{big_side} frame_matrix live_no_levers: {FRAME_GRAPH_FRAMES} frames by replays "
@@ -5409,6 +5499,8 @@ def main():
     for kernel in ("fused_mlp_kernel", "fused_render_kernel"):
         spills = [v[1] for k, v in report.items() if kernel in k]
         require(spills == [0], f"ptxas reports spills for {kernel}: {spills}")
+    spills = [v[1] for k, v in report.items() if "ngp_mlp_kernel" in k]  # one for each encoding width
+    require(spills == [0, 0], f"ptxas reports spills for ngp_mlp_kernel: {spills}")
 
     # Two measured variants of the hash-grid kernels, the baked lookup's
     # replaced kernel, the composite source before the pool layout's
@@ -5437,6 +5529,7 @@ def main():
         thread.start()
     rng = np.random.RandomState(SEED)
     kernels = check_kernels(device, rng)
+    kernels += check_ngp_mlp_kernel(device, np.random.RandomState(SEED + 20))
     for thread in threads:
         thread.join()
     require(PARENT_LAYOUT in variant and ENCODE_TILES in variant,

@@ -179,6 +179,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.nerf_composite_pooled_backward.restype = i32
     lib.nerf_baked_lookup.argtypes = [ptr, i32, i32, i32, ptr, i64, i32] + [ctypes.c_float] * 6 + [ptr, ptr]
     lib.nerf_baked_lookup.restype = i32
+    lib.nerf_ngp_mlp.argtypes = [ptr, ptr, i64, i32] + [ptr] * 10 + [ptr] * 3
+    lib.nerf_ngp_mlp.restype = i32
     lib.nerf_hashgrid_encode_args_size.argtypes = []
     lib.nerf_hashgrid_encode_args_size.restype = i32
     lib.nerf_error_string.argtypes = [i32]

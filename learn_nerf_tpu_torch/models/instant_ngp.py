@@ -10,7 +10,9 @@ The encoding is always f32.  ``compute_dtype="bfloat16"`` runs the MLPs as
 flax's ``Dense(dtype=bfloat16)`` does: inputs, kernel and bias cast to
 bf16, the product rounded to bf16, then the bias added in bf16.  The
 density ``exp`` and the color ``tanh`` run in f32.  The 64-wide layers are
-plain matmuls (the JAX package leaves them to XLA too).
+plain matmuls (the JAX package leaves them to XLA too), except in an f32
+forward on the card with autograd off (frames): there the layers after the
+encoding run as one kernel (:mod:`..kernels.ngp_mlp`).
 """
 
 from typing import Dict, List, Sequence, Tuple
@@ -18,6 +20,7 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..kernels import ngp_mlp
 from ..ops.encoding import sinusoidal_features
 from ..ops.hashgrid import dense_level_rows, hash_grid_encode, hash_grid_encode_dx
 from .base import FieldModel, flax_dense
@@ -131,7 +134,12 @@ class InstantNGPModel(FieldModel):
 
     def forward(self, x: Tensor, d: Tensor, spatial_only: bool = False):  # -> FieldOutput
         """``(density [..., 1], rgb [..., 3], {})``; with ``spatial_only``
-        the bare ``[..., density_dim]`` spatial features instead."""
+        the bare ``[..., density_dim]`` spatial features instead.  Where
+        :func:`~..kernels.ngp_mlp.engages` (an f32 frame on the card) the
+        layers after the encoding run as one ``ngp_mlp`` kernel."""
+        if ngp_mlp.engages(self.dense_layers(), self.d_freqs, self.compute_dtype, x, spatial_only):
+            density, color = ngp_mlp.ngp_mlp(self.dense_layers(), self.encoding(x), d)
+            return density, color, {}
         dtype = torch.bfloat16 if self.compute_dtype == "bfloat16" else torch.float32
         out = self.encoding(x).to(dtype)
         for layer in self.density_layers:

@@ -64,7 +64,7 @@ LAUNCH_CALLS = (*KERNEL_LAUNCH_CALLS, "cudaGraphLaunch", "cuGraphLaunch", "cudaM
 PORT_KERNELS = ("fused_mlp", "fused_render", "table_gather", "hashgrid_corners", "hashgrid_encode",
                 "hashgrid_backward", "hashgrid_dx", "hashgrid_dx_backward", "composite_forward",
                 "composite_backward", "composite_pooled_forward", "composite_pooled_backward", "baked_lookup",
-                "select_strided", "pool_pack")
+                "select_strided", "pool_pack", "ngp_mlp")
 # CUDA functions that run for a port kernel under a name of their own: the
 # dx wrapper launches hashgrid_dx_points_kernel where no level hashes (the
 # Ref-NeRF hybrid's coarse model).

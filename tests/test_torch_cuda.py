@@ -67,7 +67,11 @@ does) and the backward's tiles of 32, and its table gradients
 within 5e-6 of that pair's; through HashGridDx against autograd of the
 plain points-VJP; both
 Ref-NeRF models on the card against the CPU (1e-4: the card's f32 matmuls
-and the CPU's sum in other orders).
+and the CPU's sum in other orders).  The NGP MLP kernel (ngp_mlp): within
+NGP_MLP_BOUND of its plain version at both encoding widths, around its
+192-row tiles and past one wave of its persistent blocks, bit-equal across
+runs; an f32 NGP model takes it under inference mode and not while
+autograd records.
 """
 
 import contextlib
@@ -84,6 +88,7 @@ from learn_nerf_tpu_torch.kernels import composite as kc
 from learn_nerf_tpu_torch.kernels import hashgrid as khash
 from learn_nerf_tpu_torch.kernels import hashgrid_backward as kb
 from learn_nerf_tpu_torch.kernels import hashgrid_encode as ke
+from learn_nerf_tpu_torch.kernels import ngp_mlp as km
 from learn_nerf_tpu_torch.kernels import selection as ksel
 from learn_nerf_tpu_torch.kernels import table_gather as tg
 from learn_nerf_tpu_torch.ops import hashgrid
@@ -155,6 +160,65 @@ def test_fused_render_kernel_matches_plain_version(cuda, k):
     torch.cuda.synchronize()
     ref = fr.fused_render_reference(packed, points, dirs, deltas)
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-3)
+
+
+# The NGP MLP kernel against its plain version (the model's own cuBLAS and
+# elementwise chain): f32 sums in another order, the density's relative gap
+# and rgb's absolute gap within NGP_MLP_BOUND (chip_smoke.py's bound, about twenty
+# times the widest gap measured on an H100).
+NGP_MLP_BOUND = 1e-5
+
+
+def ngp_mlp_operands(device, enc_dim, rows, seed):
+    """The kernel's five layers (lecun-normal weights, U(-0.1, 0.1)
+    biases), a U(-1, 1) encoding and unit directions, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    layers = []
+    for out_dim, in_dim in km.layer_shapes(enc_dim):
+        layer = torch.nn.Linear(in_dim, out_dim)
+        with torch.no_grad():
+            layer.weight.copy_(t(rng.standard_normal((out_dim, in_dim)) / np.sqrt(in_dim)))
+            layer.bias.copy_(t(rng.uniform(-0.1, 0.1, out_dim)))
+        layers.append(layer.to(device))
+    enc = t(rng.uniform(-1.0, 1.0, (rows, enc_dim)).astype(np.float32)).to(device)
+    d = t(points_and_dirs(seed, rows)[1]).to(device)
+    return layers, enc, d
+
+
+def assert_ngp_mlp_close(got, want):
+    (density, rgb), (density_ref, rgb_ref) = got, want
+    assert ((density - density_ref).abs() / density_ref.abs()).max().item() <= NGP_MLP_BOUND
+    assert (rgb - rgb_ref).abs().max().item() <= NGP_MLP_BOUND
+
+
+@pytest.mark.parametrize("enc_dim,rows", [(32, m) for m in (1, 33, 191, 192, 193, 8193, 24_576, 25_345)]
+                         + [(12, m) for m in (1, 33, 8193)])
+def test_ngp_mlp_kernel_matches_plain_version(cuda, enc_dim, rows):
+    layers, enc, d = ngp_mlp_operands(cuda, enc_dim, rows, rows)
+    launches = km.counter.launches
+    got = km.launch_ngp_mlp(layers, enc, d)
+    again = km.launch_ngp_mlp(layers, enc, d)
+    torch.cuda.synchronize()
+    assert km.counter.launches == launches + 2
+    assert got[0].shape == (rows, 1) and got[1].shape == (rows, 3)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])  # no atomics: deterministic
+    assert_ngp_mlp_close(got, km.ngp_mlp_reference(layers, enc, d))
+
+
+def test_ngp_model_takes_the_kernel_in_frames_only(cuda):
+    from learn_nerf_tpu_torch.scripts.frame_matrix import seeded_ngp
+
+    model = seeded_ngp(cuda)
+    rng = np.random.RandomState(7)
+    x = t(rng.uniform(-0.7, 0.7, (4099, 3)).astype(np.float32)).to(cuda)
+    d = t(points_and_dirs(8, 4099)[1]).to(cuda)
+    launches = km.counter.launches
+    with torch.inference_mode():
+        frame = model(x, d)
+    assert km.counter.launches == launches + 1
+    trained = model(x, d)  # autograd recording: the model's own layers
+    assert km.counter.launches == launches + 1 and trained[0].requires_grad
+    assert_ngp_mlp_close(frame[:2], [v.detach() for v in trained[:2]])
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):
