@@ -24,10 +24,9 @@ import torch
 from learn_nerf_tpu_torch.acceleration import OccupancyGridState
 from learn_nerf_tpu_torch.data.dataset import load_dataset
 from learn_nerf_tpu_torch.data.prefetch import prefetch_to_device
-from learn_nerf_tpu_torch.models import InstantNGPModel, NeRFModel
 from learn_nerf_tpu_torch.train import OccupancyTrainLoop, TrainLoop
 
-from nerfbench import harness, scene, trace, work
+from nerfbench import fields, harness, scene, trace, work
 from nerfbench.reference import compare, data, train as ref_train
 
 #: The precision one step below each the configurations state: the control.
@@ -35,16 +34,8 @@ CONTROL = {"float32": "tf32", "bfloat16": "fp8"}
 
 
 def build_model(cfg: dict):
-    if cfg["field"] == "instant_ngp":
-        return InstantNGPModel(table_sizes=cfg["table_sizes"], grid_sizes=cfg["grid_sizes"],
-                               bbox_min=tuple(cfg["bbox_min"]), bbox_max=tuple(cfg["bbox_max"]),
-                               table_feature_dim=cfg["n_features_per_level"], d_freqs=cfg["dir_frequencies"],
-                               hidden_dim=cfg["hidden_dim"], density_dim=cfg["density_dim"],
-                               density_layers=cfg["density_hidden_layers"], color_layers=cfg["color_hidden_layers"],
-                               compute_dtype=cfg["compute_dtype"])
-    return NeRFModel(input_layers=cfg["input_layers"], mid_layers=cfg["mid_layers"], hidden_dim=cfg["netwidth"],
-                     color_layer_dim=cfg["view_width"], x_freqs=cfg["multires"], d_freqs=cfg["multires_views"],
-                     compute_dtype=cfg["compute_dtype"])
+    """The port's model of ``cfg``'s field (``fields/<field>.py``)."""
+    return fields.load(cfg["field"]).build_model(cfg)
 
 
 def reference_cfg(cell) -> dict:

@@ -1,4 +1,5 @@
-"""The two field models as plain PyTorch functions of a parameter dict.
+"""The two field models as plain PyTorch functions of a parameter dict
+(``reference/fields/<field>.py`` names each for the configurations).
 
 Names of the parameters follow the port's modules (``encoding.table_0``,
 ``density_layers.0.weight``, ...), so the harness hands one dict to the
@@ -108,5 +109,3 @@ def nerf_field(params: Params, cfg: dict, x: Tensor, d: Tensor, matmul: Matmul =
     h = torch.relu(linear(params, "color", torch.cat([h, sinusoidal(d, cfg["multires_views"])], dim=-1), matmul))
     return density, torch.tanh(linear(params, "rgb", h, matmul))
 
-
-FIELDS = {"instant_ngp": ngp_field, "nerf": nerf_field}

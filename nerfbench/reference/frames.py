@@ -11,7 +11,7 @@ in tile order (:func:`~.draws.frame_uniforms`).
 import torch
 
 from . import draws
-from .field import FIELDS
+from . import fields
 from .precision import matmul_at
 from .render import render_hierarchy, render_occupancy
 
@@ -31,7 +31,7 @@ def reference_frame(kind: str, cfg: dict, params: dict, rays: Tensor, frame_seed
     """``[M, 3]`` colours of ``rays [M, 2, 3]``, from the tiles' draws of
     the frame's pass ``passes`` (counted from 1)."""
     matmul = matmul_at(precision)
-    field = FIELDS[cfg["field"]]
+    field = fields.load(cfg["field"]).field
     tile = cfg["tile"]
     m = rays.shape[0]
     rays_p = padded(rays, tile, cfg["bbox_max"])

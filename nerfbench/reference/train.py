@@ -6,7 +6,9 @@ window's feed served.
 Both losses are the mean squared error of the rendered colours against
 the batch's targets (the hierarchy sums its coarse and fine terms); the
 occupancy path renders with :func:`~.render.render_occupancy`, the
-hierarchy with :func:`~.render.render_hierarchy`.  Leaves are named
+hierarchy with :func:`~.render.render_hierarchy`.  A field whose file
+(``reference/fields/<field>.py``) defines ``step_loss`` trains on that in
+their place.  Leaves are named
 ``<model>.<parameter>`` and ``background`` (the trained background
 colour, which the composite blends).
 """
@@ -16,7 +18,7 @@ from typing import Dict, List
 import torch
 
 from . import draws
-from .field import FIELDS
+from . import fields
 from .precision import matmul_at
 from .render import render_hierarchy, render_occupancy
 
@@ -30,7 +32,7 @@ def step_loss(kind: str, cfg: dict, leaves: Dict[str, Tensor], batch: Tensor, un
     if half_batch:
         n = batch.shape[0] // 2
         batch, uniforms = batch[:n], [u[:n] for u in uniforms]
-    field = FIELDS[cfg["field"]]
+    field = fields.load(cfg["field"]).field
     model = lambda prefix: (lambda x, d: field({k[len(prefix) + 1:]: v for k, v in leaves.items()  # noqa: E731
                                                 if k.startswith(prefix + ".")}, cfg, x, d, matmul))
     rays, targets = batch[:, :2], batch[:, 2]
@@ -54,10 +56,11 @@ def reference_steps(kind: str, cfg: dict, initial: Dict[str, Tensor], batches: L
     v2 = {k: torch.zeros_like(v) for k, v in leaves.items()}
     b1, b2, eps, lr = cfg["adam_b1"], cfg["adam_b2"], cfg["adam_eps"], cfg["lr"]
     widths = [cfg["candidates"]] if kind == "occupancy" else [cfg["coarse_samples"], cfg["fine_samples"]]
+    loss_of = getattr(fields.load(cfg["field"]), "step_loss", step_loss)
     losses, grad_norms = [], {}
     for step, batch in enumerate(batches):
         uniforms = draws.train_uniforms(base_seed, step, widths, batch.shape[0], batch.device)
-        loss = step_loss(kind, cfg, leaves, batch, uniforms, grid, matmul, half_batch)
+        loss = loss_of(kind, cfg, leaves, batch, uniforms, grid, matmul, half_batch)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
         losses.append(float(loss.detach()))
         with torch.no_grad():

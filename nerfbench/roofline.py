@@ -9,7 +9,8 @@ TB/s of HBM3.
 Counting (the arithmetic that set each kernel's bound in ``PERF.md``):
 
 * the models' matrix products: 2 FLOPs a multiply-add, at the widths of the
-  configuration (:func:`ngp_macs`, :func:`nerf_macs`); a training step
+  configuration (``macs`` of ``fields/<field>.py``: :func:`ngp_macs`,
+  :func:`nerf_macs`); a training step
   counts its forward and the backward's two products, three times the
   forward;
 * the hash-grid encode: its points and outputs, and one read of each
@@ -17,6 +18,8 @@ Counting (the arithmetic that set each kernel's bound in ``PERF.md``):
   incoming cotangent and one write of each distinct row's gradient.  The
   share is the least time these bytes take over the kernels' time.
 """
+
+from . import fields
 
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES_PER_S = 3.35e12
@@ -46,12 +49,9 @@ def nerf_macs(cfg: dict) -> int:
             + h + (h + d) * c + c * 3)
 
 
-MACS = {"instant_ngp": ngp_macs, "nerf": nerf_macs}
-
-
 def model_flops(cfg: dict, samples: float, train: bool) -> float:
     """Matrix-product FLOPs of ``samples`` field evaluations."""
-    return 2.0 * MACS[cfg["field"]](cfg) * samples * (3 if train else 1)
+    return 2.0 * fields.load(cfg["field"]).macs(cfg) * samples * (3 if train else 1)
 
 
 def encode_bytes(points: int, levels: int, features: int, distinct_rows: int) -> int:

@@ -11,10 +11,16 @@ import learn_nerf_tpu_torch.render as render
 import learn_nerf_tpu_torch.train as train
 from learn_nerf_tpu_torch.occ_render import OccupancyFrameSession
 from nerfbench import harness
-from nerfbench.tests.conftest import SEED, TINY
+from nerfbench.tests.conftest import CELLS, SEED, TINY
 
-TRAIN_CELLS = ["ngp_train_dense", "vanilla_train"]
-FRAME_CELLS = ["ngp_frame_800", "vanilla_frame_half"]
+
+def driver_of(cell: str) -> str:
+    """The driver (``train`` or ``frame``) of ``cell``'s traffic."""
+    return harness.resolve_cell(cell, SEED, torch.device("cpu"), 0.0).traffic["driver"]
+
+
+TRAIN_CELLS = [cell for cell in CELLS if driver_of(cell) == "train"]
+FRAME_CELLS = [cell for cell in CELLS if driver_of(cell) == "frame"]
 
 
 def run(cell):

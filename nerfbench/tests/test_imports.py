@@ -30,7 +30,8 @@ def test_no_jax_imports(path):
     assert not set(imported(path)) & FORBIDDEN
 
 
-@pytest.mark.parametrize("path", sorted((BENCH / "reference").glob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((BENCH / "reference").rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(BENCH / "reference")))
 def test_reference_is_independent(path):
     assert "learn_nerf_tpu_torch" not in set(imported(path))
     assert "nerfbench" not in set(imported(path))  # relative imports only: the reference and the scene

@@ -8,7 +8,7 @@ from pathlib import Path
 import pytest
 
 from nerfbench import harness
-from nerfbench.tests.conftest import CELLS
+from nerfbench.tests.conftest import CELLS, TINY
 
 ROOT = Path(__file__).resolve().parents[2]
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -50,7 +50,10 @@ def test_workload_resolves(entry):
 
 
 def test_cells_in_order():
-    assert [w["name"] for w in MANIFEST["workloads"]] == CELLS
+    """Every cell of the manifest has its small size in
+    ``tests/tiny/<cell>.json``, and every file there names a cell."""
+    assert sorted(TINY) == sorted(CELLS)
+    assert all(set(parts) <= {"config", "traffic", "limits"} for parts in TINY.values())
 
 
 @pytest.mark.parametrize("metric", MANIFEST["end_to_end"] + MANIFEST["per_layer"], ids=lambda m: m["name"])

@@ -4,7 +4,9 @@ result's ``breakdown`` read.
 
 The port's kernels are matched by the names their CUDA functions carry
 (a frozen copy of ``scripts/profile_render``'s ``PORT_KERNELS`` and
-``KERNEL_ALIASES``: the benchmark keeps its own).
+``KERNEL_ALIASES``: the benchmark keeps its own).  A reader of a kernel
+that the frozen list does not name finds it by its stem with
+:func:`kernel_totals`.
 """
 
 import heapq
@@ -36,6 +38,17 @@ def port_kernel_of(name: str):
         if f"{stem}_kernel" in name:
             return KERNEL_ALIASES.get(stem, stem)
     return None
+
+
+def kernel_totals(summary: dict, stem: str) -> list:
+    """``[seconds, runs]`` of the CUDA functions in ``summary``'s
+    ``kernels`` whose names carry ``<stem>_kernel``, as
+    :func:`port_kernel_of` matches a stem."""
+    totals = [0.0, 0]
+    for name, (seconds, runs) in summary["kernels"].items():
+        if f"{stem}_kernel" in name:
+            totals = [totals[0] + seconds, totals[1] + runs]
+    return totals
 
 
 class Traced:
